@@ -1,0 +1,191 @@
+"""Load a portable artifact into the port's device stage chain.
+
+The JAX package exports fitted workflows as a portable artifact
+(``transmogrifai_tpu.portable_export.export_portable``):
+
+    manifest.json   device-chain IR: ops, wiring, scalars
+    params.npz      every fitted array, flat "prefix/path" keys
+    _SUCCESS        completeness sentinel, written last
+
+That format needs no JAX, so it is how weights carry across:
+:func:`load` reads an artifact directory and :func:`from_portable`
+turns the manifest and its numpy arrays into the port's stages, with
+every parameter a tensor on the scoring device.
+
+Slice limit: all-numeric workflows only — an artifact whose
+``hostPrefix`` is non-empty (text, picklists, hashing run on the host
+before the device chain) raises, as does any op or model family
+outside {impute, concat, keep_cols, predict} x {LogisticRegression,
+LinearRegression, LinearSVC}; the error names what is missing.
+"""
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from ._device import resolve_device
+from .models.base import MODEL_FAMILIES, PredictionModel
+from .ops.sanity_checker import SanityCheckerModel
+from .ops.vectorizers import RealVectorizerModel, VectorsCombiner
+from .resilience import atomic
+
+FORMAT_VERSION = 1
+
+#: the portable ops this slice can run on the device
+SUPPORTED_OPS = ("impute", "concat", "keep_cols", "predict")
+
+
+# ---------------------------------------------------------------------------
+# params.npz pytree flattening
+# ---------------------------------------------------------------------------
+
+def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dict/list/scalar/array pytree -> {"a/b/0/c": array} leaves."""
+    out: Dict[str, np.ndarray] = {}
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            out.update(flatten_tree(tree[k], f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flatten_tree(v, f"{prefix}{i}/"))
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
+
+
+def unflatten_tree(flat: Dict[str, np.ndarray]) -> Any:
+    """Inverse of flatten_tree. Integer path components become lists."""
+    if list(flat.keys()) == [""]:
+        return flat[""]
+    root: Dict[str, Any] = {}
+    for key, val in flat.items():
+        parts = key.split("/")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+
+    def fix(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [fix(node[k]) for k in sorted(node, key=int)]
+        return {k: fix(v) for k, v in node.items()}
+
+    return fix(root)
+
+
+# ---------------------------------------------------------------------------
+# the stage chain
+# ---------------------------------------------------------------------------
+
+class PortableModel:
+    """A portable artifact's device chain on one device: the fitted
+    stages in order, the boundary (raw input) columns, which of them
+    are response columns (absent at scoring time -> zero placeholders),
+    the result column names and the exported serving buckets. Keeps the
+    manifest and numpy arrays so :meth:`to` can rebuild it elsewhere."""
+
+    def __init__(self, manifest: Dict[str, Any],
+                 arrays: Dict[str, Dict[str, Any]], stages: List,
+                 device: torch.device):
+        self.manifest = manifest
+        self.arrays = arrays
+        self.stages = stages
+        self.device = device
+        self.boundary: List[str] = list(manifest["boundary"])
+        self.response_boundary = set(manifest["responseBoundary"])
+        self.result_names: List[str] = list(manifest["resultNames"])
+        sb = manifest.get("scoreBuckets")
+        self.score_buckets = tuple(int(b) for b in sb) if sb else None
+
+    def to(self, device) -> "PortableModel":
+        """The same chain with every parameter on ``device``."""
+        dev = resolve_device(device)
+        if dev == self.device:
+            return self
+        return from_portable(self.manifest, self.arrays, dev)
+
+    def compile_scoring(self, buckets=None, device=None):
+        """A :class:`workflow.FusedScorer` over this chain (see there)."""
+        from .workflow import FusedScorer
+        return FusedScorer(self, buckets=buckets, device=device)
+
+
+def _tensor(a, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def _build_stage(i: int, st: Dict[str, Any], arrs: Dict[str, Any],
+                 device: torch.device):
+    op = st.get("op")
+    ins: Sequence[str] = st["inputs"]
+    out = st["out"]
+    if op == "impute":
+        return RealVectorizerModel(ins, out, fill_value=st["fill"],
+                                   track_nulls=st["track"])
+    if op == "concat":
+        return VectorsCombiner(ins, out)
+    if op == "keep_cols":
+        return SanityCheckerModel(
+            ins, out, keep_indices=_tensor(arrs["keep"], torch.int64,
+                                           device))
+    if op == "predict":
+        family = st["family"]
+        if family not in MODEL_FAMILIES:
+            raise ValueError(
+                f"portable stage {i} ({out!r}): model family {family!r} "
+                f"is not ported (have {sorted(MODEL_FAMILIES)})")
+        params = {k: _tensor(v, torch.float32, device)
+                  for k, v in arrs.get("params", {}).items()}
+        return PredictionModel(ins, out, family=family,
+                               n_classes=int(st["nClasses"]),
+                               model_params=params)
+    raise ValueError(
+        f"portable stage {i} ({out!r}): op {op!r} is not ported (have "
+        f"{list(SUPPORTED_OPS)})")
+
+
+def from_portable(manifest: Dict[str, Any],
+                  arrays: Dict[str, Dict[str, Any]],
+                  device=None) -> PortableModel:
+    """Carry the JAX package's exported parameters across: a portable
+    ``manifest`` (the parsed manifest.json) and ``arrays`` (per-stage
+    numpy pytrees keyed by stage index as a string, as :func:`load`
+    reads them from params.npz) -> a :class:`PortableModel` whose
+    parameters are tensors on ``device`` (None: CUDA, raising without
+    it). Raises ValueError naming any host-prefix stage, op or model
+    family outside the slice."""
+    if manifest.get("format") != FORMAT_VERSION:
+        raise ValueError(
+            f"unsupported portable format {manifest.get('format')!r}")
+    host = manifest.get("hostPrefix") or []
+    if host:
+        raise ValueError(
+            f"portable artifact has host-prefix stages {host}: the port "
+            f"serves all-numeric workflows only (empty hostPrefix)")
+    dev = resolve_device(device)
+    stages = [_build_stage(i, st, arrays.get(str(i), {}), dev)
+              for i, st in enumerate(manifest["stages"])]
+    return PortableModel(manifest, arrays, stages, dev)
+
+
+def load(artifact_dir: str, device=None) -> PortableModel:
+    """Read a portable artifact directory (manifest.json + params.npz,
+    stamped complete by its ``_SUCCESS`` sentinel) onto ``device``
+    (None: CUDA, raising without it)."""
+    atomic.require_complete(artifact_dir, "portable artifact")
+    with open(os.path.join(artifact_dir, "manifest.json")) as f:
+        manifest = json.load(f)
+    flat = dict(np.load(os.path.join(artifact_dir, "params.npz"),
+                        allow_pickle=False))
+    per_stage: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, val in flat.items():
+        sid, rest = key.split("/", 1)
+        per_stage.setdefault(sid, {})[rest] = val
+    arrays = {sid: unflatten_tree(d) for sid, d in per_stage.items()}
+    return from_portable(manifest, arrays, device)
