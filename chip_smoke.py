@@ -14,17 +14,20 @@ plain PyTorch version:
    and bf16 operand modes, timed beside its bound, the plain version
    and one PyTorch library call: ``ms`` is the device time per call
    (torch.profiler), ``call_ms`` the CUDA-event time per call with the
-   host's issue gaps;
+   host's issue gaps, ``launch_ms`` the call time of an empty kernel
+   launched through the same C entry path;
 3. serving: four all-numeric LR models (12 Real columns, impute with
    null tracking, concat, a seeded keep_cols subset, a binary
    LogisticRegression head) built from ``--seed`` in the portable IR,
    loaded through ``portable.from_portable``, served as a 100-id
    catalog (4 backends + 96 aliases) by a ``ServingEngine`` with the
    fused plane on, buckets (16, 64) and max_batch_rows 64, under 8
-   client threads sending Zipf(1.1) model ids; every result is checked
-   against that model's numpy score, and the fused plane and the
-   kernel's launch counter must have moved. One fused drain pass is
-   then timed alone, host wall beside device time.
+   client threads sending Zipf(1.1) model ids. Every request carries a
+   trace id, so the engine's spans say which plane served it: a fused
+   request must match its model's numpy score under the fused operand
+   policy, a classic one under f32. The fused plane and the kernel's
+   launch counter must have moved. The storm is repeated under
+   torch.profiler for the device's busy share.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -52,6 +55,8 @@ N_MODELS = 100          # catalog ids: 4 backends + 96 aliases
 BUCKETS = (16, 64)
 MAX_BATCH_ROWS = 64
 ZIPF_A = 1.1
+REQUESTS = 256          # of 1-8 rows each
+THREADS = 8             # closed-loop clients
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and
 #: FLOP/s of the f32 pipes outside the tensor cores. The kernel's inputs
@@ -59,7 +64,6 @@ ZIPF_A = 1.1
 #: and its FMAs run in f32, so the f32 rate bounds its operations.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
-LAUNCH_FLOOR_MS = 5e-3  # one kernel launch, host to card
 
 #: kernel vs plain version on the same card and the same rounded
 #: operands: f32 accumulation in another order over <= 25 products
@@ -204,6 +208,21 @@ def kernel_case(sk, rng, n, p, K, L, dtype, inf_model=False):
     return row
 
 
+def launch_ms(sk) -> float:
+    """CUDA-event time per call of an empty kernel launched through the
+    kernel library's C entry path (ctypes, current stream): what any
+    launch through that path costs before the kernel does any work."""
+    lib = sk._library()
+
+    def empty():
+        err = lib.tm_empty_launch(torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(
+                f"empty launch failed: {lib.tm_cuda_error_string(err)}")
+
+    return call_ms(empty)
+
+
 def kernel_phase(seed: int):
     from transmogrifai_tpu_torch.models import serving_kernels as sk
     torch.backends.cuda.matmul.allow_tf32 = False   # reference paths
@@ -299,10 +318,11 @@ def build_catalog(seed: int, device):
     return reg, catalog
 
 
-def _storm(eng, reqs, threads: int):
+def _storm(eng, reqs, threads: int, traces=None):
     """Closed-loop clients: ``threads`` threads, each submitting its
-    share of ``reqs`` one at a time and waiting for the result.
-    Returns (results, latencies in s, wall s); raises a client's error."""
+    share of ``reqs`` one at a time and waiting for the result, request
+    ``r`` under trace id ``traces[r]`` (None: untraced). Returns
+    (results, latencies in s, wall s); raises a client's error."""
     lat = [0.0] * len(reqs)
     results = [None] * len(reqs)
     errors = []
@@ -311,8 +331,10 @@ def _storm(eng, reqs, threads: int):
         try:
             for r in range(t, len(reqs), threads):
                 t0 = time.perf_counter()
-                results[r] = eng.submit(reqs[r][1],
-                                        model=reqs[r][0]).result(60)
+                results[r] = eng.submit(
+                    reqs[r][1], model=reqs[r][0],
+                    trace=None if traces is None else traces[r]
+                ).result(60)
                 lat[r] = time.perf_counter() - t0
         except BaseException as e:   # re-raised below, after the join
             errors.append(e)
@@ -345,70 +367,39 @@ def _device_busy(run):
     return busy_us / 1e6, events, wall
 
 
-def fused_pass(reg, reqs, rounds: int = 50, profile: bool = False):
-    """One fused drain pass timed outside the engine: the first
-    requests' rows, up to MAX_BATCH_ROWS, through a FusedGroupScorer
-    over the N_BACKENDS backends (launch, then finalize, which ends in
-    the scores on the host). Returns the host wall time per pass (ms,
-    median of ``rounds``) and, with ``profile`` (CUDA only), the device
-    time and the device operations per pass: the split between host
-    and device inside a request's execute segment."""
-    from transmogrifai_tpu_torch.serving.fusion import (FusedGroupScorer,
-                                                        stack_spec_of)
-    members, index = [], {}
-    for k in range(N_BACKENDS):
-        with reg.acquire(f"m{k:03d}") as (_vname, backend):
-            index[id(backend)] = len(members)
-            members.append((backend, stack_spec_of(backend)))
-    rows, parts, mids = 0, [], []
-    for model, cols in reqs:
-        with reg.acquire(model) as (_vname, backend):
-            n, vals = backend.prepare(cols)
-        if rows + n > MAX_BATCH_ROWS:
-            break
-        parts.append(vals)
-        mids.append(np.full(n, index[id(backend)], np.int32))
-        rows += n
-    vals = [np.concatenate([v[i] for v in parts])
-            for i in range(len(parts[0]))]
-    mid = np.concatenate(mids)
-    scorer = FusedGroupScorer(members)
-
-    def run():
-        return scorer.finalize(scorer.launch(rows, vals, mid))
-
-    if not np.isfinite(run()).all():
-        raise AssertionError("fused pass gave non-finite scores")
-    for _ in range(4):
-        run()
-    per_pass = []
-    for _ in range(rounds):
-        t0 = time.perf_counter()
-        run()
-        per_pass.append(time.perf_counter() - t0)
-    out = {"pass_rows": rows, "pass_models": len(set(mid.tolist())),
-           "pass_ms": float(np.median(per_pass)) * 1e3}
-    if profile:
-        busy_s, events, _wall = _device_busy(
-            lambda: [run() for _ in range(rounds)])
-        out.update(pass_device_ms=busy_s / rounds * 1e3,
-                   pass_device_events=events / rounds)
-    return out
+def _served_planes(spans, traces):
+    """Which plane served each traced request, from the engine's own
+    spans: a request's ``engine.execute`` span names the batch it rode
+    in, and that batch span is ``engine.fused_dispatch`` (one fused
+    kernel pass over several backends) or ``engine.batch`` (a classic
+    per-backend pass). Returns ({trace: "fused" | "classic"}, the fused
+    dispatch spans); raises if a request's spans are missing."""
+    kind = {"engine.fused_dispatch": "fused", "engine.batch": "classic"}
+    batches = {s["trace"]: kind[s["name"]] for s in spans
+               if s["name"] in kind}
+    plane = {s["trace"]: batches.get(s["attrs"]["batch"])
+             for s in spans if s["name"] == "engine.execute"}
+    missing = [t for t in traces if plane.get(t) is None]
+    if missing:
+        raise AssertionError(f"{len(missing)} requests left no execute "
+                             f"span naming their batch")
+    return plane, [s for s in spans if s["name"] == "engine.fused_dispatch"]
 
 
-def serving_phase(seed: int, device, requests: int = 256,
-                  threads: int = 8, launches=None, profile=False):
-    """Serve ``requests`` requests of 1-8 rows from ``threads`` client
+def serving_phase(seed: int, device, requests: int = REQUESTS,
+                  launches=None, profile=False):
+    """Serve ``requests`` requests of 1-8 rows from THREADS client
     threads (Zipf model ids over the catalog) through the fused engine
-    and check every result. ``launches`` is a zero-argument callable
-    returning the kernel's launch count (read before and after the
-    storm). ``profile`` (CUDA only) repeats the storm on a second engine
-    under torch.profiler for the device's busy share. Returns the
-    phase's measurements, one fused drain pass timed alone
-    (:func:`fused_pass`) among them; raises on any failure."""
+    and check every result against its model's numpy score under the
+    operand policy of the plane that served it. ``launches`` is a
+    zero-argument callable returning the kernel's launch count (read
+    before and after the storm). ``profile`` (CUDA only) repeats the
+    storm on a second engine under torch.profiler for the device's busy
+    share. Returns the phase's measurements; raises on any failure."""
     from transmogrifai_tpu_torch.models import serving_kernels as sk
     from transmogrifai_tpu_torch.profiling import percentile_nearest_rank
     from transmogrifai_tpu_torch.serving import EngineConfig, ServingEngine
+    from transmogrifai_tpu_torch.telemetry.spans import TRACER
     reg, catalog = build_catalog(seed, device)
     rng = np.random.default_rng(seed + 1)
     ids = sorted(catalog)
@@ -421,30 +412,39 @@ def serving_phase(seed: int, device, requests: int = 256,
                                   rng.normal(size=n))
                 for i in range(N_COLUMNS)}
         reqs.append((ids[j], cols))
+    # ~5 spans per request must all stay in the tracer's ring
+    if TRACER.capacity < 8 * requests:
+        raise AssertionError(f"trace capacity {TRACER.capacity} is too "
+                             f"small for {requests} traced requests")
+    TRACER.clear()
+    traces = [TRACER.mint("req") for _ in reqs]
     cfg = EngineConfig(max_batch_rows=MAX_BATCH_ROWS, fused_kernel=True)
     eng = ServingEngine(registry=reg, config=cfg).start()
     sk.fused_linear_scores.launches = 0
     before = 0 if launches is None else launches()
     try:
-        results, lat, wall = _storm(eng, reqs, threads)
+        results, lat, wall = _storm(eng, reqs, THREADS, traces)
         moved = None if launches is None else launches() - before
     finally:
         eng.stop()
     stats = eng.stats.as_dict()
+    plane, fused_spans = _served_planes(TRACER.spans(), traces)
     bf16 = sk.serve_dtype(device) == torch.bfloat16
-    matched = {"fused_policy": 0, "f32_policy": 0}
-    for (model, cols), res in zip(reqs, results):
+    matched = {"fused": 0, "classic": 0}
+    for (model, cols), res, tid in zip(reqs, results, traces):
         name, par = catalog[model]
-        got = res[name]
-        fused_ref = oracle_probs(cols, par, bf16)
-        if np.abs(got - fused_ref).max() <= SERVE_ATOL:
-            matched["fused_policy"] += 1
-        elif np.abs(got - oracle_probs(cols, par, False)).max() <= SERVE_ATOL:
-            matched["f32_policy"] += 1     # classic per-model path
-        else:
+        how = plane[tid]
+        want = oracle_probs(cols, par, bf16 and how == "fused")
+        err = float(np.abs(res[name] - want).max())
+        if not err <= SERVE_ATOL:
             raise AssertionError(
-                f"request for {model} disagrees with its numpy score: "
-                f"max abs err {np.abs(got - fused_ref).max()}")
+                f"request for {model} served by the {how} plane disagrees "
+                f"with its numpy score under that plane's operand policy: "
+                f"max abs err {err}")
+        matched[how] += 1
+    if matched["fused"] != stats["fused_requests"]:
+        raise AssertionError(f"spans show {matched['fused']} fused "
+                             f"requests, the engine {stats['fused_requests']}")
     for key, want in (("failed", 0), ("fused_fallbacks", 0)):
         if stats[key] != want:
             raise AssertionError(f"engine {key} = {stats[key]}, want {want}")
@@ -454,16 +454,24 @@ def serving_phase(seed: int, device, requests: int = 256,
         raise AssertionError("the fused kernel never launched")
     rows = sum(len(c["x0"]) for _, c in reqs)
     lat_ms = sorted(x * 1e3 for x in lat)
-    out = {"requests": requests, "rows": rows, "threads": threads,
+    fused_ms = sorted(s["dur"] * 1e3 for s in fused_spans)
+    out = {"requests": requests, "rows": rows, "threads": THREADS,
            "wall_s": wall, "rows_per_s": rows / wall,
            "p50_ms": percentile_nearest_rank(lat_ms, 0.50),
            "p99_ms": percentile_nearest_rank(lat_ms, 0.99),
            "kernel_launches": moved, "matched": matched,
            "fused_batches": stats["fused_batches"],
+           "fused_requests": stats["fused_requests"],
            "fused_fallbacks": stats["fused_fallbacks"],
            "fused_rows": stats["fused_rows"], "batches": stats["batches"],
            "completed": stats["completed"], "failed": stats["failed"],
            "wait_p50_ms": stats["wait_p50_ms"],
+           # the engine's execute segment of a fused pass (its
+           # engine.fused_dispatch span): gather, launch, copy out
+           "fused_dispatch_p50_ms": percentile_nearest_rank(fused_ms, 0.50),
+           "fused_dispatch_p99_ms": percentile_nearest_rank(fused_ms, 0.99),
+           "fused_dispatch_rows_mean": (stats["fused_rows"]
+                                        / stats["fused_batches"]),
            "host_overhead_p50_us": {
                k: v["p50_us"] for k, v in
                stats["requestOverhead"]["segments"].items()}}
@@ -471,7 +479,7 @@ def serving_phase(seed: int, device, requests: int = 256,
         eng2 = ServingEngine(registry=reg, config=cfg).start()
         try:
             busy_s, events, pwall = _device_busy(
-                lambda: _storm(eng2, reqs, threads))
+                lambda: _storm(eng2, reqs, THREADS))
         finally:
             eng2.stop()
         st2 = eng2.stats.as_dict()
@@ -479,8 +487,9 @@ def serving_phase(seed: int, device, requests: int = 256,
                    device_busy_share=busy_s / pwall,
                    device_events=events,
                    profiled_batches=st2["batches"],
-                   profiled_fused_batches=st2["fused_batches"])
-    out.update(fused_pass(reg, reqs, profile=profile))
+                   profiled_fused_batches=st2["fused_batches"],
+                   device_ms_per_batch=busy_s / st2["batches"] * 1e3,
+                   device_events_per_batch=events / st2["batches"])
     return out
 
 
@@ -489,7 +498,6 @@ def serving_phase(seed: int, device, requests: int = 256,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--requests", type=int, default=256)
     args = ap.parse_args(argv)
     # the port itself, from the checkout this script sits in
     from transmogrifai_tpu_torch import _cuda_build
@@ -515,9 +523,10 @@ def main(argv=None) -> int:
     rows = kernel_phase(args.seed)
     for r in rows:
         print("phase kernel: " + json.dumps(r), flush=True)
+    empty_ms = launch_ms(sk)
+    print(f"phase kernel: empty launch {empty_ms} ms per call", flush=True)
 
     serve = serving_phase(args.seed, torch.device("cuda"),
-                          requests=args.requests,
                           launches=lambda: sk.fused_linear_scores.launches,
                           profile=True)
     print("phase serving: " + json.dumps(dict(serve, card=card)),
@@ -537,7 +546,7 @@ def main(argv=None) -> int:
         "call_ms": main_row["call_ms"],
         "plain_call_ms": main_row["plain_call_ms"],
         "library_call_ms": main_row["library_call_ms"],
-        "launch_floor_ms": LAUNCH_FLOOR_MS}]}), flush=True)
+        "launch_ms": empty_ms}]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

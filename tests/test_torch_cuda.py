@@ -49,6 +49,45 @@ def test_fused_linear_scores_kernel_matches_plain(card, n, p, K, L, dtype):
 
 
 @pytest.mark.cuda
+def test_exact_mode_fused_group_still_launches_the_kernel(card,
+                                                          monkeypatch):
+    """TM_KERNEL_EXACT=1 on the card keeps the fused plane on the CUDA
+    kernel, with f32 operands: one launch per bucket slice, and every
+    row within 1e-5 of its own model's per-model score (f32
+    accumulation in another order)."""
+    import chip_smoke
+    from transmogrifai_tpu_torch import portable
+    from transmogrifai_tpu_torch.serving import ModelRegistry
+    from transmogrifai_tpu_torch.serving.fusion import (FusedGroupScorer,
+                                                        stack_spec_of)
+    monkeypatch.setenv("TM_KERNEL_EXACT", "1")
+    rng = np.random.default_rng(7)
+    reg = ModelRegistry()
+    members, names = [], []
+    for k in range(3):
+        manifest, arrays, _par = chip_smoke.make_model_ir(rng, f"out{k}")
+        reg.register(f"m{k}", portable.from_portable(manifest, arrays, card),
+                     buckets=chip_smoke.BUCKETS)
+        with reg.acquire(f"m{k}") as (_vname, backend):
+            members.append((backend, stack_spec_of(backend)))
+        names.append(f"out{k}")
+    n = 40
+    cols = {f"x{i}": np.where(rng.random(n) < 0.05, np.nan,
+                              rng.normal(size=n))
+            for i in range(chip_smoke.N_COLUMNS)}
+    mid = rng.integers(0, 3, size=n).astype(np.int32)
+    _n, vals = members[0][0].prepare(cols)
+    scorer = FusedGroupScorer(members)
+    assert scorer.exact
+    before = sk.fused_linear_scores.launches
+    got = scorer.finalize(scorer.launch(n, vals, mid))
+    assert sk.fused_linear_scores.launches == before + 1   # one bucket slice
+    for k, (backend, _spec) in enumerate(members):
+        own = backend.scorer.score_arrays(cols)[names[k]]
+        np.testing.assert_allclose(got[mid == k], own[mid == k], atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_fused_linear_scores_kernel_rejects_bad_input(card):
     X = torch.zeros((8, 4), device=card)
     W = torch.zeros((2, 5, 1), device=card)

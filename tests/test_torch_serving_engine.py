@@ -215,13 +215,15 @@ def test_chip_smoke_serving_phase_rehearsal():
     """chip_smoke.py's serving phase at full width on the CPU: the
     100-id catalog over four from_portable LR backends, buckets
     (16, 64), Zipf ids from 8 threads; every result checked against
-    its numpy score."""
+    its numpy score under the operand policy of the plane that served
+    it, as the engine's spans name that plane."""
     out = chip_smoke.serving_phase(3, torch.device("cpu"), requests=128)
     assert out["failed"] == 0 and out["fused_fallbacks"] == 0
     assert out["fused_batches"] > 0 and out["completed"] == 128
-    assert out["matched"]["fused_policy"] == 128
-    assert 0 < out["pass_rows"] <= chip_smoke.MAX_BATCH_ROWS
-    assert out["pass_ms"] > 0
+    assert out["matched"]["fused"] == out["fused_requests"] > 0
+    assert out["matched"]["fused"] + out["matched"]["classic"] == 128
+    assert 0 < out["fused_dispatch_rows_mean"] <= chip_smoke.MAX_BATCH_ROWS
+    assert out["fused_dispatch_p99_ms"] >= out["fused_dispatch_p50_ms"] > 0
 
 
 def _ir_model(rng, name, family, n_classes, L):

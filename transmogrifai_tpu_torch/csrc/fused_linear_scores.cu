@@ -27,8 +27,10 @@
 //
 // What bounds it on an H100: at serving shapes (n = 64, p = 24, K = 4,
 // L = 1) one call moves ~7 KB (fused_cost_floor) and does ~3 kFLOP —
-// two microseconds of HBM time at 3.35 TB/s even at n = 32768, so
-// launch latency (~5 us) and memory bound it, never the tensor cores.
+// a microsecond of HBM time at 3.35 TB/s even at n = 32768, so the
+// fixed cost of a launch and memory bound it, never the tensor cores
+// (chip_smoke.py times an empty launch through the same C entry path,
+// tm_empty_launch below, as the floor under the wrapper's call time).
 // The design follows from that: no MMA, one warp per row (lanes stride
 // the p features, so X is read coalesced), a shuffle reduction per
 // output column, and the K*(p+1)*L weight block staged once per block
@@ -131,6 +133,18 @@ extern "C" int tm_fused_linear_scores(const float* X, const float* W,
     fused_linear_scores_kernel<false><<<(unsigned)blocks, kThreads, 0, s>>>(
         X, W, mid, out, n, p, K, L, bf16);
   }
+  return (int)cudaGetLastError();
+}
+
+namespace {
+__global__ void empty_kernel() {}
+}  // namespace
+
+// One launch of an empty kernel on `stream`, through the same C entry
+// path as tm_fused_linear_scores: what a launch costs the host with no
+// work in it. Returns cudaGetLastError() as above.
+extern "C" int tm_empty_launch(void* stream) {
+  empty_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }
 

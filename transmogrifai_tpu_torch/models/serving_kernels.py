@@ -43,8 +43,9 @@ KERNEL_NAME = "fused_linear_scores"
 def kernel_exact() -> bool:
     """TM_KERNEL_EXACT=1 pins every kernel formulation to the bitwise
     reference: f32 contraction inputs and f32 accumulation. Under it
-    the engine's fused path runs each model's own tail instead of the
-    stacked kernel (serving/fusion.py) — the validation anchor."""
+    the engine's fused path on the CPU runs each model's own tail
+    instead of the stacked contraction (serving/fusion.py) — the
+    validation anchor; on the card the kernel runs with f32 operands."""
     return os.environ.get("TM_KERNEL_EXACT", "0") == "1"
 
 
@@ -137,6 +138,9 @@ def _library():
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        # an empty launch through the same path (timing floor only)
+        lib.tm_empty_launch.argtypes = [ctypes.c_void_p]
+        lib.tm_empty_launch.restype = ctypes.c_int
         lib.tm_cuda_error_string.argtypes = [ctypes.c_int]
         lib.tm_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -11,17 +11,19 @@ the device (models/serving_kernels.py). K launches become one.
 
 Two formulations, switched by the kernel parity policy:
 
-* ``TM_KERNEL_EXACT=1`` — each member model's OWN full device tail runs
-  on the shared gathered boundary values and a per-row ``where``
-  selects each row's model. Every op is row-independent (impute /
-  combine / sanity / predict), so each row sees EXACTLY what its own
-  backend computes — bitwise-identical to per-backend scoring by
-  construction. No fused kernel launches in this mode.
-* default — the models' affine heads stack into one (K, p+1, L) weight
-  block and ``fused_linear_scores`` scores all K at once in the serving
-  dtype (bf16 operands on CUDA, f32 on the CPU; f32 accumulation). The
-  kernel is chosen by the tensors' device: the CUDA kernel on the card,
-  its plain PyTorch version on the CPU.
+* ``TM_KERNEL_EXACT=1`` on the CPU — each member model's OWN full
+  device tail runs on the shared gathered boundary values and a per-row
+  ``where`` selects each row's model. Every op is row-independent
+  (impute / combine / sanity / predict), so each row sees EXACTLY what
+  its own backend computes — bitwise-identical to per-backend scoring
+  by construction (the validation anchor).
+* otherwise — the models' affine heads stack into one (K, p+1, L)
+  weight block and ``fused_linear_scores`` scores all K at once in the
+  serving dtype (bf16 operands on CUDA, f32 on the CPU and under
+  ``TM_KERNEL_EXACT=1``; f32 accumulation). The kernel is chosen by the
+  tensors' device: the CUDA kernel on the card, its plain PyTorch
+  version on the CPU. On the card exact mode only pins f32 operands:
+  the fused plane never leaves the kernel there.
 
 Stackability is DETECTED, not declared: the terminal device stage must
 be a PredictionModel of a linear family (LogisticRegression /
@@ -215,10 +217,11 @@ class FusedGroupScorer:
         self._slices = self.backends[0].scorer._bucket_slices
         boundary = list(s0.boundary)
 
-        if self.exact:
+        if self.exact and self.device.type == "cpu":
             # each member's OWN full tail on the shared boundary; the
             # where-select keeps every row bitwise on its own model's
-            # result (ops are row-independent) — K tails, no kernel
+            # result (ops are row-independent) — K tails, and the plain
+            # version is not called either
             infos_list = [b.scorer.device_infos for b, _ in members]
             names = [s.result_name for s in specs]
 
