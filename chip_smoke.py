@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's main path — fused multi-model LR serving — through
-the entry points a user calls, and holds its CUDA kernel against the
-plain PyTorch version:
+Drives the port's two paths — fused multi-model LR serving and
+tree-model AutoML training — through the entry points a user calls,
+and holds each CUDA kernel against its plain PyTorch version:
 
 1. device: the card's name and power limit (nvidia-smi), then every
    kernel under ``transmogrifai_tpu_torch/csrc`` built with nvcc for
@@ -27,7 +27,22 @@ plain PyTorch version:
    request must match its model's numpy score under the fused operand
    policy, a classic one under f32. The fused plane and the kernel's
    launch counter must have moved. The storm is repeated under
-   torch.profiler for the device's busy share.
+   torch.profiler for the device's busy share;
+4. hist_kernel: ``tree_histogram`` against ``histogram_torch`` on the
+   card at the shapes the training path gives it (the histogram capture
+   shape, a GBT level, XGBoost's last level, an RF level, a ragged n
+   with one node and one instance), in both operand modes: float stats
+   to a stated tolerance, integer stats bitwise, two launches bitwise,
+   one instance alone equal to its slice of the batch; timed beside its
+   bound, the plain version and the one-hot GEMM ``torch.matmul``;
+5. training: ``BinaryClassificationModelSelector`` with 3-fold CV over
+   DecisionTree/RandomForest/GBT/XGBoost at default grids and
+   registered caps on 200k x 28 HIGGS-shaped rows from ``--seed``,
+   through ``fit_transform``. The histogram launches must equal the
+   tree levels the code grows, the winner must beat a linear score on
+   the holdout; the fit is repeated under torch.profiler (busy share,
+   the kernel's share), and the card is held to the CPU (an exact-mode
+   decision tree bitwise, GBT per grid point within a tolerance).
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -114,20 +129,37 @@ def call_ms(fn, rounds: int = 21, calls: int = 50) -> float:
     return float(np.median(per_call))
 
 
+PROFILE_ATTEMPTS = 3
+
+
+def profiled(run, host: bool = True):
+    """Run ``run()`` under torch.profiler (CUDA activity, and CPU
+    activity when ``host``) and return (the profile, run's result). A
+    session whose trace holds no device event at all (CUPTI now and
+    then delivers an empty one) is repeated, up to PROFILE_ATTEMPTS
+    sessions; then it raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    for _ in range(PROFILE_ATTEMPTS):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            result = run()
+            torch.cuda.synchronize()
+        if any(ev.device_type == DeviceType.CUDA
+               for ev in prof.key_averages()):
+            return prof, result
+    raise AssertionError(f"torch.profiler recorded no device time in "
+                         f"{PROFILE_ATTEMPTS} sessions")
+
+
 def device_ms(fn, calls: int = 50):
     """(ms, device events) per call: the summed device time of every
     kernel and copy ``fn`` puts on the card, from torch.profiler's
-    CUPTI trace over ``calls`` calls. Raises if the trace holds no
-    device time."""
-    from torch.profiler import ProfilerActivity, profile
+    CUPTI trace over ``calls`` calls."""
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    prof, _ = profiled(lambda: [fn() for _ in range(calls)])
     total_us, events = _device_time_us(prof)
     return total_us / calls / 1e3, events / calls
 
@@ -352,17 +384,21 @@ def _storm(eng, reqs, threads: int, traces=None):
     return results, lat, wall
 
 
-def _device_busy(run):
-    """Profile one call of ``run`` (torch.profiler): (summed device
-    time of its kernels and copies in s, their count, its wall s)."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+def _walled(run):
+    """A zero-argument callable running ``run`` to the card's end and
+    returning its wall in s."""
+    def go():
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        return time.perf_counter() - t0
+    return go
+
+
+def _device_busy(run):
+    """Profile one call of ``run`` (torch.profiler): (summed device
+    time of its kernels and copies in s, their count, its wall s)."""
+    prof, wall = profiled(_walled(run))
     busy_us, events = _device_time_us(prof)
     return busy_us / 1e6, events, wall
 
@@ -396,6 +432,7 @@ def serving_phase(seed: int, device, requests: int = REQUESTS,
     before and after the storm). ``profile`` (CUDA only) repeats the
     storm on a second engine under torch.profiler for the device's busy
     share. Returns the phase's measurements; raises on any failure."""
+    from transmogrifai_tpu_torch.models import kernels as tk
     from transmogrifai_tpu_torch.models import serving_kernels as sk
     from transmogrifai_tpu_torch.profiling import percentile_nearest_rank
     from transmogrifai_tpu_torch.serving import EngineConfig, ServingEngine
@@ -421,12 +458,15 @@ def serving_phase(seed: int, device, requests: int = REQUESTS,
     cfg = EngineConfig(max_batch_rows=MAX_BATCH_ROWS, fused_kernel=True)
     eng = ServingEngine(registry=reg, config=cfg).start()
     sk.fused_linear_scores.launches = 0
+    tk.histogram_grid.launches = 0
     before = 0 if launches is None else launches()
     try:
         results, lat, wall = _storm(eng, reqs, THREADS, traces)
         moved = None if launches is None else launches() - before
     finally:
         eng.stop()
+    if tk.histogram_grid.launches:
+        raise AssertionError("serving launched the histogram kernel")
     stats = eng.stats.as_dict()
     plane, fused_spans = _served_planes(TRACER.spans(), traces)
     bf16 = sk.serve_dtype(device) == torch.bfloat16
@@ -494,6 +534,334 @@ def serving_phase(seed: int, device, requests: int = REQUESTS,
 
 
 # ---------------------------------------------------------------------------
+# phase 4: the tree histogram kernel against its plain version
+# ---------------------------------------------------------------------------
+
+#: (label, G, n, d, S, m, B): the shapes the training path gives the
+#: kernel (the RF level's rows cut to 50k so its plain version fits)
+HIST_SHAPES = [
+    ("capture", 16, 200_000, 28, 5, 8, 32),
+    ("gbt_level", 12, 200_000, 28, 3, 16, 32),
+    ("xgb_last_level", 6, 200_000, 28, 3, 32, 32),
+    ("rf_level", 192, 50_000, 28, 5, 16, 32),
+    ("ragged_m1_g1", 1, 1_237, 28, 5, 1, 32),
+]
+#: kernel vs plain version on float stats: f32 sums in another order
+#: (a sequential sum over each block's rows, then over <= 32 block
+#: partials), each cell within HIST_RTOL of the sum of its |terms|
+HIST_RTOL = 1e-4
+#: H100 SXM bf16 dense tensor-core peak (NVIDIA data sheet): the
+#: one-hot GEMM yardstick's operation rate
+BF16_FLOPS_PER_S = 989e12
+
+
+def _timed(fn, budget_s: float = 0.25):
+    """(device ms per call from torch.profiler, CUDA-event ms per call)
+    with call counts sized so each measurement takes ~``budget_s``."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one = max(time.perf_counter() - t0, 1e-6)
+    calls = int(min(50, max(3, budget_s / one)))
+    dev, _events = device_ms(fn, calls=calls)
+    return dev, call_ms(fn, rounds=5 if one > 0.01 else 21, calls=calls)
+
+
+def kernel_split_ms(fn, calls: int = 10) -> dict:
+    """Device ms per call of each of the histogram kernel's device
+    functions (torch.profiler), keyed by function name."""
+    import re
+    from torch.autograd import DeviceType
+    fn()
+    prof, _ = profiled(lambda: [fn() for _ in range(calls)], host=False)
+    split = {}
+    for ev in prof.key_averages():
+        hit = re.search(r"tree_hist_\w+", ev.key)
+        if ev.device_type == DeviceType.CUDA and hit:
+            split[hit.group(0)] = (split.get(hit.group(0), 0.0)
+                                   + ev.device_time_total / calls / 1e3)
+    return split
+
+
+def hist_case(tk, label, G, n, d, S, m, B, dtype, seed):
+    """Kernel vs plain version at one shape and operand dtype, with
+    timings. Returns one result row; raises on a disagreement."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bins = torch.randint(0, B, (n, d), generator=gen, device=dev,
+                         dtype=torch.int32)
+    stats = torch.randn((G, n, S), generator=gen, device=dev)
+    pos = torch.randint(0, m, (G, n), generator=gen, device=dev,
+                        dtype=torch.int32)
+    got = tk.histogram_grid(bins, stats, pos, m, B, dtype=dtype)
+    torch.cuda.synchronize()
+    ref = tk.histogram_torch(bins, stats, pos, m, B, dtype=dtype)
+    scale = tk.histogram_torch(bins, stats.abs(), pos, m, B, dtype=dtype)
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"non-finite histogram at {label}")
+    err = float((got - ref).abs().max())
+    if not bool(((got - ref).abs() <= HIST_RTOL * scale + 1e-6).all()):
+        raise AssertionError(f"tree_histogram disagrees with its plain "
+                             f"version at {label} {dtype}: max abs err {err}")
+    if not torch.equal(tk.histogram_grid(bins, stats, pos, m, B,
+                                         dtype=dtype), got):
+        raise AssertionError(f"two launches differ at {label}")
+    for g in sorted({0, G - 1}):
+        one = tk.histogram_grid(bins, stats[g:g + 1].contiguous(),
+                                pos[g:g + 1].contiguous(), m, B, dtype=dtype)
+        if not torch.equal(one[0], got[g]):
+            raise AssertionError(f"instance {g} alone differs from its "
+                                 f"slice of the batch at {label}")
+    exact = False
+    if dtype == torch.float32:      # integer stats: bitwise
+        istats = torch.randint(-3, 4, (G, n, S), generator=gen, device=dev
+                               ).to(torch.float32)
+        if not torch.equal(tk.histogram_grid(bins, istats, pos, m, B,
+                                             dtype=dtype),
+                           tk.histogram_torch(bins, istats, pos, m, B,
+                                              dtype=dtype)):
+            raise AssertionError(f"integer stats not bitwise at {label}")
+        exact = True
+    del scale, ref
+    # library yardstick: the one-hot GEMM A^T Z in the operand dtype
+    # (f32 accumulation), A and Z built outside the timing
+    Z = torch.nn.functional.one_hot(bins.long(), B).reshape(n, d * B).to(
+        dtype)
+    node = torch.nn.functional.one_hot(pos.long(), m).to(torch.float32)
+    A = (node[:, :, :, None] * stats[:, :, None, :]).permute(1, 0, 2, 3) \
+        .reshape(n, G * m * S).to(dtype)
+    del node
+    cost = tk.histogram_cost(G, n, d, S, m, B)
+    bytes_ms = cost["bytes"] / HBM_BYTES_PER_S * 1e3
+    ops_ms = cost["adds"] / F32_FLOPS_PER_S * 1e3
+    plan = tk.launch_plan(G, n, d, S, m, B)
+    row = {"shape": label, "G": G, "n": n, "d": d, "S": S, "m": m, "B": B,
+           "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+           "integer_stats_bitwise": exact, "deterministic": True,
+           "batch_independent": True,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "onehot_gemm_gflop": 2.0 * G * m * S * d * B * n / 1e9,
+           "plan": plan}
+    arms = [("", lambda: tk.histogram_grid(bins, stats, pos, m, B,
+                                           dtype=dtype)),
+            ("plain_", lambda: tk.histogram_torch(bins, stats, pos, m, B,
+                                                  dtype=dtype)),
+            ("library_", lambda: torch.matmul(A.T, Z))]
+    for prefix, fn in arms:
+        row[prefix + "ms"], row[prefix + "call_ms"] = _timed(fn)
+    row["split_ms"] = kernel_split_ms(arms[0][1])
+    return row
+
+
+def hist_phase(seed: int):
+    from transmogrifai_tpu_torch.models import kernels as tk
+    torch.backends.cuda.matmul.allow_tf32 = False   # reference paths
+    rows = []
+    for i, (label, *shape) in enumerate(HIST_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            rows.append(hist_case(tk, label, *shape, dtype, seed + i))
+            torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 5: tree-model AutoML training
+# ---------------------------------------------------------------------------
+
+TRAIN_ROWS = 200_000
+TRAIN_FEATURES = 28                 # HIGGS' width
+TREE_FAMILIES = ["DecisionTreeClassifier", "RandomForestClassifier",
+                 "GBTClassifier", "XGBoostClassifier"]
+#: exact-mode GBT validation metrics, card vs CPU at GBT_PARITY_ROWS:
+#: f32 sums in another order, and sigmoid rounded in another last bit,
+#: flip near-tied splits after the first round (tests/test_torch_trees.py);
+#: a flipped split moves a fold's AUROC on ~2.7k validation rows by up
+#: to ~0.01, so AUROC per grid point (mean of 3 folds) within this
+GBT_PARITY_ROWS = 8_000
+GBT_PARITY_TOL = 0.02
+
+
+def training_data(seed: int, n: int = TRAIN_ROWS):
+    """HIGGS-shaped synthetic rows: 28 Real features, a nonlinear
+    (XOR-style) label of a few of them plus noise, balanced so the
+    default DataBalancer keeps unit weights."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, TRAIN_FEATURES)).astype(np.float32)
+    z = (X[:, 0] * X[:, 1] + 0.5 * np.sin(2.0 * X[:, 2]) + 0.3 * X[:, 3]
+         + 0.3 * rng.normal(size=n))
+    return X, (z > 0).astype(np.float32)
+
+
+def _selector(X, y, candidates, device):
+    from transmogrifai_tpu_torch import models as TM
+    from transmogrifai_tpu_torch.dataset import Dataset
+    from transmogrifai_tpu_torch.features import FeatureBuilder
+    from transmogrifai_tpu_torch.features import types as ft
+    ds = Dataset({"y": y.astype(np.float64), "x": X},
+                 {"y": ft.RealNN, "x": ft.OPVector})
+    lbl = FeatureBuilder.of(ft.RealNN, "y").from_column().as_response()
+    vec = FeatureBuilder.OPVector("x").from_column().as_predictor()
+    sel = TM.BinaryClassificationModelSelector.with_cross_validation(
+        n_folds=3, candidates=candidates, device=device).set_input(lbl, vec)
+    return ds, sel
+
+
+def _linear_auroc(X, y, idx_tr, idx_ho) -> float:
+    """Holdout AUROC of a least-squares linear score (numpy f64): the
+    linear yardstick the tree winner must beat."""
+    from transmogrifai_tpu_torch.evaluators import functional as F
+    A = np.concatenate([X, np.ones((len(X), 1), np.float32)], 1)
+    coef = np.linalg.lstsq(A[idx_tr].astype(np.float64), y[idx_tr] - 0.5,
+                           rcond=None)[0]
+    s = (A[idx_ho] @ coef).astype(np.float32)
+    return float(F.auroc(torch.from_numpy(s), torch.from_numpy(y[idx_ho])))
+
+
+def _exact_fit(X, y, candidates, device):
+    import os
+    prev = os.environ.get("TM_KERNEL_EXACT")
+    os.environ["TM_KERNEL_EXACT"] = "1"
+    try:
+        ds, sel = _selector(X, y, candidates, device)
+        return sel.fit(ds)
+    finally:
+        if prev is None:
+            del os.environ["TM_KERNEL_EXACT"]
+        else:
+            os.environ["TM_KERNEL_EXACT"] = prev
+
+
+def training_phase(seed: int, rows: int = TRAIN_ROWS, device="cuda"):
+    """The selector's main path on ``device`` (launch count, winner,
+    timings), a profiled repeat (busy and kernel shares; CUDA only) and
+    the card-vs-CPU checks. ``rows`` and ``device`` exist for a CPU
+    rehearsal at a small size. Returns the phase's measurements."""
+    from transmogrifai_tpu_torch import models as TM
+    from transmogrifai_tpu_torch.models import kernels as tk
+    from transmogrifai_tpu_torch.models import serving_kernels as sk
+    from transmogrifai_tpu_torch.models.base import params_to_numpy
+    from transmogrifai_tpu_torch.models.tuning import DataSplitter
+    X, y = training_data(seed, rows)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    ds, sel = _selector(X, y, TREE_FAMILIES, device)
+    sync()
+    tk.histogram_grid.launches = 0
+    sk.fused_linear_scores.launches = 0
+    t0 = time.perf_counter()
+    model, scored = sel.fit_transform(ds)
+    sync()
+    fit_wall = time.perf_counter() - t0
+    launches = tk.histogram_grid.launches
+    summ = model.summary
+    winner = summ["bestModel"]["family"]
+    expected = (sum(TM.MODEL_FAMILIES[f].levels_per_fit()
+                    for f in TREE_FAMILIES)
+                + TM.MODEL_FAMILIES[winner].levels_per_fit())
+    if device == "cuda" and launches != expected:
+        raise AssertionError(f"{launches} histogram launches, the code "
+                             f"grows {expected} tree levels")
+    if sk.fused_linear_scores.launches:
+        raise AssertionError("training launched the serving kernel")
+    col = scored.column(model.output.name)
+    if len(col) != rows or not all(
+            0.0 <= r["probability_1"] <= 1.0 for r in col[:1000]):
+        raise AssertionError("scored column malformed")
+    tr_idx, ho_idx = DataSplitter(seed=sel.params["seed"]).split(rows)
+    linear = _linear_auroc(X, y, tr_idx, ho_idx)
+    holdout = summ["holdoutEvaluation"]["AuROC"]
+    if winner not in TREE_FAMILIES or not holdout >= linear + 0.1:
+        raise AssertionError(f"winner {winner} holdout AUROC {holdout} vs "
+                             f"linear {linear}")
+    for name, p in params_to_numpy(model.model_params).items():
+        if p.dtype.kind == "f" and np.isnan(p).any():
+            raise AssertionError(f"NaN in refit params {name}")
+
+    out = {"rows": rows, "features": TRAIN_FEATURES,
+           "train_rows": summ["dataCounts"]["train"],
+           "fit_transform_wall_s": fit_wall,
+           "family_wall_s": summ["wallSeconds"]["families"],
+           "refit_wall_s": summ["wallSeconds"]["refit"],
+           "winner": winner, "winner_hyper": summ["bestModel"]["hyper"],
+           "winner_val_auroc":
+               summ["bestModel"]["validationMetric"]["auroc"],
+           "holdout_auroc": holdout, "linear_holdout_auroc": linear,
+           "grid_metrics": {r["family"]: r["gridMetrics"]
+                            for r in summ["validationResults"]},
+           "histogram_launches": launches, "expected_launches": expected}
+    if device == "cuda":
+        out.update(_profiled_fit(X, y))
+    out.update(_card_vs_cpu(X, y, device))
+    return out
+
+
+def _profiled_fit(X, y):
+    """The same selector fit again under torch.profiler (device activity
+    only): the device's busy share of the fit's wall and the histogram
+    kernel's share of device time."""
+    from torch.autograd import DeviceType
+    ds, sel = _selector(X, y, TREE_FAMILIES, "cuda")
+    prof, wall = profiled(_walled(lambda: sel.fit(ds)), host=False)
+    busy_us, events = _device_time_us(prof)
+    kern_us = 0.0
+    top = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        if "tree_hist_" in ev.key:
+            kern_us += ev.device_time_total
+        top.append((ev.device_time_total, ev.count, ev.key[:90]))
+    top.sort(reverse=True)
+    return {"profiled_wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "device_events": events, "kernel_device_s": kern_us / 1e6,
+            "kernel_share_of_device": kern_us / busy_us,
+            "top_device_ops": [{"ms": us / 1e3, "count": c, "name": k}
+                               for us, c, k in top[:10]]}
+
+
+def _card_vs_cpu(X, y, device):
+    """The card held to the CPU: the exact-mode decision-tree selector's
+    refit bitwise (integer-valued stats), GBT per grid point on
+    GBT_PARITY_ROWS rows within GBT_PARITY_TOL."""
+    from transmogrifai_tpu_torch.models.base import params_to_numpy
+    dt_gpu = _exact_fit(X, y, ["DecisionTreeClassifier"], device)
+    dt_cpu = _exact_fit(X, y, ["DecisionTreeClassifier"], "cpu")
+    pg, pc = (params_to_numpy(m.model_params) for m in (dt_gpu, dt_cpu))
+    for k in ("feat", "thr"):
+        if not np.array_equal(pg[k], pc[k]):
+            raise AssertionError(f"exact-mode DT refit {k} differs "
+                                 f"between the card and the CPU")
+    dt_metric_diff = float(np.max(np.abs(
+        np.asarray(dt_gpu.summary["validationResults"][0]["gridMetrics"])
+        - dt_cpu.summary["validationResults"][0]["gridMetrics"])))
+    # ... and GBT per grid point on a row count the CPU fits in seconds
+    Xs, ys = X[:GBT_PARITY_ROWS], y[:GBT_PARITY_ROWS]
+    t2 = time.perf_counter()
+    gb_gpu = _exact_fit(Xs, ys, ["GBTClassifier"], device)
+    t3 = time.perf_counter()
+    gb_cpu = _exact_fit(Xs, ys, ["GBTClassifier"], "cpu")
+    t4 = time.perf_counter()
+    mg = np.asarray(gb_gpu.summary["validationResults"][0]["gridMetrics"])
+    mc = np.asarray(gb_cpu.summary["validationResults"][0]["gridMetrics"])
+    gbt_diff = float(np.max(np.abs(mg - mc)))
+    if not gbt_diff <= GBT_PARITY_TOL:
+        raise AssertionError(f"GBT grid metrics card vs CPU differ by "
+                             f"{gbt_diff} > {GBT_PARITY_TOL}")
+    return {
+        "dt_exact_feat_thr_bitwise": True,
+        "dt_exact_metric_max_diff": dt_metric_diff,
+        "gbt_parity_rows": GBT_PARITY_ROWS,
+        "gbt_metric_max_diff": gbt_diff,
+        "gbt_grid_metrics_card": mg.tolist(),
+        "gbt_grid_metrics_cpu": mc.tolist(),
+        "gbt_gpu_wall_s": t3 - t2, "gbt_cpu_wall_s": t4 - t3,
+    }
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -532,7 +900,16 @@ def main(argv=None) -> int:
     print("phase serving: " + json.dumps(dict(serve, card=card)),
           flush=True)
 
+    hrows = hist_phase(args.seed)
+    for r in hrows:
+        print("phase hist_kernel: " + json.dumps(dict(r, card=card)),
+              flush=True)
+    train = training_phase(args.seed)
+    print("phase training: " + json.dumps(dict(train, card=card)),
+          flush=True)
+
     main_row = rows[0]        # the serving path's shape and operand mode
+    hmain = hrows[0]          # the capture shape, bf16 (training's mode)
     print(json.dumps({"kernels": [{
         "name": "fused_linear_scores", "route": "cuda",
         "source": "transmogrifai_tpu_torch/csrc/fused_linear_scores.cu",
@@ -546,7 +923,20 @@ def main(argv=None) -> int:
         "call_ms": main_row["call_ms"],
         "plain_call_ms": main_row["plain_call_ms"],
         "library_call_ms": main_row["library_call_ms"],
-        "launch_ms": empty_ms}]}), flush=True)
+        "launch_ms": empty_ms}, {
+        "name": "tree_histogram", "route": "cuda",
+        "source": "transmogrifai_tpu_torch/csrc/tree_histogram.cu",
+        "replaces": "transmogrifai_tpu/models/kernels.py:612 and "
+                    "transmogrifai_tpu/models/kernels.py:649",
+        "launches": train["histogram_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in hrows),
+        "ms": hmain["ms"], "plain_ms": hmain["plain_ms"],
+        "bound_ms": hmain["bound_ms"], "bound_by": hmain["bound_by"],
+        "library_ms": hmain["library_ms"],
+        "shape": [hmain[k] for k in ("G", "n", "d", "S", "m", "B")],
+        "dtype": hmain["dtype"], "call_ms": hmain["call_ms"],
+        "plain_call_ms": hmain["plain_call_ms"],
+        "library_call_ms": hmain["library_call_ms"]}]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -133,7 +133,8 @@ def test_failed_kernel_build_raises(monkeypatch, tmp_path):
 
 def test_kernel_sources_are_found():
     from transmogrifai_tpu_torch import _cuda_build
-    assert _cuda_build.kernel_names() == ["fused_linear_scores"]
+    assert _cuda_build.kernel_names() == ["fused_linear_scores",
+                                          "tree_histogram"]
     assert "sm_90a" in " ".join(_cuda_build.NVCC_FLAGS)
     with pytest.raises(FileNotFoundError):
         _cuda_build.library_path("no_such_kernel")

@@ -189,3 +189,47 @@ def test_model_to_rebuilds_on_another_device(artifacts):
     assert keep.dtype == torch.int64 and keep.device.type == "cpu"
     beta = pm.stages[-1].model_params["beta"]
     assert beta.dtype == torch.float32 and beta.device.type == "cpu"
+
+
+def test_jax_exported_gbt_artifact_scores_alike(tmp_path, monkeypatch):
+    """A tree family's predict loads through the port's registry: a
+    GBT workflow trained and exported by the JAX package scores the same
+    in both packages (atol 1e-5: f32 sums in another order)."""
+    from transmogrifai_tpu import Dataset, FeatureBuilder
+    from transmogrifai_tpu import models as M
+    from transmogrifai_tpu.features import types as ft
+    from transmogrifai_tpu.ops.transmogrifier import transmogrify
+    from transmogrifai_tpu.workflow import Workflow
+    fam = M.MODEL_FAMILIES["GBTClassifier"]
+    for attr, small in (("n_bins", 16), ("max_depth_cap", 3),
+                        ("n_rounds_cap", 6)):
+        monkeypatch.setattr(fam, attr, small)
+    rng = np.random.default_rng(3)
+    n = 240
+    cols = {f"x{i}": np.where(rng.random(n) < 0.05, np.nan,
+                              rng.normal(size=n)) for i in range(4)}
+    cols["label"] = ((np.nan_to_num(cols["x0"]) > 0)
+                     ^ (np.nan_to_num(cols["x1"]) > 0)).astype(np.float64)
+    schema = {f"x{i}": ft.Real for i in range(4)}
+    schema["label"] = ft.RealNN
+    ds = Dataset({k: np.asarray(v, np.float64) for k, v in cols.items()},
+                 schema)
+    label = FeatureBuilder.of(ft.RealNN, "label").from_column().as_response()
+    preds = [FeatureBuilder.of(ft.Real, f"x{i}").from_column().as_predictor()
+             for i in range(4)]
+    pred = M.BinaryClassificationModelSelector.with_cross_validation(
+        n_folds=2, candidates=[["GBTClassifier", {"maxDepth": [3.0],
+                                                  "stepSize": [0.3]}]]
+    ).set_input(label, transmogrify(preds)).output
+    model = Workflow([pred]).train(ds)
+    export_portable(model, str(tmp_path), buckets=BUCKETS)
+    port = tportable.load(str(tmp_path), device="cpu")
+    assert port.stages[-1].params["family"] == "GBTClassifier"
+    assert port.stages[-1].model_params["feat"].dtype == torch.int64
+    data = {k: v for k, v in cols.items() if k != "label"}
+    got = port.compile_scoring(buckets=BUCKETS).score_arrays(data)[pred.name]
+    ref = jportable.load(str(tmp_path)).score_columns(data)[pred.name]
+    jax_sc = model.compile_scoring(buckets=BUCKETS).score_arrays(ds)[pred.name]
+    assert got.shape == (n, 2)
+    np.testing.assert_allclose(got, ref, atol=1e-5)
+    np.testing.assert_allclose(got, jax_sc, atol=1e-5)

@@ -1,55 +1,237 @@
-"""The fitted model stage and the model-family registry of the port.
+"""Model-stage glue and the model-family protocol.
 
-Counterpart of ``transmogrifai_tpu/models/base.py`` cut to serving:
-:class:`PredictionModel` carries the family name, the class count and
-the fitted parameters (tensors on the scoring device) and builds the
-device function ``fn(label, X)`` the fused scorer runs. Families
-register their predict function by name (:func:`register_family`,
-used by ``models/linear.py``); a family the port has no predict for
-raises, naming it.
+Counterpart of ``transmogrifai_tpu/models/base.py``. Each model family
+is a registered singleton (``MODEL_FAMILIES``: name -> family object,
+as in the JAX package) exposing torch kernels
+
+    fit_kernel(X, y, w, hyper, n_classes)  -> params (dict of tensors)
+    predict_kernel(params, X, n_classes)   -> (n, k) probabilities or
+                                              (n, 1) predictions
+
+on tensors that lie on one device. The JAX package vmaps fits over a
+(fold x hyper) grid; in the port a family that validates on a grid
+writes the grid axis out (``fit_eval_grid``, the tree families).
+
+:class:`PredictionModel` is the fitted model stage of both halves of
+the port: the selector's refit (params on the fit device) and the
+serving chain a portable artifact builds (params on the scoring
+device). :func:`params_from_numpy` / :func:`params_to_numpy` carry
+fitted parameters between the JAX package's numpy pytrees and the
+port's tensors.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import itertools
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from ..stages.base import Transformer
+from .._device import resolve_device
+from ..dataset import Dataset
+from ..features import types as ft
+from ..stages.base import BinaryEstimator, BinaryTransformer
 
-#: family name -> predict(params, X, n_classes)
-MODEL_FAMILIES: Dict[str, Callable] = {}
-
-
-def register_family(name: str):
-    def deco(fn: Callable) -> Callable:
-        MODEL_FAMILIES[name] = fn
-        return fn
-    return deco
+MODEL_FAMILIES: Dict[str, "ModelFamily"] = {}
 
 
-class PredictionModel(Transformer):
+class ModelFamily:
+    """A trainable model family with torch fit/predict kernels."""
+
+    name: str = ""
+    problem_types: Tuple[str, ...] = ()  # of {"binary", "multiclass", "regression"}
+    #: hyperparameter defaults; grid values must be numeric (stackable)
+    default_hyper: Dict[str, float] = {}
+    #: default search grid (reference: DefaultSelectorParams)
+    default_grid: Dict[str, List[float]] = {}
+    #: include in ModelSelector's default candidate list
+    in_default_candidates: bool = True
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        if cls.name:
+            MODEL_FAMILIES[cls.name] = cls()
+
+    # -- kernels ---------------------------------------------------------
+    def fit_kernel(self, X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                   hyper: Dict[str, torch.Tensor], n_classes: int
+                   ) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError(
+            f"fitting model family {self.name!r} is not ported to "
+            f"transmogrifai_tpu_torch yet")
+
+    def predict_kernel(self, params: Dict[str, torch.Tensor],
+                       X: torch.Tensor, n_classes: int) -> torch.Tensor:
+        """Return (n, k) class probabilities, or (n, 1) regression preds."""
+        raise NotImplementedError
+
+    # -- grid handling ---------------------------------------------------
+    def make_grid(self, overrides: Optional[Dict[str, List[float]]] = None
+                  ) -> List[Dict[str, float]]:
+        grid = dict(self.default_grid)
+        if overrides:
+            grid.update(overrides)
+        if not grid:
+            return [dict(self.default_hyper)]
+        keys = sorted(grid)
+        combos = []
+        for vals in itertools.product(*(grid[k] for k in keys)):
+            h = dict(self.default_hyper)
+            h.update(dict(zip(keys, vals)))
+            combos.append(h)
+        return combos
+
+    @staticmethod
+    def stack_grid(grid: Sequence[Dict[str, float]]) -> Dict[str, np.ndarray]:
+        keys = sorted(grid[0])
+        return {k: np.asarray([g[k] for g in grid], dtype=np.float32)
+                for k in keys}
+
+
+def params_from_numpy(arrays: Dict[str, Any], device) -> Dict[str, Any]:
+    """Numpy parameter pytree (as the JAX package fits and exports it)
+    -> the same pytree of tensors on ``device``: integer arrays (tree
+    ``feat`` indices) become int64, everything else float32."""
+    if isinstance(arrays, dict):
+        return {k: params_from_numpy(v, device) for k, v in arrays.items()}
+    a = np.array(arrays)                 # a writable copy
+    dt = torch.int64 if np.issubdtype(a.dtype, np.integer) else torch.float32
+    return torch.as_tensor(a, dtype=dt, device=device)
+
+
+def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Inverse of :func:`params_from_numpy`: integer tensors -> int32
+    arrays (the JAX package's index dtype), floats -> float32 arrays."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    a = params.detach().cpu().numpy()
+    return a.astype(np.int32 if np.issubdtype(a.dtype, np.integer)
+                    else np.float32)
+
+
+def prediction_column(probs: np.ndarray, problem: str) -> np.ndarray:
+    """Build the Prediction object column from a prob/pred matrix."""
+    n = probs.shape[0]
+    out = np.empty(n, dtype=object)
+    if problem == "regression":
+        for i in range(n):
+            out[i] = {"prediction": float(probs[i, 0])}
+        return out
+    for i in range(n):
+        row = probs[i]
+        d = {"prediction": float(np.argmax(row))}
+        for j, v in enumerate(row):
+            d[f"probability_{j}"] = float(v)
+            d[f"rawPrediction_{j}"] = float(v)
+        out[i] = d
+    return out
+
+
+def _params_device(params: Dict[str, Any]) -> torch.device:
+    for v in params.values():
+        if isinstance(v, torch.Tensor):
+            return v.device
+        if isinstance(v, dict):
+            return _params_device(v)
+    return torch.device("cpu")
+
+
+class PredictionModel(BinaryTransformer):
     """Fitted model stage: (label, features) -> (n, k) probabilities or
     (n, 1) predictions. ``params`` holds ``family``, ``problem`` and
     ``n_classes`` as in the JAX package; ``model_params`` the fitted
-    tensors (on the scoring device)."""
+    tensors, all on the model's device (where it scores)."""
+    in_types = (ft.RealNN, ft.OPVector)
+    out_type = ft.Prediction
+    operation_name = "pred"
 
-    def __init__(self, input_names, output_name, *, family: str,
-                 n_classes: int = 2, problem: Optional[str] = None,
-                 model_params: Optional[Dict[str, torch.Tensor]] = None):
+    def __init__(self, input_names=None, output_name=None, *,
+                 family: str = "", problem: str = "binary",
+                 n_classes: int = 2,
+                 model_params: Optional[Dict[str, Any]] = None,
+                 uid: Optional[str] = None, **kw):
         if family not in MODEL_FAMILIES:
             raise ValueError(
                 f"model family {family!r} is not ported (have "
                 f"{sorted(MODEL_FAMILIES)})")
-        super().__init__(input_names, output_name, family=family,
-                         problem=problem, n_classes=int(n_classes))
+        super().__init__(input_names, output_name, uid=uid, family=family,
+                         problem=problem, n_classes=int(n_classes), **kw)
         self.model_params = dict(model_params or {})
+
+    @property
+    def family(self) -> ModelFamily:
+        return MODEL_FAMILIES[self.params["family"]]
+
+    @property
+    def device(self) -> torch.device:
+        return _params_device(self.model_params)
 
     def make_device_fn(self) -> Callable:
         params = self.model_params
-        predict = MODEL_FAMILIES[self.params["family"]]
+        fam = self.family
         n_classes = self.params["n_classes"]
 
         def fn(label, X):  # label (response) unused at transform time
-            return predict(params, X.to(torch.float32), n_classes)
+            return fam.predict_kernel(params, X.to(torch.float32), n_classes)
 
         return fn
+
+    def predict_probs(self, X: np.ndarray) -> np.ndarray:
+        """(n, d) host features -> (n, k) host probabilities, scored on
+        the model's device."""
+        Xt = torch.as_tensor(np.asarray(X, np.float32), device=self.device)
+        with torch.inference_mode():
+            return self.make_device_fn()(None, Xt).cpu().numpy()
+
+    def _transform_columns(self, ds: Dataset):
+        X = ds.column(self.input_names[1]).astype(np.float32)
+        probs = self.predict_probs(X)
+        return (prediction_column(probs, self.params["problem"]),
+                ft.Prediction, None)
+
+
+class ModelStage(BinaryEstimator):
+    """Base estimator for a single model family fit with fixed hypers,
+    on ``device`` (None: CUDA, raising without it)."""
+    in_types = (ft.RealNN, ft.OPVector)
+    out_type = ft.Prediction
+    operation_name = "pred"
+    model_cls = PredictionModel
+    family_name: str = ""
+    problem: str = "binary"
+
+    def __init__(self, uid=None, device=None, **hyper):
+        fam = MODEL_FAMILIES[self.family_name]
+        h = dict(fam.default_hyper)
+        h.update(hyper)
+        super().__init__(uid=uid, **h)
+        self.device = device
+
+    def hyper_values(self) -> Dict[str, float]:
+        fam = MODEL_FAMILIES[self.family_name]
+        return {k: float(self.params.get(k, v))
+                for k, v in fam.default_hyper.items()}
+
+    def fit_fn(self, ds: Dataset) -> Dict[str, Any]:
+        label_name, vec_name = self.input_names
+        dev = resolve_device(self.device)
+        X = torch.as_tensor(ds.column(vec_name).astype(np.float32),
+                            device=dev)
+        y_np = ds.column(label_name).astype(np.float32)
+        n_classes = int(y_np.max()) + 1 if self.problem != "regression" else 1
+        if self.problem == "binary":
+            n_classes = 2
+        y = torch.as_tensor(y_np, device=dev)
+        w = torch.ones_like(y)
+        fam = MODEL_FAMILIES[self.family_name]
+        hyper = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+                 for k, v in self.hyper_values().items()}
+        params = fam.fit_kernel(X, y, w, hyper, n_classes)
+        return {"family": self.family_name, "problem": self.problem,
+                "n_classes": n_classes, "model_params": params}
+
+    def _make_model(self, model_args):
+        mp = model_args.pop("model_params")
+        model = super()._make_model(model_args)
+        model.model_params = mp
+        return model

@@ -4,10 +4,12 @@ Counterparts of the ``predict_kernel`` methods in
 ``transmogrifai_tpu/models/linear.py``: binary and multinomial
 LogisticRegression, LinearRegression and LinearSVC — each one affine
 map plus a fixed activation, the set the fused serving kernel can
-stack. Fitting is not ported yet. Each function takes the family's
-fitted params (tensors on the scoring device), the (n, d) f32 feature
-matrix and the class count, and returns (n, k) probabilities or (n, 1)
-predictions.
+stack. Each family is registered in ``MODEL_FAMILIES`` with its
+predict kernel only: fitting them (the vmapped Newton/FISTA sweep) is
+not ported yet, so ``fit_kernel`` raises and the selector refuses them
+as candidates. Each predict takes the family's fitted params (tensors
+on the scoring device), the (n, d) f32 feature matrix and the class
+count, and returns (n, k) probabilities or (n, 1) predictions.
 
 Every op here is row-independent to the bit: a row scores the same
 alone or inside any padded, coalesced batch, which is what lets the
@@ -27,7 +29,7 @@ from typing import Dict
 
 import torch
 
-from .base import register_family
+from .base import ModelFamily
 
 
 def add_intercept(X: torch.Tensor) -> torch.Tensor:
@@ -61,7 +63,6 @@ def predict_softmax(theta: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     return torch.softmax(affine(X, theta), dim=1)
 
 
-@register_family("LogisticRegression")
 def predict_logistic(params: Dict[str, torch.Tensor], X: torch.Tensor,
                      n_classes: int) -> torch.Tensor:
     if n_classes == 2:
@@ -69,15 +70,37 @@ def predict_logistic(params: Dict[str, torch.Tensor], X: torch.Tensor,
     return predict_softmax(params["theta"], X)
 
 
-@register_family("LinearRegression")
 def predict_linear_regression(params: Dict[str, torch.Tensor],
                               X: torch.Tensor,
                               n_classes: int) -> torch.Tensor:
     return affine(X, params["beta"])[:, None]
 
 
-@register_family("LinearSVC")
 def predict_linear_svc(params: Dict[str, torch.Tensor], X: torch.Tensor,
                        n_classes: int) -> torch.Tensor:
     # platt-less squashing for Prediction parity
     return sigmoid_pair(affine(X, params["beta"]))
+
+
+class LogisticRegressionFamily(ModelFamily):
+    name = "LogisticRegression"
+    problem_types = ("binary", "multiclass")
+
+    def predict_kernel(self, params, X, n_classes):
+        return predict_logistic(params, X, n_classes)
+
+
+class LinearRegressionFamily(ModelFamily):
+    name = "LinearRegression"
+    problem_types = ("regression",)
+
+    def predict_kernel(self, params, X, n_classes):
+        return predict_linear_regression(params, X, n_classes)
+
+
+class LinearSVCFamily(ModelFamily):
+    name = "LinearSVC"
+    problem_types = ("binary",)
+
+    def predict_kernel(self, params, X, n_classes):
+        return predict_linear_svc(params, X, n_classes)

@@ -27,7 +27,6 @@ that path), so the reference never drops to TF32.
 from __future__ import annotations
 
 import ctypes
-import os
 import threading
 from typing import Optional
 
@@ -35,18 +34,13 @@ import numpy as np
 import torch
 
 from .. import _cuda_build
+# TM_KERNEL_EXACT=1: the engine's fused path on the CPU runs each
+# model's own tail (serving/fusion.py); the card's kernel takes f32
+# operands
+from .kernels import kernel_exact
 
 #: the CUDA source this module's kernel builds from (under the package)
 KERNEL_NAME = "fused_linear_scores"
-
-
-def kernel_exact() -> bool:
-    """TM_KERNEL_EXACT=1 pins every kernel formulation to the bitwise
-    reference: f32 contraction inputs and f32 accumulation. Under it
-    the engine's fused path on the CPU runs each model's own tail
-    instead of the stacked contraction (serving/fusion.py) — the
-    validation anchor; on the card the kernel runs with f32 operands."""
-    return os.environ.get("TM_KERNEL_EXACT", "0") == "1"
 
 
 def serve_dtype(device) -> torch.dtype:

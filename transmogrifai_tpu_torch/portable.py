@@ -14,9 +14,11 @@ every parameter a tensor on the scoring device.
 
 Slice limit: all-numeric workflows only — an artifact whose
 ``hostPrefix`` is non-empty (text, picklists, hashing run on the host
-before the device chain) raises, as does any op or model family
-outside {impute, concat, keep_cols, predict} x {LogisticRegression,
-LinearRegression, LinearSVC}; the error names what is missing.
+before the device chain) raises, as does any op outside {impute,
+concat, keep_cols, predict} or a predict family the port has no
+predict kernel for (it has the linear families LogisticRegression,
+LinearRegression and LinearSVC, and the eight tree families); the
+error names what is missing.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .models.base import MODEL_FAMILIES, PredictionModel
+from .models.base import MODEL_FAMILIES, PredictionModel, params_from_numpy
 from .ops.sanity_checker import SanityCheckerModel
 from .ops.vectorizers import RealVectorizerModel, VectorsCombiner
 from .resilience import atomic
@@ -140,8 +142,7 @@ def _build_stage(i: int, st: Dict[str, Any], arrs: Dict[str, Any],
             raise ValueError(
                 f"portable stage {i} ({out!r}): model family {family!r} "
                 f"is not ported (have {sorted(MODEL_FAMILIES)})")
-        params = {k: _tensor(v, torch.float32, device)
-                  for k, v in arrs.get("params", {}).items()}
+        params = params_from_numpy(arrs.get("params", {}), device)
         return PredictionModel(ins, out, family=family,
                                n_classes=int(st["nClasses"]),
                                model_params=params)

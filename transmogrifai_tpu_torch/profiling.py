@@ -9,6 +9,7 @@
 * ``EngineStats`` — the serving engine's queue, wait, fused-plane,
   per-model/per-tenant and host-overhead counters, with the shared
   ``percentile_nearest_rank`` and ``shape_bucket`` helpers.
+* ``check_finite`` — the post-fit guard on fitted parameters.
 """
 from __future__ import annotations
 
@@ -517,3 +518,29 @@ class EngineStats(SnapshotStats):
         out["requestOverhead"] = self._overhead_view(
             oh_requests, oh_totals, oh_rings)
         return out
+
+
+def check_finite(tree: Any, what: str = "parameters",
+                 allow_inf: bool = False, _path: str = "") -> None:
+    """Raise with a named path when any float array leaf of a (nested
+    dict / list) numpy pytree holds NaN (and Inf unless allow_inf —
+    tree params legitimately use +inf no-split thresholds). Cheap
+    post-fit guard; the reference's equivalent is Spark task failure."""
+    import numpy as np
+
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            check_finite(tree[k], what, allow_inf, f"{_path}[{k!r}]")
+        return
+    if isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            check_finite(v, what, allow_inf, f"{_path}[{i}]")
+        return
+    arr = np.asarray(tree)
+    if arr.dtype.kind != "f":
+        return
+    bad = (np.isnan(arr).any() if allow_inf
+           else not np.isfinite(arr).all())
+    if bad:
+        raise FloatingPointError(
+            f"non-finite values in {what} at {_path}")

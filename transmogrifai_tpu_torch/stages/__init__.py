@@ -1,3 +1,5 @@
-from .base import Transformer
+from .base import (BinaryEstimator, BinaryTransformer, Estimator,
+                   PipelineStage, Transformer)
 
-__all__ = ["Transformer"]
+__all__ = ["BinaryEstimator", "BinaryTransformer", "Estimator",
+           "PipelineStage", "Transformer"]
