@@ -143,15 +143,21 @@ def test_tree_histogram_exact_mode_is_bitwise_on_integer_stats(
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", HIST_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_tree_histogram_matches_plain_on_float_stats(card, shape, dtype):
+def test_tree_histogram_matches_plain_on_float_stats(card, shape, dtype,
+                                                     monkeypatch):
     """f32 sums in another order than the plain version's GEMM (a
     sequential sum over each block's rows, then over <= 32 block
-    partials): each cell within 1e-4 of the sum of its |terms|."""
+    partials): each cell within 1e-4 of the sum of its |terms|. The
+    operand dtype comes from the knobs, as on the training path."""
+    monkeypatch.setenv("TM_KERNEL_EXACT", "0")
+    monkeypatch.setenv("TM_HIST_BF16",
+                       "1" if dtype == torch.bfloat16 else "0")
     bins, stats, pos = _hist_inputs(card, shape, integer=False)
     m, B = shape[4], shape[5]
-    got = tk.histogram_grid(bins, stats, pos, m, B, dtype=dtype)
-    ref = tk.histogram_torch(bins, stats, pos, m, B, dtype=dtype)
-    scale = tk.histogram_torch(bins, stats.abs(), pos, m, B, dtype=dtype)
+    assert tk.hist_dtype(bins.device) == dtype
+    got = tk.histogram_grid(bins, stats, pos, m, B)
+    ref = tk.histogram_torch(bins, stats, pos, m, B)
+    scale = tk.histogram_torch(bins, stats.abs(), pos, m, B)
     assert torch.isfinite(got).all()
     assert ((got - ref).abs() <= 1e-4 * scale + 1e-6).all()
 
@@ -198,8 +204,8 @@ def test_tree_histogram_rejects_bad_input(card):
         tk.histogram_grid(bins.t().contiguous().t(), stats, pos, 2, 4)
     with pytest.raises(ValueError, match="different devices"):
         tk.histogram_grid(bins, stats.cpu(), pos, 2, 4)
-    with pytest.raises(TypeError, match="not supported"):
-        tk.histogram_grid(bins, stats, pos, 2, 4, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32"):
+        tk.histogram_grid(bins, stats.half(), pos, 2, 4)
 
 
 @pytest.mark.cuda

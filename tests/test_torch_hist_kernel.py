@@ -38,9 +38,9 @@ def _jax_xla(bins, stats, pos, m, B):
             jnp.asarray(stats), jnp.asarray(pos)))
 
 
-def _port(bins, stats, pos, m, B, **kw):
+def _port(bins, stats, pos, m, B):
     return tk.histogram_grid(torch.from_numpy(bins), torch.from_numpy(stats),
-                             torch.from_numpy(pos), m, B, **kw).numpy()
+                             torch.from_numpy(pos), m, B).numpy()
 
 
 SHAPES = [  # G, n, d, S, m, B
@@ -101,7 +101,8 @@ def test_bf16_operands_match_jax_bf16_policy(monkeypatch):
     np.testing.assert_allclose(got, _jax_xla(bins, stats, pos, 4, 16),
                                rtol=1e-5, atol=1e-4)
     # and it really rounded: f32 operands give another histogram
-    f32 = _port(bins, stats, pos, 4, 16, dtype=torch.float32)
+    monkeypatch.setenv("TM_HIST_BF16", "0")
+    f32 = _port(bins, stats, pos, 4, 16)
     assert np.abs(got - f32).max() > 1e-4
 
 

@@ -252,8 +252,11 @@ __global__ void tree_hist_sort_scatter(const int32_t* __restrict__ pos,
 // stats are whole 16-byte vectors, read by the warp as one broadcast).
 // kS and kB are S and B when the kernel is built for them (S = 3 and 5,
 // the tree families' counts, at B = 32, their bins), else 0 (read at
-// run time; a stat's add after another's). Stats are rounded to the
-// operand dtype in the tile, once per (row, stat).
+// run time; a stat's add after another's). On an H100 the specialised
+// loop takes 0.55 ms at the histogram capture shape where the run-time
+// loop takes 0.94-0.98 ms (both timed in one run of chip_smoke.py;
+// PERF.md). Stats are rounded to the operand dtype in the tile, once
+// per (row, stat).
 template <bool kBf16, int kS, int kB>
 __global__ void __launch_bounds__(32)
 tree_hist_run(const int32_t* __restrict__ bins,

@@ -36,7 +36,7 @@ import ctypes
 import math
 import os
 import threading
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
@@ -139,23 +139,21 @@ def _check_args(bins, stats_g, pos_g, m: int, B: int):
 
 
 def histogram_torch(bins: torch.Tensor, stats_g: torch.Tensor,
-                    pos_g: torch.Tensor, m: int, B: int, *,
-                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                    pos_g: torch.Tensor, m: int, B: int) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the vmapped
     ``histogram_xla`` formulation. bins (n, d) int32, stats (G, n, S)
     f32, pos (G, n) int32 -> (G, m*S, d*B) f32, column j*B + b. The
     node mask is applied in f32 and the product then rounded to
-    ``dtype`` (None: :func:`hist_dtype` of the device); the product of
-    a rounded operand and a 0/1 one-hot is exact in f32, so the f32
-    matmul below is the rounded-operand, f32-accumulate contraction.
+    :func:`hist_dtype` of the device; the product of a rounded operand
+    and a 0/1 one-hot is exact in f32, so the f32 matmul below is the
+    rounded-operand, f32-accumulate contraction (on CUDA only while
+    ``torch.backends.cuda.matmul.allow_tf32`` is off, its default).
     Instances run in chunks of g so the masked-stats matrix stays near
     256 MB."""
     G, n, S, d = _check_args(bins, stats_g, pos_g, m, B)
     hist_accum_bf16()
-    dt = hist_dtype(bins.device) if dtype is None else dtype
+    dt = hist_dtype(bins.device)
     dev = bins.device
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False   # the reference
     Z = (bins[:, :, None] == torch.arange(B, device=dev, dtype=torch.int32)
          ).reshape(n, d * B).to(torch.float32)
     out = torch.empty((G, m * S, d * B), dtype=torch.float32, device=dev)
@@ -222,8 +220,7 @@ def _library():
 
 
 def histogram_grid(bins: torch.Tensor, stats_g: torch.Tensor,
-                   pos_g: torch.Tensor, m: int, B: int, *,
-                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                   pos_g: torch.Tensor, m: int, B: int) -> torch.Tensor:
     """Node x feature x bin histograms of per-row stats for G instances
     over SHARED bins, in ONE kernel launch.
 
@@ -231,9 +228,9 @@ def histogram_grid(bins: torch.Tensor, stats_g: torch.Tensor,
     node index in [0, m) (a row outside [0, m), or a bin outside
     [0, B), adds nothing, as the one-hot formulation gives). Returns
     (G, m*S, d*B) f32 — memory laid out as (G, m, S, d, B), the layout
-    ``trees.grow_tree_grid`` reads. ``dtype`` is the operand dtype
-    (None: :func:`hist_dtype` of the device; bf16 and f32 are
-    supported); accumulation is f32.
+    ``trees.grow_tree_grid`` reads. The operand dtype is
+    :func:`hist_dtype` of the device (bf16 or f32); accumulation is
+    f32.
 
     On a CPU tensor this is :func:`histogram_torch`. On a CUDA tensor it
     launches ``csrc/tree_histogram.cu`` on the current stream (built at
@@ -243,14 +240,12 @@ def histogram_grid(bins: torch.Tensor, stats_g: torch.Tensor,
     launches."""
     G, n, S, d = _check_args(bins, stats_g, pos_g, m, B)
     hist_accum_bf16()
-    dt = hist_dtype(bins.device) if dtype is None else dtype
     if bins.device.type == "cpu":
-        return histogram_torch(bins, stats_g, pos_g, m, B, dtype=dt)
+        return histogram_torch(bins, stats_g, pos_g, m, B)
     if bins.device.type != "cuda":
         raise ValueError(f"histogram_grid: unsupported device "
                          f"{bins.device}")
-    if dt not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"operand dtype {dt} not supported by the kernel")
+    dt = hist_dtype(bins.device)
     if not (bins.is_contiguous() and stats_g.is_contiguous()
             and pos_g.is_contiguous()):
         raise ValueError("histogram_grid: bins, stats and pos must be "

@@ -19,10 +19,10 @@ launches the kernel or raises — no fallback.
 Numerics policy (mirrors ``kernel_exact`` and ``serve_dtype`` of the
 JAX package): ``TM_KERNEL_EXACT=1`` pins f32 operands; otherwise
 operands round to bf16 on CUDA and stay f32 on the CPU. Accumulation is
-f32 always, and the intercept is added in f32 after the dot. The plain
-version's f32 matrix products run with
-``torch.backends.cuda.matmul.allow_tf32 = False`` (set explicitly on
-that path), so the reference never drops to TF32.
+f32 always, and the intercept is added in f32 after the dot. On CUDA
+the plain version's f32 matrix products are the f32 reference only
+while ``torch.backends.cuda.matmul.allow_tf32`` is off (its default);
+the callers that compare against it keep it off.
 """
 from __future__ import annotations
 
@@ -105,8 +105,6 @@ def fused_linear_scores_torch(X: torch.Tensor, W: torch.Tensor,
     the operand dtype (None: :func:`serve_dtype` of X's device)."""
     n, p, K, L = _check_args(X, W, mid)
     dt = serve_dtype(X.device) if dtype is None else dtype
-    if X.device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False   # the reference
     dev = X.device
     Wflat = W.permute(1, 0, 2).reshape(p + 1, K * L)
     z = _round_operand(X, dt) @ _round_operand(Wflat[:p], dt)
