@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two paths — fused multi-model LR serving and
-tree-model AutoML training — through the entry points a user calls,
-and holds each CUDA kernel against its plain PyTorch version:
+Drives the port's three paths — fused multi-model LR serving,
+tree-model AutoML training and row-sharded tree growing over a data
+mesh — through the entry points a user calls, and holds each CUDA
+kernel against its plain PyTorch version:
 
 1. device: the card's name and power limit (nvidia-smi), then every
    kernel under ``transmogrifai_tpu_torch/csrc`` built with nvcc for
@@ -43,7 +44,25 @@ and holds each CUDA kernel against its plain PyTorch version:
    the holdout; the fit is repeated under torch.profiler (busy share,
    the kernel's share), and the card is held to the CPU (an exact-mode
    decision tree bitwise; exact-mode GBT trees parting only at near
-   ties, and its AUROC per grid point within a tolerance).
+   ties, and its AUROC per grid point within a tolerance);
+6. ring_kernel: ``ring_allreduce`` (all-gather and all-reduce) against
+   ``ring_allgather_torch`` / ``ring_allreduce_torch`` on 2, 3 and 4
+   ranks sharing one card (each rank its own stream), and over every
+   visible card up to 4 as peers when there are two or more, at the
+   histogram capture shape and a GBT level: every rank bitwise the
+   plain version, 200 back-to-back calls with changing inputs right;
+   timed beside its bound, the plain version and a library yardstick
+   (one ``torch.sum`` over the stacked parts and ndev-1 copies):
+   ``ms`` is the device time per call with every call queued before the
+   card starts (``queued_ms``), ``span_ms`` the union of the ranks'
+   kernels per call as the host issues them, ``call_ms`` the CUDA-event
+   time per call with the host's issue gaps;
+7. data_parallel: ``trees.grow_tree_grid`` over a 4-rank data mesh on
+   the training phase's 200k x 28 rows (50k a rank), GBT's folded first
+   round (12 instances, depth 5, B = 32): every rank's trees bitwise
+   the single-device grow's, the ring launched ranks x (levels + 1)
+   times, ``parallel.sharded_histograms`` at the capture shape bitwise
+   ``histogram_grid``; wall time and the device's busy share.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -1024,6 +1043,330 @@ def _card_vs_cpu(X, y, device):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the ring kernel against its plain version
+# ---------------------------------------------------------------------------
+
+#: (label, shape) of the parts one rank contributes: the histogram
+#: capture shape (G=16, m*S = 8*5, d*B = 28*32) and a GBT level (G=12,
+#: m*S = 16*3), 2.29 and 2.06 MB a rank
+RING_SHAPES = [("capture", (16, 8 * 5, 28 * 32)),
+               ("gbt_level", (12, 16 * 3, 28 * 32))]
+RING_RANKS = (2, 3, 4)
+#: back-to-back calls with changing inputs and no host synchronisation
+#: between them: the race probe of the epoch and the neighbour barrier
+RING_REPEATS = 200
+
+
+def ring_layouts(device):
+    """(layout, devices) of the meshes the ring phase runs: ndev ranks
+    sharing one card for each of RING_RANKS, then every visible card up
+    to 4 as peers when there are two or more. On the CPU, CPU ranks."""
+    if torch.device(device).type == "cpu":
+        return [("cpu", ["cpu"] * k) for k in RING_RANKS]
+    out = [("one card", [torch.device("cuda", 0)] * k) for k in RING_RANKS]
+    count = torch.cuda.device_count()
+    if count >= 2:
+        out.append(("peers", [torch.device("cuda", i)
+                              for i in range(min(count, 4))]))
+    return out
+
+
+def _sync(devices):
+    for d in dict.fromkeys(torch.device(x) for x in devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def _ring_parts(devices, shape, seed):
+    gens = [torch.Generator(device=d).manual_seed(seed + r)
+            for r, d in enumerate(devices)]
+    return [torch.randn(shape, generator=g, device=d)
+            for g, d in zip(gens, devices)]
+
+
+def queued_ms(fn, calls: int = 50, attempts: int = 3,
+              devices=("cuda:0",)) -> float:
+    """Device time per call of back-to-back calls that never wait on the
+    host: the current stream of every card in ``devices`` is held by
+    ``torch.cuda._sleep`` while the host issues all ``calls`` calls, and
+    CUDA events on the first card time them from the end of its hold to
+    the last call's end. (The ring's ranks are
+    launched one after another; timed as issued, a rank launched first
+    spins until the last arrives, and the host's issue rate shows as
+    device time.) The hold is sized from the host's measured issue time
+    and doubled until the host finishes inside it."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    torch.cuda._sleep(1_000_000)
+    b.record()
+    b.synchronize()
+    cycles_per_s = 1_000_000 / (a.elapsed_time(b) / 1e3)
+    hold_s = 2.0 * issue_s + 1e-3
+    for _ in range(attempts):
+        h0, h1, end = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(3))
+        h0.record()
+        for d in dict.fromkeys(torch.device(x) for x in devices):
+            with torch.cuda.device(d):
+                torch.cuda._sleep(int(hold_s * cycles_per_s))
+        h1.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        issued = time.perf_counter() - t0
+        end.record()
+        end.synchronize()
+        if issued < 0.9 * h0.elapsed_time(h1) / 1e3:
+            return h1.elapsed_time(end) / calls
+        hold_s *= 2.0
+    raise AssertionError(f"the host took {issued} s to issue {calls} calls, "
+                         f"longer than the card was held")
+
+
+def _kernel_span_ms(prof, pattern: str, calls: int) -> float:
+    """Device time per call of concurrent kernels: the union of the
+    intervals of every device kernel whose name holds ``pattern`` in a
+    torch.profiler trace, over ``calls`` calls (ranks on one card
+    overlap, so their summed times would count the overlap twice)."""
+    from torch.autograd import DeviceType
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA
+                   and pattern in ev.name)
+    if not spans:
+        raise AssertionError(f"no device kernel named *{pattern}* traced")
+    total, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            total += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return (total + hi - lo) / calls / 1e3
+
+
+def ring_case(tk, par, layout, label, shape, devices, seed,
+              repeats=RING_REPEATS, timed=True):
+    """The kernel against its plain version on one mesh and shape:
+    gather and reduce bitwise on every rank, RING_REPEATS back-to-back
+    calls, then timings (CUDA only). Returns one result row; raises on
+    any disagreement."""
+    mesh = par.data_mesh(devices)
+    ndev = mesh.size
+    parts = _ring_parts(mesh.devices, shape, seed)
+    gathered = tk.ring_allgather(parts, mesh)
+    reduced = tk.ring_allreduce(parts, mesh)
+    _sync(mesh.devices)
+    home = mesh.devices[0]
+    stacked = torch.stack([p.to(home) for p in parts])
+    ref = tk.ring_allreduce_torch(parts)
+    for r in range(ndev):
+        if not torch.equal(gathered[r].to(home), stacked):
+            raise AssertionError(f"ring all-gather rank {r} not the parts "
+                                 f"in origin order ({layout}, {label})")
+        if not (torch.equal(reduced[r], ref[r])
+                and torch.equal(reduced[r].to(home), reduced[0])):
+            raise AssertionError(f"ring all-reduce rank {r} differs from "
+                                 f"the plain version ({layout}, {label})")
+    calls = [_ring_parts(mesh.devices, shape, seed + 1000 * (i + 1))
+             for i in range(repeats)]
+    outs = [tk.ring_allreduce(ps, mesh) for ps in calls]
+    _sync(mesh.devices)
+    for i, (ps, out) in enumerate(zip(calls, outs)):
+        want = tk.ring_allreduce_torch(ps)
+        if not all(torch.equal(o, w) for o, w in zip(out, want)):
+            raise AssertionError(f"ring call {i} of {repeats} back to back "
+                                 f"went wrong ({layout}, {label})")
+    del calls, outs
+    numel = parts[0].numel()
+    same_card = len(set(mesh.devices)) == 1
+    cost = tk.ring_cost(ndev, numel, same_card=same_card)
+    row = {"layout": layout, "shape": label, "dims": list(shape),
+           "ndev": ndev, "devices": mesh.labels(), "numel": numel,
+           "bitwise": True, "repeats": repeats, "max_abs_err": 0.0,
+           "plan": tk.ring_plan(numel, ndev), "bound_ms": cost["bound_ms"],
+           "bound_by": cost["bound_by"], "ring_bytes": cost["ring_bytes"]}
+    if not timed:
+        return row
+    X = stacked
+    lib_out = [torch.empty_like(parts[0]) for _ in range(ndev - 1)]
+
+    def kernel():
+        mesh.join(*tk.ring_allreduce(parts, mesh))
+
+    def plain():
+        tk.allreduce_data(parts, mesh, use_ring=False)
+
+    def library():
+        # yardstick only: one sum over the stacked parts, ndev-1 copies
+        # (across cards: torch.cuda.comm.reduce_add + broadcast)
+        if same_card:
+            total = X.sum(0)
+            for o in lib_out:
+                o.copy_(total)
+        else:
+            total = torch.cuda.comm.reduce_add(parts, destination=home)
+            torch.cuda.comm.broadcast(total, devices=mesh.devices)
+
+    n_calls = 50
+    row["ms"] = queued_ms(kernel, n_calls, devices=mesh.devices)
+    prof, _ = profiled(lambda: [kernel() for _ in range(n_calls)],
+                       host=False)
+    row["span_ms"] = _kernel_span_ms(prof, "ring_kernel", n_calls)
+    row["call_ms"] = call_ms(kernel)
+    row["plain_ms"], _ = device_ms(plain)
+    row["plain_call_ms"] = call_ms(plain)
+    row["library_ms"], _ = device_ms(library)
+    row["library_call_ms"] = call_ms(library)
+    return row
+
+
+def ring_phase(seed: int, device="cuda", repeats=RING_REPEATS,
+               shapes=RING_SHAPES):
+    from transmogrifai_tpu_torch import parallel as par
+    from transmogrifai_tpu_torch.models import kernels as tk
+    rows = []
+    for layout, devices in ring_layouts(device):
+        for i, (label, shape) in enumerate(shapes):
+            rows.append(ring_case(tk, par, layout, label, shape, devices,
+                                  seed + 17 * i, repeats,
+                                  timed=torch.device(device).type == "cuda"))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 7: row-sharded tree growing over a data mesh
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 4
+DP_BINS = 32
+DP_FOLDS = 3
+#: the capture shape of sharded_histograms (G, S, m): integer stats
+DP_HIST = (16, 5, 8)
+
+
+def _gbt_first_round(X, y, seed, device):
+    """The GBT family's folded batch (3 folds x its default grid = 12
+    instances) at its first round: g = 0.5 - y, h = 0.25 under the
+    fold-mask weights, dyadic, so every order of summation is exact.
+    Returns (bins, edges, gw, hw, w, replicated hypers, max_depth)."""
+    from transmogrifai_tpu_torch import models as TM
+    from transmogrifai_tpu_torch.models import trees
+    from transmogrifai_tpu_torch.models.tuning import (
+        build_fold_grid_batch, make_fold_masks)
+    fam = TM.MODEL_FAMILIES["GBTClassifier"]
+    n = len(y)
+    grid = fam.make_grid(None)
+    train_m, val_m = make_fold_masks(n, DP_FOLDS, seed)
+    train_b, _val_b, hyper_b = build_fold_grid_batch(grid, train_m, val_m)
+    Xt = torch.from_numpy(X).to(device)
+    yt = torch.from_numpy(y).to(device)
+    bins, edges = trees._prep(Xt, DP_BINS, torch.ones(n, device=device))
+    w = torch.from_numpy(train_b).to(device)
+    gw = ((0.5 - yt)[None, :, None] * w[..., None]).contiguous()
+    hw = (0.25 * w[..., None]).contiguous()
+    Gb, d = w.shape[0], X.shape[1]
+
+    def hyper(k, default):
+        return torch.as_tensor(hyper_b.get(k, np.full(Gb, default)),
+                               dtype=torch.float32).to(device)
+    rep = (edges, torch.ones((Gb, d), device=device),
+           hyper("regLambda", fam.default_hyper["regLambda"]),
+           hyper("minSplitGain", 0.0),
+           hyper("minChildWeight", fam.default_hyper["minChildWeight"]),
+           hyper("maxDepth", fam.max_depth_cap))
+    return bins, edges, gw, hw, w, rep, fam.max_depth_cap
+
+
+def data_parallel_phase(seed: int, rows: int = TRAIN_ROWS, device="cuda"):
+    """``trees.grow_tree_grid`` over a DP_RANKS-rank data mesh (ranks
+    sharing one card; CPU ranks for a rehearsal) at full width: the
+    training phase's rows, GBT's folded first round. Its trees bitwise
+    those of the single-device grow on every rank; the ring launches
+    those the code derives; ``sharded_histograms`` at the capture shape
+    bitwise ``histogram_grid``; wall time and (CUDA) busy share."""
+    from transmogrifai_tpu_torch import parallel as par
+    from transmogrifai_tpu_torch.models import kernels as tk
+    from transmogrifai_tpu_torch.models import trees
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    X, y = training_data(seed, rows)
+    bins, edges, gw, hw, w, rep, depth = _gbt_first_round(X, y, seed, dev)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t0 = time.perf_counter()
+    single = trees.grow_tree_grid(bins, gw, hw, w, *rep, max_depth=depth)
+    sync()
+    single_wall = time.perf_counter() - t0
+    mesh = par.data_mesh([dev] * DP_RANKS)
+    shards = [par.shard_rows(bins, mesh)] + [
+        par.shard_rows(t, mesh, axis=1) for t in (gw, hw, w)]
+
+    def grow():
+        return trees.grow_tree_grid(*shards, *rep, max_depth=depth,
+                                    mesh=mesh)
+    sync()
+    tk.ring_allreduce.launches = 0
+    tk.histogram_grid.launches = 0
+    out = grow()
+    sync()
+    ring_launches = tk.ring_allreduce.launches
+    hist_launches = tk.histogram_grid.launches
+    expected = DP_RANKS * (depth + 1) if cuda else 0
+    if ring_launches != expected:
+        raise AssertionError(f"{ring_launches} ring launches, the code "
+                             f"derives {expected} ({DP_RANKS} ranks x "
+                             f"({depth} levels + 1 leaf reduction))")
+    if cuda and hist_launches != DP_RANKS * depth:
+        raise AssertionError(f"{hist_launches} histogram launches, "
+                             f"expected {DP_RANKS * depth}")
+    names = ("feat", "thr", "leaf", "gains")
+    for r, res in enumerate(out):
+        for name, a, b in zip(names, single, res):
+            if not torch.equal(a, b):
+                raise AssertionError(f"rank {r} {name} differs from the "
+                                     f"single-device grow")
+    t0 = time.perf_counter()
+    grow()
+    sync()
+    wall = time.perf_counter() - t0
+    # sharded_histograms at the capture shape, integer stats: bitwise
+    G, S, m = DP_HIST
+    rng = np.random.default_rng(seed)
+    hb = bins.cpu().numpy()
+    hs = rng.integers(-3, 4, (G, rows, S)).astype(np.float32)
+    hp = rng.integers(0, m, (G, rows)).astype(np.int32)
+    got = par.sharded_histograms(hb, hs, hp, m, DP_BINS, mesh=mesh)
+    whole = tk.histogram_grid(bins, torch.from_numpy(hs).to(dev),
+                              torch.from_numpy(hp).to(dev), m, DP_BINS)
+    if not np.array_equal(got, whole.cpu().numpy()):
+        raise AssertionError("sharded_histograms differs from the "
+                             "single-device histogram_grid")
+    out_row = {"rows": rows, "ranks": DP_RANKS, "devices": mesh.labels(),
+               "Gb": int(w.shape[0]), "max_depth": depth, "B": DP_BINS,
+               "trees_bitwise": True, "ring_launches": ring_launches,
+               "expected_ring_launches": expected,
+               "histogram_launches": hist_launches,
+               "sharded_histograms_bitwise": True,
+               "wall_s": wall, "single_device_wall_s": single_wall}
+    if cuda:
+        prof, pwall = profiled(_walled(grow), host=False)
+        busy_ms = _kernel_span_ms(prof, "", 1)
+        out_row.update({"profiled_wall_s": pwall,
+                        "device_busy_s": busy_ms / 1e3,
+                        "device_busy_share": busy_ms / 1e3 / pwall,
+                        "ring_device_s": _kernel_span_ms(
+                            prof, "ring_kernel", 1) / 1e3})
+    return out_row
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1073,8 +1416,22 @@ def main(argv=None) -> int:
     print("phase training: " + json.dumps(dict(train, card=card)),
           flush=True)
 
+    rrows = ring_phase(args.seed)
+    for r in rrows:
+        print("phase ring_kernel: " + json.dumps(dict(r, card=card)),
+              flush=True)
+    if not any(r["layout"] == "peers" for r in rrows):
+        print("phase ring_kernel: one card visible, so the peer-access "
+              "path did not run (ranks shared cuda:0)", flush=True)
+    dp = data_parallel_phase(args.seed)
+    print("phase data_parallel: " + json.dumps(dict(dp, card=card)),
+          flush=True)
+
     main_row = rows[0]        # the serving path's shape and operand mode
     hmain = hrows[0]          # the capture shape, bf16 (training's mode)
+    # the data-parallel grow's deepest level, 4 ranks on one card
+    rmain = next(r for r in rrows if r["layout"] == "one card"
+                 and r["shape"] == "gbt_level" and r["ndev"] == DP_RANKS)
     print(json.dumps({"kernels": [{
         "name": "fused_linear_scores", "route": "cuda",
         "source": "transmogrifai_tpu_torch/csrc/fused_linear_scores.cu",
@@ -1101,7 +1458,19 @@ def main(argv=None) -> int:
         "shape": [hmain[k] for k in ("G", "n", "d", "S", "m", "B")],
         "dtype": hmain["dtype"], "call_ms": hmain["call_ms"],
         "plain_call_ms": hmain["plain_call_ms"],
-        "library_call_ms": hmain["library_call_ms"]}]}), flush=True)
+        "library_call_ms": hmain["library_call_ms"]}, {
+        "name": "ring_allreduce", "route": "cuda",
+        "source": "transmogrifai_tpu_torch/csrc/ring_allreduce.cu",
+        "replaces": "transmogrifai_tpu/models/kernels.py:770",
+        "launches": dp["ring_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in rrows),
+        "ms": rmain["ms"], "plain_ms": rmain["plain_ms"],
+        "bound_ms": rmain["bound_ms"], "bound_by": rmain["bound_by"],
+        "library_ms": rmain["library_ms"], "shape": rmain["dims"],
+        "ndev": rmain["ndev"], "layout": rmain["layout"],
+        "span_ms": rmain["span_ms"], "call_ms": rmain["call_ms"],
+        "plain_call_ms": rmain["plain_call_ms"],
+        "library_call_ms": rmain["library_call_ms"]}]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

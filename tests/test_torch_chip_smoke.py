@@ -51,3 +51,29 @@ def test_gbt_check_flags_a_planted_histogram_fault(gbt_reference, arm):
     first = [d for d in out["divergence"] if d]
     assert first and all(d["hist_rel_diff"] > chip_smoke.GBT_HIST_RTOL
                          for d in first)
+
+
+def test_ring_phase_runs_on_the_cpu():
+    """The ring_kernel phase on CPU ranks (2, 3, 4) at a small shape:
+    the plain version against itself, the gather in origin order, the
+    back-to-back calls; no timings off the card."""
+    rows = chip_smoke.ring_phase(0, device="cpu", repeats=3,
+                                 shapes=[("small", (3, 5, 7))])
+    assert [r["ndev"] for r in rows] == list(chip_smoke.RING_RANKS)
+    for r in rows:
+        assert r["bitwise"] and r["max_abs_err"] == 0.0
+        assert r["plan"]["blocks"] * r["ndev"] <= tk.RING_WAVE_BLOCKS
+        assert r["bound_by"] == "bytes" and "ms" not in r
+
+
+def test_data_parallel_phase_runs_on_the_cpu():
+    """The data_parallel phase on 4 CPU ranks over 3,001 rows (ragged
+    shards): every rank's trees bitwise the single grow's and
+    sharded_histograms bitwise histogram_grid; the CPU path launches
+    no kernel, so both counts stay 0."""
+    out = chip_smoke.data_parallel_phase(0, rows=3001, device="cpu")
+    assert out["trees_bitwise"] and out["sharded_histograms_bitwise"]
+    assert out["ranks"] == chip_smoke.DP_RANKS and out["Gb"] == 12
+    assert out["ring_launches"] == out["expected_ring_launches"] == 0
+    assert out["histogram_launches"] == 0
+    assert "device_busy_share" not in out

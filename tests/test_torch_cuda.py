@@ -235,3 +235,134 @@ def test_selector_on_cuda_launches_the_histogram_kernel(card):
     assert launches == dt + gbt + winner.levels_per_fit()
     assert model.device.type == "cuda"
     assert model.summary["holdoutEvaluation"]["AuROC"] > 0.9
+
+
+# ---------------------------------------------------------------------------
+# ring_allreduce (ranks on one card: each rank its own stream; the
+# kernel, flags, slots and barrier are those of ranks on peer cards)
+# ---------------------------------------------------------------------------
+
+from transmogrifai_tpu_torch import parallel as par   # noqa: E402
+
+
+def _ring_parts(card, ndev, shape, seed=0):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=card)
+            for _ in range(ndev)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndev", [2, 3, 4])
+@pytest.mark.parametrize("shape", [(16, 40, 896), (12, 48, 896), (7, 13)])
+def test_ring_kernel_is_bitwise_the_plain_version(card, ndev, shape):
+    """All-gather: each rank's (ndev, ...) output is the parts in origin
+    order, exactly. All-reduce: every rank the same bits as the plain
+    version's left-to-right f32 sum. One launch a rank a call."""
+    mesh = par.data_mesh([card] * ndev)
+    parts = _ring_parts(card, ndev, shape, seed=ndev)
+    before = (tk.ring_allgather.launches, tk.ring_allreduce.launches)
+    gathered = tk.ring_allgather(parts, mesh)
+    reduced = tk.ring_allreduce(parts, mesh)
+    torch.cuda.synchronize()
+    assert (tk.ring_allgather.launches, tk.ring_allreduce.launches) == (
+        before[0] + ndev, before[1] + ndev)
+    stacked = torch.stack(parts)
+    ref = tk.ring_allreduce_torch(parts)
+    for r in range(ndev):
+        assert torch.equal(gathered[r], stacked)
+        assert torch.equal(reduced[r], ref[r])
+        assert torch.equal(reduced[r], reduced[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("numel", [0, 1, 3, 4097, 1_000_003])
+def test_ring_kernel_odd_sizes(card, numel):
+    mesh = par.data_mesh([card] * 3)
+    parts = _ring_parts(card, 3, (numel,), seed=numel)
+    # an offset view: not 16-byte aligned, the kernel's scalar path
+    odd = [torch.randn(numel + 1, device=card)[1:] for _ in range(3)]
+    for ps in (parts, odd):
+        red = tk.ring_allreduce(ps, mesh)
+        gat = tk.ring_allgather(ps, mesh)
+        torch.cuda.synchronize()
+        ref = tk.ring_allreduce_torch(ps)
+        for r in range(3):
+            assert torch.equal(red[r], ref[r])
+            assert torch.equal(gat[r], torch.stack(ps))
+
+
+@pytest.mark.cuda
+def test_ring_kernel_rejects_other_dtypes(card):
+    mesh = par.data_mesh([card] * 2)
+    parts = [torch.zeros(8, dtype=torch.float64, device=card)] * 2
+    with pytest.raises(TypeError, match="float32 only"):
+        tk.ring_allreduce(parts, mesh)
+    with pytest.raises(ValueError, match="shape|rank 0"):
+        tk.ring_allreduce([torch.zeros(8, device=card),
+                           torch.zeros(9, device=card)], mesh)
+
+
+@pytest.mark.cuda
+def test_ring_kernel_back_to_back_calls(card):
+    """200 calls with changing inputs and no host synchronisation between
+    them (the epoch and the neighbour barrier): every output right."""
+    mesh = par.data_mesh([card] * 4)
+    calls = [_ring_parts(card, 4, (12, 48, 896), seed=i) for i in range(200)]
+    outs = [tk.ring_allreduce(ps, mesh) for ps in calls]
+    torch.cuda.synchronize()
+    for ps, out in zip(calls, outs):
+        ref = tk.ring_allreduce_torch(ps)
+        assert all(torch.equal(o, ref[0]) for o in out)
+
+
+@pytest.mark.cuda
+def test_ring_kernel_over_peer_cards(card):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("one card: the peer-access path needs two or more")
+    devs = [torch.device("cuda", i) for i in range(min(n, 4))]
+    mesh = par.data_mesh(devs)
+    parts = [torch.randn(16, 40, 896, device=d) for d in devs]
+    red = tk.ring_allreduce(parts, mesh)
+    for d in devs:
+        torch.cuda.synchronize(d)
+    ref = tk.ring_allreduce_torch(parts)
+    for r, d in enumerate(devs):
+        assert torch.equal(red[r].cpu(), ref[0].cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", ["1", "0"])
+def test_grow_over_a_data_mesh_equals_the_single_grow(card, ring,
+                                                      monkeypatch):
+    """GBT's first-round stats (dyadic: every order of summation is
+    exact) under fold-mask weights, rows over 4 ranks of one card: the
+    trees of every rank bitwise those of the single-device grow."""
+    from transmogrifai_tpu_torch.models import trees as TT
+    monkeypatch.setenv("TM_MESH_RDMA_RING", ring)
+    rng = np.random.default_rng(5)
+    n, d, Gb = 20_003, 28, 6
+    X = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(card)
+    y = (X[:, 0] * X[:, 1] > 0).float()
+    w = torch.from_numpy((rng.random((Gb, n)) < 0.67).astype(np.float32)
+                         ).to(card)
+    bins, edges = TT._prep(X, 32, torch.ones(n, device=card))
+    gw = ((0.5 - y)[None, :, None] * w[..., None]).contiguous()
+    hw = (0.25 * w[..., None]).contiguous()
+    rep = (edges, torch.ones((Gb, d), device=card),
+           torch.ones(Gb, device=card), torch.zeros(Gb, device=card),
+           torch.ones(Gb, device=card), torch.full((Gb,), 5.0, device=card))
+    single = TT.grow_tree_grid(bins, gw, hw, w, *rep, max_depth=5)
+    mesh = par.data_mesh([card] * 4)
+    before = tk.ring_allreduce.launches
+    out = TT.grow_tree_grid(par.shard_rows(bins, mesh),
+                            par.shard_rows(gw, mesh, 1),
+                            par.shard_rows(hw, mesh, 1),
+                            par.shard_rows(w, mesh, 1), *rep, max_depth=5,
+                            mesh=mesh)
+    torch.cuda.synchronize()
+    assert tk.ring_allreduce.launches - before == (
+        4 * (5 + 1) if ring == "1" else 0)
+    for res in out:
+        for a, b in zip(single[:4], res[:4]):
+            assert torch.equal(a, b)

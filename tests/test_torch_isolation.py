@@ -97,11 +97,16 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     path = str(tmp_path)
     manifest = {"format": 1, "boundary": [], "responseBoundary": [],
                 "resultNames": [], "hostPrefix": [], "stages": []}
+    from transmogrifai_tpu_torch import parallel
     for call in (lambda: portable.from_portable(manifest, {}),
                  lambda: ModelRegistry().register("v", path),
                  lambda: ModelRegistry().register_lazy("v", path),
                  lambda: build_registry(path),
-                 lambda: ServingEngine(path)):
+                 lambda: ServingEngine(path),
+                 lambda: parallel.data_mesh(),
+                 lambda: parallel.sharded_histograms(
+                     np.zeros((4, 2), np.int32), np.zeros((1, 4, 3)),
+                     np.zeros((1, 4), np.int32), 1, 2)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 
@@ -115,6 +120,32 @@ def test_kernel_wrapper_never_falls_back_off_cpu():
     mid = torch.empty((4,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         sk.fused_linear_scores(X, W, mid)
+
+
+def test_parallel_modules_are_in_the_import_probe():
+    """The data-parallel layer is among the modules the probe above
+    imports (it walks the package), and the ring's sources are found."""
+    import pkgutil
+    import transmogrifai_tpu_torch as P
+    mods = {m.name for m in pkgutil.walk_packages(P.__path__,
+                                                  P.__name__ + ".")}
+    assert {"transmogrifai_tpu_torch.parallel",
+            "transmogrifai_tpu_torch.parallel.mesh",
+            "transmogrifai_tpu_torch.parallel.data_parallel"} <= mods
+    assert os.path.join(_PKG, "parallel", "data_parallel.py") in (
+        _port_sources())
+
+
+def test_ring_wrapper_takes_no_other_device():
+    """A mesh of one kind only: the ring never quietly moves a part to
+    the CPU, and TM_MESH_RDMA_RING=0 is the only route to the plain sum
+    on a card (a choice resolved on the host)."""
+    from transmogrifai_tpu_torch import parallel
+    from transmogrifai_tpu_torch.models import kernels as tk
+    mesh = parallel.data_mesh(["cpu"] * 2)
+    with pytest.raises(ValueError, match="its rank is on"):
+        tk.ring_allreduce([torch.zeros(3), torch.zeros(3, device="meta")],
+                          mesh)
 
 
 def test_failed_kernel_build_raises(monkeypatch, tmp_path):
@@ -135,6 +166,7 @@ def test_failed_kernel_build_raises(monkeypatch, tmp_path):
 def test_kernel_sources_are_found():
     from transmogrifai_tpu_torch import _cuda_build
     assert _cuda_build.kernel_names() == ["fused_linear_scores",
+                                          "ring_allreduce",
                                           "tree_histogram"]
     assert "sm_90a" in " ".join(_cuda_build.NVCC_FLAGS)
     with pytest.raises(FileNotFoundError):

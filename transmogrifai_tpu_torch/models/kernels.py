@@ -1,4 +1,5 @@
-"""The tree-histogram kernel and the training numerics policy.
+"""The tree-histogram kernel, the cross-rank ring reduction and the
+training numerics policy.
 
 Counterpart of ``transmogrifai_tpu/models/kernels.py``. There the
 histogram of every tree level is either a one-hot MXU matmul in XLA
@@ -26,6 +27,12 @@ Numerics policy (the JAX package's knobs, same meaning):
 * ``TM_HIST_ACCUM_BF16=1`` (bf16 accumulation) is not ported and raises
   (:func:`hist_accum_bf16`).
 
+The cross-rank reduction of row-sharded work (``allreduce_data``) is
+the second kernel here: ``csrc/ring_allreduce.cu`` behind
+``ring_allgather`` / ``ring_allreduce``, with the plain versions
+``ring_allgather_torch`` / ``ring_allreduce_torch`` (see the section
+below).
+
 The TPU-only knobs ``TM_PALLAS``, ``TM_HIST_DOUBLE_BUFFER``,
 ``TM_HIST_MXU_ALIGN``, ``TM_HIST_ROWS_PER_STEP`` and the autotuner hook
 size VMEM blocks and MXU tiles; the port reads none of them.
@@ -36,7 +43,7 @@ import ctypes
 import math
 import os
 import threading
-from typing import Dict
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -289,3 +296,352 @@ def histogram_cost(G: int, n: int, d: int, S: int, m: int,
     feature, stat) (operations)."""
     nbytes = 4.0 * (n * d + G * n * S + G * n + G * m * S * d * B)
     return {"bytes": nbytes, "adds": float(G) * n * d * S}
+
+
+# ---------------------------------------------------------------------------
+# Cross-rank reductions: the hand-written CUDA ring (+ its plain version)
+# ---------------------------------------------------------------------------
+#
+# Counterpart of the JAX package's ring_reduce_enabled / ring_allgather
+# (the Pallas RDMA ring, _ring_gather_kernel) / ring_allreduce /
+# allreduce_data. ``parts`` is one tensor per rank of a
+# ``parallel.DataMesh`` (parts[r] on mesh.devices[r], all the same shape,
+# f32, contiguous); the result is one tensor per rank again.
+
+#: the CUDA source of the ring kernel
+RING_KERNEL_NAME = "ring_allreduce"
+#: ranks the kernel takes (its RingPeers arrays)
+RING_MAX_RANKS = 8
+#: blocks one call may launch over all its ranks (csrc kWaveBlocks): one
+#: wave of an H100's 132 SMs, so every rank's blocks are resident at once
+RING_WAVE_BLOCKS = 132
+#: floats a block owns at least, before the wave cap splits finer
+RING_MIN_CHUNK = 4096
+#: flag words per rank (csrc kFlagRows x kWaveBlocks)
+RING_FLAG_WORDS = (RING_MAX_RANKS + 1) * RING_WAVE_BLOCKS
+#: a wait on a neighbour longer than this traps (a protocol fault)
+RING_TIMEOUT_S = 5.0
+
+
+def ring_reduce_enabled(device=None) -> bool:
+    """Whether the cross-rank reductions of the data-parallel entry
+    points (``parallel.sharded_histograms``, ``trees.grow_tree_grid(mesh=
+    ...)``) launch the CUDA ring: TM_MESH_RDMA_RING=1/0 forces; unset ->
+    the ring exactly when ``device`` is CUDA. On CPU tensors the ring's
+    wrapper runs its plain version either way."""
+    from ..parallel.mesh import resolve_mesh_config
+    cfg = resolve_mesh_config()
+    if cfg.rdma_ring is not None:
+        return cfg.rdma_ring
+    return device is not None and torch.device(device).type == "cuda"
+
+
+def _check_parts(parts, mesh):
+    if len(parts) != mesh.size:
+        raise ValueError(f"{len(parts)} parts for a mesh of {mesh.size} "
+                         f"ranks")
+    shape = parts[0].shape
+    for r, (p, d) in enumerate(zip(parts, mesh.devices)):
+        if p.dtype != torch.float32:
+            raise TypeError(f"ring: rank {r} part is {p.dtype}, the ring "
+                            f"takes float32 only")
+        if p.shape != shape:
+            raise ValueError(f"ring: rank {r} part {tuple(p.shape)} != "
+                             f"rank 0's {tuple(shape)}")
+        if p.device != d:
+            raise ValueError(f"ring: rank {r} part on {p.device}, its rank "
+                             f"is on {d}")
+
+
+def ring_allgather_torch(parts: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Plain version of the ring all-gather: the kernel's slot schedule
+    run as tensor copies. Rank r's slot 0 is its own part; at step s
+    every rank's slot s goes to its right neighbour's slot s+1, so slot
+    j of rank r holds the part j hops to its left, origin (r - j) mod
+    ndev; then the origin remap. Returns per rank the (ndev, ...) stack
+    in origin order."""
+    ndev = len(parts)
+    slots = [[p] for p in parts]
+    for s in range(ndev - 1):
+        for r in range(ndev):
+            left = (r - 1) % ndev
+            slots[r].append(slots[left][s].to(parts[r].device, copy=True))
+    return [torch.stack([slots[r][(r - o) % ndev] for o in range(ndev)])
+            for r in range(ndev)]
+
+
+def ring_allreduce_torch(parts: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Plain version of the ring all-reduce: the all-gather's origin
+    order summed left to right in f32, ``acc = x_0; acc = acc + x_1;
+    ...``: every rank gets the same bits, and the kernel's."""
+    out = []
+    for g in ring_allgather_torch(parts):
+        acc = g[0].clone()
+        for o in range(1, g.shape[0]):
+            acc = acc + g[o]
+        out.append(acc)
+    return out
+
+
+def ring_plan(numel: int, ndev: int) -> Dict[str, int]:
+    """How a call cuts its parts: ``blocks`` a rank (at most
+    RING_WAVE_BLOCKS // ndev, so all ranks' blocks are resident at once
+    on one card), each owning ``chunk`` floats (a multiple of 4, for
+    16-byte copies). Depends on numel and ndev alone."""
+    if numel <= 0:
+        return {"blocks": 0, "chunk": 0}
+    cap = max(1, RING_WAVE_BLOCKS // ndev)
+    blocks = min(cap, -(-numel // RING_MIN_CHUNK))
+    chunk = -(-numel // blocks)
+    chunk = -(-chunk // 4) * 4
+    return {"blocks": -(-numel // chunk), "chunk": chunk}
+
+
+def ring_cost(ndev: int, numel: int, same_card: bool) -> Dict[str, Any]:
+    """The least an all-reduce of ndev f32 parts of ``numel`` values
+    must do, and the time the H100 needs for it (the larger of bytes
+    over the memory or link rate and adds over the f32 rate):
+
+    * every part read once and every rank's output written once:
+      ``8 * ndev * numel`` bytes of device memory, one card's 3.35 TB/s
+      when the ranks share it (``same_card``), else per card
+      ``8 * numel`` at that rate, beside the link: a card must receive
+      at least ``2 * (ndev - 1) / ndev`` of a part (reduce-scatter then
+      all-gather) over 450 GB/s of NVLink one way;
+    * ``(ndev - 1) * numel`` f32 adds at 67 TFLOP/s.
+
+    The ring itself moves more: each rank pushes ndev-1 chunks and reads
+    ndev slots (``ring_bytes``)."""
+    hbm, link, f32 = 3.35e12, 450e9, 67e12
+    adds = float(max(ndev - 1, 0)) * numel
+    if same_card:
+        nbytes = 8.0 * ndev * numel
+        bytes_s = nbytes / hbm
+    else:
+        nbytes = 8.0 * numel
+        link_bytes = 4.0 * numel * 2.0 * (ndev - 1) / ndev
+        bytes_s = max(nbytes / hbm, link_bytes / link)
+    ops_s = adds / f32
+    return {"bytes": nbytes, "adds": adds,
+            "ring_bytes": 4.0 * numel * ndev * (3 * ndev - 1),
+            "bound_ms": max(bytes_s, ops_s) * 1e3,
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations"}
+
+
+_RING_LIB = None
+
+
+def _ring_library():
+    """Build (first use) and bind the ring kernel's C entry points."""
+    global _RING_LIB
+    if _RING_LIB is None:
+        lib = _cuda_build.load_library(RING_KERNEL_NAME)
+        lib.tm_ring_launch_all.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 7
+            + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_longlong,
+                                         ctypes.c_uint, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_longlong,
+                                         ctypes.c_void_p])
+        lib.tm_ring_launch_all.restype = ctypes.c_int
+        lib.tm_ring_prepare.argtypes = []
+        lib.tm_ring_prepare.restype = ctypes.c_int
+        lib.tm_ring_enable_peer.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.tm_ring_enable_peer.restype = ctypes.c_int
+        lib.tm_ring_error_string.argtypes = [ctypes.c_int]
+        lib.tm_ring_error_string.restype = ctypes.c_char_p
+        for name, want in (("tm_ring_flag_words", RING_FLAG_WORDS),
+                           ("tm_ring_max_ranks", RING_MAX_RANKS),
+                           ("tm_ring_wave_blocks", RING_WAVE_BLOCKS)):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = [], ctypes.c_int
+            if fn() != want:
+                raise RuntimeError(f"{RING_KERNEL_NAME}: {name} is "
+                                   f"{fn()}, the wrapper expects {want}")
+        _RING_LIB = lib
+    return _RING_LIB
+
+
+class _RingComm:
+    """One data mesh's ring buffers: per rank a flag-word array (zeroed
+    once, only ever raised to the call's epoch) and a slot buffer of
+    (ndev - 1) x cap floats, grown only after every rank's stream has
+    finished (a neighbour may still be writing into the old one). Peer
+    access is enabled once per pair of distinct neighbouring cards, and
+    the kernel loaded into each card's context before its first
+    launch."""
+
+    def __init__(self, mesh):
+        lib = _ring_library()
+        ndev = mesh.size
+        if ndev > RING_MAX_RANKS:
+            raise ValueError(f"the ring takes at most {RING_MAX_RANKS} "
+                             f"ranks, the mesh has {ndev}")
+        for d in dict.fromkeys(mesh.devices):
+            with torch.cuda.device(d):
+                err = lib.tm_ring_prepare()
+            if err:
+                raise RuntimeError(f"ring kernel failed to load on {d}: "
+                                   f"{lib.tm_ring_error_string(err).decode()}")
+        for r, d in enumerate(mesh.devices):
+            for nb in (mesh.devices[(r + 1) % ndev],
+                       mesh.devices[(r - 1) % ndev]):
+                if nb == d:
+                    continue
+                err = lib.tm_ring_enable_peer(d.index, nb.index)
+                if err == -1:
+                    raise RuntimeError(f"ring: {d} cannot access {nb}'s "
+                                       f"memory (no peer access); the ring "
+                                       f"never stages through the host")
+                if err:
+                    raise RuntimeError(
+                        f"ring: enabling peer access {d} -> {nb} failed: "
+                        f"{lib.tm_ring_error_string(err).decode()}")
+        self.flags = [torch.zeros(RING_FLAG_WORDS, dtype=torch.int32,
+                                  device=d) for d in mesh.devices]
+        self.slots: List[torch.Tensor] = []
+        self.cap = 0
+        self.epoch = 0
+
+    def reserve(self, mesh, numel: int) -> None:
+        if numel <= self.cap:
+            return
+        for s in mesh.streams:
+            s.synchronize()
+        cap = -(-numel // 4) * 4
+        self.slots = [torch.empty(max(mesh.size - 1, 1) * cap,
+                                  dtype=torch.float32, device=d)
+                      for d in mesh.devices]
+        # a reused block may still be read by its card's queued work,
+        # and a neighbour on another card writes it from its own stream
+        for d in dict.fromkeys(mesh.devices):
+            torch.cuda.synchronize(d)
+        self.cap = cap
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    return t.data_ptr() % 16 == 0
+
+
+def _ring(parts, mesh, gather: bool) -> List[torch.Tensor]:
+    """Launch one ring call: rank r's kernel on mesh.streams[r], every
+    rank from one host call (tm_ring_launch_all). Outputs are allocated
+    on the rank streams before it (an allocation may synchronise, and a
+    synchronisation between launches would wait on a rank spinning for
+    a neighbour not yet launched)."""
+    ndev = mesh.size
+    shape = tuple(parts[0].shape)
+    numel = parts[0].numel()
+    out_shape = (ndev,) + shape if gather else shape
+    if any(not p.is_contiguous() for p in parts):
+        raise ValueError("ring: parts must be contiguous")
+    if mesh.ring is None:
+        mesh.ring = _RingComm(mesh)
+    comm = mesh.ring
+    comm.reserve(mesh, numel)
+    mesh.fork()
+    outs = []
+    for r in range(ndev):
+        with mesh.rank(r):
+            outs.append(torch.empty(out_shape, dtype=torch.float32,
+                                    device=mesh.devices[r]))
+    plan = ring_plan(numel, ndev)
+    if plan["blocks"] == 0:
+        return outs
+    for p, s in zip(parts, mesh.streams):
+        p.record_stream(s)          # read on the rank stream
+    comm.epoch = (comm.epoch + 1) & 0xFFFFFFFF
+    lib = _ring_library()
+
+    def ptrs(vals):
+        return (ctypes.c_void_p * ndev)(*vals)
+    vecs = (ctypes.c_int * ndev)(*[
+        int(_aligned(p) and _aligned(o) and (not gather or numel % 4 == 0))
+        for p, o in zip(parts, outs)])
+    failed = ctypes.c_int(-1)
+    err = lib.tm_ring_launch_all(
+        ndev, (ctypes.c_int * ndev)(*[d.index for d in mesh.devices]),
+        ptrs([p.data_ptr() for p in parts]),
+        ptrs([o.data_ptr() for o in outs]),
+        ptrs([s.data_ptr() for s in comm.slots]),
+        ptrs([f.data_ptr() for f in comm.flags]),
+        ptrs([s.cuda_stream for s in mesh.streams]), vecs, numel,
+        plan["chunk"], plan["blocks"], comm.cap, comm.epoch, int(gather),
+        int(len(set(mesh.devices)) > 1), int(RING_TIMEOUT_S * 1e9),
+        ctypes.byref(failed))
+    if err:
+        raise RuntimeError(
+            f"ring_allreduce launch failed on rank {failed.value} of "
+            f"{ndev} (numel={numel}): "
+            f"{lib.tm_ring_error_string(err).decode()}")
+    return outs
+
+
+def ring_allgather(parts: List[torch.Tensor], mesh) -> List[torch.Tensor]:
+    """All-gather of one f32 part per rank -> per rank the (ndev, ...)
+    stack in ORIGIN order, bitwise the same on every rank.
+
+    On CPU tensors this is :func:`ring_allgather_torch`. On CUDA tensors
+    it launches ``csrc/ring_allreduce.cu`` (gather mode) once per rank,
+    each on its rank's stream (built at first use), and raises if the
+    build or a launch fails. The parts must be ready on their ranks'
+    streams or on their cards' current streams (``mesh.fork()`` runs
+    first); the outputs are ready on the rank streams (``mesh.join`` for
+    the current streams). ``ring_allgather.launches`` counts launches."""
+    _check_parts(parts, mesh)
+    if not mesh.is_cuda:
+        return ring_allgather_torch(parts)
+    outs = _ring(parts, mesh, gather=True)
+    with _LAUNCH_LOCK:
+        ring_allgather.launches += mesh.size if parts[0].numel() else 0
+    return outs
+
+
+def ring_allreduce(parts: List[torch.Tensor], mesh) -> List[torch.Tensor]:
+    """Sum of one f32 part per rank -> per rank the origin-order sum
+    ``((x_0 + x_1) + x_2) + ...`` in f32: every rank holds the same
+    bits, equal to :func:`ring_allreduce_torch` (a psum's order is the
+    backend's; the ring's is pinned). CPU tensors take the plain
+    version; CUDA tensors launch the kernel as :func:`ring_allgather`
+    does, gather and sum fused. ``ring_allreduce.launches`` counts
+    launches."""
+    _check_parts(parts, mesh)
+    if not mesh.is_cuda:
+        return ring_allreduce_torch(parts)
+    outs = _ring(parts, mesh, gather=False)
+    with _LAUNCH_LOCK:
+        ring_allreduce.launches += mesh.size if parts[0].numel() else 0
+    return outs
+
+
+#: launches of the CUDA kernel, one per rank per call (CPU counts nothing)
+ring_allgather.launches = 0
+ring_allreduce.launches = 0
+
+
+def allreduce_data(parts: List[torch.Tensor], mesh,
+                   use_ring: Optional[bool] = None) -> List[torch.Tensor]:
+    """The cross-rank histogram/gradient reduction of row-partitioned
+    work, the one policy point: :func:`ring_allreduce` (the CUDA ring)
+    when ``use_ring``, else the plain origin-order sum
+    :func:`ring_allreduce_torch` (TM_MESH_RDMA_RING=0: the port's psum,
+    an explicit choice, never a fallback). At one rank the parts are
+    returned as they are.
+
+    ``use_ring=None`` resolves :func:`ring_reduce_enabled` here; a
+    caller that makes several reductions resolves it once on the host
+    and passes it, so one computation never mixes the two."""
+    if mesh.size <= 1:
+        return list(parts)
+    if use_ring is None:
+        use_ring = ring_reduce_enabled(parts[0].device)
+    if use_ring or not mesh.is_cuda:
+        return ring_allreduce(parts, mesh)
+    # the plain sum reads every rank's part: it runs on the cards'
+    # current streams, after the rank streams, and hands back to them
+    _check_parts(parts, mesh)
+    mesh.join(*parts)
+    outs = ring_allreduce_torch(parts)
+    mesh.fork()
+    for o, s in zip(outs, mesh.streams):
+        o.record_stream(s)
+    return outs

@@ -38,12 +38,13 @@ CUDA floats is atomic and its order varies run to run.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from .base import ModelFamily, ModelStage
-from .kernels import histogram_grid
+from .kernels import allreduce_data, histogram_grid, ring_reduce_enabled
 
 _INF = float("inf")
 
@@ -106,10 +107,10 @@ def _prep(X: torch.Tensor, n_bins: int, w: Optional[torch.Tensor] = None):
 # Core: grow Gb trees at once over shared bins
 # ---------------------------------------------------------------------------
 
-def grow_tree_grid(bins: torch.Tensor,           # (n, d) int32, SHARED
-                   gw: torch.Tensor,             # (Gb, n, C)
-                   hw: torch.Tensor,             # (Gb, n, C)
-                   w: torch.Tensor,              # (Gb, n)
+def grow_tree_grid(bins,                         # (n, d) int32, SHARED
+                   gw,                           # (Gb, n, C)
+                   hw,                           # (Gb, n, C)
+                   w,                            # (Gb, n)
                    edges: torch.Tensor,          # (d, B-1), SHARED
                    feat_mask: torch.Tensor,      # (Gb, d)
                    lam: torch.Tensor,            # (Gb,)
@@ -118,7 +119,8 @@ def grow_tree_grid(bins: torch.Tensor,           # (n, d) int32, SHARED
                    depth_limit: torch.Tensor,    # (Gb,)
                    subset_draws: Optional[Sequence[torch.Tensor]] = None,
                    subset_rate: Optional[torch.Tensor] = None,
-                   *, max_depth: int):
+                   *, max_depth: int, mesh=None,
+                   data_ring: Optional[bool] = None):
     """Grow one tree for each of Gb instances over SHARED bins.
 
     Each level's histograms are ONE ``histogram_grid`` launch over all
@@ -131,78 +133,164 @@ def grow_tree_grid(bins: torch.Tensor,           # (n, d) int32, SHARED
     tree exactly.
 
     Returns (feat (Gb, I) int64, thr (Gb, I), leaf (Gb, L, C),
-    gains (Gb, I), pos (Gb, n)) with I = 2^D - 1, L = 2^D."""
-    Gb, n, C = gw.shape
-    d = bins.shape[1]
+    gains (Gb, I), pos (Gb, n)) with I = 2^D - 1, L = 2^D.
+
+    ``mesh`` (a ``parallel.DataMesh``) is the row-partitioned mode, the
+    JAX package's ``data_axis``: ``bins``, ``gw``, ``hw`` and ``w`` are
+    lists of per-rank row shards (``parallel.shard_rows``; zero-padded
+    rows carry zero stats), the other arguments are replicated. Each
+    level launches one histogram per rank on its stream, reduces the
+    partials with ``kernels.allreduce_data`` and runs the split search
+    on every rank, as SPMD does; the leaf gradient/hessian sums reduce
+    the same way. Returns one result tuple per rank (``pos`` of its own
+    rows); every rank scans the same bits, so the trees are identical.
+    ``data_ring`` is the ring-vs-plain policy (None:
+    ``kernels.ring_reduce_enabled``), resolved once for the whole grow.
+    """
+    if mesh is None:
+        return _grow_ranks([bins], [gw], [hw], [w], edges, feat_mask, lam,
+                           gamma, min_instances, depth_limit, subset_draws,
+                           subset_rate, max_depth, None, False)[0]
+    if data_ring is None:
+        data_ring = ring_reduce_enabled(mesh.devices[0])
+    mesh.fork()
+    out = _grow_ranks(list(bins), list(gw), list(hw), list(w), edges,
+                      feat_mask, lam, gamma, min_instances, depth_limit,
+                      subset_draws, subset_rate, max_depth, mesh,
+                      bool(data_ring))
+    mesh.join(*(t for res in out for t in res))
+    return out
+
+
+def _grow_ranks(bins, gw, hw, w, edges, feat_mask, lam, gamma,
+                min_instances, depth_limit, subset_draws, subset_rate,
+                max_depth: int, mesh, data_ring: bool):
+    """The grower over ranks: bins/gw/hw/w are per-rank lists (one entry
+    and no mesh for the single-device grow); replicated arguments are
+    copied to each rank's device once."""
+    ndev = len(bins)
+
+    def on(r):      # rank r's stream
+        return contextlib.nullcontext() if mesh is None else mesh.rank(r)
+    Gb, _, C = gw[0].shape
+    d = bins[0].shape[1]
     B = edges.shape[1] + 1
-    dev = bins.device
-    stats = torch.cat([gw, hw, w[..., None]], dim=2).contiguous()
     S = 2 * C + 1
-    lam_ = lam[:, None, None, None, None]
-    bins_t = bins.T.contiguous()                     # (d, n) for routing
-    pos = torch.zeros((Gb, n), dtype=torch.int32, device=dev)
-    min_i = min_instances[:, None, None, None]
-    inf = torch.full((), _INF, device=dev)
-    feats, thrs, gains = [], [], []
+    ranks = []
+    for r in range(ndev):
+        with on(r):
+            dev = bins[r].device
+            rep = {k: v.to(dev) for k, v in (
+                ("edges", edges), ("feat_mask", feat_mask), ("lam", lam),
+                ("gamma", gamma), ("min_instances", min_instances),
+                ("depth_limit", depth_limit))}
+            if subset_draws is not None:
+                rep["subset_draws"] = [t.to(dev) for t in subset_draws]
+                rep["subset_rate"] = subset_rate.to(dev)
+            ranks.append({
+                "dev": dev, "rep": rep, "bins": bins[r],
+                "bins_t": bins[r].T.contiguous(),     # (d, n) for routing
+                "stats": torch.cat([gw[r], hw[r], w[r][..., None]],
+                                   dim=2).contiguous(),
+                "pos": torch.zeros((Gb, bins[r].shape[0]),
+                                   dtype=torch.int32, device=dev),
+                "feats": [], "thrs": [], "gains": []})
     for level in range(max_depth):
         m = 1 << level
-        hist = histogram_grid(bins, stats, pos, m, B).reshape(Gb, m, S, d, B)
-        cum = torch.cumsum(hist, dim=4)
-        GL = cum[:, :, :C, :, :B - 1]                  # (Gb, m, C, d, B-1)
-        HL = cum[:, :, C:2 * C, :, :B - 1]
-        WL = cum[:, :, 2 * C, :, :B - 1]               # (Gb, m, d, B-1)
-        G = cum[:, :, :C, :, -1:]
-        H = cum[:, :, C:2 * C, :, -1:]
-        GR, HR = G - GL, H - HL
-        WR = cum[:, :, 2 * C, :, -1:] - WL
-
-        def score(gs, hs):
-            return gs * gs / (hs + lam_ + 1e-12)
-
-        gain = torch.sum(score(GL, HL) + score(GR, HR) - score(G, H), dim=2)
-        fm_l = feat_mask[:, None, :]                   # (Gb, 1|m, d)
-        if subset_draws is not None:
-            draw = (subset_draws[level]
-                    < subset_rate[:, None, None]).to(torch.float32)
-            comb = fm_l * draw                         # (Gb, m, d)
-            fm_l = torch.where(torch.sum(comb, 2, keepdim=True) < 0.5,
-                               fm_l, comb)
-        valid = ((WL >= min_i) & (WR >= min_i)
-                 & (fm_l[:, :, :, None] > 0.5))
-        gain = torch.where(valid, gain, -inf)          # (Gb, m, d, B-1)
-
-        flat = gain.reshape(Gb, m, d * (B - 1))
-        best = torch.argmax(flat, dim=2)               # first max, as jnp
-        best_gain = torch.gather(flat, 2, best[:, :, None])[:, :, 0]
-        bf = best // (B - 1)                           # (Gb, m) feature
-        bb = best % (B - 1)                            # (Gb, m) bin
-        do = (best_gain > gamma[:, None]) & (depth_limit[:, None] > level)
-
-        feat_l = torch.where(do, bf, 0)
-        thr_l = torch.where(do, edges[bf, bb], inf)
-        thr_bin = torch.where(do, bb, B - 1)
-        feats.append(feat_l)
-        thrs.append(thr_l)
-        gains.append(torch.where(do, best_gain, 0.0))
-
-        p = pos.to(torch.int64)
-        f_i = torch.gather(feat_l, 1, p)                          # (Gb, n)
-        t_i = torch.gather(thr_bin, 1, p)
-        b_i = torch.gather(bins_t, 0, f_i)
-        pos = 2 * pos + (b_i > t_i).to(torch.int32)
-
+        hists = []
+        for r, rk in enumerate(ranks):
+            with on(r):
+                hists.append(histogram_grid(rk["bins"], rk["stats"],
+                                            rk["pos"], m, B))
+        if mesh is not None:
+            hists = allreduce_data(hists, mesh, use_ring=data_ring)
+        for r, rk in enumerate(ranks):
+            with on(r):
+                _split_level(rk, hists[r].reshape(Gb, m, S, d, B), level,
+                             C, B)
     L = 1 << max_depth
-    leaf_G, leaf_H = _leaf_sums(pos, gw, hw, L)
-    leaf = leaf_G / (leaf_H + lam[:, None, None] + 1e-12)
-    return (torch.cat(feats, dim=1), torch.cat(thrs, dim=1), leaf,
-            torch.cat(gains, dim=1), pos)
+    sums = []
+    for r, rk in enumerate(ranks):
+        with on(r):
+            sums.append(_leaf_sums(rk["pos"], gw[r], hw[r], L))
+    if mesh is not None:
+        sums = allreduce_data(sums, mesh, use_ring=data_ring)
+    out = []
+    for r, rk in enumerate(ranks):
+        with on(r):
+            lam_r = rk["rep"]["lam"]
+            leaf = sums[r][:, :, :C] / (sums[r][:, :, C:]
+                                        + lam_r[:, None, None] + 1e-12)
+            out.append((torch.cat(rk["feats"], dim=1),
+                        torch.cat(rk["thrs"], dim=1), leaf,
+                        torch.cat(rk["gains"], dim=1), rk["pos"]))
+    return out
+
+
+def _split_level(rk: Dict[str, Any], hist: torch.Tensor, level: int,
+                 C: int, B: int) -> None:
+    """One level's split search on one rank from the full histogram
+    (Gb, m, S, d, B): appends the level's feat/thr/gains to ``rk`` and
+    routes its rows to the next level's nodes."""
+    rep = rk["rep"]
+    lam_ = rep["lam"][:, None, None, None, None]
+    min_i = rep["min_instances"][:, None, None, None]
+    edges = rep["edges"]
+    Gb, m, _, d, _ = hist.shape
+    inf = torch.full((), _INF, device=rk["dev"])
+    cum = torch.cumsum(hist, dim=4)
+    GL = cum[:, :, :C, :, :B - 1]                  # (Gb, m, C, d, B-1)
+    HL = cum[:, :, C:2 * C, :, :B - 1]
+    WL = cum[:, :, 2 * C, :, :B - 1]               # (Gb, m, d, B-1)
+    G = cum[:, :, :C, :, -1:]
+    H = cum[:, :, C:2 * C, :, -1:]
+    GR, HR = G - GL, H - HL
+    WR = cum[:, :, 2 * C, :, -1:] - WL
+
+    def score(gs, hs):
+        return gs * gs / (hs + lam_ + 1e-12)
+
+    gain = torch.sum(score(GL, HL) + score(GR, HR) - score(G, H), dim=2)
+    fm_l = rep["feat_mask"][:, None, :]            # (Gb, 1|m, d)
+    if "subset_draws" in rep:
+        draw = (rep["subset_draws"][level]
+                < rep["subset_rate"][:, None, None]).to(torch.float32)
+        comb = fm_l * draw                         # (Gb, m, d)
+        fm_l = torch.where(torch.sum(comb, 2, keepdim=True) < 0.5,
+                           fm_l, comb)
+    valid = ((WL >= min_i) & (WR >= min_i)
+             & (fm_l[:, :, :, None] > 0.5))
+    gain = torch.where(valid, gain, -inf)          # (Gb, m, d, B-1)
+
+    flat = gain.reshape(Gb, m, d * (B - 1))
+    best = torch.argmax(flat, dim=2)               # first max, as jnp
+    best_gain = torch.gather(flat, 2, best[:, :, None])[:, :, 0]
+    bf = best // (B - 1)                           # (Gb, m) feature
+    bb = best % (B - 1)                            # (Gb, m) bin
+    do = ((best_gain > rep["gamma"][:, None])
+          & (rep["depth_limit"][:, None] > level))
+
+    feat_l = torch.where(do, bf, 0)
+    thr_l = torch.where(do, edges[bf, bb], inf)
+    thr_bin = torch.where(do, bb, B - 1)
+    rk["feats"].append(feat_l)
+    rk["thrs"].append(thr_l)
+    rk["gains"].append(torch.where(do, best_gain, 0.0))
+
+    pos = rk["pos"]
+    p = pos.to(torch.int64)
+    f_i = torch.gather(feat_l, 1, p)                          # (Gb, n)
+    t_i = torch.gather(thr_bin, 1, p)
+    b_i = torch.gather(rk["bins_t"], 0, f_i)
+    rk["pos"] = 2 * pos + (b_i > t_i).to(torch.int32)
 
 
 def _leaf_sums(pos: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
-               L: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-leaf sums of gw and hw, (Gb, L, C) each: one (L, n) x (n, 2C)
-    one-hot product per instance, so the sums are deterministic and an
-    instance's leaves do not depend on the batch."""
+               L: int) -> torch.Tensor:
+    """Per-leaf sums of gw and hw, (Gb, L, 2C) with the gw sums first:
+    one (L, n) x (n, 2C) one-hot product per instance, so the sums are
+    deterministic and an instance's leaves do not depend on the batch
+    (``index_add_`` on CUDA floats is atomic and its order varies)."""
     Gb, n, C = gw.shape
     leaves = torch.arange(L, device=pos.device, dtype=torch.int32)
     both = torch.cat([gw, hw], dim=2)
@@ -210,7 +298,7 @@ def _leaf_sums(pos: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
     for g in range(Gb):
         oh = (pos[g][None, :] == leaves[:, None]).to(torch.float32)
         out[g] = oh @ both[g]
-    return out[:, :, :C], out[:, :, C:]
+    return out
 
 
 def _importance(feat: torch.Tensor, gains: torch.Tensor,

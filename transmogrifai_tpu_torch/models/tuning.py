@@ -19,7 +19,8 @@ Not carried over: the vmapped sweep of the linear families (a family
 without ``fit_eval_grid`` raises), ``TM_TREE_GRID_FOLD=0`` (the port has
 only the folded path, so the knob raises), the serial sweep of
 ``TM_SWEEP_FUSION=0`` (an instance's fit does not depend on its batch,
-so stacking candidates changes no result), meshes, static hyper
+so stacking candidates changes no result), grid sharding over a device
+mesh (``TM_MESH_AXIS=grid,data``, the 2-D sweep, raises), static hyper
 specialization and gathered-fold slicing (tree families use neither),
 the program caches (nothing is traced) and the fault points.
 """
@@ -53,6 +54,12 @@ def require_folded(family: ModelFamily) -> None:
         raise NotImplementedError(
             "TM_TREE_GRID_FOLD=0 (the vmapped per-instance tree path) is "
             "not ported: transmogrifai_tpu_torch has only the folded path")
+    from ..parallel.mesh import resolve_mesh_config
+    if resolve_mesh_config().axis == "grid,data":
+        raise NotImplementedError(
+            "TM_MESH_AXIS=grid,data (the 2-D grid x data sweep) is not "
+            "ported: the port's row-partitioned path is "
+            "trees.grow_tree_grid(mesh=...) and parallel.sharded_histograms")
 
 
 # ---------------------------------------------------------------------------
