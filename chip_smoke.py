@@ -35,7 +35,9 @@ kernel against its plain PyTorch version:
    with one node and one instance), in both operand modes: float stats
    to a stated tolerance, integer stats bitwise, two launches bitwise,
    one instance alone equal to its slice of the batch; timed beside its
-   bound, the plain version and the one-hot GEMM ``torch.matmul``;
+   bound, the plain version and the one-hot GEMM ``torch.matmul``; the
+   kernel's SASS (``cuobjdump -sass``) must hold tensor-core ``HMMA``
+   instructions;
 5. training: ``BinaryClassificationModelSelector`` with 3-fold CV over
    DecisionTree/RandomForest/GBT/XGBoost at default grids and
    registered caps on 200k x 28 HIGGS-shaped rows from ``--seed``,
@@ -50,13 +52,16 @@ kernel against its plain PyTorch version:
    ranks sharing one card (each rank its own stream), and over every
    visible card up to 4 as peers when there are two or more, at the
    histogram capture shape and a GBT level: every rank bitwise the
-   plain version, 200 back-to-back calls with changing inputs right;
+   plain version, 200 back-to-back calls with changing inputs right,
+   each input overwritten on its rank's stream right after its call;
    timed beside its bound, the plain version and a library yardstick
    (one ``torch.sum`` over the stacked parts and ndev-1 copies):
-   ``ms`` is the device time per call with every call queued before the
-   card starts (``queued_ms``), ``span_ms`` the union of the ranks'
-   kernels per call as the host issues them, ``call_ms`` the CUDA-event
-   time per call with the host's issue gaps;
+   ``ms`` and ``library_ms`` are device times per call with every call
+   queued before the card starts (``queued_ms``), ``span_ms`` the
+   union of the ranks' kernels per call as the host issues them,
+   ``after_last_start_ms`` the part of it after the last rank's kernel
+   started, ``call_ms`` the CUDA-event time per call with the host's
+   issue gaps;
 7. data_parallel: ``trees.grow_tree_grid`` over a 4-rank data mesh on
    the training phase's 200k x 28 rows (50k a rank), GBT's folded first
    round (12 instances, depth 5, B = 32): every rank's trees bitwise
@@ -583,8 +588,8 @@ HIST_SHAPES = [
     ("ragged_m1_g1", 1, 1_237, 28, 5, 1, 32),
 ]
 #: kernel vs plain version on float stats: f32 sums in another order
-#: (a sequential sum over each block's rows, then over <= 32 block
-#: partials), each cell within HIST_RTOL of the sum of its |terms|
+#: (the tensor cores' chain over each 128-row tile, then tiles and runs
+#: in order), each cell within HIST_RTOL of the sum of its |terms|
 HIST_RTOL = 1e-4
 #: H100 SXM bf16 dense tensor-core peak (NVIDIA data sheet): the
 #: one-hot GEMM yardstick's operation rate
@@ -678,6 +683,7 @@ def hist_case(tk, label, G, n, d, S, m, B, dtype, seed):
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "onehot_gemm_gflop": 2.0 * G * m * S * d * B * n / 1e9,
+           "kernel_mma_gflop": cost["mma_flop"] / 1e9,
            "plan": plan}
     arms = [("", lambda: tk.histogram_grid(bins, stats, pos, m, B)),
             ("plain_", lambda: tk.histogram_torch(bins, stats, pos, m, B)),
@@ -686,6 +692,31 @@ def hist_case(tk, label, G, n, d, S, m, B, dtype, seed):
         row[prefix + "ms"], row[prefix + "call_ms"] = _timed(fn)
     row["split_ms"] = kernel_split_ms(arms[0][1])
     return row
+
+
+def sass_opcode_count(sass: str, opcode: str) -> int:
+    """Instructions of ``opcode`` in ``cuobjdump -sass`` text. A line is
+    "/*0150*/  @P0 HMMA.16816.F32.BF16 R4, R8, R12, R4 ;  /* 0x... */":
+    the opcode is the first word after the address, or after a
+    predicate."""
+    count = 0
+    for line in sass.splitlines():
+        head, sep, rest = line.partition("*/")
+        if sep and head.strip().startswith("/*"):
+            count += any(w.startswith(opcode) for w in rest.split()[:2])
+    return count
+
+
+def sass_count(name: str, opcode: str) -> int:
+    """Instructions of ``opcode`` in the SASS of kernel ``name``'s built
+    library, read with the CUDA toolkit's ``cuobjdump -sass``."""
+    from transmogrifai_tpu_torch import _cuda_build
+    tool = os.path.join(os.path.dirname(_cuda_build.nvcc_path()),
+                        "cuobjdump")
+    sass = subprocess.run([tool, "-sass", _cuda_build.library_path(name)],
+                          check=True, capture_output=True, text=True,
+                          timeout=300).stdout
+    return sass_opcode_count(sass, opcode)
 
 
 def hist_phase(seed: int):
@@ -1084,7 +1115,7 @@ def _ring_parts(devices, shape, seed):
             for g, d in zip(gens, devices)]
 
 
-def queued_ms(fn, calls: int = 50, attempts: int = 3,
+def queued_ms(fn, calls: int = 50, attempts: int = 6,
               devices=("cuda:0",)) -> float:
     """Device time per call of back-to-back calls that never wait on the
     host: the current stream of every card in ``devices`` is held by
@@ -1152,6 +1183,29 @@ def _kernel_span_ms(prof, pattern: str, calls: int) -> float:
     return (total + hi - lo) / calls / 1e3
 
 
+def _after_last_start_ms(prof, pattern: str) -> float:
+    """Mean, over the calls in a torch.profiler trace, of the time from
+    the start of a call's last kernel named *pattern* to the end of its
+    kernels: what a call of concurrent rank kernels takes once every
+    rank has arrived (a call is a run of overlapping kernels)."""
+    from torch.autograd import DeviceType
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA
+                   and pattern in ev.name)
+    if not spans:
+        raise AssertionError(f"no device kernel named *{pattern}* traced")
+    calls, (last, hi) = [], spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            calls.append(hi - last)
+            last, hi = a, b
+        else:
+            last, hi = a, max(hi, b)
+    calls.append(hi - last)
+    return float(np.mean(calls)) / 1e3
+
+
 def ring_case(tk, par, layout, label, shape, devices, seed,
               repeats=RING_REPEATS, timed=True):
     """The kernel against its plain version on one mesh and shape:
@@ -1175,16 +1229,24 @@ def ring_case(tk, par, layout, label, shape, devices, seed,
                 and torch.equal(reduced[r].to(home), reduced[0])):
             raise AssertionError(f"ring all-reduce rank {r} differs from "
                                  f"the plain version ({layout}, {label})")
+    # back to back, each input overwritten on its own rank stream right
+    # after the call: a rank that read another's input after that
+    # rank's kernel ended (an exit barrier at fault) would read NaN
     calls = [_ring_parts(mesh.devices, shape, seed + 1000 * (i + 1))
              for i in range(repeats)]
-    outs = [tk.ring_allreduce(ps, mesh) for ps in calls]
+    wants = [tk.ring_allreduce_torch(ps) for ps in calls]
+    outs = []
+    for ps in calls:
+        outs.append(tk.ring_allreduce(ps, mesh))
+        for r, p in enumerate(ps):
+            with mesh.rank(r):
+                p.fill_(float("nan"))
     _sync(mesh.devices)
-    for i, (ps, out) in enumerate(zip(calls, outs)):
-        want = tk.ring_allreduce_torch(ps)
+    for i, (want, out) in enumerate(zip(wants, outs)):
         if not all(torch.equal(o, w) for o, w in zip(out, want)):
             raise AssertionError(f"ring call {i} of {repeats} back to back "
                                  f"went wrong ({layout}, {label})")
-    del calls, outs
+    del calls, wants, outs
     numel = parts[0].numel()
     same_card = len(set(mesh.devices)) == 1
     cost = tk.ring_cost(ndev, numel, same_card=same_card)
@@ -1192,7 +1254,7 @@ def ring_case(tk, par, layout, label, shape, devices, seed,
            "ndev": ndev, "devices": mesh.labels(), "numel": numel,
            "bitwise": True, "repeats": repeats, "max_abs_err": 0.0,
            "plan": tk.ring_plan(numel, ndev), "bound_ms": cost["bound_ms"],
-           "bound_by": cost["bound_by"], "ring_bytes": cost["ring_bytes"]}
+           "bound_by": cost["bound_by"], "moved_bytes": cost["moved_bytes"]}
     if not timed:
         return row
     X = stacked
@@ -1220,10 +1282,14 @@ def ring_case(tk, par, layout, label, shape, devices, seed,
     prof, _ = profiled(lambda: [kernel() for _ in range(n_calls)],
                        host=False)
     row["span_ms"] = _kernel_span_ms(prof, "ring_kernel", n_calls)
+    row["after_last_start_ms"] = _after_last_start_ms(prof, "ring_kernel")
     row["call_ms"] = call_ms(kernel)
     row["plain_ms"], _ = device_ms(plain)
     row["plain_call_ms"] = call_ms(plain)
-    row["library_ms"], _ = device_ms(library)
+    # the yardstick on the kernel's clock (queued), and on the
+    # profiler's (its kernels' summed device time)
+    row["library_ms"] = queued_ms(library, n_calls, devices=mesh.devices)
+    row["library_device_ms"], _ = device_ms(library)
     row["library_call_ms"] = call_ms(library)
     return row
 
@@ -1368,6 +1434,14 @@ def data_parallel_phase(seed: int, rows: int = TRAIN_ROWS, device="cuda"):
 
 # ---------------------------------------------------------------------------
 
+#: each redesigned kernel's device time per call in its earlier design,
+#: as PERF.md's kernel table records it (an NVIDIA H100 80GB HBM3 at
+#: 700 W): the tree histogram's shared-memory scatter-add at the capture
+#: shape in bf16, and the ring's hop schedule at the GBT level with 4
+#: ranks on one card (queued)
+PREV_MS = {"tree_histogram": 0.553, "ring_allreduce": 0.0559}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1395,6 +1469,13 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  nvcc {name}: {line.strip()}", file=sys.stderr)
+
+    hmma = sass_count("tree_histogram", "HMMA")
+    print(f"phase device: tree_histogram SASS holds {hmma} HMMA "
+          f"instructions", flush=True)
+    if not hmma:
+        raise AssertionError("the tree_histogram library's SASS holds no "
+                             "HMMA: its add pass is off the tensor cores")
 
     rows = kernel_phase(args.seed)
     for r in rows:
@@ -1458,7 +1539,8 @@ def main(argv=None) -> int:
         "shape": [hmain[k] for k in ("G", "n", "d", "S", "m", "B")],
         "dtype": hmain["dtype"], "call_ms": hmain["call_ms"],
         "plain_call_ms": hmain["plain_call_ms"],
-        "library_call_ms": hmain["library_call_ms"]}, {
+        "library_call_ms": hmain["library_call_ms"],
+        "prev_ms": PREV_MS["tree_histogram"], "sass_hmma": hmma}, {
         "name": "ring_allreduce", "route": "cuda",
         "source": "transmogrifai_tpu_torch/csrc/ring_allreduce.cu",
         "replaces": "transmogrifai_tpu/models/kernels.py:770",
@@ -1470,7 +1552,9 @@ def main(argv=None) -> int:
         "ndev": rmain["ndev"], "layout": rmain["layout"],
         "span_ms": rmain["span_ms"], "call_ms": rmain["call_ms"],
         "plain_call_ms": rmain["plain_call_ms"],
-        "library_call_ms": rmain["library_call_ms"]}]}), flush=True)
+        "library_call_ms": rmain["library_call_ms"],
+        "library_device_ms": rmain["library_device_ms"],
+        "prev_ms": PREV_MS["ring_allreduce"]}]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -77,3 +77,24 @@ def test_data_parallel_phase_runs_on_the_cpu():
     assert out["ring_launches"] == out["expected_ring_launches"] == 0
     assert out["histogram_launches"] == 0
     assert "device_busy_share" not in out
+
+
+def test_sass_opcode_count_reads_cuobjdump_lines():
+    """The smoke's tensor-core check: an opcode counts where it is the
+    instruction (after the address, or after a predicate), never in the
+    encoding comment or a function header."""
+    import chip_smoke
+    sass = "\n".join([
+        "        Function : _Z13tree_hist_mmaILb0EEvPKh",
+        "        /*0150*/                   HMMA.16816.F32.BF16 R4, R8, "
+        "R12, R4 ;              /* 0x00000000a7387233 */",
+        "        /*0160*/               @P0 HMMA.16816.F32.BF16 R16, R8, "
+        "R12, R16 ;   /* 0x00000000a7387233 */",
+        "        /*0170*/                   HSET2.BF16_V2.BF.EQ.AND R56, R1, "
+        "R0, PT ;  /* 0x00000000a7387233 */",
+        "                                                  /* 0x000fe20000000f00 */",
+        "        /*0180*/                   MOV R2, 0x1 ;   /* HMMA in a comment */",
+    ])
+    assert chip_smoke.sass_opcode_count(sass, "HMMA") == 2
+    assert chip_smoke.sass_opcode_count(sass, "HSET2") == 1
+    assert chip_smoke.sass_opcode_count("", "HMMA") == 0

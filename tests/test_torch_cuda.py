@@ -145,10 +145,10 @@ def test_tree_histogram_exact_mode_is_bitwise_on_integer_stats(
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tree_histogram_matches_plain_on_float_stats(card, shape, dtype,
                                                      monkeypatch):
-    """f32 sums in another order than the plain version's GEMM (a
-    sequential sum over each block's rows, then over <= 32 block
-    partials): each cell within 1e-4 of the sum of its |terms|. The
-    operand dtype comes from the knobs, as on the training path."""
+    """f32 sums in another order than the plain version's GEMM (the
+    tensor cores' chain over each 128-row tile, tiles and then runs
+    summed in order): each cell within 1e-4 of the sum of its |terms|.
+    The operand dtype comes from the knobs, as on the training path."""
     monkeypatch.setenv("TM_KERNEL_EXACT", "0")
     monkeypatch.setenv("TM_HIST_BF16",
                        "1" if dtype == torch.bfloat16 else "0")
@@ -195,6 +195,116 @@ def test_tree_histogram_out_of_range_rows_and_empty_input(card, monkeypatch):
     assert torch.count_nonzero(empty) == 0
 
 
+def _hist_check(card, G, n, d, S, m, B, seed=0):
+    """Exact mode on integer stats bitwise, and bf16 operands on float
+    stats within 1e-4 of the sum of |terms| (f32 sums in another
+    order), at one shape."""
+    bins, istats, pos = _hist_inputs(card, (G, n, d, S, m, B), True, seed)
+    fstats = torch.randn((G, n, S), generator=torch.Generator(
+        device=card).manual_seed(seed), device=card)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("TM_KERNEL_EXACT", "1")
+        got = tk.histogram_grid(bins, istats, pos, m, B)
+        assert torch.equal(got, tk.histogram_torch(bins, istats, pos, m, B))
+        mp.setenv("TM_KERNEL_EXACT", "0")
+        mp.setenv("TM_HIST_BF16", "1")
+        got = tk.histogram_grid(bins, fstats, pos, m, B)
+        ref = tk.histogram_torch(bins, fstats, pos, m, B)
+        scale = tk.histogram_torch(bins, fstats.abs(), pos, m, B)
+    assert torch.isfinite(got).all()
+    assert ((got - ref).abs() <= 1e-4 * scale + 1e-6).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 3, 5, 7, 8, 9, 21])
+@pytest.mark.parametrize("B", [2, 16, 32, 33, 64])
+def test_tree_histogram_stat_and_bin_tiles(card, S, B):
+    """Stats past one 8-column B tile (9, 21) and bins past one 32-bin
+    group (33, 64), or within one 16-bin A tile (2, 16): every group
+    and tile edge, with 11 features (not a multiple of a warp's 4) and
+    a row count that leaves a partial tile."""
+    _hist_check(card, 2, 3_001, 11, S, 3, B, seed=S * 100 + B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [255, 256, 300])
+def test_tree_histogram_many_bin_groups(card, B):
+    """8 to 10 groups of 32 bins, each packed apart as bytes relative to
+    the group (255 outside it), the last one ragged."""
+    _hist_check(card, 2, 2_001, 13, 3, 2, B, seed=B)
+
+
+@pytest.mark.cuda
+def test_tree_histogram_ragged_features_single_node_and_empty_nodes(
+        card, monkeypatch):
+    """d = 37 (a second feature chunk of 5) and d = 1; m = 1; nodes that
+    hold no row (zeros), rows on nodes outside [0, m) and bins outside
+    [0, B), exact mode bitwise."""
+    _hist_check(card, 3, 2_500, 37, 5, 1, 32, seed=1)
+    _hist_check(card, 1, 700, 1, 3, 1, 32, seed=2)
+    monkeypatch.setenv("TM_KERNEL_EXACT", "1")
+    bins, stats, pos = _hist_inputs(card, (4, 6_000, 13, 3, 8, 32),
+                                    integer=True, seed=3)
+    pos[0] = torch.where(pos[0] >= 4, pos[0] - 4, pos[0])   # 4..7 empty
+    pos[1, ::3] = 8
+    pos[2, 1::5] = -2
+    bins[::7, 3] = 32
+    bins[1::9, 12] = -1
+    got = tk.histogram_grid(bins, stats, pos, 8, 32)
+    assert torch.equal(got, tk.histogram_torch(bins, stats, pos, 8, 32))
+    assert torch.count_nonzero(got[0].reshape(8, -1)[4:]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", ["1", "0"])
+def test_tree_histogram_nan_stat_spreads_in_its_node_feature_and_stat(
+        card, exact, monkeypatch):
+    """A NaN stat turns every bin of its node, every feature and its
+    stat into NaN (the one-hot's zeros multiply it); every other cell
+    is the histogram of the other rows."""
+    monkeypatch.setenv("TM_KERNEL_EXACT", exact)
+    monkeypatch.setenv("TM_HIST_BF16", "1")
+    G, n, d, S, m, B = 2, 4_000, 6, 3, 4, 32
+    bins, stats, pos = _hist_inputs(card, (G, n, d, S, m, B), True, seed=4)
+    row, s_nan = 1234, 1
+    node = int(pos[0, row])
+    stats[0, row, s_nan] = float("nan")
+    got = tk.histogram_grid(bins, stats, pos, m, B).reshape(G, m, S, d, B)
+    clean = stats.clone()
+    clean[0, row, s_nan] = 0.0
+    want = tk.histogram_torch(bins, clean, pos, m, B).reshape(G, m, S, d, B)
+    nan = torch.zeros_like(got, dtype=torch.bool)
+    nan[0, node, s_nan] = True
+    assert torch.isnan(got[nan]).all()
+    assert torch.equal(got[~nan], want[~nan])
+
+
+@pytest.mark.cuda
+def test_tree_histogram_exact_mode_splits_stats_in_three(card, monkeypatch):
+    """Integer stats of up to 12 significant bits need the hi and mid
+    bf16 terms (8 bits each), dyadic ones of 17 bits all three: exact
+    mode stays bitwise the plain version's while every partial sum is
+    exact in f32 (at most 2^23 units of the last place); bf16 mode
+    rounds the same stats (and so differs)."""
+    G, n, d, S, m, B = 2, 4_000, 7, 5, 2, 32
+    gen = torch.Generator(device=card).manual_seed(5)
+    bins, _s, pos = _hist_inputs(card, (G, n, d, S, m, B), True, seed=5)
+    wide = torch.randint(-4095, 4096, (G, n, S), generator=gen,
+                         device=card).to(torch.float32)
+    sign = torch.randint(0, 2, (G, n, S), generator=gen, device=card) * 2 - 1
+    fine = (sign * torch.randint(1 << 16, 1 << 17, (G, n, S), generator=gen,
+                                 device=card)).to(torch.float32) / (1 << 23)
+    fine[:, 64:] = 0.0           # 64 rows: every partial sum < 2^23 ulp
+    for stats in (wide, fine):
+        monkeypatch.setenv("TM_KERNEL_EXACT", "1")
+        got = tk.histogram_grid(bins, stats, pos, m, B)
+        assert torch.equal(got, tk.histogram_torch(bins, stats, pos, m, B))
+        monkeypatch.setenv("TM_KERNEL_EXACT", "0")
+        monkeypatch.setenv("TM_HIST_BF16", "1")
+        assert not torch.equal(tk.histogram_grid(bins, stats, pos, m, B),
+                               got)
+
+
 @pytest.mark.cuda
 def test_tree_histogram_rejects_bad_input(card):
     bins = torch.zeros((8, 4), dtype=torch.int32, device=card)
@@ -239,7 +349,7 @@ def test_selector_on_cuda_launches_the_histogram_kernel(card):
 
 # ---------------------------------------------------------------------------
 # ring_allreduce (ranks on one card: each rank its own stream; the
-# kernel, flags, slots and barrier are those of ranks on peer cards)
+# kernel, flags and barriers are those of ranks on peer cards)
 # ---------------------------------------------------------------------------
 
 from transmogrifai_tpu_torch import parallel as par   # noqa: E402
@@ -313,6 +423,59 @@ def test_ring_kernel_back_to_back_calls(card):
     for ps, out in zip(calls, outs):
         ref = tk.ring_allreduce_torch(ps)
         assert all(torch.equal(o, ref[0]) for o in out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gather", [False, True])
+def test_ring_kernel_exit_barrier_race_probe(card, gather):
+    """200 calls back to back, every input overwritten with NaN on its
+    own rank stream right after its call: a rank still reading another
+    rank's input once that rank's kernel ended (an exit barrier at
+    fault) would read NaN. Every output stays bitwise right."""
+    mesh = par.data_mesh([card] * 4)
+    calls = [_ring_parts(card, 4, (12, 48, 896), seed=7 + i)
+             for i in range(200)]
+    if gather:
+        wants = [[torch.stack(ps)] * 4 for ps in calls]
+    else:
+        wants = [tk.ring_allreduce_torch(ps) for ps in calls]
+    op = tk.ring_allgather if gather else tk.ring_allreduce
+    outs = []
+    for ps in calls:
+        outs.append(op(ps, mesh))
+        for r, p in enumerate(ps):
+            with mesh.rank(r):
+                p.fill_(float("nan"))
+    torch.cuda.synchronize()
+    for want, out in zip(wants, outs):
+        assert all(torch.equal(o, w) for o, w in zip(out, want))
+
+
+@pytest.mark.cuda
+def test_ring_kernel_enables_peer_access_between_every_pair(card):
+    """Every rank reads every input and writes every output, so peer
+    access must be on between every pair of distinct cards, not only
+    neighbours: ranks ordered so that cards meet out of ring order
+    (and some twice) still give every rank the plain version's bits."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("one card: the peer-access path needs two or more")
+    cards = [torch.device("cuda", i) for i in range(min(n, 4))]
+    for a, b in tk.peer_pairs(cards):
+        assert torch.cuda.can_device_access_peer(a.index, b.index)
+    devs = cards[::2] + cards[1::2] + cards[:1]
+    mesh = par.data_mesh(devs)
+    parts = [torch.randn(16, 40, 896, device=d) for d in devs]
+    red = tk.ring_allreduce(parts, mesh)
+    gat = tk.ring_allgather(parts, mesh)
+    for d in cards:
+        torch.cuda.synchronize(d)
+    ref = tk.ring_allreduce_torch(parts)
+    stacked = torch.stack([p.cpu() for p in parts])
+    for r in range(len(devs)):
+        assert red[r].device == devs[r]
+        assert torch.equal(red[r].cpu(), ref[0].cpu())
+        assert torch.equal(gat[r].cpu(), stacked)
 
 
 @pytest.mark.cuda

@@ -212,21 +212,55 @@ def test_launch_plan_depends_on_rows_alone(n):
 
 
 def test_launch_plan_at_the_training_shapes():
-    # the histogram capture shape: one warp covers the 28 features, its
-    # slab 5 stats x 33 bin rows x 32 lanes, two 32-row tiles (the
-    # stats padded to 8)
+    # the histogram capture shape: one chunk of the 28 features, one bin
+    # group (2 tiles of 16) and one stat group (5 of 8), so a block per
+    # (instance, run slot); 7 warps of 4 features; three gathered
+    # 128-row tiles (48 bytes of bins and 12 f32 stat words a row) and 8
+    # tiles of row indices; the bins packed as a byte a bin, rows of 32
+    # bytes, behind the sort's words
     p = tk.launch_plan(16, 200_000, 28, 5, 8, 32)
-    assert p["n_chunks"] == 1
-    assert p["smem_bytes"] == 4 * (5 * 33 * 32 + 2 * 32 * (32 + 8))
+    assert p["n_chunks"] == 1 and p["bin_groups"] == 1
+    assert p["stat_groups"] == 1 and p["warps"] == 7
+    assert p["smem_bytes"] == 3 * 128 * (48 + 48) + 8 * 128 * 4
+    assert p["smem_bytes"] <= tk.SMEM_MAX_BYTES
     assert p["runs_cap"] == 98 + 8 and p["sort_chunks"] == 196
-    assert p["workspace_words"] == 16 * (8 * 196 + 3 * 8 + 1 + 200_000)
+    assert p["blocks"] == 16 * 106
+    assert (p["dpad"], p["packed_bytes"]) == (32, 200_000 * 32)
+    sort_words = 16 * (8 * 196 + 3 * 8 + 1 + 200_000)
+    assert sort_words % 4 == 0
+    assert p["workspace_words"] == sort_words + 200_000 * 32 // 4
+    # 300 bins: ten groups of 32, each packed apart; the sort's words
+    # rounded up to a 16-byte boundary first
+    wide = tk.launch_plan(2, 1001, 13, 3, 4, 300)
+    assert (wide["bin_groups"], wide["dpad"]) == (10, 16)
+    assert wide["packed_bytes"] == 10 * 1001 * 16
+    assert wide["workspace_words"] == (
+        -(-2 * (4 + 12 + 1 + 1001) // 4) * 4 + 10 * 1001 * 16 // 4)
     assert p["partial_floats"] == 16 * 106 * 5 * 28 * 32
-    # 100 features: four warps' worth of feature chunks
+    # 100 features: four chunks; a narrow matrix still gets two warps
     assert tk.launch_plan(1, 1000, 100, 3, 4, 32)["n_chunks"] == 4
-    with pytest.raises(ValueError, match="shared-memory budget"):
-        tk.launch_plan(1, 1000, 4, 5, 1, 512)
+    assert tk.launch_plan(1, 1000, 100, 3, 4, 32)["warps"] == 8
+    assert tk.launch_plan(1, 1000, 3, 3, 4, 32)["warps"] == 2
+    # many bins or stats take more blocks, not more shared memory (the
+    # earlier design's slab refused B = 512 at S = 5)
+    wide = tk.launch_plan(1, 1000, 4, 21, 1, 512)
+    assert (wide["bin_groups"], wide["stat_groups"]) == (16, 3)
+    assert wide["blocks"] == wide["runs_cap"] * 16 * 3
+    assert wide["smem_bytes"] == p["smem_bytes"]
+    with pytest.raises(ValueError, match="grid"):
+        tk.launch_plan(4096, 10_000_000, 4096, 64, 1, 4096)
     with pytest.raises(ValueError, match="nodes"):
         tk.launch_plan(1, 1000, 4, 5, tk.MAX_NODES + 1, 32)
+
+
+def test_histogram_cost_counts_the_tensor_core_work():
+    """At the capture shape the one-hot GEMM per node is 11.2 M mma of
+    m16n8k16 (S = 5 padded to 8, B = 32 in two tiles), 45.9 GFLOP,
+    against the 229 GFLOP of the one-hot GEMM over every node."""
+    c = tk.histogram_cost(16, 200_000, 28, 5, 8, 32)
+    assert c["mma"] == 16 * 12_500 * 28 * 2
+    assert c["mma_flop"] == pytest.approx(45.9e9, rel=1e-3)
+    assert tk.histogram_cost(1, 17, 28, 9, 1, 33)["mma"] == 2 * 28 * 3 * 2
 
 
 def test_histogram_cost_at_the_capture_shape():

@@ -211,20 +211,47 @@ def test_plain_ring_allreduce_is_the_origin_order_sum():
 
 
 def test_ring_plan_and_cost():
-    for numel, ndev in [(573_440, 4), (516_096, 2), (1, 3), (4097, 8)]:
-        plan = TK.ring_plan(numel, ndev)
-        assert plan["blocks"] * ndev <= TK.RING_WAVE_BLOCKS
-        assert plan["chunk"] % 4 == 0
-        assert (plan["blocks"] - 1) * plan["chunk"] < numel <= (
-            plan["blocks"] * plan["chunk"])
+    """An all-reduce gives each rank a 16-byte-aligned partition that
+    its blocks cover exactly once, and the partitions cover every
+    element; an all-gather gives each rank its whole part. Blocks stay
+    within one wave over all ranks."""
+    for numel, ndev in [(573_440, 4), (516_096, 2), (1, 3), (4097, 8),
+                        (7, 8)]:
+        for gather in (False, True):
+            plan = TK.ring_plan(numel, ndev, gather=gather)
+            share = numel if gather else plan["part"]
+            assert plan["blocks"] * ndev <= TK.RING_WAVE_BLOCKS
+            assert plan["chunk"] % 4 == 0
+            assert (plan["blocks"] - 1) * plan["chunk"] < share <= (
+                plan["blocks"] * plan["chunk"])
+            if not gather:
+                assert plan["part"] % 4 == 0
+                assert (ndev - 1) * plan["part"] < numel + 4 * ndev
+                assert ndev * plan["part"] >= numel
+    assert TK.ring_plan(573_440, 4)["part"] == 573_440 // 4
     assert TK.ring_plan(0, 4)["blocks"] == 0
     cost = TK.ring_cost(4, 573_440, same_card=True)
     assert cost["bytes"] == 8.0 * 4 * 573_440
+    # the exchange moves exactly the bound's bytes on one card
+    assert cost["moved_bytes"] == cost["bytes"]
     assert cost["bound_by"] == "bytes"
     assert cost["bound_ms"] == pytest.approx(cost["bytes"] / 3.35e12 * 1e3)
     peer = TK.ring_cost(4, 573_440, same_card=False)
     assert peer["bound_ms"] == pytest.approx(
         4.0 * 573_440 * 2 * 3 / 4 / 450e9 * 1e3)
+
+
+def test_peer_pairs_are_every_ordered_pair_of_distinct_cards():
+    """The exchange reads and writes every rank from every rank, so peer
+    access is needed between every pair of distinct cards, not only
+    neighbours; ranks sharing a card need none."""
+    cards = [torch.device("cuda", i) for i in (0, 1, 2, 3)]
+    pairs = TK.peer_pairs(cards)
+    assert len(pairs) == 12 and len(set(pairs)) == 12
+    assert (cards[0], cards[2]) in pairs and (cards[2], cards[0]) in pairs
+    assert TK.peer_pairs([torch.device("cuda", 0)] * 4) == []
+    assert TK.peer_pairs(["cuda:0", "cuda:1", "cuda:0"]) == [
+        (cards[0], cards[1]), (cards[1], cards[0])]
 
 
 # ---------------------------------------------------------------------------

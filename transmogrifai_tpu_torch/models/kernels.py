@@ -52,10 +52,18 @@ from .. import _cuda_build
 #: the CUDA source this module's kernel builds from (under the package)
 KERNEL_NAME = "tree_histogram"
 
-#: the most shared memory a block may take (the H100's opt-in limit)
-SMEM_MAX_BYTES = 227 * 1024
-#: features a histogram block covers: one warp, a lane per feature
+#: the most static shared memory a block may take (no opt-in)
+SMEM_MAX_BYTES = 48 * 1024
+#: features a histogram block covers (a chunk), and features a warp of
+#: it owns: a block has a warp per FEATURES_PER_WARP features of the
+#: widest chunk, two at least
 FEATURES_PER_BLOCK = 32
+FEATURES_PER_WARP = 4
+#: bins and stats a histogram block covers: two 16-bin tiles of the
+#: one-hot A operand and one 8-stat tile of the B operand of mma
+#: m16n8k16; larger B or S take more blocks
+BIN_GROUP = 32
+STAT_GROUP = 8
 #: nodes a launch may have: the sort keeps a counter per node in
 #: shared memory (48 KB without opt-in)
 MAX_NODES = 12 * 1024
@@ -68,8 +76,19 @@ MAX_NODES = 12 * 1024
 RUN_ROWS = 2048
 MAX_RUNS = 128
 SORT_CHUNK_ROWS = 1024
-#: rows a histogram block stages through shared memory at a time
-TILE_ROWS = 32
+#: rows a histogram block stages through shared memory at a time (8
+#: k-steps of 16): HIST_STAGES tiles of gathered bins (bytes, 48 a row)
+#: and stats (f32, 12 a row) in flight, and HIST_IDX_SLOTS tiles of row
+#: indices
+TILE_ROWS = 128
+HIST_STAGES = 3
+HIST_IDX_SLOTS = 8
+#: the kernel packs the bins once per launch, per group of BIN_GROUP
+#: bins: a byte a bin relative to the group (255 outside it), rows
+#: padded to a multiple of PACKED_ROW_ALIGN bytes
+PACKED_ROW_ALIGN = 16
+#: a launch's blocks must fit CUDA's one-dimensional grid
+MAX_GRID_BLOCKS = 2 ** 31 - 1
 
 
 def kernel_exact() -> bool:
@@ -179,29 +198,43 @@ def launch_plan(G: int, n: int, d: int, S: int, m: int,
                 B: int) -> Dict[str, int]:
     """How the kernel cuts one launch: the sort's row chunks; the rows
     of a run and the most runs an instance can need (``ceil(n /
-    run_rows) + m``: one partial run per node at most); the feature
-    chunks of FEATURES_PER_BLOCK features (one warp a block); the
-    dynamic shared memory of a histogram block (its [S][B+1][32] slab
-    plus two TILE_ROWS-row tiles of bins and stats padded to 4); and the
-    int32 workspace and f32 partials the wrapper allocates. Raises when
-    a block cannot hold its slab or the sort its node counters."""
-    F = FEATURES_PER_BLOCK
-    smem = 4 * (S * (B + 1) * F + 2 * TILE_ROWS * (F + -(-S // 4) * 4))
-    if smem > SMEM_MAX_BYTES:
-        raise ValueError(
-            f"tree_histogram: a block's histogram slab ({S} stats x "
-            f"{B + 1} bin rows x {F} features x 4 bytes) exceeds the "
-            f"{SMEM_MAX_BYTES}-byte shared-memory budget")
+    run_rows) + m``: one partial run per node at most); the blocks of
+    the histogram pass, one per (instance, run slot, chunk of
+    FEATURES_PER_BLOCK features, group of BIN_GROUP bins, group of
+    STAT_GROUP stats), each of ``warps`` warps with its static shared
+    memory; the packed bins (a byte a bin and bin group, ``dpad`` bytes
+    a row); and the int32 workspace (the sort's words, then from a
+    16-byte boundary the packed bins) and f32 partials the wrapper
+    allocates. Raises when the sort cannot hold its node counters or
+    the grid its blocks."""
     if m > MAX_NODES:
         raise ValueError(f"tree_histogram: m={m} nodes exceeds the "
                          f"{MAX_NODES} the sort's counters hold")
     sort_chunks = max(1, -(-n // SORT_CHUNK_ROWS))
     run_rows = max(RUN_ROWS, -(-n // MAX_RUNS))
     runs_cap = -(-n // run_rows) + m
+    n_chunks = max(1, -(-d // FEATURES_PER_BLOCK))
+    bin_groups = -(-B // BIN_GROUP)
+    stat_groups = -(-S // STAT_GROUP)
+    blocks = G * runs_cap * n_chunks * bin_groups * stat_groups
+    if blocks > MAX_GRID_BLOCKS:
+        raise ValueError(f"tree_histogram: {blocks} histogram blocks "
+                         f"exceed the {MAX_GRID_BLOCKS}-block grid")
+    # a staged row: 48 bytes of bins and 12 stat words; an index word
+    smem = 4 * TILE_ROWS * (HIST_STAGES * (12 + 12) + HIST_IDX_SLOTS)
+    assert smem <= SMEM_MAX_BYTES
+    dpad = -(-d // PACKED_ROW_ALIGN) * PACKED_ROW_ALIGN
+    sort_words = G * (m * sort_chunks + 2 * m + m + 1 + n)
     return {"run_rows": run_rows, "sort_chunk_rows": SORT_CHUNK_ROWS,
             "sort_chunks": sort_chunks, "runs_cap": runs_cap,
-            "n_chunks": max(1, -(-d // F)), "smem_bytes": smem,
-            "workspace_words": G * (m * sort_chunks + 2 * m + m + 1 + n),
+            "n_chunks": n_chunks, "bin_groups": bin_groups,
+            "stat_groups": stat_groups, "blocks": blocks,
+            "warps": max(2, -(-min(d, FEATURES_PER_BLOCK)
+                              // FEATURES_PER_WARP)),
+            "smem_bytes": smem, "dpad": dpad,
+            "packed_bytes": bin_groups * n * dpad,
+            "workspace_words": (-(-sort_words // 4) * 4
+                                + -(-bin_groups * n * dpad // 4)),
             "partial_floats": G * runs_cap * S * d * B}
 
 
@@ -293,13 +326,21 @@ def histogram_cost(G: int, n: int, d: int, S: int, m: int,
                    B: int) -> Dict[str, float]:
     """What one call must do at least: every input read once and the
     output written once (bytes), and one f32 add per (instance, row,
-    feature, stat) (operations)."""
+    feature, stat) (operations). ``mma`` and ``mma_flop`` count what
+    the kernel issues on the tensor cores in bf16 mode (three times
+    that in exact mode): per instance, 16-row k-step of a node's rows
+    and feature, ceil(B/16) x ceil(S/8) mma of m16n8k16, 4096 FLOP
+    each. The k-steps are counted as if no node's rows left a partial
+    k-step (each node's partial k-step adds at most one more)."""
     nbytes = 4.0 * (n * d + G * n * S + G * n + G * m * S * d * B)
-    return {"bytes": nbytes, "adds": float(G) * n * d * S}
+    mma = float(G) * -(-n // 16) * d * -(-B // 16) * -(-S // 8)
+    return {"bytes": nbytes, "adds": float(G) * n * d * S, "mma": mma,
+            "mma_flop": 4096.0 * mma}
 
 
 # ---------------------------------------------------------------------------
-# Cross-rank reductions: the hand-written CUDA ring (+ its plain version)
+# Cross-rank reductions: the hand-written CUDA exchange (+ its plain
+# version), named "ring" after the JAX package's RDMA ring
 # ---------------------------------------------------------------------------
 #
 # Counterpart of the JAX package's ring_reduce_enabled / ring_allgather
@@ -317,18 +358,19 @@ RING_MAX_RANKS = 8
 RING_WAVE_BLOCKS = 132
 #: floats a block owns at least, before the wave cap splits finer
 RING_MIN_CHUNK = 4096
-#: flag words per rank (csrc kFlagRows x kWaveBlocks)
-RING_FLAG_WORDS = (RING_MAX_RANKS + 1) * RING_WAVE_BLOCKS
-#: a wait on a neighbour longer than this traps (a protocol fault)
+#: flag words per rank (csrc kFlagRows x kWaveBlocks): an "arrived" and
+#: a "done" row per source rank
+RING_FLAG_WORDS = 2 * RING_MAX_RANKS * RING_WAVE_BLOCKS
+#: a wait on another rank longer than this traps (a protocol fault)
 RING_TIMEOUT_S = 5.0
 
 
 def ring_reduce_enabled(device=None) -> bool:
     """Whether the cross-rank reductions of the data-parallel entry
     points (``parallel.sharded_histograms``, ``trees.grow_tree_grid(mesh=
-    ...)``) launch the CUDA ring: TM_MESH_RDMA_RING=1/0 forces; unset ->
-    the ring exactly when ``device`` is CUDA. On CPU tensors the ring's
-    wrapper runs its plain version either way."""
+    ...)``) launch the CUDA kernel: TM_MESH_RDMA_RING=1/0 forces; unset
+    -> the kernel exactly when ``device`` is CUDA. On CPU tensors the
+    kernel's wrapper runs its plain version either way."""
     from ..parallel.mesh import resolve_mesh_config
     cfg = resolve_mesh_config()
     if cfg.rdma_ring is not None:
@@ -354,26 +396,18 @@ def _check_parts(parts, mesh):
 
 
 def ring_allgather_torch(parts: List[torch.Tensor]) -> List[torch.Tensor]:
-    """Plain version of the ring all-gather: the kernel's slot schedule
-    run as tensor copies. Rank r's slot 0 is its own part; at step s
-    every rank's slot s goes to its right neighbour's slot s+1, so slot
-    j of rank r holds the part j hops to its left, origin (r - j) mod
-    ndev; then the origin remap. Returns per rank the (ndev, ...) stack
-    in origin order."""
-    ndev = len(parts)
-    slots = [[p] for p in parts]
-    for s in range(ndev - 1):
-        for r in range(ndev):
-            left = (r - 1) % ndev
-            slots[r].append(slots[left][s].to(parts[r].device, copy=True))
-    return [torch.stack([slots[r][(r - o) % ndev] for o in range(ndev)])
-            for r in range(ndev)]
+    """Plain version of the all-gather: the kernel's direct exchange run
+    as tensor copies, every rank's part copied into slot r of every
+    rank's output. Returns per rank the (ndev, ...) stack in origin
+    order."""
+    return [torch.stack([p.to(q.device, copy=True) for p in parts])
+            for q in parts]
 
 
 def ring_allreduce_torch(parts: List[torch.Tensor]) -> List[torch.Tensor]:
-    """Plain version of the ring all-reduce: the all-gather's origin
-    order summed left to right in f32, ``acc = x_0; acc = acc + x_1;
-    ...``: every rank gets the same bits, and the kernel's."""
+    """Plain version of the all-reduce: the all-gather's origin order
+    summed left to right in f32, ``acc = x_0; acc = acc + x_1; ...``:
+    every rank gets the same bits, and the kernel's."""
     out = []
     for g in ring_allgather_torch(parts):
         acc = g[0].clone()
@@ -383,18 +417,25 @@ def ring_allreduce_torch(parts: List[torch.Tensor]) -> List[torch.Tensor]:
     return out
 
 
-def ring_plan(numel: int, ndev: int) -> Dict[str, int]:
-    """How a call cuts its parts: ``blocks`` a rank (at most
+def _ceil4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def ring_plan(numel: int, ndev: int, gather: bool = False) -> Dict[str, int]:
+    """How a call cuts its parts. An all-reduce gives rank r partition r
+    of the elements (``part`` floats, a multiple of 4 for 16-byte
+    copies); an all-gather gives each rank its whole part (``part`` =
+    numel). Each rank splits its share over ``blocks`` blocks (at most
     RING_WAVE_BLOCKS // ndev, so all ranks' blocks are resident at once
-    on one card), each owning ``chunk`` floats (a multiple of 4, for
-    16-byte copies). Depends on numel and ndev alone."""
+    on one card) of ``chunk`` floats (a multiple of 4). Depends on
+    numel, ndev and the mode alone."""
     if numel <= 0:
-        return {"blocks": 0, "chunk": 0}
+        return {"blocks": 0, "chunk": 0, "part": 0}
+    part = numel if gather else _ceil4(-(-numel // ndev))
     cap = max(1, RING_WAVE_BLOCKS // ndev)
-    blocks = min(cap, -(-numel // RING_MIN_CHUNK))
-    chunk = -(-numel // blocks)
-    chunk = -(-chunk // 4) * 4
-    return {"blocks": -(-numel // chunk), "chunk": chunk}
+    blocks = min(cap, -(-part // RING_MIN_CHUNK))
+    chunk = _ceil4(-(-part // blocks))
+    return {"blocks": -(-part // chunk), "chunk": chunk, "part": part}
 
 
 def ring_cost(ndev: int, numel: int, same_card: bool) -> Dict[str, Any]:
@@ -410,8 +451,10 @@ def ring_cost(ndev: int, numel: int, same_card: bool) -> Dict[str, Any]:
       all-gather) over 450 GB/s of NVLink one way;
     * ``(ndev - 1) * numel`` f32 adds at 67 TFLOP/s.
 
-    The ring itself moves more: each rank pushes ndev-1 chunks and reads
-    ndev slots (``ring_bytes``)."""
+    ``moved_bytes`` is what the kernel moves in a call: per rank it reads
+    its partition of every input and writes it into every output, 4 x
+    numel read and 4 x numel written, so ``8 * ndev * numel`` in all,
+    the bound's bytes on one card."""
     hbm, link, f32 = 3.35e12, 450e9, 67e12
     adds = float(max(ndev - 1, 0)) * numel
     if same_card:
@@ -423,7 +466,7 @@ def ring_cost(ndev: int, numel: int, same_card: bool) -> Dict[str, Any]:
         bytes_s = max(nbytes / hbm, link_bytes / link)
     ops_s = adds / f32
     return {"bytes": nbytes, "adds": adds,
-            "ring_bytes": 4.0 * numel * ndev * (3 * ndev - 1),
+            "moved_bytes": 8.0 * ndev * numel,
             "bound_ms": max(bytes_s, ops_s) * 1e3,
             "bound_by": "bytes" if bytes_s >= ops_s else "operations"}
 
@@ -437,11 +480,10 @@ def _ring_library():
     if _RING_LIB is None:
         lib = _cuda_build.load_library(RING_KERNEL_NAME)
         lib.tm_ring_launch_all.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 7
-            + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_longlong,
-                                         ctypes.c_uint, ctypes.c_int,
-                                         ctypes.c_int, ctypes.c_longlong,
-                                         ctypes.c_void_p])
+            [ctypes.c_int] + [ctypes.c_void_p] * 5
+            + [ctypes.c_int] + [ctypes.c_longlong] * 3
+            + [ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+               ctypes.c_longlong, ctypes.c_void_p])
         lib.tm_ring_launch_all.restype = ctypes.c_int
         lib.tm_ring_prepare.argtypes = []
         lib.tm_ring_prepare.restype = ctypes.c_int
@@ -461,14 +503,19 @@ def _ring_library():
     return _RING_LIB
 
 
+def peer_pairs(devices) -> List[tuple]:
+    """Every ordered pair (a, b) of distinct cards among ``devices``: the
+    exchange reads and writes every rank's memory from every rank, so
+    each such pair needs peer access."""
+    cards = list(dict.fromkeys(torch.device(d) for d in devices))
+    return [(a, b) for a in cards for b in cards if a != b]
+
+
 class _RingComm:
-    """One data mesh's ring buffers: per rank a flag-word array (zeroed
-    once, only ever raised to the call's epoch) and a slot buffer of
-    (ndev - 1) x cap floats, grown only after every rank's stream has
-    finished (a neighbour may still be writing into the old one). Peer
-    access is enabled once per pair of distinct neighbouring cards, and
-    the kernel loaded into each card's context before its first
-    launch."""
+    """One data mesh's flag words: per rank an array zeroed once and only
+    ever raised to the call's epoch. Peer access is enabled once between
+    every pair of distinct cards, and the kernel loaded into each card's
+    context before its first launch."""
 
     def __init__(self, mesh):
         lib = _ring_library()
@@ -482,40 +529,19 @@ class _RingComm:
             if err:
                 raise RuntimeError(f"ring kernel failed to load on {d}: "
                                    f"{lib.tm_ring_error_string(err).decode()}")
-        for r, d in enumerate(mesh.devices):
-            for nb in (mesh.devices[(r + 1) % ndev],
-                       mesh.devices[(r - 1) % ndev]):
-                if nb == d:
-                    continue
-                err = lib.tm_ring_enable_peer(d.index, nb.index)
-                if err == -1:
-                    raise RuntimeError(f"ring: {d} cannot access {nb}'s "
-                                       f"memory (no peer access); the ring "
-                                       f"never stages through the host")
-                if err:
-                    raise RuntimeError(
-                        f"ring: enabling peer access {d} -> {nb} failed: "
-                        f"{lib.tm_ring_error_string(err).decode()}")
+        for d, nb in peer_pairs(mesh.devices):
+            err = lib.tm_ring_enable_peer(d.index, nb.index)
+            if err == -1:
+                raise RuntimeError(f"ring: {d} cannot access {nb}'s "
+                                   f"memory (no peer access); the ring "
+                                   f"never stages through the host")
+            if err:
+                raise RuntimeError(
+                    f"ring: enabling peer access {d} -> {nb} failed: "
+                    f"{lib.tm_ring_error_string(err).decode()}")
         self.flags = [torch.zeros(RING_FLAG_WORDS, dtype=torch.int32,
                                   device=d) for d in mesh.devices]
-        self.slots: List[torch.Tensor] = []
-        self.cap = 0
         self.epoch = 0
-
-    def reserve(self, mesh, numel: int) -> None:
-        if numel <= self.cap:
-            return
-        for s in mesh.streams:
-            s.synchronize()
-        cap = -(-numel // 4) * 4
-        self.slots = [torch.empty(max(mesh.size - 1, 1) * cap,
-                                  dtype=torch.float32, device=d)
-                      for d in mesh.devices]
-        # a reused block may still be read by its card's queued work,
-        # and a neighbour on another card writes it from its own stream
-        for d in dict.fromkeys(mesh.devices):
-            torch.cuda.synchronize(d)
-        self.cap = cap
 
 
 def _aligned(t: torch.Tensor) -> bool:
@@ -523,11 +549,13 @@ def _aligned(t: torch.Tensor) -> bool:
 
 
 def _ring(parts, mesh, gather: bool) -> List[torch.Tensor]:
-    """Launch one ring call: rank r's kernel on mesh.streams[r], every
-    rank from one host call (tm_ring_launch_all). Outputs are allocated
-    on the rank streams before it (an allocation may synchronise, and a
+    """Launch one call: rank r's kernel on mesh.streams[r], every rank
+    from one host call (tm_ring_launch_all). Outputs are allocated on
+    the rank streams before it (an allocation may synchronise, and a
     synchronisation between launches would wait on a rank spinning for
-    a neighbour not yet launched)."""
+    one not yet launched). Every rank reads every part and writes every
+    output, so each part is recorded on every rank stream of its card
+    (the kernels of one call finish together: the exit barrier)."""
     ndev = mesh.size
     shape = tuple(parts[0].shape)
     numel = parts[0].numel()
@@ -537,37 +565,34 @@ def _ring(parts, mesh, gather: bool) -> List[torch.Tensor]:
     if mesh.ring is None:
         mesh.ring = _RingComm(mesh)
     comm = mesh.ring
-    comm.reserve(mesh, numel)
     mesh.fork()
     outs = []
     for r in range(ndev):
         with mesh.rank(r):
             outs.append(torch.empty(out_shape, dtype=torch.float32,
                                     device=mesh.devices[r]))
-    plan = ring_plan(numel, ndev)
+    plan = ring_plan(numel, ndev, gather=gather)
     if plan["blocks"] == 0:
         return outs
     for p, s in zip(parts, mesh.streams):
-        p.record_stream(s)          # read on the rank stream
+        p.record_stream(s)          # read until this rank's kernel ends
     comm.epoch = (comm.epoch + 1) & 0xFFFFFFFF
     lib = _ring_library()
 
     def ptrs(vals):
         return (ctypes.c_void_p * ndev)(*vals)
-    vecs = (ctypes.c_int * ndev)(*[
-        int(_aligned(p) and _aligned(o) and (not gather or numel % 4 == 0))
-        for p, o in zip(parts, outs)])
+    vec = int(all(_aligned(t) for t in parts + outs)
+              and (not gather or numel % 4 == 0))
     failed = ctypes.c_int(-1)
     err = lib.tm_ring_launch_all(
         ndev, (ctypes.c_int * ndev)(*[d.index for d in mesh.devices]),
         ptrs([p.data_ptr() for p in parts]),
         ptrs([o.data_ptr() for o in outs]),
-        ptrs([s.data_ptr() for s in comm.slots]),
         ptrs([f.data_ptr() for f in comm.flags]),
-        ptrs([s.cuda_stream for s in mesh.streams]), vecs, numel,
-        plan["chunk"], plan["blocks"], comm.cap, comm.epoch, int(gather),
-        int(len(set(mesh.devices)) > 1), int(RING_TIMEOUT_S * 1e9),
-        ctypes.byref(failed))
+        ptrs([s.cuda_stream for s in mesh.streams]), vec, numel,
+        plan["part"], plan["chunk"], plan["blocks"], comm.epoch,
+        int(gather), int(len(set(mesh.devices)) > 1),
+        int(RING_TIMEOUT_S * 1e9), ctypes.byref(failed))
     if err:
         raise RuntimeError(
             f"ring_allreduce launch failed on rank {failed.value} of "
@@ -602,7 +627,8 @@ def ring_allreduce(parts: List[torch.Tensor], mesh) -> List[torch.Tensor]:
     bits, equal to :func:`ring_allreduce_torch` (a psum's order is the
     backend's; the ring's is pinned). CPU tensors take the plain
     version; CUDA tensors launch the kernel as :func:`ring_allgather`
-    does, gather and sum fused. ``ring_allreduce.launches`` counts
+    does, each rank summing its partition of the elements once and
+    writing the sum to every rank. ``ring_allreduce.launches`` counts
     launches."""
     _check_parts(parts, mesh)
     if not mesh.is_cuda:

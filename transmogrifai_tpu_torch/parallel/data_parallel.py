@@ -10,9 +10,9 @@ Here one process drives every rank, as JAX's single controller does: a
 rank with its own row shard, buffers and non-blocking CUDA stream, and
 the partials reduce through the port's ``allreduce_data`` (the
 hand-written CUDA ring ``csrc/ring_allreduce.cu``, or its plain
-version). An entry may repeat: several ranks on one card ring through
-the same kernel, with the same flags, slots and barrier that ranks on
-peer cards use, the counterpart of the JAX package's forced host
+version). An entry may repeat: several ranks on one card exchange
+through the same kernel, with the same flags and barriers that ranks
+on peer cards use, the counterpart of the JAX package's forced host
 devices.
 
 Stream protocol. Work of rank r is issued on ``mesh.streams[r]``
