@@ -1434,12 +1434,56 @@ def data_parallel_phase(seed: int, rows: int = TRAIN_ROWS, device="cuda"):
 
 # ---------------------------------------------------------------------------
 
-#: each redesigned kernel's device time per call in its earlier design,
-#: as PERF.md's kernel table records it (an NVIDIA H100 80GB HBM3 at
-#: 700 W): the tree histogram's shared-memory scatter-add at the capture
-#: shape in bf16, and the ring's hop schedule at the GBT level with 4
-#: ranks on one card (queued)
-PREV_MS = {"tree_histogram": 0.553, "ring_allreduce": 0.0559}
+def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp):
+    """The ``kernels`` line from this run's phase results: every time
+    and error is one this run measured, every bound one it computed
+    from its own inputs, every launch count its main path's."""
+    main_row = rows[0]        # the serving path's shape and operand mode
+    hmain = hrows[0]          # the capture shape, bf16 (training's mode)
+    # the data-parallel grow's deepest level, 4 ranks on one card
+    rmain = next(r for r in rrows if r["layout"] == "one card"
+                 and r["shape"] == "gbt_level" and r["ndev"] == DP_RANKS)
+    return {"kernels": [{
+        "name": "fused_linear_scores", "route": "cuda",
+        "source": "transmogrifai_tpu_torch/csrc/fused_linear_scores.cu",
+        "replaces": "transmogrifai_tpu/models/serving_kernels.py:224",
+        "launches": serve["kernel_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"],
+        "shape": main_row["shape"], "dtype": main_row["dtype"],
+        "call_ms": main_row["call_ms"],
+        "plain_call_ms": main_row["plain_call_ms"],
+        "library_call_ms": main_row["library_call_ms"],
+        "launch_ms": empty_ms}, {
+        "name": "tree_histogram", "route": "cuda",
+        "source": "transmogrifai_tpu_torch/csrc/tree_histogram.cu",
+        "replaces": "transmogrifai_tpu/models/kernels.py:612 and "
+                    "transmogrifai_tpu/models/kernels.py:649",
+        "launches": train["histogram_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in hrows),
+        "ms": hmain["ms"], "plain_ms": hmain["plain_ms"],
+        "bound_ms": hmain["bound_ms"], "bound_by": hmain["bound_by"],
+        "library_ms": hmain["library_ms"],
+        "shape": [hmain[k] for k in ("G", "n", "d", "S", "m", "B")],
+        "dtype": hmain["dtype"], "call_ms": hmain["call_ms"],
+        "plain_call_ms": hmain["plain_call_ms"],
+        "library_call_ms": hmain["library_call_ms"],
+        "sass_hmma": hmma}, {
+        "name": "ring_allreduce", "route": "cuda",
+        "source": "transmogrifai_tpu_torch/csrc/ring_allreduce.cu",
+        "replaces": "transmogrifai_tpu/models/kernels.py:770",
+        "launches": dp["ring_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in rrows),
+        "ms": rmain["ms"], "plain_ms": rmain["plain_ms"],
+        "bound_ms": rmain["bound_ms"], "bound_by": rmain["bound_by"],
+        "library_ms": rmain["library_ms"], "shape": rmain["dims"],
+        "ndev": rmain["ndev"], "layout": rmain["layout"],
+        "span_ms": rmain["span_ms"], "call_ms": rmain["call_ms"],
+        "plain_call_ms": rmain["plain_call_ms"],
+        "library_call_ms": rmain["library_call_ms"],
+        "library_device_ms": rmain["library_device_ms"]}]}
 
 
 def main(argv=None) -> int:
@@ -1508,53 +1552,8 @@ def main(argv=None) -> int:
     print("phase data_parallel: " + json.dumps(dict(dp, card=card)),
           flush=True)
 
-    main_row = rows[0]        # the serving path's shape and operand mode
-    hmain = hrows[0]          # the capture shape, bf16 (training's mode)
-    # the data-parallel grow's deepest level, 4 ranks on one card
-    rmain = next(r for r in rrows if r["layout"] == "one card"
-                 and r["shape"] == "gbt_level" and r["ndev"] == DP_RANKS)
-    print(json.dumps({"kernels": [{
-        "name": "fused_linear_scores", "route": "cuda",
-        "source": "transmogrifai_tpu_torch/csrc/fused_linear_scores.cu",
-        "replaces": "transmogrifai_tpu/models/serving_kernels.py:224",
-        "launches": serve["kernel_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shape": main_row["shape"], "dtype": main_row["dtype"],
-        "call_ms": main_row["call_ms"],
-        "plain_call_ms": main_row["plain_call_ms"],
-        "library_call_ms": main_row["library_call_ms"],
-        "launch_ms": empty_ms}, {
-        "name": "tree_histogram", "route": "cuda",
-        "source": "transmogrifai_tpu_torch/csrc/tree_histogram.cu",
-        "replaces": "transmogrifai_tpu/models/kernels.py:612 and "
-                    "transmogrifai_tpu/models/kernels.py:649",
-        "launches": train["histogram_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in hrows),
-        "ms": hmain["ms"], "plain_ms": hmain["plain_ms"],
-        "bound_ms": hmain["bound_ms"], "bound_by": hmain["bound_by"],
-        "library_ms": hmain["library_ms"],
-        "shape": [hmain[k] for k in ("G", "n", "d", "S", "m", "B")],
-        "dtype": hmain["dtype"], "call_ms": hmain["call_ms"],
-        "plain_call_ms": hmain["plain_call_ms"],
-        "library_call_ms": hmain["library_call_ms"],
-        "prev_ms": PREV_MS["tree_histogram"], "sass_hmma": hmma}, {
-        "name": "ring_allreduce", "route": "cuda",
-        "source": "transmogrifai_tpu_torch/csrc/ring_allreduce.cu",
-        "replaces": "transmogrifai_tpu/models/kernels.py:770",
-        "launches": dp["ring_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rrows),
-        "ms": rmain["ms"], "plain_ms": rmain["plain_ms"],
-        "bound_ms": rmain["bound_ms"], "bound_by": rmain["bound_by"],
-        "library_ms": rmain["library_ms"], "shape": rmain["dims"],
-        "ndev": rmain["ndev"], "layout": rmain["layout"],
-        "span_ms": rmain["span_ms"], "call_ms": rmain["call_ms"],
-        "plain_call_ms": rmain["plain_call_ms"],
-        "library_call_ms": rmain["library_call_ms"],
-        "library_device_ms": rmain["library_device_ms"],
-        "prev_ms": PREV_MS["ring_allreduce"]}]}), flush=True)
+    print(json.dumps(kernels_line(rows, serve, empty_ms, hrows, train, hmma,
+                                  rrows, dp)), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

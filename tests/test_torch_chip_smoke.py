@@ -98,3 +98,51 @@ def test_sass_opcode_count_reads_cuobjdump_lines():
     assert chip_smoke.sass_opcode_count(sass, "HMMA") == 2
     assert chip_smoke.sass_opcode_count(sass, "HSET2") == 1
     assert chip_smoke.sass_opcode_count("", "HMMA") == 0
+
+
+def test_kernels_line_takes_every_number_from_the_run():
+    """Each kernel entry carries the contract's keys, and every number in
+    the line is one of the run's own phase results (no constant)."""
+    import itertools
+    seen = set()
+    count = itertools.count(1)
+
+    def num():
+        v = next(count) + 0.5
+        seen.add(v)
+        return v
+
+    def row(**extra):
+        r = {k: num() for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                "max_abs_err", "call_ms", "plain_call_ms",
+                                "library_call_ms", "span_ms",
+                                "library_device_ms")}
+        r.update(bound_by="bytes", **extra)
+        return r
+
+    rows = [row(shape=[64, 22, 4, 1], dtype="bfloat16"), row()]
+    hrows = [row(dtype="bfloat16", **{k: num() for k in "GndSmB"}), row()]
+    rrows = [row(layout="one card", shape="gbt_level", ndev=n,
+                 dims=[12, 48, 896]) for n in (2, chip_smoke.DP_RANKS)]
+    counts = {"kernel_launches": num(), "histogram_launches": num(),
+              "ring_launches": num(), "hmma": num(), "empty": num()}
+    line = chip_smoke.kernels_line(
+        rows, {"kernel_launches": counts["kernel_launches"]},
+        counts["empty"], hrows,
+        {"histogram_launches": counts["histogram_launches"]},
+        counts["hmma"], rrows, {"ring_launches": counts["ring_launches"]})
+    contract = {"name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"}
+    names = []
+    for k in line["kernels"]:
+        names.append(k["name"])
+        assert contract <= set(k)
+        assert k["route"] == "cuda"
+        for key, v in k.items():
+            for x in (v if isinstance(v, list) else [v]):
+                if isinstance(x, float):
+                    assert x in seen, (k["name"], key, x)
+    assert names == ["fused_linear_scores", "tree_histogram",
+                     "ring_allreduce"]
+    assert line["kernels"][2]["ndev"] == chip_smoke.DP_RANKS

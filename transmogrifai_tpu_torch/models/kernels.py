@@ -554,8 +554,10 @@ def _ring(parts, mesh, gather: bool) -> List[torch.Tensor]:
     the rank streams before it (an allocation may synchronise, and a
     synchronisation between launches would wait on a rank spinning for
     one not yet launched). Every rank reads every part and writes every
-    output, so each part is recorded on every rank stream of its card
-    (the kernels of one call finish together: the exit barrier)."""
+    output, yet each part is recorded on its own rank stream only: rank
+    r's kernel ends only after every rank has posted "done" at the exit
+    barrier, so after every other rank's reads of part r and writes to
+    output r."""
     ndev = mesh.size
     shape = tuple(parts[0].shape)
     numel = parts[0].numel()
