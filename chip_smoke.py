@@ -9,14 +9,20 @@ kernel against its plain PyTorch version:
 1. device: the card's name and power limit (nvidia-smi), then every
    kernel under ``transmogrifai_tpu_torch/csrc`` built with nvcc for
    sm_90a, all builds started together;
-2. kernel: ``fused_linear_scores`` against ``fused_linear_scores_torch``
-   on the card at the serving shapes (and the top bucket, a softmax
-   head, a ragged n, an inf weight in a model no row selects), in f32
-   and bf16 operand modes, timed beside its bound, the plain version
-   and one PyTorch library call: ``ms`` is the device time per call
-   (torch.profiler), ``call_ms`` the CUDA-event time per call with the
-   host's issue gaps, ``launch_ms`` the call time of an empty kernel
-   launched through the same C entry path;
+2. kernel: the fused serving kernel against its plain version on the
+   card, in f32 and bf16 operand modes: as ``fused_linear_scores``
+   (the identity table) against ``fused_linear_scores_torch`` at the
+   serving shapes (and the top bucket, a softmax head, a ragged n, an
+   inf weight in a model no row selects), and in its prefix form
+   ``fused_prefix_scores`` against ``fused_prefix_scores_torch`` at the
+   serving pass's shape (NaNs, an out-of-range model id, an inf model,
+   a softmax head), a group too large for shared memory, and with
+   identity heads whose scores are the features, which must match bit
+   for bit. Each is timed beside its bound, the plain version and, for
+   the identity form, one PyTorch library call: ``ms`` is the device
+   time per call (torch.profiler), ``call_ms`` the CUDA-event time per
+   call with the host's issue gaps, ``launch_ms`` the call time of an
+   empty kernel launched through the same C entry path;
 3. serving: four all-numeric LR models (12 Real columns, impute with
    null tracking, concat, a seeded keep_cols subset, a binary
    LogisticRegression head) built from ``--seed`` in the portable IR,
@@ -26,9 +32,13 @@ kernel against its plain PyTorch version:
    client threads sending Zipf(1.1) model ids. Every request carries a
    trace id, so the engine's spans say which plane served it: a fused
    request must match its model's numpy score under the fused operand
-   policy, a classic one under f32. The fused plane and the kernel's
-   launch counter must have moved. The storm is repeated under
-   torch.profiler for the device's busy share;
+   policy, a classic one under f32. The kernel must have launched once
+   per bucket slice of the fused passes the spans show. The storm is
+   repeated under torch.profiler for the device's busy share, and one
+   fused pass of 60 rows over the 4 models is probed alone
+   (``fused_pass_probe``): device operations, device and host time per
+   pass, at most 3 device operations a bucket slice (one copy in, one
+   launch, one copy out);
 4. hist_kernel: ``tree_histogram`` against ``histogram_torch`` on the
    card at the shapes the training path gives it (the histogram capture
    shape, a GBT level, XGBoost's last level, an RF level, a ragged n
@@ -269,7 +279,8 @@ def kernel_case(sk, rng, n, p, K, L, dtype, inf_model=False):
     dname = str(dtype).replace("torch.", "")
     bytes_ms = floor["analytic_gbytes"] * 1e9 / HBM_BYTES_PER_S * 1e3
     ops_ms = 2.0 * n * (p + 1) * L / F32_FLOPS_PER_S * 1e3
-    row = {"shape": [n, p, K, L], "dtype": dname, "inf_model": inf_model,
+    row = {"form": "identity", "shape": [n, p, K, L], "dtype": dname,
+           "inf_model": inf_model,
            "max_abs_err": err,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
@@ -298,7 +309,88 @@ def launch_ms(sk) -> float:
     return call_ms(empty)
 
 
+def prefix_inputs(rng, n, C, p, K, L, inf_model=False):
+    """The prefix form's inputs on the card: boundary values with 5%
+    NaN and column 0 all NaN, the last column the label's zero
+    placeholder (which no table reads), tables of filled values and
+    null indicators, weights, and model ids with row 0 out of range."""
+    dev = torch.device("cuda")
+    V = rng.normal(size=(n, C)).astype(np.float32)
+    V[rng.random((n, C)) < 0.05] = np.nan
+    V[:, 0] = np.nan
+    V[:, C - 1] = 0.0
+    src = rng.integers(0, C - 1, size=(K, p)).astype(np.int32)
+    op = rng.integers(1, 3, size=(K, p)).astype(np.uint8)  # filled, null
+    fill = rng.normal(0.0, 0.1, size=(K, p)).astype(np.float32)
+    W = (0.5 * rng.normal(size=(K, p + 1, L))).astype(np.float32)
+    mid = rng.integers(0, K - 1 if inf_model else K, size=n).astype(np.int32)
+    mid[0] = K
+    if inf_model:
+        W[K - 1] = np.inf      # no row selects model K-1
+    return [torch.from_numpy(a).to(dev)
+            for a in (V, mid, src, op, fill, W)]
+
+
+def prefix_case(sk, rng, n, C, p, K, L, act, dtype, inf_model=False,
+                features=False):
+    """The kernel's prefix form (``fused_prefix_scores``: each row's
+    features through its model's tables, the head, the activation)
+    against its plain version on the card, timed. ``features``: f32
+    operands, every W[k] the identity (L = p) with a zero intercept, so
+    each score is one feature and the kernel's features must equal the
+    plain version's bit for bit (untimed). No single PyTorch call
+    computes this function, so the row has no library time."""
+    V, mid, src, op, fill, W = prefix_inputs(rng, n, C, p, K, L, inf_model)
+    if features:
+        W = torch.zeros((K, p + 1, p), device=V.device)
+        W[:, :p, :] = torch.eye(p, device=V.device)
+        mid = mid.clamp(0, K - 1).contiguous()
+        L, act, dtype = p, "identity", torch.float32
+    args = (V, mid, src, op, fill, W)
+    got = sk.fused_prefix_scores(*args, act=act, dtype=dtype)
+    torch.cuda.synchronize()
+    ref = sk.fused_prefix_scores_torch(*args, act=act, dtype=dtype)
+    got_np, ref_np = got.cpu().numpy(), ref.cpu().numpy()
+    shape = [n, C, p, K, L]
+    if not np.isfinite(got_np).all():
+        raise AssertionError(f"non-finite prefix-form output at {shape}")
+    err = float(np.max(np.abs(got_np - ref_np)))
+    if not (np.abs(got_np - ref_np) <= KERNEL_RTOL * (1.0 + np.abs(ref_np))
+            ).all():
+        raise AssertionError(
+            f"prefix form disagrees with its plain version at {shape} "
+            f"{act} {dtype}: max abs err {err}")
+    n_out = int(got.shape[1])
+    dname = str(dtype).replace("torch.", "")
+    row = {"form": "prefix", "shape": shape, "act": act, "dtype": dname,
+           "inf_model": inf_model, "max_abs_err": err, "library_ms": None}
+    if features:
+        feats = sk.prefix_features_torch(V, mid, src, op, fill).cpu().numpy()
+        if not (np.array_equal(got_np.view(np.uint32), feats.view(np.uint32))
+                and np.array_equal(ref_np.view(np.uint32),
+                                   feats.view(np.uint32))):
+            raise AssertionError(f"the kernel's features at {shape} are not "
+                                 f"bitwise the plain version's")
+        return dict(row, features_bitwise=True)
+    cost = sk.fused_prefix_cost(n, C, p, K, L, n_out)
+    bytes_ms = cost["bytes"] / HBM_BYTES_PER_S * 1e3
+    ops_ms = cost["flops"] / F32_FLOPS_PER_S * 1e3
+    row.update(bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    kernel = lambda: sk.fused_prefix_scores(*args, act=act, dtype=dtype)  # noqa: E731
+    plain = lambda: sk.fused_prefix_scores_torch(*args, act=act, dtype=dtype)  # noqa: E731
+    for prefix, fn in (("", kernel), ("plain_", plain)):
+        row[prefix + "ms"], row[prefix + "device_events"] = device_ms(fn)
+        row[prefix + "call_ms"] = call_ms(fn)
+    return row
+
+
 def kernel_phase(seed: int):
+    """The identity form (``fused_linear_scores``) at the serving and
+    bulk shapes, then the prefix form: the serving pass's shape (64
+    rows, the 13 boundary columns, 22 kept features, 4 models, a binary
+    head), an inf model, a softmax head, a group too large for shared
+    memory, and the bitwise feature check."""
     from transmogrifai_tpu_torch.models import serving_kernels as sk
     rng = np.random.default_rng(seed)
     rows = []
@@ -310,6 +402,22 @@ def kernel_phase(seed: int):
     for dtype in (torch.bfloat16, torch.float32):
         rows.append(kernel_case(sk, rng, 64, 24, 4, 1, dtype,
                                 inf_model=True))
+    C = N_COLUMNS + 1           # the boundary: 12 columns and the label
+    for dtype in (torch.bfloat16, torch.float32):
+        rows.append(prefix_case(sk, rng, MAX_BATCH_ROWS, C, P_KEEP,
+                                N_BACKENDS, 1, "sigmoid_pair", dtype))
+    rows.append(prefix_case(sk, rng, MAX_BATCH_ROWS, C, P_KEEP, N_BACKENDS,
+                            1, "sigmoid_pair", torch.bfloat16,
+                            inf_model=True))
+    rows.append(prefix_case(sk, rng, MAX_BATCH_ROWS, C, P_KEEP, N_BACKENDS,
+                            3, "softmax", torch.bfloat16))
+    # W alone 512 x 65 x 3 f32 = 400 KB: past the 227 KB of shared memory
+    rows.append(prefix_case(sk, rng, 4096, 70, 64, 512, 3, "softmax",
+                            torch.bfloat16))
+    for p in (P_KEEP, 64):
+        rows.append(prefix_case(sk, rng, MAX_BATCH_ROWS, C, p, N_BACKENDS,
+                                1, "identity", torch.float32,
+                                features=True))
     return rows
 
 
@@ -463,6 +571,65 @@ def _served_planes(spans, traces):
     return plane, [s for s in spans if s["name"] == "engine.fused_dispatch"]
 
 
+#: the fused-pass probe: passes timed and profiled, rows a pass (one
+#: bucket slice of the top bucket), device operations a slice allowed
+PROBE_PASSES = 50
+PROBE_ROWS = 60
+PROBE_MAX_OPS_PER_SLICE = 3
+
+
+def fused_pass_probe(reg, seed: int, passes: int = PROBE_PASSES,
+                     rows: int = PROBE_ROWS) -> dict:
+    """One ``FusedGroupScorer`` pass — ``launch`` then ``finalize``, as
+    the engine drives it — of ``rows`` rows over the catalog's
+    N_BACKENDS members in ``reg`` (build_catalog), on the card: device
+    operations (kernels and copies), device us and host us per pass.
+    Host us is the median wall of one pass (it ends in the finalize's
+    copy out, so the device is done); the device numbers come from
+    torch.profiler over ``passes`` passes. Uses only the scorer's
+    launch / finalize interface, so it measures any checkout's package
+    (fused_pass_probe.py)."""
+    from transmogrifai_tpu_torch.serving.fusion import (FusedGroupScorer,
+                                                        stack_spec_of)
+    members = []
+    for k in range(N_BACKENDS):
+        with reg.acquire(f"m{k:03d}") as (_vname, backend):
+            members.append((backend, stack_spec_of(backend)))
+    if any(spec is None for _b, spec in members):
+        raise AssertionError("a catalog member has no stack spec")
+    scorer = FusedGroupScorer(members)
+    rng = np.random.default_rng(seed + 2)
+    cols = {f"x{i}": np.where(rng.random(rows) < 0.05, np.nan,
+                              rng.normal(size=rows))
+            for i in range(N_COLUMNS)}
+    n, vals = members[0][0].prepare(cols)
+    mid = (np.arange(n) % N_BACKENDS).astype(np.int32)
+    slices = len(list(scorer._slices(n)))
+
+    def one():
+        return scorer.finalize(scorer.launch(n, vals, mid))
+
+    out = one()
+    if out.shape != (n, 2) or not np.isfinite(out).all():
+        raise AssertionError(f"fused pass gave {out.shape}, finite "
+                             f"{bool(np.isfinite(out).all())}")
+    for _ in range(5):
+        one()
+    host = []
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        one()
+        host.append(time.perf_counter() - t0)
+    prof, _ = profiled(lambda: [one() for _ in range(passes)], host=False)
+    dev_us, events = _device_time_us(prof)
+    return {"rows": n, "models": N_BACKENDS, "bucket_slices": slices,
+            "passes": passes,
+            "device_ops_per_pass": events / passes,
+            "device_ops_per_slice": events / passes / slices,
+            "device_us_per_pass": dev_us / passes,
+            "host_us_per_pass": float(np.median(host)) * 1e6}
+
+
 def serving_phase(seed: int, device, requests: int = REQUESTS,
                   launches=None, profile=False):
     """Serve ``requests`` requests of 1-8 rows from THREADS client
@@ -472,7 +639,9 @@ def serving_phase(seed: int, device, requests: int = REQUESTS,
     zero-argument callable returning the kernel's launch count (read
     before and after the storm). ``profile`` (CUDA only) repeats the
     storm on a second engine under torch.profiler for the device's busy
-    share. Returns the phase's measurements; raises on any failure."""
+    share, and runs the fused-pass probe, which must show at most
+    PROBE_MAX_OPS_PER_SLICE device operations a bucket slice. Returns
+    the phase's measurements; raises on any failure."""
     from transmogrifai_tpu_torch.models import kernels as tk
     from transmogrifai_tpu_torch.models import serving_kernels as sk
     from transmogrifai_tpu_torch.profiling import percentile_nearest_rank
@@ -531,8 +700,15 @@ def serving_phase(seed: int, device, requests: int = REQUESTS,
             raise AssertionError(f"engine {key} = {stats[key]}, want {want}")
     if stats["fused_batches"] <= 0:
         raise AssertionError("the fused plane never engaged")
-    if moved is not None and moved <= 0:
-        raise AssertionError("the fused kernel never launched")
+    # one launch a bucket slice of every fused pass the engine ran
+    fused_slices = sum(max(1, -(-s["attrs"]["rows"] // BUCKETS[-1]))
+                       for s in fused_spans)
+    if len(fused_spans) != stats["fused_batches"]:
+        raise AssertionError(f"{len(fused_spans)} fused dispatch spans, "
+                             f"{stats['fused_batches']} fused batches")
+    if moved is not None and moved != fused_slices:
+        raise AssertionError(f"the fused kernel launched {moved} times "
+                             f"for {fused_slices} fused bucket slices")
     rows = sum(len(c["x0"]) for _, c in reqs)
     lat_ms = sorted(x * 1e3 for x in lat)
     fused_ms = sorted(s["dur"] * 1e3 for s in fused_spans)
@@ -540,7 +716,8 @@ def serving_phase(seed: int, device, requests: int = REQUESTS,
            "wall_s": wall, "rows_per_s": rows / wall,
            "p50_ms": percentile_nearest_rank(lat_ms, 0.50),
            "p99_ms": percentile_nearest_rank(lat_ms, 0.99),
-           "kernel_launches": moved, "matched": matched,
+           "kernel_launches": moved, "fused_slices": fused_slices,
+           "matched": matched,
            "fused_batches": stats["fused_batches"],
            "fused_requests": stats["fused_requests"],
            "fused_fallbacks": stats["fused_fallbacks"],
@@ -571,6 +748,13 @@ def serving_phase(seed: int, device, requests: int = REQUESTS,
                    profiled_fused_batches=st2["fused_batches"],
                    device_ms_per_batch=busy_s / st2["batches"] * 1e3,
                    device_events_per_batch=events / st2["batches"])
+        probe = fused_pass_probe(reg, seed)
+        if probe["device_ops_per_slice"] > PROBE_MAX_OPS_PER_SLICE:
+            raise AssertionError(
+                f"a fused bucket slice took {probe['device_ops_per_slice']}"
+                f" device operations (at most {PROBE_MAX_OPS_PER_SLICE}: "
+                f"one copy in, one launch, one copy out)")
+        out["fused_pass"] = probe
     return out
 
 
@@ -1438,7 +1622,10 @@ def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp):
     """The ``kernels`` line from this run's phase results: every time
     and error is one this run measured, every bound one it computed
     from its own inputs, every launch count its main path's."""
-    main_row = rows[0]        # the serving path's shape and operand mode
+    # the serving pass's shape in its operand mode: the prefix form,
+    # and the identity form (the JAX function) with its library call
+    main_row = next(r for r in rows if r["form"] == "prefix")
+    ident = rows[0]
     hmain = hrows[0]          # the capture shape, bf16 (training's mode)
     # the data-parallel grow's deepest level, 4 ranks on one card
     rmain = next(r for r in rrows if r["layout"] == "one card"
@@ -1446,17 +1633,20 @@ def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp):
     return {"kernels": [{
         "name": "fused_linear_scores", "route": "cuda",
         "source": "transmogrifai_tpu_torch/csrc/fused_linear_scores.cu",
-        "replaces": "transmogrifai_tpu/models/serving_kernels.py:224",
+        "replaces": "transmogrifai_tpu/models/serving_kernels.py:224 and "
+                    "transmogrifai_tpu/serving/fusion.py:265",
         "launches": serve["kernel_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
-        "shape": main_row["shape"], "dtype": main_row["dtype"],
-        "call_ms": main_row["call_ms"],
+        "shape": main_row["shape"], "act": main_row["act"],
+        "dtype": main_row["dtype"], "call_ms": main_row["call_ms"],
         "plain_call_ms": main_row["plain_call_ms"],
-        "library_call_ms": main_row["library_call_ms"],
-        "launch_ms": empty_ms}, {
+        "launch_ms": empty_ms,
+        "identity_shape": ident["shape"], "identity_ms": ident["ms"],
+        "identity_library_ms": ident["library_ms"],
+        "identity_library_call_ms": ident["library_call_ms"]}, {
         "name": "tree_histogram", "route": "cuda",
         "source": "transmogrifai_tpu_torch/csrc/tree_histogram.cu",
         "replaces": "transmogrifai_tpu/models/kernels.py:612 and "

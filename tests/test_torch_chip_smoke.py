@@ -120,7 +120,9 @@ def test_kernels_line_takes_every_number_from_the_run():
         r.update(bound_by="bytes", **extra)
         return r
 
-    rows = [row(shape=[64, 22, 4, 1], dtype="bfloat16"), row()]
+    rows = [row(form="identity", shape=[64, 22, 4, 1], dtype="bfloat16"),
+            row(form="prefix", shape=[64, 13, 22, 4, 1], act="sigmoid_pair",
+                dtype="bfloat16"), row(form="prefix")]
     hrows = [row(dtype="bfloat16", **{k: num() for k in "GndSmB"}), row()]
     rrows = [row(layout="one card", shape="gbt_level", ndev=n,
                  dims=[12, 48, 896]) for n in (2, chip_smoke.DP_RANKS)]
@@ -146,3 +148,7 @@ def test_kernels_line_takes_every_number_from_the_run():
     assert names == ["fused_linear_scores", "tree_histogram",
                      "ring_allreduce"]
     assert line["kernels"][2]["ndev"] == chip_smoke.DP_RANKS
+    fused = line["kernels"][0]
+    assert fused["shape"] == [64, 13, 22, 4, 1]    # the prefix form's row
+    assert fused["identity_shape"] == [64, 22, 4, 1]
+    assert "serving/fusion.py:265" in fused["replaces"]

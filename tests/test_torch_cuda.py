@@ -28,10 +28,11 @@ def card():
                                      (300, 70, 200, 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_linear_scores_kernel_matches_plain(card, n, p, K, L, dtype):
-    """Ragged n, one model, a softmax head, and a weight block too big
-    for shared memory (200 x 71 x 1 f32 > 48 KB); the last model holds
-    inf and no row selects it. f32 accumulation in another order than
-    the plain version's GEMM: rtol = atol = 1e-4."""
+    """Ragged n, one model, a softmax head's raw scores, and a weight
+    block above the default 48 KB of shared memory (200 x 71 x 1 f32,
+    staged through the opt-in limit); the last model holds inf and no
+    row selects it. f32 accumulation in another order than the plain
+    version's GEMM: rtol = atol = 1e-4."""
     rng = np.random.default_rng(n + p + K + L)
     X = rng.normal(size=(n, p)).astype(np.float32)
     W = (0.5 * rng.normal(size=(K, p + 1, L))).astype(np.float32)
@@ -98,6 +99,109 @@ def test_fused_linear_scores_kernel_rejects_bad_input(card):
         sk.fused_linear_scores(X, W.cpu(), mid)
     with pytest.raises(TypeError, match="not supported"):
         sk.fused_linear_scores(X, W, mid, dtype=torch.float16)
+
+
+#: (n, C, p, K, L, act): the serving pass (13 boundary columns, 22 kept
+#: features, 4 models, a binary head), a softmax head, an identity head,
+#: and a group too large for shared memory (W alone is 512 x 65 x 3 f32,
+#: 400 KB), read through L1
+PREFIX_CASES = [(64, 13, 22, 4, 1, "sigmoid_pair"), (37, 13, 22, 4, 3,
+                                                    "softmax"),
+                (64, 13, 22, 4, 1, "identity"),
+                (300, 70, 64, 512, 3, "softmax")]
+
+
+def _prefix_case(card, n, C, p, K, L, seed):
+    """NaN in 5% of the values and all of column 0, model K-1 all inf
+    and selected by no row, two rows with mid outside [0, K)."""
+    rng = np.random.default_rng(seed)
+    V = rng.normal(size=(n, C)).astype(np.float32)
+    V[rng.random((n, C)) < 0.05] = np.nan
+    V[:, 0] = np.nan
+    src = rng.integers(0, C, size=(K, p)).astype(np.int32)
+    op = rng.integers(sk.OP_FILLED, sk.OP_NULL + 1,
+                      size=(K, p)).astype(np.uint8)
+    fill = rng.normal(size=(K, p)).astype(np.float32)
+    W = (0.5 * rng.normal(size=(K, p + 1, L))).astype(np.float32)
+    W[K - 1] = np.inf
+    mid = rng.integers(0, K - 1, size=n).astype(np.int32)
+    mid[:2] = (-1, K)
+    return [torch.from_numpy(a).to(card)
+            for a in (V, mid, src, op, fill, W)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PREFIX_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_prefix_scores_kernel_matches_plain(card, case, dtype):
+    """The prefix form in one launch against its plain version: f32
+    accumulation in another order, expf against torch's exp: rtol =
+    atol = 1e-4 (chip_smoke's KERNEL_RTOL); finite everywhere."""
+    n, C, p, K, L, act = case
+    args = _prefix_case(card, n, C, p, K, L, n + p + K)
+    before = sk.fused_linear_scores.launches
+    got = sk.fused_prefix_scores(*args, act=act, dtype=dtype)
+    torch.cuda.synchronize()
+    assert sk.fused_linear_scores.launches == before + 1
+    ref = sk.fused_prefix_scores_torch(*args, act=act, dtype=dtype)
+    assert got.shape == ref.shape
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [22, 64])
+def test_fused_prefix_features_are_bitwise_on_the_card(card, p):
+    """f32 operands, W[k] the identity (L = p) with a zero intercept:
+    each score is exactly one feature (the other products are exact
+    zeros), so the kernel's features equal the plain version's bit for
+    bit. p = 64 puts two features on each lane."""
+    n, C, K = 64, 13, 4
+    V, mid, src, op, fill, _W = _prefix_case(card, n, C, p, K, 1, p)
+    mid = mid.clamp(0, K - 1).contiguous()
+    W = torch.zeros((K, p + 1, p), device=card)
+    W[:, :p, :] = torch.eye(p, device=card)
+    got = sk.fused_prefix_scores(V, mid, src, op, fill, W, act="identity",
+                                 dtype=torch.float32)
+    want = sk.prefix_features_torch(V, mid, src, op, fill)
+    ref = sk.fused_prefix_scores_torch(V, mid, src, op, fill, W,
+                                       act="identity", dtype=torch.float32)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(ref.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_fused_pass_is_one_launch_per_bucket_slice(card, monkeypatch):
+    """The stacked branch on the card: 150 rows over the serving
+    catalog's four members take three bucket slices (64, 64, 22 padded
+    to 64), one launch each; every row within chip_smoke's SERVE_ATOL
+    of its model's numpy score under bf16 operands."""
+    import chip_smoke
+    from transmogrifai_tpu_torch.serving.fusion import (FusedGroupScorer,
+                                                        stack_spec_of)
+    monkeypatch.delenv("TM_KERNEL_EXACT", raising=False)
+    reg, catalog = chip_smoke.build_catalog(3, card)
+    names = [f"m{k:03d}" for k in range(chip_smoke.N_BACKENDS)]
+    members = []
+    for name in names:
+        with reg.acquire(name) as (_vname, backend):
+            members.append((backend, stack_spec_of(backend)))
+    rng = np.random.default_rng(2)
+    n = 150
+    cols = {f"x{i}": np.where(rng.random(n) < 0.05, np.nan,
+                              rng.normal(size=n))
+            for i in range(chip_smoke.N_COLUMNS)}
+    mid = rng.integers(0, len(names), size=n).astype(np.int32)
+    _n, vals = members[0][0].prepare(cols)
+    scorer = FusedGroupScorer(members)
+    assert scorer._tails is None and scorer.dtype == torch.bfloat16
+    before = sk.fused_linear_scores.launches
+    got = scorer.finalize(scorer.launch(n, vals, mid))
+    assert sk.fused_linear_scores.launches == before + 3
+    for k, name in enumerate(names):
+        want = chip_smoke.oracle_probs(cols, catalog[name][1], bf16=True)
+        np.testing.assert_allclose(got[mid == k], want[mid == k],
+                                   atol=chip_smoke.SERVE_ATOL)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """The PyTorch/CUDA port stands alone: ``transmogrifai_tpu_torch``,
-``chip_smoke.py`` and ``gbt_parity_probe.py`` import neither JAX nor
+``chip_smoke.py``, ``gbt_parity_probe.py`` and ``fused_pass_probe.py``
+import neither JAX nor
 the JAX package, every entry point resolves its device to CUDA unless
 the caller asks for the CPU, and a missing card or a failed kernel
 build raises instead of falling back."""
@@ -19,7 +20,8 @@ _FORBIDDEN = ("jax", "jaxlib", "transmogrifai_tpu")
 
 def _port_sources():
     out = [os.path.join(_REPO, f)
-           for f in ("chip_smoke.py", "gbt_parity_probe.py")]
+           for f in ("chip_smoke.py", "gbt_parity_probe.py",
+                     "fused_pass_probe.py")]
     for root, _dirs, files in os.walk(_PKG):
         out += [os.path.join(root, f) for f in sorted(files)
                 if f.endswith(".py")]
@@ -58,7 +60,7 @@ def test_importing_every_submodule_leaves_jax_out():
     code = (
         "import importlib, pkgutil, sys\n"
         "import transmogrifai_tpu_torch as P\n"
-        "import chip_smoke, gbt_parity_probe\n"
+        "import chip_smoke, gbt_parity_probe, fused_pass_probe\n"
         "mods = [m.name for m in pkgutil.walk_packages("
         "P.__path__, P.__name__ + '.')]\n"
         "for m in mods:\n"

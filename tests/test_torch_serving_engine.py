@@ -8,6 +8,7 @@ order); under ``TM_KERNEL_EXACT=1`` the port's fused results are
 bitwise-equal to its own per-model scoring.
 """
 import threading
+import types
 
 import numpy as np
 import pytest
@@ -224,6 +225,9 @@ def test_chip_smoke_serving_phase_rehearsal():
     assert out["matched"]["fused"] + out["matched"]["classic"] == 128
     assert 0 < out["fused_dispatch_rows_mean"] <= chip_smoke.MAX_BATCH_ROWS
     assert out["fused_dispatch_p99_ms"] >= out["fused_dispatch_p50_ms"] > 0
+    # max_batch_rows is the top bucket: each fused pass is one slice
+    assert out["fused_slices"] == out["fused_batches"]
+    assert out["kernel_launches"] is None    # no counter read on the CPU
 
 
 def _ir_model(rng, name, family, n_classes, L):
@@ -357,3 +361,68 @@ def test_lru_cache_evicts_and_reloads_lazy_versions(trained):
     np.testing.assert_array_equal(again, first[1])
     st = reg.cache_stats()
     assert (st["reloads"], st["evictions"], st["capacity"]) == (1, 2, 2)
+
+
+def _prefix_members(source, request):
+    """(backend, spec) of every member: chip_smoke's serving-phase
+    catalog (build_catalog's four backends) or this file's trained
+    artifacts."""
+    from transmogrifai_tpu_torch import portable
+    from transmogrifai_tpu_torch.serving import stack_spec_of
+    if source == "catalog":
+        reg, _catalog = chip_smoke.build_catalog(5, torch.device("cpu"))
+        backends = [reg.get(f"m{k:03d}").backend
+                    for k in range(chip_smoke.N_BACKENDS)]
+    else:
+        models, _ds = request.getfixturevalue("trained")
+        backends = []
+        for _m, path, _p in models:
+            pm = portable.load(path, device="cpu")
+            backends.append(types.SimpleNamespace(
+                scorer=pm.compile_scoring(buckets=BUCKETS)))
+    return [(b, stack_spec_of(b)) for b in backends]
+
+
+@pytest.mark.parametrize("nan_share", [0.0, 0.05, 1.0])
+@pytest.mark.parametrize("source", ["catalog", "trained"])
+def test_compiled_prefix_rebuilds_the_eager_features_bitwise(
+        source, nan_share, request):
+    """Each member's prefix tables, through the packed slice and the
+    plain gather, give its head's features bit for bit as its eager
+    impute / concat / keep_cols chain does: fills, null indicators,
+    keep subsets, NaN in none, 5% or all of every column, and one
+    column sent as integers (served as int32)."""
+    from transmogrifai_tpu_torch.models import serving_kernels as sk
+    from transmogrifai_tpu_torch.serving.fusion import pack_slice
+    members = _prefix_members(source, request)
+    rng = np.random.default_rng(int(nan_share * 100))
+    n, bucket = 29, 32
+    sc0 = members[0][0].scorer
+    raw = [c for c in sc0.boundary if c not in sc0._response_boundary]
+    cols = {c: np.where(rng.random(n) < nan_share, np.nan,
+                        rng.normal(size=n)) for c in raw}
+    cols[raw[1]] = rng.integers(-(2 ** 26), 2 ** 26, size=n)  # rounds in f32
+    _n, vals = sc0._boundary_host(cols)
+    assert vals[sc0.boundary.index(raw[1])].dtype == np.int32
+    specs = [spec for _b, spec in members]
+    assert all(s is not None and s.boundary == specs[0].boundary
+               for s in specs)
+    src, op, fill = (torch.stack([getattr(s, t) for s in specs])
+                     for t in ("src", "op", "fill"))
+    host = np.empty(bucket * (len(vals) + 1), np.float32)
+    C = len(vals)
+    for k, (backend, spec) in enumerate(members):
+        pack_slice(host, bucket, vals, np.full(n, k, np.int32))
+        got = sk.prefix_features_torch(
+            torch.from_numpy(host[:bucket * C].reshape(bucket, C)),
+            torch.from_numpy(host[bucket * C:].view(np.int32)),
+            src, op, fill)[:n]
+        eager = dict(zip(backend.scorer.boundary,
+                         [torch.from_numpy(v) for v in vals]))
+        for in_names, fn, out in backend.scorer.device_infos[:-1]:
+            eager[out] = fn(*[eager[nm] for nm in in_names])
+        want = eager[spec.feature_name]
+        assert got.shape == want.shape == (n, spec.p)
+        assert torch.isfinite(got).all()
+        np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                      want.numpy().view(np.uint32))

@@ -1,20 +1,35 @@
 """Fused cross-model serving kernel: one launch per (backend-family,
-bucket), scoring each request row under its own model out of K stacked
-linear heads.
+bucket) slice, scoring each request row under its own model out of K
+stacked linear heads.
 
-Counterpart of ``transmogrifai_tpu/models/serving_kernels.py``. There
-the Pallas kernel ``_fused_db_kernel`` streams rows through VMEM and
-runs one masked ``(n, K*L)`` MXU contraction; here
-:func:`fused_linear_scores` launches the hand-written CUDA kernel
-``csrc/fused_linear_scores.cu``, which gathers each row's own
-``(p+1, L)`` weight block instead (see the note in the source for why
-that is the same function, and what bounds it on an H100).
+Counterpart of ``transmogrifai_tpu/models/serving_kernels.py`` and of
+the jitted pass around it in ``transmogrifai_tpu/serving/fusion.py``.
+There the Pallas kernel ``_fused_db_kernel`` streams rows through VMEM
+and runs one masked ``(n, K*L)`` MXU contraction, and XLA fuses each
+member's prefix (impute, null indicators, concat, keep_cols) and the
+head's activation around it into one program. Here one hand-written
+CUDA kernel, ``csrc/fused_linear_scores.cu``, does all of it: each row
+builds its features from the raw boundary values through its own
+model's prefix tables (:func:`fused_prefix_scores`), is scored against
+its own ``(p+1, L)`` weight block, and leaves as probabilities (see
+the note in the source for why that is the same function, and what
+bounds it on an H100). :func:`fused_linear_scores` is the same kernel
+launched with the identity table and the identity activation: the JAX
+package's ``fused_linear_scores``.
 
-:func:`fused_linear_scores_torch` is the plain PyTorch version: the XLA
-twin's formulation (flattened weight block, intercept-row add, iota
-mask, ``where`` before the reduction, 0/1 group-sum dot) in torch. The
-wrapper takes it only for a tensor on the CPU; on a CUDA tensor it
-launches the kernel or raises — no fallback.
+The prefix tables (:data:`OP_VALUE`, :data:`OP_FILLED`,
+:data:`OP_NULL`): feature ``j`` of a row under model ``k`` reads
+boundary column ``src[k, j]`` and is that value as is, the value with
+NaN replaced by ``fill[k, j]``, or the value's null indicator.
+
+:func:`fused_linear_scores_torch` is the plain PyTorch version of the
+contraction: the XLA twin's formulation (flattened weight block,
+intercept-row add, iota mask, ``where`` before the reduction, 0/1
+group-sum dot) in torch; :func:`fused_prefix_scores_torch` puts the
+prefix gather (:func:`prefix_features_torch`) before it and the
+activation (:func:`apply_activation`) after it. The wrappers take the
+plain versions only for tensors on the CPU; on CUDA tensors they launch
+the kernel or raise — no fallback.
 
 Numerics policy (mirrors ``kernel_exact`` and ``serve_dtype`` of the
 JAX package): ``TM_KERNEL_EXACT=1`` pins f32 operands; otherwise
@@ -34,6 +49,7 @@ import numpy as np
 import torch
 
 from .. import _cuda_build
+from .linear import sigmoid_pair
 # TM_KERNEL_EXACT=1: the engine's fused path on the CPU runs each
 # model's own tail (serving/fusion.py); the card's kernel takes f32
 # operands
@@ -41,6 +57,13 @@ from .kernels import kernel_exact
 
 #: the CUDA source this module's kernel builds from (under the package)
 KERNEL_NAME = "fused_linear_scores"
+
+#: prefix-table op codes: feature = the boundary value as is, the value
+#: with NaN filled, or the value's null indicator (1 for NaN, else 0)
+OP_VALUE, OP_FILLED, OP_NULL = 0, 1, 2
+
+#: the stackable heads' activations, by the kernel's activation code
+ACTIVATIONS = {"identity": 0, "sigmoid_pair": 1, "softmax": 2}
 
 
 def serve_dtype(device) -> torch.dtype:
@@ -71,28 +94,36 @@ def _round_operand(t: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
 
 
 def _check_args(X, W, mid):
-    """Device, dtype, shape and contiguity checks shared by the kernel
-    wrapper and the plain version; returns (n, p, K, L)."""
+    """Device, dtype and shape checks shared by the kernel wrapper and
+    the plain version; returns (n, p, K, L)."""
     if X.dim() != 2 or W.dim() != 3 or mid.dim() != 1:
         raise ValueError(
             f"want X (n, p), W (K, p+1, L), mid (n,); got "
             f"{tuple(X.shape)}, {tuple(W.shape)}, {tuple(mid.shape)}")
     n, p = (int(s) for s in X.shape)
+    K, L = _check_head(n, p, X, W, mid, "X")
+    return n, p, K, L
+
+
+def _check_head(n, p, rows, W, mid, what):
+    """Checks of W (K, p+1, L) and mid (n,) against ``rows``, the
+    (n, ...) f32 input named ``what``; returns (K, L)."""
     K, p1, L = (int(s) for s in W.shape)
     if p1 != p + 1:
         raise ValueError(
             f"weight stack rows {p1} != features+intercept {p + 1}")
     if int(mid.shape[0]) != n:
-        raise ValueError(f"mid has {int(mid.shape[0])} rows, X has {n}")
-    if X.dtype != torch.float32 or W.dtype != torch.float32:
-        raise TypeError(f"X and W must be float32, got {X.dtype}, "
+        raise ValueError(f"mid has {int(mid.shape[0])} rows, {what} has "
+                         f"{n}")
+    if rows.dtype != torch.float32 or W.dtype != torch.float32:
+        raise TypeError(f"{what} and W must be float32, got {rows.dtype}, "
                         f"{W.dtype}")
     if mid.dtype != torch.int32:
         raise TypeError(f"mid must be int32, got {mid.dtype}")
-    if not (X.device == W.device == mid.device):
-        raise ValueError(f"X, W, mid on different devices: {X.device}, "
-                         f"{W.device}, {mid.device}")
-    return n, p, K, L
+    if not (rows.device == W.device == mid.device):
+        raise ValueError(f"{what}, W, mid on different devices: "
+                         f"{rows.device}, {W.device}, {mid.device}")
+    return K, L
 
 
 def fused_linear_scores_torch(X: torch.Tensor, W: torch.Tensor,
@@ -117,6 +148,83 @@ def fused_linear_scores_torch(X: torch.Tensor, W: torch.Tensor,
     return masked @ sel.to(torch.float32)
 
 
+def _check_prefix_args(V, mid, src, op, fill, W, act):
+    """Checks of the prefix form shared by the kernel wrapper and the
+    plain version; returns (n, C, p, K, L)."""
+    if V.dim() != 2 or src.dim() != 2 or W.dim() != 3 or mid.dim() != 1:
+        raise ValueError(
+            f"want V (n, C), src (K, p), W (K, p+1, L), mid (n,); got "
+            f"{tuple(V.shape)}, {tuple(src.shape)}, {tuple(W.shape)}, "
+            f"{tuple(mid.shape)}")
+    n, C = (int(s) for s in V.shape)
+    K, p = (int(s) for s in src.shape)
+    if tuple(op.shape) != (K, p) or tuple(fill.shape) != (K, p):
+        raise ValueError(f"prefix tables disagree: src {(K, p)}, op "
+                         f"{tuple(op.shape)}, fill {tuple(fill.shape)}")
+    KW, L = _check_head(n, p, V, W, mid, "V")
+    if KW != K:
+        raise ValueError(f"{KW} weight blocks for {K} prefix tables")
+    if (src.dtype, op.dtype, fill.dtype) != (torch.int32, torch.uint8,
+                                             torch.float32):
+        raise TypeError(f"src, op, fill must be int32, uint8, float32; "
+                        f"got {src.dtype}, {op.dtype}, {fill.dtype}")
+    if not (V.device == src.device == op.device == fill.device):
+        raise ValueError(f"V and the prefix tables on different devices: "
+                         f"{V.device}, {src.device}, {op.device}, "
+                         f"{fill.device}")
+    if act not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {act!r} (have "
+                         f"{sorted(ACTIVATIONS)})")
+    if act == "sigmoid_pair" and L != 1:
+        raise ValueError(f"a sigmoid pair head has L = 1, got {L}")
+    return n, C, p, K, L
+
+
+def prefix_features_torch(V: torch.Tensor, mid: torch.Tensor,
+                          src: torch.Tensor, op: torch.Tensor,
+                          fill: torch.Tensor) -> torch.Tensor:
+    """Plain version of the prefix: (n, p) f32 features, row ``i`` built
+    by model ``mid[i]``'s tables from its boundary values ``V[i]`` (a
+    row outside [0, K) by model 0's; its score is 0 whatever they
+    hold). Selection only, so each feature is bitwise what the eager
+    impute / concat / keep_cols chain gives."""
+    K = int(src.shape[0])
+    own = torch.where((mid >= 0) & (mid < K), mid,
+                      torch.zeros_like(mid)).long()
+    v = V.gather(1, src[own].long())
+    isnull = torch.isnan(v)
+    o = op[own]
+    filled = torch.where(isnull & (o == OP_FILLED), fill[own], v)
+    return torch.where(o == OP_NULL, isnull.to(torch.float32), filled)
+
+
+def apply_activation(act: str, z: torch.Tensor) -> torch.Tensor:
+    """The head's fixed activation over raw stacked scores (n, L) —
+    the same ops the per-family predict functions apply."""
+    if act == "sigmoid_pair":
+        return sigmoid_pair(z[:, 0])
+    if act == "softmax":
+        return torch.softmax(z, dim=1)
+    return z
+
+
+def fused_prefix_scores_torch(V: torch.Tensor, mid: torch.Tensor,
+                              src: torch.Tensor, op: torch.Tensor,
+                              fill: torch.Tensor, W: torch.Tensor, *,
+                              act: str,
+                              dtype: Optional[torch.dtype] = None
+                              ) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's prefix form: the prefix
+    gather, :func:`fused_linear_scores_torch`, the activation. V (n, C)
+    f32 boundary values, mid (n,) int32, src / op / fill (K, p) int32 /
+    uint8 / f32 prefix tables, W (K, p+1, L) f32 -> (n, n_out) f32
+    (n_out = 2 for a sigmoid pair, else L)."""
+    _check_prefix_args(V, mid, src, op, fill, W, act)
+    X = prefix_features_torch(V, mid, src, op, fill)
+    return apply_activation(
+        act, fused_linear_scores_torch(X, W, mid, dtype=dtype))
+
+
 _LAUNCH_LOCK = threading.Lock()
 _LIB = None
 
@@ -126,8 +234,8 @@ def _library():
     global _LIB
     if _LIB is None:
         lib = _cuda_build.load_library(KERNEL_NAME)
-        fn = lib.tm_fused_linear_scores
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+        fn = lib.tm_fused_scores
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         # an empty launch through the same path (timing floor only)
@@ -137,6 +245,39 @@ def _library():
         lib.tm_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _launch(V, mid, tables, W, n, C, p, K, L, act, dt) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors (``tables`` None: the
+    identity table); counts on ``fused_linear_scores.launches``."""
+    if V.device.type != "cuda":
+        raise ValueError(f"fused serving kernel: unsupported device "
+                         f"{V.device}")
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"operand dtype {dt} not supported by the kernel")
+    if not all(t.is_contiguous() for t in (V, mid, W) + tuple(tables or ())):
+        raise ValueError("fused serving kernel: V (X), mid, W and the "
+                         "prefix tables must be contiguous")
+    n_out = 2 if act == "sigmoid_pair" else L
+    out = torch.empty((n, n_out), dtype=torch.float32, device=V.device)
+    if n == 0:
+        return out
+    lib = _library()
+    src, op, fill = (t.data_ptr() for t in tables) if tables else (None,) * 3
+    stream = torch.cuda.current_stream(V.device).cuda_stream
+    with torch.cuda.device(V.device):
+        err = lib.tm_fused_scores(
+            V.data_ptr(), mid.data_ptr(), src, op, fill, W.data_ptr(),
+            out.data_ptr(), n, C, p, K, L, ACTIVATIONS[act],
+            int(dt == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fused serving kernel launch failed (n={n}, C={C}, p={p}, "
+            f"K={K}, L={L}, act={act}): "
+            f"{lib.tm_cuda_error_string(err).decode()}")
+    with _LAUNCH_LOCK:
+        fused_linear_scores.launches += 1
+    return out
 
 
 def fused_linear_scores(X: torch.Tensor, W: torch.Tensor,
@@ -153,42 +294,48 @@ def fused_linear_scores(X: torch.Tensor, W: torch.Tensor,
     :func:`serve_dtype` of X's device; bf16 and f32 are supported).
 
     On a CPU tensor this is :func:`fused_linear_scores_torch`. On a
-    CUDA tensor it launches ``csrc/fused_linear_scores.cu`` on the
-    current stream (built at first use) and raises if the build or
-    the launch fails. ``fused_linear_scores.launches`` counts launches."""
+    CUDA tensor it launches ``csrc/fused_linear_scores.cu`` with the
+    identity table and activation, on the current stream (built at
+    first use), and raises if the build or the launch fails.
+    ``fused_linear_scores.launches`` counts the kernel's launches, from
+    this entry and from :func:`fused_prefix_scores`."""
     n, p, K, L = _check_args(X, W, mid)
     dt = serve_dtype(X.device) if dtype is None else dtype
     if X.device.type == "cpu":
         return fused_linear_scores_torch(X, W, mid, dtype=dt)
-    if X.device.type != "cuda":
-        raise ValueError(f"fused_linear_scores: unsupported device "
-                         f"{X.device}")
-    if dt not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"operand dtype {dt} not supported by the kernel")
-    if not (X.is_contiguous() and W.is_contiguous()
-            and mid.is_contiguous()):
-        raise ValueError("fused_linear_scores: X, W and mid must be "
-                         "contiguous")
-    out = torch.empty((n, L), dtype=torch.float32, device=X.device)
-    if n == 0:
-        return out
-    lib = _library()
-    stream = torch.cuda.current_stream(X.device).cuda_stream
-    with torch.cuda.device(X.device):
-        err = lib.tm_fused_linear_scores(
-            X.data_ptr(), W.data_ptr(), mid.data_ptr(), out.data_ptr(),
-            n, p, K, L, int(dt == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"fused_linear_scores launch failed (n={n}, p={p}, K={K}, "
-            f"L={L}): {lib.tm_cuda_error_string(err).decode()}")
-    with _LAUNCH_LOCK:
-        fused_linear_scores.launches += 1
-    return out
+    return _launch(X, mid, None, W, n, p, p, K, L, "identity", dt)
 
 
-#: launches of the CUDA kernel (the CPU path counts nothing)
+#: launches of the CUDA kernel from either entry (the CPU path counts
+#: nothing)
 fused_linear_scores.launches = 0
+
+
+def fused_prefix_scores(V: torch.Tensor, mid: torch.Tensor,
+                        src: torch.Tensor, op: torch.Tensor,
+                        fill: torch.Tensor, W: torch.Tensor, *, act: str,
+                        dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
+    """One fused serving slice in ONE kernel launch: each row's
+    features built from its boundary values by its own model's prefix
+    tables, scored under its own model, through the head's activation.
+
+    V: (n, C) f32 boundary values. mid: (n,) int32 model index per row
+    (a row outside [0, K) gets raw scores 0 before the activation).
+    src / op / fill: (K, p) int32 / uint8 / f32 prefix tables (see the
+    module docstring). W: (K, p+1, L) f32 stacked weights. ``act``: one
+    of :data:`ACTIVATIONS`. Returns (n, n_out) f32 (n_out = 2 for a
+    sigmoid pair, else L). ``dtype`` as for :func:`fused_linear_scores`.
+
+    On CPU tensors this is :func:`fused_prefix_scores_torch`; on CUDA
+    tensors it launches the kernel or raises. Launches count on
+    ``fused_linear_scores.launches``."""
+    n, C, p, K, L = _check_prefix_args(V, mid, src, op, fill, W, act)
+    dt = serve_dtype(V.device) if dtype is None else dtype
+    if V.device.type == "cpu":
+        return fused_prefix_scores_torch(V, mid, src, op, fill, W,
+                                         act=act, dtype=dt)
+    return _launch(V, mid, (src, op, fill), W, n, C, p, K, L, act, dt)
 
 
 def fused_cost_floor(n: int, p: int, K: int, L: int) -> dict:
@@ -198,6 +345,16 @@ def fused_cost_floor(n: int, p: int, K: int, L: int) -> dict:
     flops = 2.0 * n * (p + 1) * K * L + 2.0 * n * K * L * L
     gbytes = 4.0 * (n * (p + 1) + (p + 1) * K * L + n * L) / 1e9
     return {"analytic_gflops": flops / 1e9, "analytic_gbytes": gbytes}
+
+
+def fused_prefix_cost(n: int, C: int, p: int, K: int, L: int,
+                      n_out: int) -> dict:
+    """Bytes and f32 operations of one prefix-form launch: each input
+    read once (V, mid, the three (K, p) tables, W), the output written
+    once; a multiply and an add per (row, feature, head column)."""
+    return {"bytes": 4.0 * n * C + 4.0 * n + 9.0 * K * p
+            + 4.0 * K * (p + 1) * L + 4.0 * n * n_out,
+            "flops": 2.0 * n * (p + 1) * L}
 
 
 def np_reference_scores(X, W, mid) -> np.ndarray:

@@ -17,20 +17,28 @@ Two formulations, switched by the kernel parity policy:
   (impute / combine / sanity / predict), so each row sees EXACTLY what
   its own backend computes — bitwise-identical to per-backend scoring
   by construction (the validation anchor).
-* otherwise — the models' affine heads stack into one (K, p+1, L)
-  weight block and ``fused_linear_scores`` scores all K at once in the
-  serving dtype (bf16 operands on CUDA, f32 on the CPU and under
-  ``TM_KERNEL_EXACT=1``; f32 accumulation). The kernel is chosen by the
-  tensors' device: the CUDA kernel on the card, its plain PyTorch
-  version on the CPU. On the card exact mode only pins f32 operands:
-  the fused plane never leaves the kernel there.
+* otherwise — the stacked pass. At publish time :func:`compile_prefix`
+  turns each member's prefix (the device stages before its head:
+  impute with null indicators, concat, keep_cols) into three tables
+  over its head's features, stored on its :class:`StackSpec` beside the
+  head's (p+1, L) weights. A bucket slice then packs its boundary
+  values and model ids into one (pinned, on CUDA) host buffer, copies
+  it to the device once, and ``fused_prefix_scores`` builds every
+  row's features through its own model's tables, scores all K heads
+  and applies the activation, in the serving dtype (bf16 operands on
+  CUDA, f32 on the CPU and under ``TM_KERNEL_EXACT=1``; f32
+  accumulation): one copy in, one kernel launch, one copy out. The
+  kernel is chosen by the tensors' device: the CUDA kernel on the card,
+  its plain PyTorch version on the CPU. On the card exact mode only
+  pins f32 operands: the fused plane never leaves the kernel there.
 
 Stackability is DETECTED, not declared: the terminal device stage must
 be a PredictionModel of a linear family (LogisticRegression /
-LinearRegression / LinearSVC — one affine map + a fixed activation).
-Anything else falls back LOUDLY: the engine counts ``fused_fallbacks``
-and flight-records the first occurrence per backend, and those groups
-keep the Python-layer co-batching path.
+LinearRegression / LinearSVC — one affine map + a fixed activation),
+and every stage before it one the prefix compiler knows. Anything else
+falls back LOUDLY: the engine counts ``fused_fallbacks`` and
+flight-records the first occurrence per backend, and those groups keep
+the Python-layer co-batching path.
 """
 from __future__ import annotations
 
@@ -40,7 +48,7 @@ import numpy as np
 import torch
 
 from ..models import serving_kernels as _sk
-from ..models.linear import sigmoid_pair
+from ..ops import RealVectorizerModel, SanityCheckerModel, VectorsCombiner
 from ..workflow import _pad_rows, to_device
 
 #: strict TM_SERVE_FUSED_* catalog (parse_env_fields). The JAX
@@ -72,15 +80,19 @@ class StackSpec:
     """Stackable-head metadata for one backend: everything the fused
     group scorer needs to put this model's rows in a shared launch."""
 
-    __slots__ = ("family", "act", "p", "L", "n_out", "W", "feature_name",
-                 "result_name", "boundary", "response_boundary",
-                 "buckets", "device")
+    __slots__ = ("family", "act", "p", "L", "n_out", "W", "src", "op",
+                 "fill", "feature_name", "result_name", "boundary",
+                 "response_boundary", "buckets", "device")
 
-    def __init__(self, family, act, W, feature_name, result_name,
+    def __init__(self, family, act, W, tables, feature_name, result_name,
                  boundary, response_boundary, buckets, device):
         self.family = family
         self.act = act              # "sigmoid_pair" | "softmax" | "identity"
         self.W = W                  # (p+1, L) f32 tensor, last row = intercept
+        #: the prefix tables (compile_prefix): (p,) int32 boundary
+        #: column, uint8 op, f32 fill per head feature, on ``device``
+        self.src, self.op, self.fill = (
+            torch.from_numpy(t).to(device) for t in tables)
         self.p = int(W.shape[0]) - 1
         self.L = int(W.shape[1])
         self.n_out = 2 if act == "sigmoid_pair" else self.L
@@ -103,10 +115,57 @@ class StackSpec:
                 str(self.device))
 
 
+def compile_prefix(sc, feature_name: str) -> Optional[tuple]:
+    """A scorer's device prefix — every stage before its head — as
+    three tables over the head's feature block ``feature_name``:
+    ``src`` (int32, the boundary column a feature reads), ``op`` (uint8,
+    ``OP_FILLED`` or ``OP_NULL``) and ``fill`` (f32, the fill value as
+    the eager impute rounds it). Recognises the fitted impute stage
+    (:class:`RealVectorizerModel`: filled value, then the null
+    indicator when it tracks nulls), :class:`VectorsCombiner` (concat
+    in input order) and :class:`SanityCheckerModel` (keep_cols; its
+    label input is never read), and nothing else: any other stage, an
+    impute reading anything but a boundary column, or a block the head
+    cannot read gives None."""
+    column = {name: i for i, name in enumerate(sc.boundary)}
+    blocks: Dict[str, list] = {}     # output name -> [(src, op, fill)]
+    for in_names, _fn, out in sc.device_infos[:-1]:
+        st = sc.device_stage_by_output[out]
+        if isinstance(st, RealVectorizerModel):
+            if len(in_names) != 1 or in_names[0] not in column:
+                return None
+            c = column[in_names[0]]
+            feats = [(c, _sk.OP_FILLED, np.float32(st.params["fill_value"]))]
+            if st.params["track_nulls"]:
+                feats.append((c, _sk.OP_NULL, np.float32(0.0)))
+        elif isinstance(st, VectorsCombiner):
+            if not all(b in blocks for b in in_names):
+                return None
+            feats = [f for b in in_names for f in blocks[b]]
+        elif isinstance(st, SanityCheckerModel):
+            if len(in_names) != 2 or in_names[1] not in blocks:
+                return None
+            base = blocks[in_names[1]]
+            keep = st.params["keep_indices"].cpu().numpy()
+            if ((keep < 0) | (keep >= len(base))).any():
+                return None
+            feats = [base[i] for i in keep]
+        else:
+            return None
+        blocks[out] = feats
+    feats = blocks.get(feature_name)
+    if not feats:
+        return None
+    return (np.array([f[0] for f in feats], np.int32),
+            np.array([f[1] for f in feats], np.uint8),
+            np.array([f[2] for f in feats], np.float32))
+
+
 def stack_spec_of(backend) -> Optional[StackSpec]:
     """Detect whether ``backend``'s device tail ends in a stackable
-    affine head; None means 'serve it the classic way' (multi-result
-    models, non-linear families, post-predict device stages). Never
+    affine head behind a prefix :func:`compile_prefix` knows; None means
+    'serve it the classic way' (multi-result models, non-linear
+    families, post-predict device stages, other prefix stages). Never
     raises: detection runs at registry publish time and a detector bug
     must not take a version out of service — the engine counts every
     fallback (``fused_fallbacks``), so a detection bug shows there."""
@@ -146,9 +205,12 @@ def stack_spec_of(backend) -> Optional[StackSpec]:
             W = beta.reshape(-1, 1)
             act = ("identity" if family == "LinearRegression"
                    else "sigmoid_pair")
-        return StackSpec(family, act, W, term_inputs[1], result_name,
-                         sc.boundary, sc._response_boundary, sc.buckets,
-                         sc.device)
+        tables = compile_prefix(sc, term_inputs[1])
+        if tables is None or len(tables[0]) != int(W.shape[0]) - 1:
+            return None
+        return StackSpec(family, act, W, tables, term_inputs[1],
+                         result_name, sc.boundary, sc._response_boundary,
+                         sc.buckets, sc.device)
     except Exception:  # noqa: BLE001 — detection must never break serving
         return None
 
@@ -177,14 +239,25 @@ def backend_caps(backend) -> BackendCaps:
     return BackendCaps(launch, finalize, stack_spec_of(backend))
 
 
-def _apply_activation(act: str, z: torch.Tensor) -> torch.Tensor:
-    """The family's fixed activation over raw stacked scores (n, L) —
-    the same ops the per-family predict functions apply."""
-    if act == "sigmoid_pair":
-        return sigmoid_pair(z[:, 0])
-    if act == "softmax":
-        return torch.softmax(z, dim=1)
-    return z
+def pack_slice(host: np.ndarray, bucket: int, vals: Sequence[np.ndarray],
+               mid: np.ndarray) -> None:
+    """Fill ``host``, a flat f32 array of bucket * (C + 1) words, with
+    one bucket slice: the (bucket, C) boundary values row-major, then
+    the model ids' int32 bits. Padded rows repeat the last real row, as
+    ``_pad_rows`` does (zeros for an empty slice). An int32 column
+    rounds to f32 to nearest, as the eager prefix's
+    ``.to(torch.float32)`` does."""
+    m, C = len(mid), len(vals)
+    V = host[:bucket * C].reshape(bucket, C)
+    ids = host[bucket * C:].view(np.int32)
+    for c, v in enumerate(vals):
+        V[:m, c] = v
+    ids[:m] = mid
+    if m == 0:
+        host[:] = 0
+    elif m < bucket:
+        V[m:] = V[m - 1]
+        ids[m:] = mid[m - 1]
 
 
 class FusedGroupScorer:
@@ -215,49 +288,62 @@ class FusedGroupScorer:
         self.exact = _sk.kernel_exact()
         self.policy_token = _sk.serve_policy_token(self.device)
         self._slices = self.backends[0].scorer._bucket_slices
-        boundary = list(s0.boundary)
+        self._tails = None
 
         if self.exact and self.device.type == "cpu":
             # each member's OWN full tail on the shared boundary; the
             # where-select keeps every row bitwise on its own model's
             # result (ops are row-independent) — K tails, and the plain
             # version is not called either
-            infos_list = [b.scorer.device_infos for b, _ in members]
-            names = [s.result_name for s in specs]
-
-            def fused(mid_b, bvals):
-                out = None
-                for k, infos in enumerate(infos_list):
-                    cols = dict(zip(boundary, bvals))
-                    for in_names, fn, outname in infos:
-                        cols[outname] = fn(*[cols[nm] for nm in in_names])
-                    ok = cols[names[k]]
-                    out = ok if out is None else torch.where(
-                        (mid_b == k)[:, None], ok, out)
-                return out
+            self._tails = [b.scorer.device_infos for b, _ in members]
+            self._tail_names = [s.result_name for s in specs]
         else:
-            # stacked contraction: member prefixes build the feature
-            # matrix, one kernel launch scores all K heads
-            Wstack = torch.stack([s.W for s in specs]).to(
-                torch.float32).contiguous()
-            prefix_list = [b.scorer.device_infos[:-1] for b, _ in members]
-            feat_names = [s.feature_name for s in specs]
-            act = s0.act
+            # the stacked pass: the members' heads and prefix tables,
+            # stacked once in member order (the model index a row rides
+            # under indexes W and the three tables alike)
+            def stack(name):
+                return torch.stack([getattr(s, name) for s in specs]
+                                   ).contiguous()
+            self.W = stack("W").to(torch.float32)
+            self.src, self.op, self.fill = (stack("src"), stack("op"),
+                                            stack("fill"))
+            self.act = s0.act
+            self.dtype = _sk.serve_dtype(self.device)
+            # pinned staging: a non_blocking copy from pageable memory
+            # would run synchronously. Each slice takes a fresh buffer
+            # from PyTorch's caching host allocator, which holds a block
+            # until the copy reading it has finished — the engine
+            # launches the next pass before it finalizes this one, so a
+            # buffer reused by hand could be overwritten mid-copy.
+            self._pin = self.device.type == "cuda"
 
-            def fused(mid_b, bvals):
-                feats = None
-                for k, infos in enumerate(prefix_list):
-                    cols = dict(zip(boundary, bvals))
-                    for in_names, fn, outname in infos:
-                        cols[outname] = fn(*[cols[nm] for nm in in_names])
-                    fk = cols[feat_names[k]].to(torch.float32)
-                    feats = fk if feats is None else torch.where(
-                        (mid_b == k)[:, None], fk, feats)
-                z = _sk.fused_linear_scores(feats.contiguous(), Wstack,
-                                            mid_b)
-                return _apply_activation(act, z)
+    def _exact_tails(self, mid_b, bvals):
+        """Exact mode on the CPU: every member's own tail, each row
+        taking its own member's result."""
+        out = None
+        for k, infos in enumerate(self._tails):
+            cols = dict(zip(self.boundary, bvals))
+            for in_names, fn, outname in infos:
+                cols[outname] = fn(*[cols[nm] for nm in in_names])
+            ok = cols[self._tail_names[k]]
+            out = ok if out is None else torch.where(
+                (mid_b == k)[:, None], ok, out)
+        return out
 
-        self._fn = fused
+    def _stacked(self, bucket: int, vals: Sequence[np.ndarray],
+                 mid: np.ndarray) -> torch.Tensor:
+        """One bucket slice of the stacked pass: one host buffer
+        (:func:`pack_slice`), one copy to the device, two views of it,
+        one launch."""
+        C = len(vals)
+        buf = torch.empty(bucket * (C + 1), dtype=torch.float32,
+                          pin_memory=self._pin)
+        pack_slice(buf.numpy(), bucket, vals, mid)
+        dev = buf.to(self.device, non_blocking=True)
+        return _sk.fused_prefix_scores(
+            dev[:bucket * C].view(bucket, C),
+            dev[bucket * C:].view(torch.int32), self.src, self.op,
+            self.fill, self.W, act=self.act, dtype=self.dtype)
 
     def launch(self, n: int, vals: Sequence[np.ndarray],
                mid: np.ndarray) -> List[tuple]:
@@ -267,11 +353,17 @@ class FusedGroupScorer:
         parts = []
         with torch.inference_mode():
             for start, stop, bucket in self._slices(n):
-                mid_p = to_device(_pad_rows(mid[start:stop], bucket),
-                                  self.device)
-                dev = [to_device(_pad_rows(v[start:stop], bucket),
-                                 self.device) for v in vals]
-                parts.append((stop - start, self._fn(mid_p, dev)))
+                if self._tails is None:
+                    out = self._stacked(bucket,
+                                        [v[start:stop] for v in vals],
+                                        mid[start:stop])
+                else:
+                    out = self._exact_tails(
+                        to_device(_pad_rows(mid[start:stop], bucket),
+                                  self.device),
+                        [to_device(_pad_rows(v[start:stop], bucket),
+                                   self.device) for v in vals])
+                parts.append((stop - start, out))
         return parts
 
     def finalize(self, parts: Sequence[tuple]) -> np.ndarray:
