@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Drives the port's three paths — fused multi-model LR serving,
-tree-model AutoML training and row-sharded tree growing over a data
-mesh — through the entry points a user calls, and holds each CUDA
-kernel against its plain PyTorch version:
+AutoML training over the selector's default candidate lists (tree and
+linear families) and row-sharded tree growing over a data mesh —
+through the entry points a user calls, and holds each CUDA kernel
+against its plain PyTorch version:
 
 1. device: the card's name and power limit (nvidia-smi), then every
    kernel under ``transmogrifai_tpu_torch/csrc`` built with nvcc for
@@ -49,14 +50,28 @@ kernel against its plain PyTorch version:
    kernel's SASS (``cuobjdump -sass``) must hold tensor-core ``HMMA``
    instructions;
 5. training: ``BinaryClassificationModelSelector`` with 3-fold CV over
-   DecisionTree/RandomForest/GBT/XGBoost at default grids and
+   its default candidate list — DecisionTree/RandomForest/GBT/XGBoost
+   and LinearSVC/LogisticRegression/NaiveBayes — at default grids and
    registered caps on 200k x 28 HIGGS-shaped rows from ``--seed``,
    through ``fit_transform``. The histogram launches must equal the
-   tree levels the code grows, the winner must beat a linear score on
-   the holdout; the fit is repeated under torch.profiler (busy share,
+   tree levels the code grows, the serving kernel must not launch, the
+   winner must be a tree family beating a linear score on the holdout
+   by 0.1, the refit must hold no NaN; every family's wall is printed,
+   and each linear family's sweep is profiled alone (device time and
+   operations); the fit is repeated under torch.profiler (busy share,
    the kernel's share), and the card is held to the CPU (an exact-mode
    decision tree bitwise; exact-mode GBT trees parting only at near
    ties, and its AUROC per grid point within a tolerance);
+   linear: the card's linear sweep against independent references —
+   on one fold the L2 logistic and ridge coefficients against numpy f64
+   solves (``ORACLE_RTOL``); every default grid point of LR, LinearSVC
+   and NaiveBayes (binary) and of LR (multiclass, k = 3) on 8,000 rows
+   on the card against the port's CPU path (``LINEAR_CPU_TOL``); an LR
+   candidate alone and stacked with a second one, bitwise; and the
+   binary linear families' dispatch at full width under
+   ``torch.cuda.set_sync_debug_mode("error")``;
+   other_lists: the multiclass (k = 3) and regression default lists at
+   20k rows of the same features: winner, walls, histogram launches;
 6. ring_kernel: ``ring_allreduce`` (all-gather and all-reduce) against
    ``ring_allgather_torch`` / ``ring_allreduce_torch`` on 2, 3 and 4
    ranks sharing one card (each rank its own stream), and over every
@@ -924,6 +939,9 @@ TRAIN_ROWS = 200_000
 TRAIN_FEATURES = 28                 # HIGGS' width
 TREE_FAMILIES = ["DecisionTreeClassifier", "RandomForestClassifier",
                  "GBTClassifier", "XGBoostClassifier"]
+#: the binary selector's default candidates (the JAX package's list):
+#: the four tree families and the linear ones
+LINEAR_FAMILIES = ["LinearSVC", "LogisticRegression", "NaiveBayes"]
 #: exact-mode GBT, card vs CPU, on GBT_PARITY_ROWS rows of the training
 #: data. The kernel, the leaf products and sigmoid sum and round f32 in
 #: another order on the card, so its histograms differ from the CPU's
@@ -946,18 +964,38 @@ GBT_HIST_RTOL = 1e-5
 GBT_PARITY_TOL = 0.015
 
 
-def training_data(seed: int, n: int = TRAIN_ROWS):
-    """HIGGS-shaped synthetic rows: 28 Real features, a nonlinear
-    (XOR-style) label of a few of them plus noise, balanced so the
-    default DataBalancer keeps unit weights."""
+def training_signal(seed: int, n: int = TRAIN_ROWS):
+    """HIGGS-shaped synthetic rows: 28 Real features and a nonlinear
+    (XOR-style) signal of a few of them plus noise."""
     rng = np.random.default_rng(seed)
     X = rng.normal(size=(n, TRAIN_FEATURES)).astype(np.float32)
     z = (X[:, 0] * X[:, 1] + 0.5 * np.sin(2.0 * X[:, 2]) + 0.3 * X[:, 3]
          + 0.3 * rng.normal(size=n))
+    return X, z
+
+
+def training_data(seed: int, n: int = TRAIN_ROWS):
+    """The binary label of :func:`training_signal`, balanced so the
+    default DataBalancer keeps unit weights."""
+    X, z = training_signal(seed, n)
     return X, (z > 0).astype(np.float32)
 
 
-def _selector(X, y, candidates, device):
+def problem_data(seed: int, n: int, problem: str):
+    """The same rows for each problem: binary (the sign of the signal),
+    multiclass (its terciles, k = 3) or regression (the signal)."""
+    X, z = training_signal(seed, n)
+    if problem == "binary":
+        return X, (z > 0).astype(np.float32)
+    if problem == "multiclass":
+        return X, np.digitize(z, np.quantile(z, [1 / 3, 2 / 3])
+                              ).astype(np.float32)
+    return X, z.astype(np.float32)
+
+
+def _selector(X, y, candidates, device, problem="binary"):
+    """A 3-fold CV selector of ``problem`` (``candidates`` None: the
+    default list) and the dataset it fits."""
     from transmogrifai_tpu_torch import models as TM
     from transmogrifai_tpu_torch.dataset import Dataset
     from transmogrifai_tpu_torch.features import FeatureBuilder
@@ -966,7 +1004,10 @@ def _selector(X, y, candidates, device):
                  {"y": ft.RealNN, "x": ft.OPVector})
     lbl = FeatureBuilder.of(ft.RealNN, "y").from_column().as_response()
     vec = FeatureBuilder.OPVector("x").from_column().as_predictor()
-    sel = TM.BinaryClassificationModelSelector.with_cross_validation(
+    factory = {"binary": TM.BinaryClassificationModelSelector,
+               "multiclass": TM.MultiClassificationModelSelector,
+               "regression": TM.RegressionModelSelector}[problem]
+    sel = factory.with_cross_validation(
         n_folds=3, candidates=candidates, device=device).set_input(lbl, vec)
     return ds, sel
 
@@ -1121,10 +1162,12 @@ def gbt_compare(card, cpu, X):
 
 
 def training_phase(seed: int, rows: int = TRAIN_ROWS, device="cuda"):
-    """The selector's main path on ``device`` (launch count, winner,
-    timings), a profiled repeat (busy and kernel shares; CUDA only) and
-    the card-vs-CPU checks. ``rows`` and ``device`` exist for a CPU
-    rehearsal at a small size. Returns the phase's measurements."""
+    """The selector's main path on ``device`` — the binary default
+    candidate list, trees and linear families (launch count, winner,
+    timings) — a profiled repeat and each linear family's sweep profiled
+    alone (CUDA only), and the card-vs-CPU tree checks. ``rows`` and
+    ``device`` exist for a CPU rehearsal at a small size. Returns the
+    phase's measurements."""
     from transmogrifai_tpu_torch import models as TM
     from transmogrifai_tpu_torch.models import kernels as tk
     from transmogrifai_tpu_torch.models import serving_kernels as sk
@@ -1132,7 +1175,10 @@ def training_phase(seed: int, rows: int = TRAIN_ROWS, device="cuda"):
     from transmogrifai_tpu_torch.models.tuning import DataSplitter
     X, y = training_data(seed, rows)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    ds, sel = _selector(X, y, TREE_FAMILIES, device)
+    ds, sel = _selector(X, y, None, device)
+    families = [name for name, _ in sel.params["candidates"]]
+    if sorted(families) != sorted(TREE_FAMILIES + LINEAR_FAMILIES):
+        raise AssertionError(f"binary default candidates {families}")
     sync()
     tk.histogram_grid.launches = 0
     sk.fused_linear_scores.launches = 0
@@ -1145,7 +1191,8 @@ def training_phase(seed: int, rows: int = TRAIN_ROWS, device="cuda"):
     winner = summ["bestModel"]["family"]
     expected = (sum(TM.MODEL_FAMILIES[f].levels_per_fit()
                     for f in TREE_FAMILIES)
-                + TM.MODEL_FAMILIES[winner].levels_per_fit())
+                + (TM.MODEL_FAMILIES[winner].levels_per_fit()
+                   if winner in TREE_FAMILIES else 0))
     if device == "cuda" and launches != expected:
         raise AssertionError(f"{launches} histogram launches, the code "
                              f"grows {expected} tree levels")
@@ -1167,6 +1214,7 @@ def training_phase(seed: int, rows: int = TRAIN_ROWS, device="cuda"):
 
     out = {"rows": rows, "features": TRAIN_FEATURES,
            "train_rows": summ["dataCounts"]["train"],
+           "families": families,
            "fit_transform_wall_s": fit_wall,
            "family_wall_s": summ["wallSeconds"]["families"],
            "refit_wall_s": summ["wallSeconds"]["refit"],
@@ -1179,6 +1227,8 @@ def training_phase(seed: int, rows: int = TRAIN_ROWS, device="cuda"):
            "histogram_launches": launches, "expected_launches": expected}
     if device == "cuda":
         out.update(_profiled_fit(X, y))
+        out["linear_family_device"] = _linear_family_profile(
+            X[tr_idx], y[tr_idx])
     out.update(_card_vs_cpu(X, y, device))
     return out
 
@@ -1188,7 +1238,7 @@ def _profiled_fit(X, y):
     only): the device's busy share of the fit's wall and the histogram
     kernel's share of device time."""
     from torch.autograd import DeviceType
-    ds, sel = _selector(X, y, TREE_FAMILIES, "cuda")
+    ds, sel = _selector(X, y, None, "cuda")
     prof, wall = profiled(_walled(lambda: sel.fit(ds)), host=False)
     busy_us, events = _device_time_us(prof)
     kern_us = 0.0
@@ -1206,6 +1256,30 @@ def _profiled_fit(X, y):
             "kernel_share_of_device": kern_us / busy_us,
             "top_device_ops": [{"ms": us / 1e3, "count": c, "name": k}
                                for us, c, k in top[:10]]}
+
+
+def _linear_family_profile(X, y):
+    """Each linear family of the binary default list validated alone
+    (3-fold CV, its default grid, the selector's sweep) under
+    torch.profiler: its wall, device time and device operations."""
+    from transmogrifai_tpu_torch.models import MODEL_FAMILIES
+    from transmogrifai_tpu_torch.models.tuning import OpCrossValidation
+    w = np.ones(len(y), np.float32)
+    out = {}
+    for name in LINEAR_FAMILIES:
+        fam = MODEL_FAMILIES[name]
+        cv = OpCrossValidation(n_folds=3, metric="auroc")
+
+        def run():
+            p = cv.dispatch_many([("0", fam, fam.make_grid())], X, y, w,
+                                 2, "cuda")
+            return cv.collect(p["0"])
+        prof, wall = profiled(_walled(run), host=False)
+        busy_us, events = _device_time_us(prof)
+        out[name] = {"wall_s": wall, "device_s": busy_us / 1e6,
+                     "device_ops": events,
+                     "items": 3 * len(fam.make_grid())}
+    return out
 
 
 def _card_vs_cpu(X, y, device):
@@ -1255,6 +1329,224 @@ def _card_vs_cpu(X, y, device):
         "gbt_divergence": gbt["divergence"],
         "gbt_gpu_wall_s": t3 - t2, "gbt_cpu_wall_s": t4 - t3,
     }
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the linear sweep held to independent references
+# ---------------------------------------------------------------------------
+
+#: rows of the card-vs-CPU and invariance checks (the CPU side runs the
+#: sweep one item at a time)
+LINEAR_PARITY_ROWS = 8_000
+ORACLE_REG = 0.01
+#: the card's coefficients against a numpy f64 solve, as max|diff| over
+#: max|beta|: L2-only logistic (15 damped Newton steps in f32 against
+#: Newton to convergence in f64) and ridge (one f32 Cholesky solve).
+#: The f32 Gram over ~120k rows is good to ~1e-6 of its scale and the
+#: designs are well conditioned (standard normal features), so 1e-4
+#: leaves room for the solve; a dropped row or a wrong penalty moves
+#: the coefficients by 1e-3 or more
+ORACLE_RTOL = {"logistic": 1e-4, "ridge": 1e-4}
+#: card vs CPU, per grid point: validation AUROC (binary) and log loss
+#: (multiclass). Both sides run the same f32 program; only the order of
+#: summation differs (cuBLAS against the CPU's GEMMs), which moves a
+#: coefficient by ~1e-6 of its scale after Newton and carries through
+#: the 200-300 first-order steps without growing (each step contracts)
+LINEAR_CPU_TOL = {"binary": 1e-4, "multiclass": 1e-4}
+#: rows of the multiclass and regression default lists
+OTHER_ROWS = 20_000
+
+
+def _np_logistic(Xb, y, w, l2, iters=50):
+    """L2 logistic regression by undamped Newton in numpy f64 to
+    convergence: the same objective as the port's (intercept unpenalized,
+    the same 1e-5 ridge on the Hessian)."""
+    d = Xb.shape[1]
+    mask = np.ones(d)
+    mask[-1] = 0.0
+    sw = max(w.sum(), 1.0)
+    beta = np.zeros(d)
+    for _ in range(iters):
+        p = 1.0 / (1.0 + np.exp(-(Xb @ beta)))
+        g = Xb.T @ (w * (p - y)) / sw + l2 * mask * beta
+        H = (Xb.T @ (Xb * (w * p * (1 - p) / sw)[:, None])
+             + np.diag(l2 * mask + 1e-5))
+        beta = beta - np.linalg.solve(H, g)
+    return beta
+
+
+def _np_ridge(Xb, y, w, l2):
+    """The port's ridge objective by its normal equations in numpy f64."""
+    d = Xb.shape[1]
+    mask = np.ones(d)
+    mask[-1] = 0.0
+    sw = max(w.sum(), 1.0)
+    A = Xb.T @ (Xb * (w / sw)[:, None]) + np.diag(l2 * mask + 1e-5)
+    return np.linalg.solve(A, Xb.T @ (w * y) / sw)
+
+
+def _oracle(seed, rows, device):
+    """On fold 0 of the selector's 3-fold split of the training rows:
+    the family fits (the sweep's own fit functions) of L2-only logistic
+    and ridge at regParam ORACLE_REG on ``device``, against numpy f64."""
+    from transmogrifai_tpu_torch.models import MODEL_FAMILIES
+    from transmogrifai_tpu_torch.models.tuning import (DataSplitter,
+                                                       make_fold_masks)
+    X, z = training_signal(seed, rows)
+    tr_idx, _ = DataSplitter().split(rows)
+    train_m, _ = make_fold_masks(len(tr_idx), 3)
+    rows_f = tr_idx[train_m[0] > 0]
+    Xf = X[rows_f]
+    targets = {"logistic": (z[rows_f] > 0).astype(np.float32),
+               "ridge": z[rows_f].astype(np.float32)}
+    Xb = np.concatenate([Xf, np.ones((len(Xf), 1), np.float32)],
+                        1).astype(np.float64)
+    w = np.ones(len(Xf))
+    out = {"oracle_rows": len(Xf)}
+    for kind, fam_name, k, ref in (
+            ("logistic", "LogisticRegression", 2, _np_logistic),
+            ("ridge", "LinearRegression", 1, _np_ridge)):
+        yt = targets[kind]
+        params = MODEL_FAMILIES[fam_name].fit_batch(
+            torch.from_numpy(Xf).to(device)[None],
+            torch.from_numpy(yt).to(device)[None],
+            torch.ones((1, len(yt)), device=device),
+            {"regParam": torch.full((1,), ORACLE_REG, device=device),
+             "elasticNetParam": 0.0}, k)
+        beta = params["beta"][0].double().cpu().numpy()
+        want = ref(Xb, yt.astype(np.float64), w, ORACLE_REG)
+        rel = float(np.abs(beta - want).max() / np.abs(want).max())
+        out[f"oracle_{kind}_rel_err"] = rel
+        if not rel <= ORACLE_RTOL[kind]:
+            raise AssertionError(f"{kind} coefficients on {device} are "
+                                 f"{rel} (relative) from numpy f64; limit "
+                                 f"{ORACLE_RTOL[kind]}")
+    return out
+
+
+def _sweep_metrics(entries, X, y, k, metric, device, sync_error=False):
+    """Validate ``entries`` (3-fold CV) on ``device``: {key: grid
+    metrics}, and the dispatch's wall. With ``sync_error`` the dispatch
+    runs under ``torch.cuda.set_sync_debug_mode("error")``: any call
+    that would make the host wait on the card raises."""
+    from transmogrifai_tpu_torch.models.tuning import OpCrossValidation
+    cv = OpCrossValidation(n_folds=3, metric=metric)
+    w = np.ones(len(y), np.float32)
+    t0 = time.perf_counter()
+    if sync_error:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = cv.dispatch_many(entries, X, y, w, k, device)
+    finally:
+        if sync_error:
+            torch.cuda.set_sync_debug_mode("default")
+    t1 = time.perf_counter()
+    got = {key: cv.collect(p).grid_metrics for key, p in pending.items()}
+    return got, t1 - t0, time.perf_counter() - t1
+
+
+def linear_phase(seed: int, rows: int = TRAIN_ROWS,
+                 parity_rows: int = LINEAR_PARITY_ROWS, device="cuda"):
+    """The card's linear sweep held to independent references: the
+    oracle coefficients; every default grid point of LR, LinearSVC and
+    NaiveBayes (binary) and of LR (multiclass, k = 3) on the card
+    against the port's CPU path; an LR candidate alone against the same
+    candidate stacked with a second one, bitwise; and on the card the
+    binary linear families' sweep at full width dispatched with no host
+    synchronisation. ``device="cpu"`` rehearses it (CPU against CPU, no
+    sync check)."""
+    from transmogrifai_tpu_torch.models import MODEL_FAMILIES as MF
+    out = _oracle(seed, rows, device)
+
+    gaps = {}
+    for problem, names, k, metric in (
+            ("binary", LINEAR_FAMILIES, 2, "auroc"),
+            ("multiclass", ["LogisticRegression"], 3, "logloss")):
+        X, y = problem_data(seed, parity_rows, problem)
+        entries = [(n, MF[n], MF[n].make_grid()) for n in names]
+        card, _, _ = _sweep_metrics(entries, X, y, k, metric, device)
+        cpu, _, _ = _sweep_metrics(entries, X, y, k, metric, "cpu")
+        for n in names:
+            gap = float(np.max(np.abs(card[n] - cpu[n])))
+            gaps[f"{problem}/{n}"] = gap
+            if not gap <= LINEAR_CPU_TOL[problem]:
+                raise AssertionError(
+                    f"{problem} {n}: grid {metric} on {device} and on the "
+                    f"CPU differ by {gap} > {LINEAR_CPU_TOL[problem]}: "
+                    f"{card[n].tolist()} vs {cpu[n].tolist()}")
+    out["card_vs_cpu_max_gap"] = gaps
+
+    X, y = problem_data(seed, parity_rows, "binary")
+    lr = MF["LogisticRegression"]
+    one = ("one", lr, lr.make_grid())
+    two = ("two", lr, lr.make_grid({"regParam": [0.05, 0.2],
+                                    "elasticNetParam": [0.0, 0.5]}))
+    alone, _, _ = _sweep_metrics([one], X, y, 2, "logloss", device)
+    stacked, _, _ = _sweep_metrics([one, two], X, y, 2, "logloss", device)
+    if not np.array_equal(alone["one"], stacked["one"]):
+        raise AssertionError(f"LR candidate alone {alone['one'].tolist()} "
+                             f"and stacked {stacked['one'].tolist()} "
+                             f"differ on {device}")
+    out["invariance_bitwise"] = True
+
+    if device == "cuda":
+        X, y = training_data(seed, rows)
+        entries = [(n, MF[n], MF[n].make_grid()) for n in LINEAR_FAMILIES]
+        got, dispatch_s, collect_s = _sweep_metrics(
+            entries, X, y, 2, "auroc", device, sync_error=True)
+        out.update({"no_sync_rows": rows, "no_sync_dispatch_s": dispatch_s,
+                    "no_sync_collect_s": collect_s,
+                    "no_sync_best_auroc": {n: float(np.max(m))
+                                           for n, m in got.items()}})
+    return out
+
+
+def other_lists_phase(seed: int, rows: int = OTHER_ROWS, device="cuda"):
+    """The multiclass (k = 3) and regression default candidate lists on
+    ``device`` at ``rows`` rows: each selector's winner, its validation
+    metric, every family's wall, the histogram launches against the tree
+    levels grown (CUDA only) and a finite refit."""
+    from transmogrifai_tpu_torch import models as TM
+    from transmogrifai_tpu_torch.models import kernels as tk
+    from transmogrifai_tpu_torch.models.base import params_to_numpy
+    out = {}
+    for problem in ("multiclass", "regression"):
+        X, y = problem_data(seed, rows, problem)
+        ds, sel = _selector(X, y, None, device, problem)
+        families = [name for name, _ in sel.params["candidates"]]
+        tk.histogram_grid.launches = 0
+        t0 = time.perf_counter()
+        model = sel.fit(ds)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        summ = model.summary
+        winner = summ["bestModel"]["family"]
+        trees = [f for f in families if hasattr(TM.MODEL_FAMILIES[f],
+                                                "fit_eval_grid")]
+        expected = (sum(TM.MODEL_FAMILIES[f].levels_per_fit() for f in trees)
+                    + (TM.MODEL_FAMILIES[winner].levels_per_fit()
+                       if winner in trees else 0))
+        launches = tk.histogram_grid.launches
+        if device == "cuda" and launches != expected:
+            raise AssertionError(f"{problem}: {launches} histogram "
+                                 f"launches, the code grows {expected}")
+        for name, p in params_to_numpy(model.model_params).items():
+            if p.dtype.kind == "f" and np.isnan(p).any():
+                raise AssertionError(f"{problem}: NaN in refit {name}")
+        if set(summ["wallSeconds"]["families"]) != set(families):
+            raise AssertionError(f"{problem}: families validated "
+                                 f"{sorted(summ['wallSeconds']['families'])}"
+                                 f" of {families}")
+        out[problem] = {
+            "rows": rows, "families": families, "fit_wall_s": wall,
+            "family_wall_s": summ["wallSeconds"]["families"],
+            "refit_wall_s": summ["wallSeconds"]["refit"],
+            "winner": winner, "winner_hyper": summ["bestModel"]["hyper"],
+            "validation_metric": summ["bestModel"]["validationMetric"],
+            "holdout": summ["holdoutEvaluation"],
+            "histogram_launches": launches, "expected_launches": expected}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1729,6 +2021,11 @@ def main(argv=None) -> int:
               flush=True)
     train = training_phase(args.seed)
     print("phase training: " + json.dumps(dict(train, card=card)),
+          flush=True)
+    lin = linear_phase(args.seed)
+    print("phase linear: " + json.dumps(dict(lin, card=card)), flush=True)
+    other = other_lists_phase(args.seed)
+    print("phase other_lists: " + json.dumps(dict(other, card=card)),
           flush=True)
 
     rrows = ring_phase(args.seed)

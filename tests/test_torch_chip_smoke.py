@@ -1,19 +1,34 @@
-"""chip_smoke.py's training phase on the CPU: the tree selector over
-the four families at default grids and registered caps, on 3,000 of
-its HIGGS-shaped rows. Holds the script's own checks (winner against
-the linear yardstick, the scored column, the exact-mode decision tree
-bitwise and GBT per grid point, here CPU against CPU) and the launch
-count it derives from the code, which the CPU path does not move. And
-the GBT check against planted histogram faults (gbt_parity_probe.py's
-arms), CPU against CPU: each must part the trees at a split that is no
-near tie.
+"""chip_smoke.py's training phase on the CPU: the binary selector over
+its default candidate list (the four tree families and LinearSVC,
+LogisticRegression, NaiveBayes) at default grids and registered caps,
+on 3,000 of its HIGGS-shaped rows. Holds the script's own checks
+(winner against the linear yardstick, the scored column, the
+exact-mode decision tree bitwise and GBT per grid point, here CPU
+against CPU) and the launch count it derives from the code, which the
+CPU path does not move. And the GBT check against planted histogram
+faults (gbt_parity_probe.py's arms), CPU against CPU: each must part
+the trees at a split that is no near tie. Then the linear phase (the
+oracle, card-vs-CPU here CPU against CPU, the invariance) and the
+multiclass and regression default lists at small sizes.
 """
 import pytest
+import torch
 
 import chip_smoke
 import gbt_parity_probe
 from transmogrifai_tpu_torch import models as TM
 from transmogrifai_tpu_torch.models import kernels as tk
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread while this module runs: the suite runs several
+    workers at once, and torch's intra-op threads on these small tensors
+    only add contention (half the CPU time of the default threads here)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_training_phase_runs_on_the_cpu():
@@ -27,7 +42,10 @@ def test_training_phase_runs_on_the_cpu():
         + TM.MODEL_FAMILIES[out["winner"]].levels_per_fit())
     assert out["winner"] in chip_smoke.TREE_FAMILIES
     assert out["holdout_auroc"] >= out["linear_holdout_auroc"] + 0.1
-    assert set(out["family_wall_s"]) == set(chip_smoke.TREE_FAMILIES)
+    families = set(chip_smoke.TREE_FAMILIES + chip_smoke.LINEAR_FAMILIES)
+    assert set(out["families"]) == families
+    assert set(out["family_wall_s"]) == families
+    assert "linear_family_device" not in out       # the profiler: CUDA only
     assert out["dt_exact_feat_thr_bitwise"]
     assert out["gbt_metric_max_diff"] == 0.0
     assert out["gbt_gain_gap_max"] == 0.0
@@ -51,6 +69,53 @@ def test_gbt_check_flags_a_planted_histogram_fault(gbt_reference, arm):
     first = [d for d in out["divergence"] if d]
     assert first and all(d["hist_rel_diff"] > chip_smoke.GBT_HIST_RTOL
                          for d in first)
+
+
+def test_linear_phase_runs_on_the_cpu():
+    """The linear phase at a small size on the CPU: the oracle within
+    its limits, every grid point CPU against CPU equal, the candidate
+    alone and stacked bitwise; the no-sync check is CUDA only."""
+    out = chip_smoke.linear_phase(0, rows=4000, parity_rows=1500,
+                                  device="cpu")
+    for kind, limit in chip_smoke.ORACLE_RTOL.items():
+        assert out[f"oracle_{kind}_rel_err"] <= limit
+    assert set(out["card_vs_cpu_max_gap"]) == {
+        "binary/LinearSVC", "binary/LogisticRegression", "binary/NaiveBayes",
+        "multiclass/LogisticRegression"}
+    assert set(out["card_vs_cpu_max_gap"].values()) == {0.0}
+    assert out["invariance_bitwise"]
+    assert "no_sync_dispatch_s" not in out
+
+
+def test_oracle_limit_separates_a_wrong_penalty():
+    """The oracle's limit is far below what a wrong penalty moves: the
+    numpy logistic fit at regParam 0.02 against 0.01, and ridge alike,
+    differ by more than ten times ORACLE_RTOL."""
+    import numpy as np
+    X, z = chip_smoke.training_signal(0, 3000)
+    Xb = np.concatenate([X, np.ones((len(X), 1), np.float32)],
+                        1).astype(np.float64)
+    w = np.ones(len(X))
+    for kind, fit, y in (("logistic", chip_smoke._np_logistic,
+                          (z > 0).astype(np.float64)),
+                         ("ridge", chip_smoke._np_ridge, z)):
+        a, b = fit(Xb, y, w, 0.01), fit(Xb, y, w, 0.02)
+        assert (np.abs(a - b).max() / np.abs(a).max()
+                > 10 * chip_smoke.ORACLE_RTOL[kind])
+
+
+def test_other_lists_phase_runs_on_the_cpu():
+    """The multiclass and regression default lists at 2,000 rows: every
+    family validated, a winner, a finite refit; the CPU launches no
+    kernel."""
+    out = chip_smoke.other_lists_phase(0, rows=2000, device="cpu")
+    assert "GeneralizedLinearRegression" in out["regression"]["families"]
+    assert "NaiveBayes" in out["multiclass"]["families"]
+    for problem in ("multiclass", "regression"):
+        o = out[problem]
+        assert set(o["family_wall_s"]) == set(o["families"])
+        assert o["winner"] in o["families"]
+        assert o["histogram_launches"] == 0 < o["expected_launches"]
 
 
 def test_ring_phase_runs_on_the_cpu():

@@ -633,3 +633,96 @@ def test_grow_over_a_data_mesh_equals_the_single_grow(card, ring,
     for res in out:
         for a, b in zip(single[:4], res[:4]):
             assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The linear sweep on the card (no kernel of its own: torch products and
+# solves), against the port's CPU path and against itself
+# ---------------------------------------------------------------------------
+
+def _linear_entries(problem):
+    from transmogrifai_tpu_torch.models import MODEL_FAMILIES as MF
+    names = {"binary": ["LinearSVC", "LogisticRegression", "NaiveBayes"],
+             "multiclass": ["LogisticRegression", "NaiveBayes"],
+             "regression": ["LinearRegression",
+                            "GeneralizedLinearRegression"]}[problem]
+    return [(n, MF[n], MF[n].make_grid()) for n in names]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("problem,k,metric", [("binary", 2, "auroc"),
+                                              ("multiclass", 3, "logloss"),
+                                              ("regression", 1, "rmse")])
+def test_linear_sweep_on_the_card_matches_the_cpu(card, problem, k, metric):
+    """Every default grid point of the problem's linear families on the
+    card and on the CPU: the same f32 program summed in another order,
+    within 1e-4 (relative for the RMSE)."""
+    import chip_smoke
+    from transmogrifai_tpu_torch.models.tuning import OpCrossValidation
+    X, y = chip_smoke.problem_data(1, 4000, problem)
+    w = np.ones(len(y), np.float32)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        cv = OpCrossValidation(n_folds=3, metric=metric)
+        got[dev] = {key: cv.collect(p).grid_metrics for key, p in
+                    cv.dispatch_many(_linear_entries(problem), X, y, w, k,
+                                     dev).items()}
+    for key in got["cpu"]:
+        np.testing.assert_allclose(got["cuda"][key], got["cpu"][key],
+                                   rtol=1e-4, atol=1e-4, err_msg=key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slice_", ["1", "0"])
+def test_linear_sweep_items_are_bitwise_independent_on_the_card(
+        card, slice_, monkeypatch):
+    """A candidate alone, and stacked with a second one (its items then
+    sit elsewhere in their chunks of 16), gives bitwise-equal metrics on
+    the card, gathered or masked folds alike."""
+    from transmogrifai_tpu_torch.models import MODEL_FAMILIES as MF
+    from transmogrifai_tpu_torch.models.tuning import OpCrossValidation
+    import chip_smoke
+    monkeypatch.setenv("TM_SWEEP_FOLD_SLICE", slice_)
+    X, y = chip_smoke.problem_data(2, 12000, "binary")
+    w = np.ones(len(y), np.float32)
+    lr = MF["LogisticRegression"]
+    one = ("one", lr, lr.make_grid())
+    two = ("two", lr, lr.make_grid({"regParam": [0.05, 0.2],
+                                    "elasticNetParam": [0.0, 0.5]}))
+    cv = OpCrossValidation(n_folds=3, metric="logloss")
+    alone = cv.collect(cv.dispatch_many([one], X, y, w, 2, "cuda")["one"])
+    both = cv.collect(cv.dispatch_many([one, two], X, y, w, 2,
+                                       "cuda")["one"])
+    assert np.array_equal(alone.grid_metrics, both.grid_metrics)
+
+
+@pytest.mark.cuda
+def test_linear_sweep_dispatch_never_waits_on_the_card(card):
+    """The linear families' dispatch (every problem, gathered and masked
+    folds, static and traced GLM links) runs under sync debug mode
+    "error": nothing in it makes the host wait for the card."""
+    import chip_smoke
+    from transmogrifai_tpu_torch.models import MODEL_FAMILIES as MF
+    from transmogrifai_tpu_torch.models.tuning import OpCrossValidation
+    glm = MF["GeneralizedLinearRegression"]
+    for knobs in ({}, {"TM_SWEEP_FOLD_SLICE": "0"}):
+        for problem, k in (("binary", 2), ("multiclass", 3),
+                           ("regression", 1)):
+            X, y = chip_smoke.problem_data(3, 10000, problem)
+            entries = _linear_entries(problem)
+            if problem == "regression":
+                entries.append(("glm_traced", glm, glm.make_grid(
+                    {"familyLink": [0.0, 1.0, 2.0, 3.0]})))
+            cv = OpCrossValidation(n_folds=3, metric="rmse" if k == 1
+                                   else "error")
+            with chip_smoke.env(**knobs):
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    pend = cv.dispatch_many(entries, X, y,
+                                            np.ones(len(y), np.float32),
+                                            k, "cuda")
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            for p in pend.values():
+                assert np.isfinite(cv.collect(p).grid_metrics[:2]).all()

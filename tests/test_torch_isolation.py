@@ -113,6 +113,59 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
             call()
 
 
+def test_training_entry_points_default_to_cuda(monkeypatch):
+    """The selector with its default candidate list (trees and linear
+    families), each Op* linear stage and the evaluators resolve to CUDA
+    with no device argument, so without a card they raise."""
+    from transmogrifai_tpu_torch import models as TM
+    from transmogrifai_tpu_torch.dataset import Dataset
+    from transmogrifai_tpu_torch.evaluators import Evaluators
+    from transmogrifai_tpu_torch.features import FeatureBuilder
+    from transmogrifai_tpu_torch.features import types as ft
+    from transmogrifai_tpu_torch.models.base import prediction_column
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(40, 3)).astype(np.float32)
+    y = (X[:, 0] > 0).astype(np.float64)
+    ds = Dataset({"y": y, "x": X}, {"y": ft.RealNN, "x": ft.OPVector})
+    lbl = FeatureBuilder.of(ft.RealNN, "y").from_column().as_response()
+    vec = FeatureBuilder.OPVector("x").from_column().as_predictor()
+    calls = [lambda: TM.BinaryClassificationModelSelector
+             .with_cross_validation().set_input(lbl, vec).fit(ds)]
+    for stage in ("OpLogisticRegression", "OpLinearSVC", "OpNaiveBayes",
+                  "OpLinearRegression", "OpGeneralizedLinearRegression"):
+        calls.append(lambda s=stage: getattr(TM, s)().set_input(
+            lbl, vec).fit(ds))
+    pds = Dataset({"y": y, "p": prediction_column(
+        np.full((40, 2), 0.5), "binary")}, {"y": ft.RealNN,
+                                            "p": ft.Prediction})
+    for make in ("binary_classification", "multi_classification",
+                 "regression"):
+        calls.append(lambda m=make: getattr(Evaluators, m)().evaluate(
+            pds, "y", "p"))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_linear_modules_are_in_the_import_probe():
+    """The linear families, their stages, the sweep and the evaluators
+    are among the modules the probe above imports."""
+    import pkgutil
+    import transmogrifai_tpu_torch as P
+    mods = {m.name for m in pkgutil.walk_packages(P.__path__,
+                                                  P.__name__ + ".")}
+    assert {"transmogrifai_tpu_torch.models.linear",
+            "transmogrifai_tpu_torch.models.stages",
+            "transmogrifai_tpu_torch.models.tuning",
+            "transmogrifai_tpu_torch.models.selector",
+            "transmogrifai_tpu_torch.evaluators",
+            "transmogrifai_tpu_torch.profiling"} <= mods
+    for rel in (("models", "linear.py"), ("models", "stages.py"),
+                ("evaluators", "__init__.py")):
+        assert os.path.join(_PKG, *rel) in _port_sources()
+
+
 def test_kernel_wrapper_never_falls_back_off_cpu():
     """Only a CPU tensor takes the plain version; any other device must
     launch the kernel or raise."""

@@ -122,12 +122,13 @@ def test_no_card_means_no_default_mesh(clean_mesh_env):
 
 def test_grid_data_axis_is_not_ported_in_the_selector(clean_mesh_env):
     from transmogrifai_tpu_torch.models import MODEL_FAMILIES
-    from transmogrifai_tpu_torch.models.tuning import require_folded
-    fam = MODEL_FAMILIES["GBTClassifier"]
-    require_folded(fam)
+    from transmogrifai_tpu_torch.models.tuning import require_ported
+    for name in ("GBTClassifier", "LogisticRegression"):
+        require_ported(MODEL_FAMILIES[name])
     clean_mesh_env.setenv("TM_MESH_AXIS", "grid,data")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        require_folded(fam)
+    for name in ("GBTClassifier", "LogisticRegression"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            require_ported(MODEL_FAMILIES[name])
 
 
 @pytest.mark.parametrize("mode", ["edge", "zero"])

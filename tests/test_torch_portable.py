@@ -161,8 +161,9 @@ def test_from_portable_rejects_what_the_slice_lacks(artifacts):
                                          "\\['SmartTextVectorizerModel'\\]"):
         tportable.from_portable(host, arrays, "cpu")
     stages = [dict(s) for s in manifest["stages"]]
-    stages[-1]["family"] = "NaiveBayes"
-    with pytest.raises(ValueError, match="'NaiveBayes' is not ported"):
+    stages[-1]["family"] = "FTTransformerClassifier"
+    with pytest.raises(ValueError, match="'FTTransformerClassifier' is not "
+                                         "ported"):
         tportable.from_portable(dict(manifest, stages=stages), arrays, "cpu")
     stages[-1] = {"out": "o", "inputs": ["a", "b"], "op": "sparse_predict"}
     with pytest.raises(ValueError, match="op 'sparse_predict' is not"):
@@ -233,3 +234,49 @@ def test_jax_exported_gbt_artifact_scores_alike(tmp_path, monkeypatch):
     assert got.shape == (n, 2)
     np.testing.assert_allclose(got, ref, atol=1e-5)
     np.testing.assert_allclose(got, jax_sc, atol=1e-5)
+
+
+@pytest.mark.parametrize("family,problem,grid", [
+    ("NaiveBayes", "binary", None),
+    ("GeneralizedLinearRegression", "regression", {"familyLink": [1.0]}),
+    ("GeneralizedLinearRegression", "regression", {"familyLink": [0.0]})])
+def test_jax_exported_linear_head_artifact_scores_alike(tmp_path, family,
+                                                        problem, grid):
+    """A NaiveBayes or GLM head loads through the port's registry: a
+    workflow trained and exported by the JAX package scores the same in
+    both packages (atol 1e-5: f32 sums in another order)."""
+    from transmogrifai_tpu import Dataset, FeatureBuilder
+    from transmogrifai_tpu import models as M
+    from transmogrifai_tpu.features import types as ft
+    from transmogrifai_tpu.ops.transmogrifier import transmogrify
+    from transmogrifai_tpu.workflow import Workflow
+    rng = np.random.default_rng(4)
+    n = 240
+    cols = {f"x{i}": np.where(rng.random(n) < 0.05, np.nan,
+                              rng.normal(size=n)) for i in range(4)}
+    x0 = np.nan_to_num(cols["x0"])
+    cols["label"] = ((x0 > 0).astype(np.float64) if problem == "binary"
+                     else np.exp(0.4 * x0 + 0.2 * rng.normal(size=n)))
+    schema = {f"x{i}": ft.Real for i in range(4)}
+    schema["label"] = ft.RealNN
+    ds = Dataset({k: np.asarray(v, np.float64) for k, v in cols.items()},
+                 schema)
+    label = FeatureBuilder.of(ft.RealNN, "label").from_column().as_response()
+    preds = [FeatureBuilder.of(ft.Real, f"x{i}").from_column().as_predictor()
+             for i in range(4)]
+    factory = (M.BinaryClassificationModelSelector if problem == "binary"
+               else M.RegressionModelSelector)
+    pred = factory.with_cross_validation(
+        n_folds=2, candidates=[[family, grid]]
+    ).set_input(label, transmogrify(preds)).output
+    model = Workflow([pred]).train(ds)
+    export_portable(model, str(tmp_path), buckets=BUCKETS)
+    port = tportable.load(str(tmp_path), device="cpu")
+    assert port.stages[-1].params["family"] == family
+    data = {k: v for k, v in cols.items() if k != "label"}
+    got = port.compile_scoring(buckets=BUCKETS).score_arrays(data)[pred.name]
+    ref = jportable.load(str(tmp_path)).score_columns(data)[pred.name]
+    jax_sc = model.compile_scoring(buckets=BUCKETS).score_arrays(ds)[pred.name]
+    assert got.shape == ref.shape == (n, 2 if problem == "binary" else 1)
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got, jax_sc, atol=1e-5, rtol=1e-5)

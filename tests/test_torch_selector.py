@@ -234,19 +234,29 @@ def test_stacked_candidates_match_their_own_validation(monkeypatch):
 
 
 def test_unported_families_and_knobs_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="'LogisticRegression' is "
-                       "not ported in this slice"):
-        TM.BinaryClassificationModelSelector.with_cross_validation(
-            candidates=["LogisticRegression", "GBTClassifier"])
-    with pytest.raises(NotImplementedError, match="not ported in this"):
-        TM.BinaryClassificationModelSelector.with_cross_validation()
+    """The linear families are ported: LR and NaiveBayes candidates, and
+    the default list, construct; LR and NaiveBayes fit beside a tree.
+    The unknown family and the per-instance tree path still raise."""
+    ds, lbl, vec = _xor_ds("torch")
+    sel = TM.BinaryClassificationModelSelector.with_cross_validation(
+        candidates=["LogisticRegression", "NaiveBayes",
+                    "DecisionTreeClassifier"], device="cpu")
+    model = sel.set_input(lbl, vec).fit(ds)
+    assert [r["family"] for r in model.summary["validationResults"]] == [
+        "LogisticRegression", "NaiveBayes", "DecisionTreeClassifier"]
+    default = TM.BinaryClassificationModelSelector.with_cross_validation()
+    assert [c for c, _ in default.params["candidates"]] == [
+        c for c, _ in JM.BinaryClassificationModelSelector
+        .with_cross_validation().params["candidates"]]
     with pytest.raises(ValueError, match="unknown model family"):
         TM.BinaryClassificationModelSelector.with_cross_validation(
-            candidates=["NaiveBayes"])
+            candidates=["FTTransformerClassifier"])
     monkeypatch.setenv("TM_TREE_GRID_FOLD", "0")
     with pytest.raises(NotImplementedError, match="TM_TREE_GRID_FOLD=0"):
         TM.BinaryClassificationModelSelector.with_cross_validation(
             candidates=["GBTClassifier"])
+    TM.BinaryClassificationModelSelector.with_cross_validation(
+        candidates=["LogisticRegression"])
 
 
 def test_selector_defaults_to_cuda(monkeypatch):

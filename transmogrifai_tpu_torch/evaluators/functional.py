@@ -111,6 +111,34 @@ def binary_metrics(scores: torch.Tensor, labels: torch.Tensor,
     }
 
 
+def _linspace01(num: int, device) -> torch.Tensor:
+    """``jnp.linspace(0, 1, num)`` bit for bit: XLA computes the f32
+    iota times the f32 reciprocal of num - 1, then appends 1."""
+    if num == 1:
+        return torch.zeros(1, device=device)
+    recip = torch.tensor(1.0, dtype=torch.float32) / float(num - 1)
+    head = torch.arange(num - 1, dtype=torch.float32) * recip
+    return torch.cat([head, torch.ones(1)]).to(device)
+
+
+def threshold_curves(scores: torch.Tensor, labels: torch.Tensor,
+                     weights: Optional[torch.Tensor] = None,
+                     num_thresholds: int = 100) -> Dict[str, torch.Tensor]:
+    """P/R/F1 at evenly spaced thresholds."""
+    thresholds = _linspace01(num_thresholds, scores.device)
+    w = _w(weights, scores)
+    y = labels.to(torch.float32)
+    pred = (scores[None, :] >= thresholds[:, None]).to(torch.float32)
+    tp = torch.sum(w * pred * y, dim=1)
+    fp = torch.sum(w * pred * (1 - y), dim=1)
+    fn = torch.sum(w * (1 - pred) * y, dim=1)
+    p = tp / torch.clamp(tp + fp, min=EPS)
+    r = tp / torch.clamp(tp + fn, min=EPS)
+    return {"thresholds": thresholds, "precisionByThreshold": p,
+            "recallByThreshold": r,
+            "f1ByThreshold": 2 * p * r / torch.clamp(p + r, min=EPS)}
+
+
 # ---------------------------------------------------------------------------
 # Multiclass
 # ---------------------------------------------------------------------------
@@ -157,6 +185,38 @@ def multiclass_metrics(probs: torch.Tensor, labels: torch.Tensor,
         "LogLoss": logloss,
         "confusion": cm,
     }
+
+
+def multiclass_topk_threshold_metrics(
+        probs: torch.Tensor, labels: torch.Tensor,
+        weights: Optional[torch.Tensor] = None,
+        topns: Tuple[int, ...] = (1, 3),
+        num_thresholds: int = 20) -> Dict[str, torch.Tensor]:
+    """OpMultiClassificationEvaluator's ThresholdMetrics: for each topN
+    and confidence threshold over the max class probability, the
+    weighted fraction correct (true label in the top N, confident),
+    incorrect (confident, label outside the top N) and without a
+    prediction (max probability under the threshold). A label outside
+    0..k-1 ranks beyond every topN. Shapes (len(topns), num_thresholds)."""
+    w = _w(weights, labels.to(torch.float32))
+    tot = torch.clamp(torch.sum(w), min=EPS)
+    k = probs.shape[1]
+    order = torch.argsort(-probs, dim=1, stable=True)
+    match = order == labels.to(torch.int64)[:, None]
+    rank = torch.where(match.any(dim=1),
+                       torch.argmax(match.to(torch.int32), dim=1),
+                       torch.full_like(labels, k, dtype=torch.int64))
+    maxp = torch.max(probs, dim=1).values
+    thresholds = _linspace01(num_thresholds, probs.device)
+    topn = torch.as_tensor(topns, dtype=torch.int64, device=probs.device)
+    confident = (maxp[None, :] >= thresholds[:, None]).to(torch.float32) * w
+    in_topn = (rank[None, :] < topn[:, None]).to(torch.float32)   # (T, n)
+    correct = (in_topn[:, None, :] * confident[None]).sum(-1) / tot
+    incorrect = ((1.0 - in_topn)[:, None, :] * confident[None]).sum(-1) / tot
+    nopred = (1.0 - confident.sum(-1) / tot)[None, :].expand_as(correct)
+    return {"topNs": topn.to(torch.int32), "thresholds": thresholds,
+            "correctCounts": correct, "incorrectCounts": incorrect,
+            "noPredictionCounts": nopred.contiguous()}
 
 
 # ---------------------------------------------------------------------------

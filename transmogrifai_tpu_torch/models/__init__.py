@@ -1,7 +1,9 @@
 from .base import (MODEL_FAMILIES, ModelFamily, ModelStage, PredictionModel,
                    params_from_numpy, params_to_numpy)
-from . import linear  # registers the linear families (predict only)
+from . import linear  # registers the linear families
 from . import trees  # registers the tree families
+from .stages import (OpLogisticRegression, OpLinearSVC, OpNaiveBayes,
+                     OpLinearRegression, OpGeneralizedLinearRegression)
 from .trees import (OpDecisionTreeClassifier, OpDecisionTreeRegressor,
                     OpRandomForestClassifier, OpRandomForestRegressor,
                     OpGBTClassifier, OpGBTRegressor,
@@ -17,6 +19,8 @@ from .selector import (ModelSelector, SelectedModel,
 __all__ = [
     "MODEL_FAMILIES", "ModelFamily", "ModelStage", "PredictionModel",
     "params_from_numpy", "params_to_numpy", "linear", "trees",
+    "OpLogisticRegression", "OpLinearSVC", "OpNaiveBayes",
+    "OpLinearRegression", "OpGeneralizedLinearRegression",
     "OpDecisionTreeClassifier", "OpDecisionTreeRegressor",
     "OpRandomForestClassifier", "OpRandomForestRegressor",
     "OpGBTClassifier", "OpGBTRegressor",

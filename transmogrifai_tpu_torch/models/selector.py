@@ -10,17 +10,24 @@ carried by the fitted SelectedModel.
 
 The JAX selector's ``mesh`` is a ``device`` here, resolved by
 ``_device.resolve_device`` at fit time (CUDA unless the caller asks for
-the CPU). Candidates must validate on the folded path (the tree
-families in this slice): another family raises at construction, naming
-it. Not carried over: the family-level fit checkpoint (resume) and the
-static-hyper refit specialization (tree families have no static
-hypers). The summary adds ``wallSeconds``: each family batch's wall
-and the refit's, host clock, each ending in a copy to the host.
+the CPU). Every candidate family validates: the tree families on the
+folded path, the others through the sweep (``tuning``), fused per
+family by default or one candidate at a time under
+``TM_SWEEP_FUSION=0``. With ``fit_checkpoint_dir`` set, each validated
+candidate's result is written as it is collected, and a fit that
+stopped resumes after the last one (a drifted configuration or data
+raises). The winner's refit passes its value-branching hypers as Python
+floats in fused mode (nothing is traced: the float picks the branch).
+The summary adds ``wallSeconds``: each family batch's wall and the
+refit's, host clock, each ending in a copy to the host.
 """
 from __future__ import annotations
 
+import hashlib
+import json
+import os
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,11 +37,13 @@ from ..dataset import Dataset
 from ..evaluators import functional as F
 from ..features import types as ft
 from ..profiling import check_finite
+from ..resilience.atomic import atomic_write_json
+from ..resilience.faults import fault_point
 from ..stages.base import BinaryEstimator
 from .base import MODEL_FAMILIES, PredictionModel, params_to_numpy
 from .tuning import (OpCrossValidation, OpTrainValidationSplit, OpValidator,
                      RANDOM_SEED, ValidationResult, make_splitter,
-                     require_folded)
+                     require_ported, resolve_sweep_mode, sweep_exact)
 
 _DEFAULT_METRIC = {"binary": "auroc", "multiclass": "error",
                    "regression": "rmse"}
@@ -68,6 +77,13 @@ class ModelSelector(BinaryEstimator):
     operation_name = "modelSelected"
     model_cls = SelectedModel
 
+    #: transient fit checkpoint dir (never persisted with the stage):
+    #: when set, fit_fn writes each candidate's ValidationResult as it
+    #: is collected, and a fit that stopped mid-sweep resumes after the
+    #: last one. Guarded by a token over the selector configuration and
+    #: the training arrays; a mismatched progress file raises.
+    fit_checkpoint_dir = None
+
     def __init__(self, problem: str = "binary",
                  validation: Optional[Dict[str, Any]] = None,
                  splitter: Optional[Dict[str, Any]] = None,
@@ -85,7 +101,7 @@ class ModelSelector(BinaryEstimator):
             if name not in MODEL_FAMILIES:
                 raise ValueError(f"unknown model family {name!r}; known: "
                                  f"{sorted(MODEL_FAMILIES)}")
-            require_folded(MODEL_FAMILIES[name])
+            require_ported(MODEL_FAMILIES[name])
         super().__init__(uid=uid, problem=problem, validation=validation,
                          splitter=splitter or {}, candidates=candidates,
                          seed=seed, **kw)
@@ -116,6 +132,41 @@ class ModelSelector(BinaryEstimator):
             default_kind={"binary": "balancer", "multiclass": "cutter",
                           "regression": "splitter"}[problem])
 
+    # -- fit checkpoint (candidate-level resume) ---------------------------
+    def _fit_token(self, X_tr: np.ndarray, y_tr: np.ndarray) -> str:
+        """Drift-rejection token for the progress file: the selector's
+        configuration and the exact training split."""
+        h = hashlib.sha256()
+        h.update(json.dumps({"uid": self.uid, "params": self.params},
+                            sort_keys=True, default=str).encode())
+        h.update(np.ascontiguousarray(X_tr).tobytes())
+        h.update(np.ascontiguousarray(y_tr).tobytes())
+        return h.hexdigest()
+
+    def _load_fit_progress(self, X_tr: np.ndarray, y_tr: np.ndarray):
+        """-> (candidate key -> ValidationResult JSON, progress path,
+        token); empty when no fit_checkpoint_dir is set."""
+        ckpt_dir = getattr(self, "fit_checkpoint_dir", None)
+        if not ckpt_dir:
+            return {}, None, None
+        token = self._fit_token(X_tr, y_tr)
+        path = os.path.join(ckpt_dir, "selector_progress.json")
+        if not os.path.exists(path):
+            return {}, path, token
+        try:
+            with open(path) as f:
+                doc = json.load(f)
+        except ValueError as e:
+            raise ValueError(
+                f"selector fit checkpoint {path} is unreadable ({e}) — "
+                f"delete it to revalidate every family") from e
+        if doc.get("format") != 1 or doc.get("token") != token:
+            raise ValueError(
+                f"selector fit checkpoint {path} was written under a "
+                f"different selector configuration or data — delete it "
+                f"(or the train checkpoint dir) to start over")
+        return dict(doc.get("families") or {}), path, token
+
     def fit_fn(self, ds: Dataset) -> Dict[str, Any]:
         label_name, vec_name = self.input_names
         problem = self.params["problem"]
@@ -136,28 +187,79 @@ class ModelSelector(BinaryEstimator):
         base_w, splitter_summary = splitter.prepare(y_tr)
 
         validator = self._make_validator()
-        entries = []
+        progress, prog_path, prog_token = self._load_fit_progress(X_tr, y_tr)
+        sweep_mode = resolve_sweep_mode()
+        # every live candidate is dispatched before any is collected; a
+        # candidate a checkpointed earlier attempt validated loads its
+        # recorded result instead (its progress key carries its index,
+        # so two candidates of one family never share a result), and
+        # the rest re-dispatch as a smaller batch whose items reproduce
+        # the uninterrupted fit's (tuning's per-item independence)
+        live, order = [], []
         for ci, (name, overrides) in enumerate(self.params["candidates"]):
+            key = f"{ci}:{name}"
             fam = MODEL_FAMILIES[name]
-            entries.append((f"{ci}:{name}", fam, fam.make_grid(overrides)))
-        pending = validator.dispatch_many(entries, X_tr, y_tr, base_w,
-                                          n_classes, dev)
+            if key in progress:
+                order.append((name, key, False))
+                continue
+            live.append((key, fam, fam.make_grid(overrides)))
+            order.append((name, key, True))
+        if sweep_mode == "fused":
+            pending = (validator.dispatch_many(live, X_tr, y_tr, base_w,
+                                               n_classes, dev)
+                       if live else {})
+        else:
+            pending = {key: validator.dispatch(fam, grid, X_tr, y_tr, base_w,
+                                               n_classes, dev)
+                       for key, fam, grid in live}
         results: List[ValidationResult] = []
         family_wall: Dict[str, float] = {}
-        for key, _fam, _grid in entries:
-            results.append(validator.collect(pending[key]))
+        walled = set()
+        for name, key, is_live in order:
+            if not is_live:
+                results.append(ValidationResult.from_json(
+                    progress[key], validator.larger_is_better))
+                continue
+            r = validator.collect(pending[key])
             batch = pending[key].batch
-            family_wall[batch.family] = batch.seconds
+            if id(batch) not in walled:          # a batch once per family
+                walled.add(id(batch))
+                family_wall[batch.family] = (family_wall.get(batch.family,
+                                                             0.0)
+                                             + batch.seconds)
+            if prog_path is not None:
+                progress[key] = r.to_json()
+                atomic_write_json(prog_path, {"format": 1,
+                                              "token": prog_token,
+                                              "families": progress})
+            # live validations only, so a resume drill can count which
+            # candidates re-ran
+            fault_point("models.selector.validate", family=name,
+                        stage=self.uid)
+            results.append(r)
 
         sign = 1.0 if validator.larger_is_better else -1.0
         best = max(results, key=lambda r: sign * r.best_metric)
         fam = MODEL_FAMILIES[best.family]
 
-        # refit the winner on the full training split
+        # refit the winner on the full training split. Fused mode passes
+        # the winner's value-branching hypers as Python floats, so the
+        # fit runs only the branch they pick (a float-level deviation
+        # from the always-traced serial refit, off under
+        # TM_SWEEP_FUSION=0 / TM_SWEEP_EXACT=1); the refit depends on no
+        # batch, so a resumed fit refits identically
+        static: Tuple = ()
+        if sweep_mode == "fused" and not sweep_exact():
+            keys = getattr(fam, "static_hyper_keys", ())
+            static = tuple(sorted((k, float(v))
+                                  for k, v in best.best_hyper.items()
+                                  if k in keys))
         t0 = time.perf_counter()
         Xt, yt, wt = OpValidator._device_data(X_tr, y_tr, base_w, dev)
-        hyper = {k: torch.tensor(v, dtype=torch.float32, device=dev)
-                 for k, v in best.best_hyper.items()}
+        hyper: Dict[str, Any] = {
+            k: torch.tensor(v, dtype=torch.float32, device=dev)
+            for k, v in best.best_hyper.items() if k not in dict(static)}
+        hyper.update(static)
         with torch.inference_mode():
             params = fam.fit_kernel(Xt, yt, wt, hyper, n_classes)
             # tree params use +inf no-split thresholds

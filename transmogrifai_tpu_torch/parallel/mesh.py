@@ -7,7 +7,7 @@ device selection, labels and padding helpers). A mesh here is a list of
 sharding of the selector (``grid_map``, ``get_mesh``, ``default_mesh``)
 and the 2-D (grid x data) GSPMD sweep (``get_mesh_2d``) are not ported:
 ``TM_MESH_AXIS=grid,data`` parses, and the selector raises "not ported"
-when it would need it (``models.tuning.require_folded``).
+when it would need it (``models.tuning.require_ported``).
 """
 from __future__ import annotations
 

@@ -15,10 +15,11 @@ every parameter a tensor on the scoring device.
 Slice limit: all-numeric workflows only — an artifact whose
 ``hostPrefix`` is non-empty (text, picklists, hashing run on the host
 before the device chain) raises, as does any op outside {impute,
-concat, keep_cols, predict} or a predict family the port has no
-predict kernel for (it has the linear families LogisticRegression,
-LinearRegression and LinearSVC, and the eight tree families); the
-error names what is missing.
+concat, keep_cols, predict} or a predict family the port has not
+registered in ``MODEL_FAMILIES`` (it has every linear family —
+LogisticRegression, LinearRegression, LinearSVC, NaiveBayes and
+GeneralizedLinearRegression — and the eight tree families; not the
+FT-Transformer); the error names what is missing.
 """
 from __future__ import annotations
 

@@ -9,6 +9,9 @@
 * ``EngineStats`` — the serving engine's queue, wait, fused-plane,
   per-model/per-tenant and host-overhead counters, with the shared
   ``percentile_nearest_rank`` and ``shape_bucket`` helpers.
+* ``SweepStats`` — execute and per-device dispatch attribution of the
+  validation sweep's batches (``SWEEP_STATS``), without the JAX
+  package's compile entries: nothing is traced.
 * ``check_finite`` — the post-fit guard on fitted parameters.
 """
 from __future__ import annotations
@@ -518,6 +521,87 @@ class EngineStats(SnapshotStats):
         out["requestOverhead"] = self._overhead_view(
             oh_requests, oh_totals, oh_rings)
         return out
+
+
+class SweepStats:
+    """Execute-time attribution of the validation sweep's batches
+    (models/tuning.py ``_SweepBatch``), keyed by a readable program
+    label (family / metric / classes / static hypers / sliced):
+    cumulative execute wall and dispatch count, and per device the
+    dispatches and REAL (unpadded) items it carried. ``snapshot()`` /
+    ``delta()`` attribute one fit's share."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.programs: Dict[str, Dict[str, Any]] = {}
+
+    def _rec(self, label: str, batch: int) -> Dict[str, Any]:
+        return self.programs.setdefault(label, {
+            "dispatches": 0, "execute_s": 0.0, "batch": int(batch)})
+
+    def note_execute(self, label: str, seconds: float, batch: int) -> None:
+        with self._lock:
+            rec = self._rec(label, batch)
+            rec["dispatches"] += 1
+            rec["execute_s"] += float(seconds)
+            rec["batch"] = int(batch)
+
+    def note_device_dispatch(self, label: str, devices, items) -> None:
+        """One launch's per-device work: ``items[i]`` real sweep items
+        on ``devices[i]``."""
+        with self._lock:
+            devs = self._rec(label, 0).setdefault("devices", {})
+            for dev, n in zip(devices, items):
+                e = devs.setdefault(dev, {"dispatches": 0, "items": 0})
+                e["dispatches"] += 1
+                e["items"] += int(n)
+
+    def snapshot(self) -> Dict[str, Dict[str, Any]]:
+        with self._lock:
+            out = {}
+            for k, v in self.programs.items():
+                rec = dict(v)
+                if "devices" in rec:
+                    rec["devices"] = {d: dict(c)
+                                      for d, c in rec["devices"].items()}
+                out[k] = rec
+            return out
+
+    @staticmethod
+    def delta(before: Dict[str, Dict[str, Any]],
+              after: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
+        """Per-program counter delta between two snapshots + totals."""
+        progs: Dict[str, Dict[str, Any]] = {}
+        devices: Dict[str, Dict[str, int]] = {}
+        for label, rec in after.items():
+            prev = before.get(label, {})
+            d = {k: rec[k] - prev.get(k, 0)
+                 for k in ("dispatches", "execute_s")}
+            d["batch"] = rec["batch"]
+            prev_dev = prev.get("devices") or {}
+            devs = {}
+            for dev, c in (rec.get("devices") or {}).items():
+                p = prev_dev.get(dev, {})
+                dd = {k: c[k] - p.get(k, 0) for k in ("dispatches", "items")}
+                if dd["dispatches"] or dd["items"]:
+                    devs[dev] = dd
+                    e = devices.setdefault(dev, {"dispatches": 0, "items": 0})
+                    e["dispatches"] += dd["dispatches"]
+                    e["items"] += dd["items"]
+            if devs:
+                d["devices"] = devs
+            if d["dispatches"] or devs:
+                progs[label] = d
+        out = {"programs": progs,
+               "dispatches": sum(p["dispatches"] for p in progs.values()),
+               "execute_s": sum(p["execute_s"] for p in progs.values())}
+        if devices:
+            out["devices"] = devices
+        return out
+
+
+#: process-wide sweep attribution
+SWEEP_STATS = SweepStats()
 
 
 def check_finite(tree: Any, what: str = "parameters",
