@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's three paths — fused multi-model LR serving,
-AutoML training over the selector's default candidate lists (tree and
-linear families) and row-sharded tree growing over a data mesh —
-through the entry points a user calls, and holds each CUDA kernel
-against its plain PyTorch version:
+Drives the port's paths — fused multi-model LR serving, AutoML
+training over the selector's default candidate lists (tree and linear
+families), row-sharded tree growing over a data mesh and the workflow
+front door (CSV reader, transmogrify, SanityChecker, selector,
+save/load, scoring, export and serving) — through the entry points a
+user calls, and holds each CUDA kernel against its plain PyTorch
+version:
 
 1. device: the card's name and power limit (nvidia-smi), then every
    kernel under ``transmogrifai_tpu_torch/csrc`` built with nvcc for
@@ -93,6 +95,28 @@ against its plain PyTorch version:
    the single-device grow's, the ring launched ranks x (levels + 1)
    times, ``parallel.sharded_histograms`` at the capture shape bitwise
    ``histogram_grid``; wall time and the device's busy share.
+
+8. workflow: the front door. The Titanic helloworld
+   (``examples/op_titanic_simple.py``'s schema and candidates, rebuilt
+   from the port's classes) through ``WorkflowRunner`` TRAIN and SCORE
+   on the card, the saved model loaded and scored again bitwise, the
+   histogram launched once a tree level the selector grew, train AuROC
+   > 0.75; then in exact mode on the card and on the CPU: the same kept
+   slots, LR and GBT CV metrics within 1e-4, the same winner unless RF
+   (whose draws differ by device) is within 0.02. A 200,000-row CSV
+   from ``--seed`` (28 HIGGS-shaped Real columns, 5% missing; PickLists
+   of 3, 8, 40 and 200 levels; 2 Integral, 1 Binary) read by
+   ``DataReaders.csv``, transmogrified, checked and fit by the binary
+   default list (3 folds) through ``Workflow.train``: the walls of the
+   read, vectorizer fits, checker, selector, scoring (rows/s) and
+   save/load; scores bitwise after save and load; ``LocalScorer`` on
+   100 rows within 1e-5 of the batch; the checker's statistics against
+   numpy f64 on the same matrix and its device ranks exact. Four Boston
+   workflows (LinearRegression, seeded bootstraps) exported with
+   ``export_portable``, loaded with ``portable.load`` and served by one
+   ``ServingEngine``: every row within 1e-4 of its own WorkflowModel
+   under its plane's operand policy, no fused fallback, the fused
+   kernel launched once a bucket slice.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -1909,11 +1933,655 @@ def data_parallel_phase(seed: int, rows: int = TRAIN_ROWS, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the workflow front door
+# ---------------------------------------------------------------------------
 
-def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp):
+TITANIC_SCHEMA = {"id": "ID", "pclass": "PickList", "sex": "PickList",
+                  "age": "Real", "sibSp": "Integral", "parCh": "Integral",
+                  "fare": "Real", "cabin": "PickList", "embarked": "PickList",
+                  "survived": "RealNN"}
+#: examples/op_titanic_simple.py's candidates
+TITANIC_CANDIDATES = [
+    ["LogisticRegression", {"regParam": [0.001, 0.01, 0.1],
+                            "elasticNetParam": [0.0, 0.5]}],
+    ["RandomForestClassifier", None],
+    ["GBTClassifier", None]]
+#: card vs CPU on Titanic, exact mode: LR and GBT CV metrics; RF's draws
+#: come from a torch.Generator on each device, so RF may part, and the
+#: winners may differ only when RF is within TITANIC_RF_MARGIN of it.
+#: A GBT grid point past TITANIC_CV_ATOL is held to the training phase's
+#: GBT contract instead: on the checker's Titanic matrix the card's and
+#: the CPU's trees may part only at a near tie (GBT_GAP_RTOL,
+#: GBT_HIST_RTOL), the AUROC per grid point within GBT_PARITY_TOL, and
+#: the recomputed metrics must be the workflow's own (ROADMAP queue 3)
+TITANIC_CV_ATOL = 1e-4
+TITANIC_RF_MARGIN = 0.02
+#: the at-scale CSV: the training phase's 28 HIGGS-shaped Real columns
+#: (5% missing), PickLists of these level counts, 2 Integral columns and
+#: 1 Binary column
+SCALE_ROWS = 200_000
+SCALE_LEVELS = (3, 8, 40, 200)
+SCALE_MISSING = 0.05
+LOCAL_ROWS = 100
+LOCAL_ATOL = 1e-5
+#: the checker's statistics on the card against numpy f64 on the same
+#: matrix: the mean to a relative error of the column's scale (its
+#: larger of |mean| and std: a near-zero mean's own relative error
+#: measures nothing), the variance to a relative error (f32 sums; it is
+#: E[x^2] - mean^2 in f32), correlations to an absolute one
+CHECKER_MOMENT_RTOL = 1e-4
+CHECKER_CORR_ATOL = 1e-4
+#: export and serve: four Boston workflows on seeded bootstraps
+BOSTON_SCHEMA = {"crim": "Real", "zn": "Real", "indus": "Real",
+                 "chas": "Binary", "nox": "Real", "rm": "Real",
+                 "age": "Real", "dis": "Real", "rad": "Integral",
+                 "tax": "Real", "ptratio": "Real", "lstat": "Real",
+                 "medv": "RealNN"}
+EXPORT_MODELS = 4
+EXPORT_REQUESTS = 96
+
+
+def _repo_file(*parts) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), *parts)
+
+
+def _types(schema):
+    from transmogrifai_tpu_torch.features import types as ft
+    return {k: getattr(ft, v) for k, v in schema.items()}
+
+
+def _titanic_workflow():
+    """examples/op_titanic_simple.py's workflow from the port's classes:
+    typed columns, transmogrify, SanityChecker, the binary selector with
+    3-fold CV over its candidates."""
+    from transmogrifai_tpu_torch import models as TM
+    from transmogrifai_tpu_torch.features import FeatureBuilder, reset_uids
+    from transmogrifai_tpu_torch.ops import SanityChecker, transmogrify
+    from transmogrifai_tpu_torch.workflow import Workflow
+    reset_uids()
+    types = _types(TITANIC_SCHEMA)
+    survived = FeatureBuilder.of(types["survived"], "survived") \
+        .from_column().as_response()
+    preds = [FeatureBuilder.of(t, n).from_column().as_predictor()
+             for n, t in types.items() if n not in ("id", "survived")]
+    checked = SanityChecker().set_input(survived,
+                                        transmogrify(preds)).output
+    pred = TM.BinaryClassificationModelSelector.with_cross_validation(
+        n_folds=3, candidates=TITANIC_CANDIDATES).set_input(
+            survived, checked).output
+    return Workflow([pred])
+
+
+def _probs(model, ds):
+    col = ds.column(model.result_features[0].name)
+    key = "probability_1" if "probability_1" in col[0] else "prediction"
+    return np.asarray([r[key] for r in col], np.float64)
+
+
+def _checker_of(model):
+    return next(st for st in model.stages
+                if st.operation_name == "sanityChecked")
+
+
+def _expected_levels(summary, families):
+    """Histogram launches of one selector fit: every tree family's
+    folded grid, then the refit when a tree family wins."""
+    from transmogrifai_tpu_torch import models as TM
+    tree = [f for f in families
+            if hasattr(TM.MODEL_FAMILIES[f], "levels_per_fit")]
+    winner = summary["bestModel"]["family"]
+    return (sum(TM.MODEL_FAMILIES[f].levels_per_fit() for f in tree)
+            + (TM.MODEL_FAMILIES[winner].levels_per_fit()
+               if winner in tree else 0))
+
+
+def _grid_metrics(summary):
+    return {r["family"]: list(r["gridMetrics"])
+            for r in summary["validationResults"]}
+
+
+def titanic_part(device, workdir, check=None):
+    """The Titanic helloworld through the runner on ``device``: TRAIN
+    (model, metrics, insights), SCORE, then the saved model loaded and
+    scored again (bitwise); its histogram launches against the levels
+    the selector grew; then the same workflow in exact mode on
+    ``device`` and on the CPU, held to each other by
+    :func:`titanic_compare` (``check``: a test's planted fault)."""
+    from transmogrifai_tpu_torch.evaluators import Evaluators
+    from transmogrifai_tpu_torch.models import kernels as tk
+    from transmogrifai_tpu_torch.readers import DataReaders
+    from transmogrifai_tpu_torch.runner import (OpParams, RunType,
+                                                WorkflowRunner)
+    from transmogrifai_tpu_torch.workflow import WorkflowModel
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    reader = DataReaders.csv(_repo_file("examples", "data", "titanic.csv"),
+                             _types(TITANIC_SCHEMA), key="id")
+    runner = WorkflowRunner(_titanic_workflow(), train_reader=reader,
+                            score_reader=reader,
+                            evaluator=Evaluators.binary_classification(),
+                            device=device)
+    params = OpParams(model_location=os.path.join(workdir, "model"),
+                      metrics_location=os.path.join(workdir, "metrics"),
+                      score_location=os.path.join(workdir, "scores"))
+    sync()
+    tk.histogram_grid.launches = 0
+    t0 = time.perf_counter()
+    res = runner.run(RunType.TRAIN, params)
+    sync()
+    train_wall = time.perf_counter() - t0
+    launches = tk.histogram_grid.launches
+    model = runner._model
+    summ = model.selected_model().summary
+    families = [c[0] for c in TITANIC_CANDIDATES]
+    expected = _expected_levels(summ, families) if cuda else 0
+    if launches != expected:
+        raise AssertionError(f"Titanic: {launches} histogram launches, the "
+                             f"selector grew {expected} tree levels")
+    auroc = res["trainMetrics"]["AuROC"]
+    if not auroc > 0.75:
+        raise AssertionError(f"Titanic train AuROC {auroc} <= 0.75")
+    for f in ("model_insights.json", "train_result.json"):
+        if not os.path.exists(os.path.join(workdir, "metrics", f)):
+            raise AssertionError(f"Titanic TRAIN wrote no {f}")
+    t0 = time.perf_counter()
+    score = runner.run(RunType.SCORE, params)
+    score_wall = time.perf_counter() - t0
+    if score["nRows"] != 891 or not os.path.exists(score["scoreLocation"]):
+        raise AssertionError(f"Titanic SCORE gave {score}")
+    trained = _probs(model, model.score(reader))
+    t0 = time.perf_counter()
+    loaded = WorkflowModel.load(params.model_location, device=device)
+    load_wall = time.perf_counter() - t0
+    if loaded.selected_model().device.type != torch.device(device).type:
+        raise AssertionError("the loaded model's tensors left the device")
+    if not np.array_equal(_probs(loaded, loaded.score(reader)), trained):
+        raise AssertionError("Titanic: the loaded model scores differently "
+                             "from the trained one")
+
+    # the same workflow in exact mode on the device and on the CPU
+    with env(TM_KERNEL_EXACT="1"):
+        card = _titanic_workflow().train(reader, device=device)
+        cpu = _titanic_workflow().train(reader, device="cpu")
+    parity = titanic_compare(card, cpu, reader, device, check)
+    return {"rows": 891, "train_wall_s": train_wall,
+            "score_wall_s": score_wall, "load_wall_s": load_wall,
+            "train_auroc": auroc, "winner": res["bestModel"],
+            "histogram_launches": launches, "expected_launches": expected,
+            "grid_metrics": _grid_metrics(summ),
+            "loaded_scores_bitwise": True, **parity}
+
+
+def titanic_compare(card, cpu, reader, device, check=None):
+    """The Titanic workflow fitted in exact mode on ``device`` (``card``)
+    against its CPU fit: the same kept slots and removal reasons, LR's
+    CV metrics within TITANIC_CV_ATOL, GBT's too or else the near-tie
+    analysis (:func:`_titanic_gbt_ties`), the same winner unless RF is
+    within TITANIC_RF_MARGIN of it. ``check`` (a test's planted fault)
+    may rewrite a copy of the card's summary first."""
+    import copy
+    cs, ps = (copy.deepcopy(m.selected_model().summary)
+              for m in (card, cpu))
+    if check is not None:
+        check(cs)
+    kept_card = _checker_of(card).params["keep_indices"]
+    kept_cpu = _checker_of(cpu).params["keep_indices"]
+    if kept_card != kept_cpu or (_checker_of(card).summary["dropped"]
+                                 != _checker_of(cpu).summary["dropped"]):
+        raise AssertionError(f"Titanic kept slots differ card {kept_card} "
+                             f"vs CPU {kept_cpu}")
+    gm_card, gm_cpu = _grid_metrics(cs), _grid_metrics(ps)
+    gaps = {f: float(np.abs(np.subtract(gm_card[f], gm_cpu[f])).max())
+            for f in gm_card}
+    if not gaps["LogisticRegression"] <= TITANIC_CV_ATOL:
+        raise AssertionError(f"Titanic LogisticRegression CV metrics card "
+                             f"vs CPU differ by {gaps['LogisticRegression']}")
+    gbt = None
+    if not gaps["GBTClassifier"] <= TITANIC_CV_ATOL:
+        gbt = _titanic_gbt_ties(card, reader, device, gm_card, gm_cpu)
+    w_card, w_cpu = cs["bestModel"], ps["bestModel"]
+    if (w_card["family"], w_card["hyper"]) != (w_cpu["family"],
+                                               w_cpu["hyper"]):
+        best = {k: (max(v) if k != "RandomForestClassifier" else None)
+                for k, v in gm_cpu.items()}
+        top = max(b for b in best.values() if b is not None)
+        rf = max(gm_card["RandomForestClassifier"])
+        if "RandomForestClassifier" not in (w_card["family"],
+                                            w_cpu["family"]) \
+                or not abs(rf - top) <= TITANIC_RF_MARGIN:
+            raise AssertionError(f"Titanic winner card {w_card} vs CPU "
+                                 f"{w_cpu}")
+    return {"kept_slots": len(kept_card),
+            "exact_card_vs_cpu_cv_gap": gaps, "exact_gbt_divergence": gbt,
+            "exact_winner_card": w_card, "exact_winner_cpu": w_cpu}
+
+
+def _titanic_gbt_ties(model, reader, device, gm_card, gm_cpu):
+    """GBT on the checker's Titanic matrix in exact mode, on the card
+    and on the CPU, each grid point refit with its histograms recorded:
+    the validation metrics must be the workflow's own on each side, the
+    trees may part only at a near tie and the AUROC per grid point
+    within GBT_PARITY_TOL. Returns the comparison."""
+    checker = _checker_of(model)
+    full = model.transform(reader)
+    X = np.ascontiguousarray(full.column(checker.output.name), np.float32)
+    y = full.column("survived").astype(np.float32)
+    knobs = {"TM_KERNEL_EXACT": "1"}
+    card, cpu = gbt_side(X, y, device, knobs), gbt_side(X, y, "cpu", knobs)
+    for side, got, want in (("card", card, gm_card), ("cpu", cpu, gm_cpu)):
+        if list(got["metrics"]) != list(want["GBTClassifier"]):
+            raise AssertionError(f"Titanic GBT metrics recomputed on the "
+                                 f"{side} differ from the workflow's")
+    gbt = gbt_compare(card, cpu, X)
+    if not (gbt["gain_gap_max"] <= GBT_GAP_RTOL
+            and gbt["hist_diff_max"] <= GBT_HIST_RTOL
+            and gbt["metric_max_diff"] <= GBT_PARITY_TOL):
+        raise AssertionError(
+            f"Titanic GBT card vs CPU parts at a split that is no near "
+            f"tie or past {GBT_PARITY_TOL}: gain gap "
+            f"{gbt['gain_gap_max']}, histograms {gbt['hist_diff_max']}, "
+            f"AUROC {gbt['metric_max_diff']}: {gbt['divergence']}")
+    return {k: gbt[k] for k in ("metric_max_diff", "gain_gap_max",
+                                "hist_diff_max", "divergence")}
+
+
+def scale_csv(path, seed: int, rows: int):
+    """Write the at-scale CSV: the training phase's HIGGS-shaped Real
+    columns x0..x27 (SCALE_MISSING of them empty), PickLists p0..p3 of
+    SCALE_LEVELS levels, Integral k0, k1, Binary b, the label y (the
+    signal's sign, shifted by p0 and b). Returns the schema."""
+    X, z = training_signal(seed, rows)
+    rng = np.random.default_rng(seed + 11)
+    cols = {}
+    for j in range(TRAIN_FEATURES):
+        v = np.char.mod("%.7g", X[:, j])
+        v[rng.random(rows) < SCALE_MISSING] = ""
+        cols[f"x{j}"] = v
+    for j, levels in enumerate(SCALE_LEVELS):
+        idx = np.minimum(rng.zipf(1.3, rows) - 1, levels - 1)
+        cols[f"p{j}"] = np.char.add(f"l{j}_", idx.astype(str))
+        if j == 0:
+            z = z + 0.4 * (idx == 0)
+    for j in range(2):
+        k = rng.integers(0, 60, rows)
+        v = k.astype(str)
+        v[rng.random(rows) < SCALE_MISSING] = ""
+        cols[f"k{j}"] = v
+    b = rng.random(rows) < 0.3
+    z = z - 0.3 * b
+    bv = np.where(b, "true", "false")
+    bv[rng.random(rows) < SCALE_MISSING] = ""
+    cols["b"] = bv
+    cols["y"] = (z > 0).astype(np.int64).astype(str)
+    names = list(cols)
+    table = np.stack([cols[n] for n in names], axis=1)
+    with open(path, "w") as f:
+        f.write(",".join(names) + "\n")
+        f.write("\n".join(",".join(r) for r in table.tolist()))
+        f.write("\n")
+    schema = {f"x{j}": "Real" for j in range(TRAIN_FEATURES)}
+    schema.update({f"p{j}": "PickList" for j in range(len(SCALE_LEVELS))})
+    schema.update({"k0": "Integral", "k1": "Integral", "b": "Binary",
+                   "y": "RealNN"})
+    return schema
+
+
+def _avg_ranks_f64(x):
+    """numpy f64 average ranks of each column (ties share the mean of
+    their ordinal ranks, from 0): the oracle of the device ranks."""
+    out = np.empty(x.shape, np.float64)
+    for j in range(x.shape[1]):
+        _, inv, counts = np.unique(x[:, j], return_inverse=True,
+                                   return_counts=True)
+        start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        out[:, j] = (start + (counts - 1) / 2.0)[inv.ravel()]
+    return out
+
+
+def checker_oracle(X, y, stats, device):
+    """The checker's statistics (its summary) against numpy f64 on the
+    same (n, d) matrix and label, and the device ranks of ``X`` against
+    the f64 average ranks, exactly. Returns the errors; raises past
+    CHECKER_MOMENT_RTOL / CHECKER_CORR_ATOL or on any rank."""
+    from transmogrifai_tpu_torch.ops import sanity_checker as sc
+    Xd = X.astype(np.float64)
+    yd = y.astype(np.float64)
+    mean = Xd.mean(0)
+    var = Xd.var(0)
+    std = np.sqrt(var)
+    ok = std > 0
+    xs = (Xd - mean) / np.where(ok, std, 1.0)
+    ys = (yd - yd.mean()) / yd.std()
+    corr = np.where(ok, xs.T @ ys / len(yd), np.nan)
+    rx = _avg_ranks_f64(Xd)
+    ry = _avg_ranks_f64(yd[:, None])[:, 0]
+    rxm, rym = rx - rx.mean(0), ry - ry.mean()
+    # the checker's definition: rank spreads floored at 1e-12, so a
+    # constant column's Spearman is 0
+    spear = (rxm.T @ rym) / (len(yd)
+                             * np.sqrt(np.maximum((rxm ** 2).mean(0), 1e-12))
+                             * np.sqrt(max((rym ** 2).mean(), 1e-12)))
+    got_ranks = sc.rank_columns(torch.from_numpy(X).to(device)).cpu().numpy()
+    if not np.array_equal(got_ranks.astype(np.float64), rx):
+        raise AssertionError("the device ranks differ from the f64 "
+                             "average ranks")
+
+    def rel(a, b, scale=None):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        scale = np.abs(b) if scale is None else np.maximum(np.abs(b), scale)
+        return float((np.abs(a - b) / np.maximum(scale, 1e-12)).max())
+
+    def absd(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        both = np.isfinite(a) & np.isfinite(b)
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            raise AssertionError("NaN correlations differ from the oracle")
+        return float(np.abs(a - b)[both].max())
+
+    errs = {"mean_rel": rel(stats["mean"], mean, std),
+            "variance_rel": rel(stats["variance"], var),
+            "corr_label_abs": absd(stats["corr_label"], corr),
+            "spearman_abs": absd(stats["spearman"], spear)}
+    for k, v in errs.items():
+        lim = CHECKER_MOMENT_RTOL if k.endswith("rel") else CHECKER_CORR_ATOL
+        if not v <= lim:
+            raise AssertionError(f"checker {k} error {v} against numpy f64 "
+                                 f"(limit {lim})")
+    errs["ranks_exact"] = True
+    return errs
+
+
+def scale_part(seed: int, device, workdir, rows: int = SCALE_ROWS):
+    """The at-scale CSV through the front door on ``device``: read by
+    ``DataReaders.csv``, transmogrify, SanityChecker and the binary
+    default candidate list (3 folds) through ``Workflow.train``; the
+    training CSV scored, saved, loaded and scored again (bitwise);
+    LocalScorer on LOCAL_ROWS rows against the batch scores; the
+    checker's statistics against numpy f64. Walls of each step."""
+    from transmogrifai_tpu_torch import models as TM
+    from transmogrifai_tpu_torch.features import FeatureBuilder, reset_uids
+    from transmogrifai_tpu_torch.local import LocalScorer
+    from transmogrifai_tpu_torch.models import kernels as tk
+    from transmogrifai_tpu_torch.ops import SanityChecker, transmogrify
+    from transmogrifai_tpu_torch.readers import DataReaders
+    from transmogrifai_tpu_torch.workflow import Workflow, WorkflowModel
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    path = os.path.join(workdir, "scale.csv")
+    t0 = time.perf_counter()
+    schema = scale_csv(path, seed, rows)
+    write_wall = time.perf_counter() - t0
+    types = _types(schema)
+    reset_uids()
+    label = FeatureBuilder.of(types["y"], "y").from_column().as_response()
+    preds = [FeatureBuilder.of(t, n).from_column().as_predictor()
+             for n, t in types.items() if n != "y"]
+    checked = SanityChecker().set_input(label, transmogrify(preds)).output
+    selector = TM.BinaryClassificationModelSelector.with_cross_validation(
+        n_folds=3)
+    pred = selector.set_input(label, checked).output
+    wf = Workflow([pred])
+    reader = DataReaders.csv(path, types)
+    t0 = time.perf_counter()
+    ds = reader.generate_dataset([label] + preds)
+    read_wall = time.perf_counter() - t0
+    if ds.n_rows != rows:
+        raise AssertionError(f"read {ds.n_rows} rows of {rows}")
+    sync()
+    tk.histogram_grid.launches = 0
+    t0 = time.perf_counter()
+    model = wf.train(ds, device=device)
+    sync()
+    train_wall = time.perf_counter() - t0
+    launches = tk.histogram_grid.launches
+    summ = model.selected_model().summary
+    families = [c[0] for c in selector.params["candidates"]]
+    expected = _expected_levels(summ, families) if cuda else 0
+    if launches != expected:
+        raise AssertionError(f"at scale: {launches} histogram launches, "
+                             f"the selector grew {expected} tree levels")
+    if model.selected_model().device.type != torch.device(device).type:
+        raise AssertionError("the fitted model is not on the train device")
+    timings = model.train_summaries["stageTimings"]
+    fit_s = {}
+    for st in timings["stages"]:
+        kind = ("vectorizers" if st["layer"] == 0 else
+                {"SanityCheckerModel": "checker",
+                 "SelectedModel": "selector"}.get(st["operation"]))
+        if kind:
+            fit_s[kind] = fit_s.get(kind, 0.0) + st["fit_s"]
+    t0 = time.perf_counter()
+    scored = model.score(ds)
+    sync()
+    score_wall = time.perf_counter() - t0
+    first = _probs(model, scored)
+    if not (np.isfinite(first).all() and (first >= 0).all()
+            and (first <= 1).all()):
+        raise AssertionError("at-scale scores malformed")
+    t0 = time.perf_counter()
+    model.save(os.path.join(workdir, "scale_model"))
+    loaded = WorkflowModel.load(os.path.join(workdir, "scale_model"),
+                                device=device)
+    save_load_wall = time.perf_counter() - t0
+    again = _probs(loaded, loaded.score(ds))
+    if not np.array_equal(again, first):
+        raise AssertionError("at scale: the loaded model's scores differ "
+                             "from the trained one's")
+    recs = ds.head(LOCAL_ROWS).rows()
+    local = LocalScorer(loaded, device=device)
+    name = loaded.result_features[0].name
+    lp = np.asarray([local({k: v for k, v in r.items() if k != "y"})
+                     [name]["probability_1"] for r in recs])
+    local_err = float(np.abs(lp - first[:LOCAL_ROWS]).max())
+    if not local_err <= LOCAL_ATOL:
+        raise AssertionError(f"LocalScorer differs from the batch scores "
+                             f"by {local_err}")
+    checker = _checker_of(model)
+    full = model.transform(ds)
+    X = full.column(checker.input_names[1]).astype(np.float32)
+    y = full.column("y").astype(np.float32)
+    oracle = checker_oracle(X, y, checker.summary["stats"], device)
+    return {"rows": rows, "csv_write_wall_s": write_wall,
+            "read_wall_s": read_wall, "train_wall_s": train_wall,
+            "vectorizer_fit_s": fit_s.get("vectorizers"),
+            "vectorizer_layer_wall_s": timings["layers"][0]["wall_s"],
+            "checker_fit_s": fit_s.get("checker"),
+            "selector_fit_s": fit_s.get("selector"),
+            "score_wall_s": score_wall, "score_rows_per_s": rows / score_wall,
+            "save_load_wall_s": save_load_wall,
+            "features_in": checker.summary["featuresIn"],
+            "features_out": checker.summary["featuresOut"],
+            "dropped": len(checker.summary["dropped"]),
+            "winner": summ["bestModel"], "family_wall_s":
+                summ["wallSeconds"]["families"],
+            "holdout_auroc": summ["holdoutEvaluation"].get("AuROC"),
+            "histogram_launches": launches, "expected_launches": expected,
+            "loaded_scores_bitwise": True, "local_max_abs_err": local_err,
+            "checker_oracle": oracle}
+
+
+def export_part(seed: int, device, workdir, requests=EXPORT_REQUESTS):
+    """EXPORT_MODELS Boston workflows (transmogrify and the
+    LinearRegression candidate, each on its own seeded bootstrap)
+    trained on ``device``, exported with ``export_portable``, loaded
+    with ``portable.load`` and served together by one ServingEngine
+    with the fused plane on. Every request's rows within SERVE_ATOL of
+    its own WorkflowModel under the operand policy of the plane that
+    served it; no fused fallback; on CUDA the fused kernel launched once
+    a bucket slice."""
+    from transmogrifai_tpu_torch import models as TM
+    from transmogrifai_tpu_torch import portable
+    from transmogrifai_tpu_torch.features import FeatureBuilder, reset_uids
+    from transmogrifai_tpu_torch.models import serving_kernels as sk
+    from transmogrifai_tpu_torch.ops import transmogrify
+    from transmogrifai_tpu_torch.readers import DataReaders
+    from transmogrifai_tpu_torch.serving import (EngineConfig, ModelRegistry,
+                                                 ServingEngine)
+    from transmogrifai_tpu_torch.telemetry.spans import TRACER
+    from transmogrifai_tpu_torch.workflow import Workflow
+    types = _types(BOSTON_SCHEMA)
+    records = DataReaders.csv(_repo_file("examples", "data", "boston.csv"),
+                              types).read()
+    rng = np.random.default_rng(seed + 23)
+    reg = ModelRegistry()
+    models = {}
+    warm = None
+    for k in range(EXPORT_MODELS):
+        reset_uids()
+        medv = FeatureBuilder.of(types["medv"], "medv").from_column() \
+            .as_response()
+        preds = [FeatureBuilder.of(t, n).from_column().as_predictor()
+                 for n, t in types.items() if n != "medv"]
+        pred = TM.RegressionModelSelector.with_train_validation_split(
+            candidates=[["LinearRegression", None]]).set_input(
+                medv, transmogrify(preds)).output
+        boot = [records[i] for i in rng.integers(0, len(records),
+                                                 len(records))]
+        wm = Workflow([pred]).train(boot, device=device)
+        art = os.path.join(workdir, f"boston_{k}")
+        wm.export_portable(art, buckets=BUCKETS)
+        pm = portable.load(art, device=device)
+        if pm.manifest["hostPrefix"]:
+            raise AssertionError(f"Boston export has a host prefix "
+                                 f"{pm.manifest['hostPrefix']}")
+        name = f"b{k}"
+        if warm is None:
+            warm = {c: np.zeros(1) for c in pm.boundary if c != "medv"}
+        reg.register(name, pm, buckets=BUCKETS, warm_sample=warm,
+                     make_default=(k == 0))
+        models[name] = wm
+    cols = [c for c in types if c != "medv"]
+    reqs = []
+    for _ in range(requests):
+        n = int(rng.integers(1, 9))
+        rows = rng.integers(0, len(records), n)
+        data = {}
+        for c in cols:
+            v = np.asarray([np.nan if records[i][c] is None
+                            else float(records[i][c]) for i in rows])
+            v[rng.random(n) < 0.05] = np.nan
+            data[c] = v
+        reqs.append((f"b{int(rng.integers(0, EXPORT_MODELS))}", data))
+    TRACER.clear()
+    traces = [TRACER.mint("req") for _ in reqs]
+    eng = ServingEngine(registry=reg, config=EngineConfig(
+        max_batch_rows=MAX_BATCH_ROWS, fused_kernel=True)).start()
+    sk.fused_linear_scores.launches = 0
+    try:
+        results, lat, wall = _storm(eng, reqs, THREADS, traces)
+        moved = sk.fused_linear_scores.launches
+    finally:
+        eng.stop()
+    stats = eng.stats.as_dict()
+    plane, fused_spans = _served_planes(TRACER.spans(), traces)
+    bf16 = sk.serve_dtype(device) == torch.bfloat16
+    matched = {"fused": 0, "classic": 0}
+    worst = 0.0
+    for (mname, data), res, tid in zip(reqs, results, traces):
+        wm = models[mname]
+        sel = wm.selected_model()
+        recs = [{c: (None if np.isnan(data[c][i]) else
+                     (bool(data[c][i]) if types[c].__name__ == "Binary"
+                      else float(data[c][i]))) for c in cols}
+                for i in range(len(data[cols[0]]))]
+        full = wm.transform(recs)
+        if plane[tid] == "fused" and bf16:
+            X = full.column(sel.input_names[1]).astype(np.float32)
+            beta = sel.model_params["beta"].cpu().numpy()
+            want = (round_bf16(X).astype(np.float64)
+                    @ round_bf16(beta[:-1]).astype(np.float64)
+                    + float(beta[-1]))
+        else:
+            want = _probs(wm, full)
+        got = np.asarray(res[sel.output.name], np.float64).reshape(-1)
+        err = float(np.abs(got - want).max())
+        worst = max(worst, err)
+        if not err <= SERVE_ATOL:
+            raise AssertionError(f"Boston request for {mname} on the "
+                                 f"{plane[tid]} plane differs from its "
+                                 f"WorkflowModel by {err}")
+        matched[plane[tid]] += 1
+    if stats["fused_fallbacks"] != 0 or stats["failed"] != 0:
+        raise AssertionError(f"engine fallbacks {stats['fused_fallbacks']}"
+                             f", failed {stats['failed']}")
+    if stats["fused_batches"] <= 0:
+        raise AssertionError("the exported models never rode the fused "
+                             "plane")
+    slices = sum(max(1, -(-s["attrs"]["rows"] // BUCKETS[-1]))
+                 for s in fused_spans)
+    if torch.device(device).type == "cuda" and moved != slices:
+        raise AssertionError(f"the fused kernel launched {moved} times for "
+                             f"{slices} fused bucket slices")
+    from transmogrifai_tpu_torch.profiling import percentile_nearest_rank
+    lat_ms = sorted(x * 1e3 for x in lat)
+    return {"models": EXPORT_MODELS, "requests": requests,
+            "rows": sum(len(d["crim"]) for _, d in reqs), "wall_s": wall,
+            "p50_ms": percentile_nearest_rank(lat_ms, 0.50),
+            "p99_ms": percentile_nearest_rank(lat_ms, 0.99),
+            "matched": matched, "max_abs_err": worst,
+            "fused_batches": stats["fused_batches"],
+            "fused_fallbacks": stats["fused_fallbacks"],
+            "kernel_launches": moved, "fused_slices": slices}
+
+
+def workflow_lines(wf) -> list:
+    """One line per step of the workflow phase, every number taken from
+    its result ``wf``."""
+    ti, sc, ex = wf["titanic"], wf["scale"], wf["export"]
+    steps = (("titanic train", ti["train_wall_s"], "s"),
+             ("titanic score", ti["score_wall_s"], "s"),
+             ("titanic load", ti["load_wall_s"], "s"),
+             ("scale read", sc["read_wall_s"], "s"),
+             ("scale vectorizer fits", sc["vectorizer_fit_s"], "s"),
+             ("scale checker", sc["checker_fit_s"], "s"),
+             ("scale selector", sc["selector_fit_s"], "s"),
+             ("scale train", sc["train_wall_s"], "s"),
+             ("scale score", sc["score_rows_per_s"], "rows/s"),
+             ("scale save/load", sc["save_load_wall_s"], "s"),
+             ("export serve p50", ex["p50_ms"], "ms"),
+             ("export serve p99", ex["p99_ms"], "ms"))
+    out = [f"phase workflow: {label}: {value!r} {unit}"
+           for label, value, unit in steps]
+    out.append("phase workflow: scale checker vs numpy f64: "
+               + json.dumps(sc["checker_oracle"]))
+    return out
+
+
+def workflow_phase(seed: int, device="cuda", rows: int = SCALE_ROWS,
+                   check=None):
+    """The front door on ``device``: the Titanic helloworld through the
+    runner (held to the port's CPU run), the at-scale CSV workflow and
+    four exported Boston workflows served through the fused plane. The
+    histogram launches of the whole phase are returned for the kernels
+    line. ``rows`` and ``device`` exist for a CPU rehearsal."""
+    import shutil
+    import tempfile
+    from transmogrifai_tpu_torch import native
+    workdir = tempfile.mkdtemp(prefix="tm_workflow_phase_")
+    try:
+        titanic = titanic_part(device, os.path.join(workdir, "titanic"),
+                               check=check)
+        scale = scale_part(seed, device, workdir, rows)
+        export = export_part(seed, device, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {"native_csv": native.available(), "titanic": titanic,
+            "scale": scale, "export": export,
+            "histogram_launches": (titanic["histogram_launches"]
+                                   + scale["histogram_launches"]),
+            "fused_launches": export["kernel_launches"]}
+
+
+# ---------------------------------------------------------------------------
+
+def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
+                 wf=None):
     """The ``kernels`` line from this run's phase results: every time
     and error is one this run measured, every bound one it computed
-    from its own inputs, every launch count its main path's."""
+    from its own inputs, every launch count its main path's (the
+    histogram's: the training phase's and the workflow phase's ``wf``;
+    the serving kernel's: the serving phase's, with the workflow
+    phase's exported models apart)."""
     # the serving pass's shape in its operand mode: the prefix form,
     # and the identity form (the JAX function) with its library call
     main_row = next(r for r in rows if r["form"] == "prefix")
@@ -1928,6 +2596,7 @@ def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp):
         "replaces": "transmogrifai_tpu/models/serving_kernels.py:224 and "
                     "transmogrifai_tpu/serving/fusion.py:265",
         "launches": serve["kernel_launches"],
+        "workflow_launches": None if wf is None else wf["fused_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -1943,7 +2612,10 @@ def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp):
         "source": "transmogrifai_tpu_torch/csrc/tree_histogram.cu",
         "replaces": "transmogrifai_tpu/models/kernels.py:612 and "
                     "transmogrifai_tpu/models/kernels.py:649",
-        "launches": train["histogram_launches"],
+        "launches": train["histogram_launches"] + (
+            0 if wf is None else wf["histogram_launches"]),
+        "training_launches": train["histogram_launches"],
+        "workflow_launches": None if wf is None else wf["histogram_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in hrows),
         "ms": hmain["ms"], "plain_ms": hmain["plain_ms"],
         "bound_ms": hmain["bound_ms"], "bound_by": hmain["bound_by"],
@@ -1991,6 +2663,9 @@ def main(argv=None) -> int:
     _cuda_build.build_all()
     print(f"phase device: built {_cuda_build.kernel_names()} in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
+    from transmogrifai_tpu_torch import native
+    print(f"phase device: native CSV/murmur3 library (csrc/tmnative.cpp) "
+          f"loaded: {native.available()}", flush=True)
     for name, log in _cuda_build.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -2039,8 +2714,13 @@ def main(argv=None) -> int:
     print("phase data_parallel: " + json.dumps(dict(dp, card=card)),
           flush=True)
 
+    wf = workflow_phase(args.seed)
+    print("phase workflow: " + json.dumps(dict(wf, card=card)), flush=True)
+    for line in workflow_lines(wf):
+        print(line, flush=True)
+
     print(json.dumps(kernels_line(rows, serve, empty_ms, hrows, train, hmma,
-                                  rrows, dp)), flush=True)
+                                  rrows, dp, wf)), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -217,3 +217,138 @@ def test_kernels_line_takes_every_number_from_the_run():
     assert fused["shape"] == [64, 13, 22, 4, 1]    # the prefix form's row
     assert fused["identity_shape"] == [64, 22, 4, 1]
     assert "serving/fusion.py:265" in fused["replaces"]
+
+
+@pytest.fixture(scope="module")
+def workflow_run():
+    """The workflow phase on the CPU: Titanic (card vs CPU here CPU
+    against CPU), the CSV workflow at 1,000 rows, the export and serve."""
+    return chip_smoke.workflow_phase(0, device="cpu", rows=1000)
+
+
+def test_workflow_phase_runs_on_the_cpu(workflow_run):
+    wf = workflow_run
+    ti, sc, ex = wf["titanic"], wf["scale"], wf["export"]
+    assert wf["native_csv"] in (True, False)
+    assert ti["train_auroc"] > 0.75
+    assert ti["winner"] == {"family": "LogisticRegression",
+                            "hyper": {"regParam": 0.01,
+                                      "elasticNetParam": 0.5}}
+    assert ti["loaded_scores_bitwise"] and ti["kept_slots"] > 0
+    # the CPU path counts no launch
+    assert wf["histogram_launches"] == ti["histogram_launches"] == 0
+    assert sc["rows"] == 1000 and sc["loaded_scores_bitwise"]
+    assert sc["features_in"] == 2 * 30 + 2 + sum(
+        min(k, 20) + 2 for k in chip_smoke.SCALE_LEVELS)
+    assert sc["local_max_abs_err"] <= chip_smoke.LOCAL_ATOL
+    assert sc["checker_oracle"]["ranks_exact"]
+    assert ex["fused_fallbacks"] == 0 and ex["fused_batches"] > 0
+    assert sum(ex["matched"].values()) == ex["requests"]
+    assert ex["max_abs_err"] <= chip_smoke.SERVE_ATOL
+
+
+def test_workflow_lines_take_every_number_from_the_run(workflow_run):
+    import json
+    import re
+
+    def numbers(v):
+        if isinstance(v, dict):
+            return [x for u in v.values() for x in numbers(u)]
+        if isinstance(v, (list, tuple)):
+            return [x for u in v for x in numbers(u)]
+        return [v] if isinstance(v, float) else []
+
+    seen = set(numbers(workflow_run))
+    lines = chip_smoke.workflow_lines(workflow_run)
+    assert len(lines) >= 12
+    for line in lines:
+        body = line.split(": ", 2)[-1]
+        if body.startswith("{"):
+            vals = numbers(json.loads(body))
+        else:
+            vals = [float(x) for x in re.findall(
+                r"[-+]?\d+\.\d+(?:e[-+]?\d+)?", body)]
+        assert vals, line
+        for v in vals:
+            assert v in seen, (line, v)
+
+
+@pytest.fixture(scope="module")
+def titanic_pair():
+    """The Titanic workflow fitted twice in exact mode on the CPU: the
+    comparison's two sides (card against CPU here CPU against CPU)."""
+    from transmogrifai_tpu_torch.readers import DataReaders
+    reader = DataReaders.csv(chip_smoke._repo_file(
+        "examples", "data", "titanic.csv"),
+        chip_smoke._types(chip_smoke.TITANIC_SCHEMA), key="id")
+    with chip_smoke.env(TM_KERNEL_EXACT="1"):
+        return (chip_smoke._titanic_workflow().train(reader, device="cpu"),
+                chip_smoke._titanic_workflow().train(reader, device="cpu"),
+                reader)
+
+
+@pytest.mark.parametrize("family,match", [
+    (None, None),
+    ("LogisticRegression", "LogisticRegression CV"),
+    ("GBTClassifier", "GBT metrics recomputed on the card")])
+def test_titanic_check_flags_a_planted_cv_gap(titanic_pair, family, match):
+    """The two sides agree; a planted gap of 1e-3 in one grid point of
+    the card's summary makes the comparison raise: LR's past 1e-4 at
+    once; GBT's sends it to the near-tie analysis, whose recomputed
+    metrics are not the (planted) workflow's."""
+    card, cpu, reader = titanic_pair
+
+    def plant(summary):
+        r = next(r for r in summary["validationResults"]
+                 if r["family"] == family)
+        r["gridMetrics"][0] += 1e-3
+    if family is None:
+        out = chip_smoke.titanic_compare(card, cpu, reader, "cpu")
+        assert out["exact_card_vs_cpu_cv_gap"]["GBTClassifier"] == 0.0
+        assert out["exact_gbt_divergence"] is None
+        return
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.titanic_compare(card, cpu, reader, "cpu", check=plant)
+    # the plant went into a copy: the fitted summaries are untouched
+    assert chip_smoke.titanic_compare(card, cpu, reader, "cpu")
+
+
+def test_checker_oracle_flags_planted_statistics():
+    import numpy as np
+    from transmogrifai_tpu_torch.ops import sanity_checker as sc
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(500, 6)).astype(np.float32)
+    X[:, 2] = np.round(X[:, 2])              # ties
+    y = (X[:, 0] > 0).astype(np.float32)
+    stats = sc.compute_statistics(X, y, device="cpu")
+    errs = chip_smoke.checker_oracle(X, y, stats, "cpu")
+    assert errs["ranks_exact"]
+    bad = dict(stats, variance=stats["variance"] * (1 + 1e-3))
+    with pytest.raises(AssertionError, match="variance_rel"):
+        chip_smoke.checker_oracle(X, y, bad, "cpu")
+    bad = dict(stats, spearman=stats["spearman"] + 1e-3)
+    with pytest.raises(AssertionError, match="spearman_abs"):
+        chip_smoke.checker_oracle(X, y, bad, "cpu")
+
+
+def test_kernels_line_adds_the_workflow_launches():
+    row = {k: 1.5 for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                            "max_abs_err", "call_ms", "plain_call_ms",
+                            "library_call_ms", "span_ms",
+                            "library_device_ms")}
+    row["bound_by"] = "bytes"
+    rows = [dict(row, form="identity", shape=[1], dtype="f"),
+            dict(row, form="prefix", shape=[2], act="a", dtype="f")]
+    hrows = [dict(row, dtype="f", **{k: 1 for k in "GndSmB"})]
+    rrows = [dict(row, layout="one card", shape="gbt_level",
+                  ndev=chip_smoke.DP_RANKS, dims=[1])]
+    line = chip_smoke.kernels_line(
+        rows, {"kernel_launches": 7}, 0.5, hrows,
+        {"histogram_launches": 418}, 3, rrows, {"ring_launches": 24},
+        {"histogram_launches": 543, "fused_launches": 11})
+    hist = line["kernels"][1]
+    assert hist["launches"] == 418 + 543
+    assert hist["training_launches"] == 418
+    assert hist["workflow_launches"] == 543
+    assert line["kernels"][0]["launches"] == 7
+    assert line["kernels"][0]["workflow_launches"] == 11

@@ -726,3 +726,80 @@ def test_linear_sweep_dispatch_never_waits_on_the_card(card):
                     torch.cuda.set_sync_debug_mode("default")
             for p in pend.values():
                 assert np.isfinite(cv.collect(p).grid_metrics[:2]).all()
+
+
+@pytest.mark.cuda
+def test_checker_device_ranks_and_statistics_on_the_card(card, monkeypatch):
+    """The SanityChecker's device average ranks on the card are bitwise
+    the host ranks (ties included), so its statistics are bitwise alike
+    under either rank switch; the contingency rows are exact counts."""
+    from transmogrifai_tpu_torch.ops import sanity_checker as sc
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(20_000, 40)).astype(np.float32)
+    X[rng.random(X.shape) < 0.4] = 0.5                 # heavy ties
+    y = (rng.random(20_000) < 0.3).astype(np.float32)
+    got = sc.rank_columns(torch.from_numpy(X).to(card)).cpu().numpy()
+    assert np.array_equal(got, sc.host_rank_columns(X))
+    monkeypatch.setenv("TM_CHECKER_HOST_RANKS", "0")
+    dev = sc.compute_statistics(X, y, device=card)
+    monkeypatch.setenv("TM_CHECKER_HOST_RANKS", "1")
+    host = sc.compute_statistics(X, y, device=card)
+    for k in dev:
+        assert np.array_equal(dev[k], host[k], equal_nan=True), k
+    cols = (X[:, :8] == 0.5).astype(np.float32)
+    y_oh = np.stack([1.0 - y, y], axis=1).astype(np.float32)
+    _, t = sc.cramers_v(cols, y_oh, device=card)
+    assert np.array_equal(t, cols.T.astype(np.float64) @ y_oh)
+
+
+@pytest.mark.cuda
+def test_workflow_trains_and_scores_on_the_card(card, tmp_path):
+    """A small workflow trained on the card stays there: the fitted
+    model's tensors, the executor's fused impute block (bitwise the host
+    transform), save/load onto the card and the fused scorer."""
+    from transmogrifai_tpu_torch import models as TM
+    from transmogrifai_tpu_torch.executor import _fused_transform
+    from transmogrifai_tpu_torch.features import FeatureBuilder, types as ft
+    from transmogrifai_tpu_torch.ops import SanityChecker, transmogrify
+    from transmogrifai_tpu_torch.workflow import Workflow, WorkflowModel
+    rng = np.random.default_rng(1)
+    rows = [{"y": float(i % 2), "a": (None if rng.random() < 0.1 else
+                                      float(rng.normal() + i % 2)),
+             "b": float(rng.normal()), "c": "xyz"[int(rng.integers(0, 3))]}
+            for i in range(600)]
+    y = FeatureBuilder.of(ft.RealNN, "y").from_column().as_response()
+    xs = [FeatureBuilder.of(ft.Real, "a").from_column().as_predictor(),
+          FeatureBuilder.of(ft.Real, "b").from_column().as_predictor(),
+          FeatureBuilder.of(ft.PickList, "c").from_column().as_predictor()]
+    checked = SanityChecker().set_input(y, transmogrify(xs)).output
+    pred = TM.BinaryClassificationModelSelector.with_cross_validation(
+        n_folds=2, candidates=[["LogisticRegression", {"regParam": [0.1]}],
+                               ["DecisionTreeClassifier", None]]
+    ).set_input(y, checked).output
+    model = Workflow([pred]).train(rows, device=card)
+    assert model.selected_model().device.type == card.type
+    # the pool threads share the card's stream: the serial executor
+    # fits the same model bit for bit
+    serial = Workflow([pred]).train(rows, device=card, executor="serial")
+    for a, b in zip(model.stages, serial.stages):
+        assert a.params == b.params
+    for k, v in model.selected_model().model_params.items():
+        assert torch.equal(v, serial.selected_model().model_params[k]), k
+    timings = model.train_summaries["stageTimings"]["stages"]
+    assert "fused" in {s["transform"] for s in timings}
+    reals = [st for st in model.stages if type(st).__name__ ==
+             "RealVectorizerModel"]
+    ds = model.transform(rows)
+    fused = _fused_transform(reals, ds, card)
+    for st in reals:
+        assert np.array_equal(fused[st.output.name],
+                              st.transform(ds).column(st.output.name))
+    walk = [r["probability_1"] for r in model.score(rows).column(pred.name)]
+    model.save(str(tmp_path / "m"))
+    loaded = WorkflowModel.load(str(tmp_path / "m"), device=card)
+    assert loaded.selected_model().device.type == card.type
+    again = [r["probability_1"] for r in loaded.score(rows).column(
+        pred.name)]
+    assert again == walk
+    arr = loaded.compile_scoring(buckets=True).score_arrays(rows)[pred.name]
+    np.testing.assert_allclose(arr[:, 1], walk, rtol=0, atol=1e-6)

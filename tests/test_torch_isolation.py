@@ -245,3 +245,107 @@ def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
                          timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_workflow_modules_are_in_the_import_probe():
+    """The front door's modules (readers, native, stages, vectorizers,
+    transmogrify, checker, lint, resilience, executor, workflow,
+    insights, runner, local, export) are among the modules the probe
+    above imports, so none of them reaches JAX."""
+    import pkgutil
+    import transmogrifai_tpu_torch as P
+    mods = {m.name for m in pkgutil.walk_packages(P.__path__,
+                                                  P.__name__ + ".")}
+    want = {"readers", "readers.core", "readers.formats", "native",
+            "features.manifest", "features.aggregators",
+            "stages.persistence", "ops.hashing", "ops.text",
+            "ops.sensitive", "ops.vectorizers", "ops.transmogrifier",
+            "ops.sanity_checker", "resilience.policy",
+            "resilience.checkpoint", "lint", "lint.analyzer",
+            "lint.ast_checks", "lint.diagnostics", "lint.graph",
+            "executor", "workflow", "insights", "runner", "local",
+            "portable_export"}
+    assert {f"transmogrifai_tpu_torch.{m}" for m in want} <= mods
+
+
+def _tiny_workflow(FB, ft, M, transmogrify, SanityChecker, Workflow):
+    y = FB.of(ft.RealNN, "y").from_column().as_response()
+    xs = [FB.of(ft.Real, "a").from_column().as_predictor(),
+          FB.of(ft.PickList, "c").from_column().as_predictor()]
+    checked = SanityChecker().set_input(y, transmogrify(xs)).output
+    pred = M.BinaryClassificationModelSelector.with_cross_validation(
+        n_folds=2, candidates=[["LogisticRegression", {"regParam": [0.1]}]]
+    ).set_input(y, checked).output
+    return Workflow([pred])
+
+
+def _tiny_rows(n=60):
+    rng = np.random.default_rng(0)
+    return [{"y": float(i % 2), "a": float(rng.normal()) + (i % 2),
+             "c": "xy"[int(rng.integers(0, 2))]} for i in range(n)]
+
+
+def test_loading_a_jax_saved_workflow_imports_no_jax(tmp_path):
+    from transmogrifai_tpu import FeatureBuilder, models as M
+    from transmogrifai_tpu.features import types as ft
+    from transmogrifai_tpu.ops.sanity_checker import SanityChecker
+    from transmogrifai_tpu.ops.transmogrifier import transmogrify
+    from transmogrifai_tpu.workflow import Workflow
+    path = str(tmp_path / "jax_model")
+    _tiny_workflow(FeatureBuilder, ft, M, transmogrify, SanityChecker,
+                   Workflow).train(_tiny_rows()).save(path)
+    code = (
+        "import sys\n"
+        "from transmogrifai_tpu_torch.workflow import WorkflowModel\n"
+        f"m = WorkflowModel.load({path!r}, device='cpu')\n"
+        f"rows = {_tiny_rows(5)!r}\n"
+        "assert m.score(rows).n_rows == 5\n"
+        "assert m.compile_scoring().score_arrays(rows)\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'transmogrifai_tpu')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_workflow_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """Workflow.train, WorkflowModel.load(...).score, WorkflowRunner.run
+    and LocalScorer resolve to CUDA with no device argument, so without
+    a card each raises; nothing trains or scores on the CPU unasked."""
+    from transmogrifai_tpu_torch import models as M
+    from transmogrifai_tpu_torch.features import FeatureBuilder
+    from transmogrifai_tpu_torch.features import types as ft
+    from transmogrifai_tpu_torch.local import LocalScorer, load_model_local
+    from transmogrifai_tpu_torch.ops.sanity_checker import (
+        SanityChecker, compute_statistics)
+    from transmogrifai_tpu_torch.ops.transmogrifier import transmogrify
+    from transmogrifai_tpu_torch.readers import DataReaders
+    from transmogrifai_tpu_torch.runner import (OpParams, RunType,
+                                                WorkflowRunner)
+    from transmogrifai_tpu_torch.workflow import Workflow, WorkflowModel
+    wf = _tiny_workflow(FeatureBuilder, ft, M, transmogrify, SanityChecker,
+                        Workflow)
+    rows = _tiny_rows()
+    path = str(tmp_path / "m")
+    wf.train(rows, device="cpu").save(path)
+    cpu_model = WorkflowModel.load(path, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    reader = DataReaders.simple(rows)
+    calls = [
+        lambda: wf.train(rows),
+        lambda: WorkflowModel.load(path).score(rows),
+        lambda: WorkflowRunner(wf, train_reader=reader).run(
+            RunType.TRAIN, OpParams()),
+        lambda: WorkflowRunner(wf, score_reader=reader).run(
+            RunType.SCORE, OpParams(model_location=path)),
+        lambda: LocalScorer(cpu_model),
+        lambda: load_model_local(path),
+        lambda: cpu_model.compile_scoring(device="cuda"),
+        lambda: compute_statistics(np.zeros((4, 2)), np.zeros(4)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

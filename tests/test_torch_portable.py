@@ -186,8 +186,14 @@ def test_model_to_rebuilds_on_another_device(artifacts):
     _model, _ds, _pred, path = artifacts[0]
     pm = tportable.load(path, device="cpu")
     assert pm.to("cpu") is pm
+    # keep_cols persists its indices as a list (the JAX package's
+    # param); its device function gathers on the device of its input
     keep = pm.stages[-2].params["keep_indices"]
-    assert keep.dtype == torch.int64 and keep.device.type == "cpu"
+    assert keep and all(type(i) is int for i in keep)
+    vec = torch.arange(2.0 * (max(keep) + 1)).reshape(2, -1)
+    out = pm.stages[-2].make_device_fn()(None, vec)
+    assert out.device.type == "cpu" and out.dtype == torch.float32
+    assert out[0].tolist() == [float(i) for i in keep]
     beta = pm.stages[-1].model_params["beta"]
     assert beta.dtype == torch.float32 and beta.device.type == "cpu"
 

@@ -127,6 +127,13 @@ def prediction_column(probs: np.ndarray, problem: str) -> np.ndarray:
     return out
 
 
+def params_on(params: Dict[str, Any], device) -> Dict[str, Any]:
+    """The parameter pytree with every tensor on ``device``."""
+    return {k: (params_on(v, device) if isinstance(v, dict)
+                else v.to(device) if isinstance(v, torch.Tensor) else v)
+            for k, v in params.items()}
+
+
 def _params_device(params: Dict[str, Any]) -> torch.device:
     for v in params.values():
         if isinstance(v, torch.Tensor):
@@ -140,7 +147,10 @@ class PredictionModel(BinaryTransformer):
     """Fitted model stage: (label, features) -> (n, k) probabilities or
     (n, 1) predictions. ``params`` holds ``family``, ``problem`` and
     ``n_classes`` as in the JAX package; ``model_params`` the fitted
-    tensors, all on the model's device (where it scores)."""
+    tensors, all on the model's device (where it scores). The fitted
+    tensors persist as the JAX package's numpy pytree
+    (``extra_state_json``); a loaded model holds them on the CPU until
+    :meth:`to` moves them."""
     in_types = (ft.RealNN, ft.OPVector)
     out_type = ft.Prediction
     operation_name = "pred"
@@ -166,6 +176,24 @@ class PredictionModel(BinaryTransformer):
     def device(self) -> torch.device:
         return _params_device(self.model_params)
 
+    def to(self, device) -> "PredictionModel":
+        self.model_params = params_on(self.model_params,
+                                      torch.device(device))
+        return self
+
+    # -- persistence (the JAX package's numpy pytree) -------------------
+    def extra_state_json(self):
+        return {"model_params": params_to_numpy(self.model_params)}
+
+    def load_extra_state(self, d):
+        self.model_params = params_from_numpy(d.get("model_params", {}),
+                                              "cpu")
+
+    def portable_spec(self):
+        return {"op": "predict", "family": self.family.name,
+                "nClasses": int(self.params["n_classes"]),
+                "arrays": {"params": params_to_numpy(self.model_params)}}
+
     def make_device_fn(self) -> Callable:
         params = self.model_params
         fam = self.family
@@ -188,6 +216,12 @@ class PredictionModel(BinaryTransformer):
         probs = self.predict_probs(X)
         return (prediction_column(probs, self.params["problem"]),
                 ft.Prediction, None)
+
+    def transform_value(self, label, vec: ft.OPVector):
+        X = np.asarray([vec.value], dtype=np.float32)
+        col = prediction_column(self.predict_probs(X),
+                                self.params["problem"])
+        return ft.Prediction(col[0])
 
 
 class ModelStage(BinaryEstimator):

@@ -57,6 +57,15 @@ class SelectedModel(PredictionModel):
         super().__init__(*args, **kw)
         self.summary: Dict[str, Any] = {}
 
+    def extra_state_json(self):
+        d = super().extra_state_json()
+        d["summary"] = self.summary
+        return d
+
+    def load_extra_state(self, d):
+        super().load_extra_state(d)
+        self.summary = d.get("summary", {})
+
 
 def _full_metrics(problem: str, probs: torch.Tensor, y: torch.Tensor
                   ) -> Dict[str, float]:

@@ -175,17 +175,13 @@ def sharded_contingency(group_cols, y_onehot,
     return out[0].cpu().numpy()
 
 
-def _params_on(params: Dict[str, Any], device) -> Dict[str, Any]:
-    return {k: v.to(device) if isinstance(v, torch.Tensor) else v
-            for k, v in params.items()}
-
-
 def sharded_score(predict_fn: Callable, params: Dict[str, Any], X,
                   mesh: Optional[DataMesh] = None,
                   n_classes: int = 2) -> np.ndarray:
     """Batch-score rows sharded across the mesh (data-parallel
     inference): rank r runs ``predict_fn(params, X_r, n_classes)`` on
     its shard; the outputs are gathered in row order as numpy."""
+    from ..models.base import params_on
     mesh = mesh or data_mesh()
     n = np.shape(X)[0]
     x_sh = shard_rows(np.asarray(X, np.float32), mesh)
@@ -193,7 +189,7 @@ def sharded_score(predict_fn: Callable, params: Dict[str, Any], X,
     outs = []
     for r in range(mesh.size):
         with mesh.rank(r):
-            outs.append(predict_fn(_params_on(params, mesh.devices[r]),
+            outs.append(predict_fn(params_on(params, mesh.devices[r]),
                                    x_sh[r], n_classes))
     mesh.join(*outs)
     return np.concatenate([o.cpu().numpy() for o in outs])[:n]

@@ -119,24 +119,19 @@ class PortableModel:
         return FusedScorer(self, buckets=buckets, device=device)
 
 
-def _tensor(a, dtype, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-
-
 def _build_stage(i: int, st: Dict[str, Any], arrs: Dict[str, Any],
                  device: torch.device):
     op = st.get("op")
     ins: Sequence[str] = st["inputs"]
     out = st["out"]
     if op == "impute":
-        return RealVectorizerModel(ins, out, fill_value=st["fill"],
-                                   track_nulls=st["track"])
+        return RealVectorizerModel(fill_value=st["fill"],
+                                   track_nulls=st["track"]).wire(ins, out)
     if op == "concat":
-        return VectorsCombiner(ins, out)
+        return VectorsCombiner().wire(ins, out)
     if op == "keep_cols":
-        return SanityCheckerModel(
-            ins, out, keep_indices=_tensor(arrs["keep"], torch.int64,
-                                           device))
+        keep = np.asarray(arrs["keep"], np.int64).tolist()
+        return SanityCheckerModel(keep_indices=keep).wire(ins, out)
     if op == "predict":
         family = st["family"]
         if family not in MODEL_FAMILIES:

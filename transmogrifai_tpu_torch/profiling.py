@@ -12,6 +12,10 @@
 * ``SweepStats`` — execute and per-device dispatch attribution of the
   validation sweep's batches (``SWEEP_STATS``), without the JAX
   package's compile entries: nothing is traced.
+* ``TrainStats`` — per-stage/per-layer observability of one
+  ``Workflow.train`` (``train_summaries["stageTimings"]``).
+* ``trace`` — a ``torch.profiler`` Chrome trace of a block (the
+  runner's ``profile_location``).
 * ``check_finite`` — the post-fit guard on fitted parameters.
 """
 from __future__ import annotations
@@ -602,6 +606,206 @@ class SweepStats:
 
 #: process-wide sweep attribution
 SWEEP_STATS = SweepStats()
+
+
+class TrainStats:
+    """Per-stage observability for the workflow training executor
+    (executor.py): fit/transform wall time per stage, rows/s, how each
+    transform ran (host / fused device block / skipped by lifetime
+    pruning), per-layer pool occupancy, and columns materialized vs
+    pruned. One instance rides each Workflow.train call and lands in
+    ``train_summaries["stageTimings"]`` (``TM_WORKFLOW_PROFILE=1``
+    prints `format_table()`); stage records are appended from the
+    executor's deterministic merge loop, so their order matches the
+    serial stage order — the JSON is reproducible run to run apart from
+    the timing values themselves."""
+
+    def __init__(self, executor: str, workers: int):
+        self._lock = threading.Lock()
+        self.executor = executor
+        self.workers = int(workers)
+        self.stages: list = []
+        self.layers: list = []
+        self.columns_materialized = 0
+        self.columns_pruned = 0
+        self.seconds = 0.0
+        self.retries: list = []         # [{uid, attempt, error}] per retry
+        self.degraded: list = []        # degrade records (see executor)
+        self.resumed_layers = 0         # layers restored from checkpoint
+        self.checkpointed_layers = 0    # layers persisted this train
+        self.folded_programs: Optional[Dict[str, Any]] = None
+        #: span-trace correlation: the telemetry trace id this train's
+        #: per-stage spans were recorded under (None = unsampled)
+        self.trace_id: Optional[str] = None
+
+    def note_stage(self, layer: int, model, rows: int, fit_s: float,
+                   transform_s: float, transform: str) -> None:
+        total = fit_s + transform_s
+        rec = {
+            "layer": layer,
+            "uid": model.uid,
+            "operation": type(model).__name__,
+            "output": model.output.name,
+            "rows": int(rows),
+            "fit_s": fit_s,
+            "transform_s": transform_s,
+            "transform": transform,
+            "rows_per_sec": rows / total if total > 0 else None,
+        }
+        with self._lock:
+            self.stages.append(rec)
+
+    def note_layer(self, layer: int, n_stages: int, wall_s: float,
+                   busy_s: float, critical_s: Optional[float] = None
+                   ) -> None:
+        denom = wall_s * max(self.workers, 1)
+        # critical_s: the layer's longest single-stage chain (its
+        # unparallelizable floor). serialFraction = critical/wall is the
+        # per-layer Amdahl number: ~1.0 means adding workers cannot help
+        # this layer (single-stage model layers), ~1/stages means the
+        # layer parallelized perfectly.
+        rec = {"layer": layer, "stages": int(n_stages), "wall_s": wall_s,
+               "busy_s": busy_s,
+               "pool_occupancy": min(1.0, busy_s / denom) if denom > 0
+               else None,
+               "critical_s": critical_s,
+               "serialFraction": (min(1.0, critical_s / wall_s)
+                                  if critical_s is not None and wall_s > 0
+                                  else None)}
+        with self._lock:
+            self.layers.append(rec)
+
+    def note_columns(self, materialized: int = 0, pruned: int = 0) -> None:
+        with self._lock:
+            self.columns_materialized += materialized
+            self.columns_pruned += pruned
+
+    def note_retry(self, uid: str, attempt: int, error: BaseException
+                   ) -> None:
+        with self._lock:
+            self.retries.append({"uid": uid, "attempt": int(attempt),
+                                 "error": f"{type(error).__name__}: "
+                                          f"{error}"})
+
+    def note_degraded(self, record: Dict[str, Any]) -> None:
+        with self._lock:
+            self.degraded.append(dict(record))
+
+    def note_resume(self, resumed: int = 0, checkpointed: int = 0) -> None:
+        with self._lock:
+            self.resumed_layers += resumed
+            self.checkpointed_layers += checkpointed
+
+    def set_total(self, seconds: float) -> None:
+        with self._lock:
+            self.seconds = seconds
+
+    def set_folded_programs(self, delta: Optional[Dict[str, Any]]) -> None:
+        """Attach this train's sweep program attribution (a
+        SweepStats.delta — execute wall and dispatches per program)."""
+        with self._lock:
+            self.folded_programs = delta
+
+    def as_dict(self) -> Dict[str, Any]:
+        with self._lock:
+            wall = sum(r["wall_s"] for r in self.layers)
+            busy = sum(r["busy_s"] for r in self.layers)
+            crit = sum(r["critical_s"] for r in self.layers
+                       if r.get("critical_s") is not None)
+            denom = wall * max(self.workers, 1)
+            return {
+                "executor": self.executor,
+                "workers": self.workers,
+                "seconds": self.seconds,
+                "poolOccupancy": (min(1.0, busy / denom)
+                                  if denom > 0 else None),
+                # whole-train Amdahl split: the share of layer wall
+                # clock that sat on single-stage critical paths — what
+                # `run --profile` prints as the ceiling on executor
+                # concurrency (1.0 = nothing left to overlap)
+                "serialFraction": (min(1.0, crit / wall) if wall > 0
+                                   else None),
+                "columnsMaterialized": self.columns_materialized,
+                "columnsPruned": self.columns_pruned,
+                "retries": [dict(r) for r in self.retries],
+                "resumedLayers": self.resumed_layers,
+                "checkpointedLayers": self.checkpointed_layers,
+                "foldedPrograms": self.folded_programs,
+                "traceId": self.trace_id,
+                "layers": [dict(r) for r in self.layers],
+                "stages": [dict(r) for r in self.stages],
+            }
+
+    def format_table(self) -> str:
+        """Aligned per-stage table for `train --profile`, followed by
+        the per-layer Amdahl split and (when a sweep ran) the sweep
+        programs' execute attribution."""
+        with self._lock:
+            stages = [dict(r) for r in self.stages]
+            layers = [dict(r) for r in self.layers]
+            folded = (dict(self.folded_programs)
+                      if self.folded_programs else None)
+            head = (f"workflow train [{self.executor}] workers="
+                    f"{self.workers} seconds={self.seconds:.3f} "
+                    f"materialized={self.columns_materialized} "
+                    f"pruned={self.columns_pruned}")
+        rows = [("layer", "stage", "output", "transform", "fit_s",
+                 "transform_s", "rows/s")]
+        for r in stages:
+            rps = r["rows_per_sec"]
+            rows.append((str(r["layer"]), r["operation"],
+                         r["output"][:40], r["transform"],
+                         f"{r['fit_s']:.4f}", f"{r['transform_s']:.4f}",
+                         f"{rps:.0f}" if rps else "-"))
+        widths = [max(len(row[j]) for row in rows)
+                  for j in range(len(rows[0]))]
+        lines = [head] + ["  ".join(v.ljust(w) for v, w in
+                                    zip(row, widths)) for row in rows]
+        amdahl = [f"L{r['layer']:02d} wall={r['wall_s']:.3f}s "
+                  f"serialFraction="
+                  + (f"{r['serialFraction']:.2f}"
+                     if r.get("serialFraction") is not None else "-")
+                  for r in layers]
+        if amdahl:
+            lines += ["-- layer Amdahl split --"] + amdahl
+        if folded and folded.get("programs"):
+            lines.append(
+                f"-- sweep programs: {folded['dispatches']} dispatches "
+                f"({folded['execute_s']:.2f}s) --")
+            for label, p in folded["programs"].items():
+                lines.append(
+                    f"  {label}: batch={p['batch']} "
+                    f"dispatches={p['dispatches']} "
+                    f"execute_s={p['execute_s']:.2f}")
+                devs = p.get("devices")
+                if devs:
+                    lines.append("    devices: " + " ".join(
+                        f"{d}={c['items']}" for d, c in sorted(
+                            devs.items())))
+        return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]) -> Iterator[None]:
+    """Record a ``torch.profiler`` trace of the enclosed block (CPU
+    activity, plus CUDA when a card is present) and write it as a
+    Chrome trace (``trace.json``, open in Perfetto or chrome://tracing)
+    under ``log_dir``. No-op when log_dir is falsy, so callers can
+    thread an optional OpParams field straight through."""
+    if not log_dir:
+        yield
+        return
+    import os
+
+    import torch
+
+    os.makedirs(log_dir, exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 def check_finite(tree: Any, what: str = "parameters",

@@ -48,7 +48,8 @@ import numpy as np
 import torch
 
 from ..models import serving_kernels as _sk
-from ..ops import RealVectorizerModel, SanityCheckerModel, VectorsCombiner
+from ..ops import (BinaryVectorizer, RealVectorizerModel,
+                   SanityCheckerModel, VectorsCombiner)
 from ..workflow import _pad_rows, to_device
 
 #: strict TM_SERVE_FUSED_* catalog (parse_env_fields). The JAX
@@ -120,9 +121,10 @@ def compile_prefix(sc, feature_name: str) -> Optional[tuple]:
     three tables over the head's feature block ``feature_name``:
     ``src`` (int32, the boundary column a feature reads), ``op`` (uint8,
     ``OP_FILLED`` or ``OP_NULL``) and ``fill`` (f32, the fill value as
-    the eager impute rounds it). Recognises the fitted impute stage
-    (:class:`RealVectorizerModel`: filled value, then the null
-    indicator when it tracks nulls), :class:`VectorsCombiner` (concat
+    the eager impute rounds it). Recognises the fitted impute stages
+    (portable op ``impute``: :class:`RealVectorizerModel` and
+    :class:`BinaryVectorizer`, filled value, then the null indicator
+    when it tracks nulls), :class:`VectorsCombiner` (concat
     in input order) and :class:`SanityCheckerModel` (keep_cols; its
     label input is never read), and nothing else: any other stage, an
     impute reading anything but a boundary column, or a block the head
@@ -131,7 +133,7 @@ def compile_prefix(sc, feature_name: str) -> Optional[tuple]:
     blocks: Dict[str, list] = {}     # output name -> [(src, op, fill)]
     for in_names, _fn, out in sc.device_infos[:-1]:
         st = sc.device_stage_by_output[out]
-        if isinstance(st, RealVectorizerModel):
+        if isinstance(st, (RealVectorizerModel, BinaryVectorizer)):
             if len(in_names) != 1 or in_names[0] not in column:
                 return None
             c = column[in_names[0]]
@@ -146,7 +148,7 @@ def compile_prefix(sc, feature_name: str) -> Optional[tuple]:
             if len(in_names) != 2 or in_names[1] not in blocks:
                 return None
             base = blocks[in_names[1]]
-            keep = st.params["keep_indices"].cpu().numpy()
+            keep = np.asarray(st.params["keep_indices"], np.int64)
             if ((keep < 0) | (keep >= len(base))).any():
                 return None
             feats = [base[i] for i in keep]
