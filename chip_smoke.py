@@ -5,7 +5,8 @@ Drives the port's paths — fused multi-model LR serving, AutoML
 training over the selector's default candidate lists (tree and linear
 families), row-sharded tree growing over a data mesh and the workflow
 front door (CSV reader, transmogrify, SanityChecker, selector,
-save/load, scoring, export and serving) — through the entry points a
+save/load, scoring, export and serving) and the Criteo path (hashed
+sparse families streamed, swept, served) — through the entry points a
 user calls, and holds each CUDA kernel against its plain PyTorch
 version:
 
@@ -117,6 +118,23 @@ version:
    ``ServingEngine``: every row within 1e-4 of its own WorkflowModel
    under its plane's operand policy, no fused fallback, the fused
    kernel launched once a bucket slice.
+9. ctr: the Criteo path at Criteo's published widths (26 hashed
+   categoricals, 13 numerics, 2^20 buckets, FM width 8; rows from a
+   copy of ``bench.py::_ctr_chunk``). ``fit_sparse_lr_streaming`` over
+   4 x 1M rows at batch 65,536 streamed from the host and device-fed
+   (bitwise the same tables): rows/s, busy share, holdout AUROC; the
+   first 3 minibatches of Adagrad-LR, FTRL and the FM against numpy
+   f64 (``CTR_ORACLE_RTOL`` of max|w|); ``SparseModelSelector()`` at its
+   defaults on 2M rows twice (losses, winner and refit bitwise; family
+   and refit walls) and one streamed epoch under
+   ``set_sync_debug_mode("error")``; the default grid on 20k rows at
+   2^16 buckets on the card and the CPU (``CTR_CPU_TOL``, the same
+   winner); ``examples/op_ctr_sparse.py``'s workflow on 200k records
+   through ``WorkflowRunner`` TRAIN (cold, warm) and EVALUATE, save/load,
+   ``score_stream``, ``LocalScorer`` (all bitwise) and
+   ``SparseRecordInsightsLOCO`` against numpy; its export served by a
+   ``ServingEngine`` (rows against a numpy mirror, every request on the
+   classic plane). None of the three CUDA kernels may launch.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -2573,15 +2591,722 @@ def workflow_phase(seed: int, device="cuda", rows: int = SCALE_ROWS,
 
 
 # ---------------------------------------------------------------------------
+# ctr: the Criteo path (hashed sparse families, streamed)
+
+CTR_K, CTR_D, CTR_BUCKETS = 26, 13, 1 << 20     # bench.py:3025-3027
+CTR_CHUNK_ROWS = 1_000_000
+CTR_STREAM_CHUNKS = 4           # the bench's 10 chunks, cut for time
+CTR_STREAM_BATCH = 65_536
+CTR_ORACLE_STEPS, CTR_ORACLE_BATCH = 3, 8192
+CTR_ORACLE_L2 = 1e-3            # lazy L2 on: the touched-bucket path runs
+#: oracle limit, of max|w| of each table: f32 steps against numpy f64
+CTR_ORACLE_RTOL = 1e-5
+CTR_SWEEP_ROWS = 2_000_000
+CTR_CPU_ROWS, CTR_CPU_BUCKETS = 20_000, 1 << 16
+CTR_CPU_TOL = 1e-5              # per-grid-point validation loss
+#: examples/op_ctr_sparse.py's schema; bench.py:3184-3188's settings
+CTR_N_CAT, CTR_N_NUM, CTR_FRONT_BUCKETS = 8, 4, 1 << 18
+CTR_FRONT_ROWS, CTR_FRONT_CHUNK, CTR_FRONT_STREAM_CHUNKS = 200_000, 50_000, 4
+CTR_CAT_NAMES = ["device", "slot", "campaign"] + [
+    f"cat{j}" for j in range(CTR_N_CAT - 3)]
+CTR_LOCO_ROWS = 100
+CTR_LOCO_ATOL = 1e-5
+CTR_SERVE_ATOL = 1e-5
+CTR_REQUESTS = 96
+#: a fit that learned the signal fields beats chance by this much
+CTR_MIN_AUROC = 0.55
+
+
+def ctr_chunk(seed: int, rows: int = CTR_CHUNK_ROWS,
+              buckets: int = CTR_BUCKETS) -> dict:
+    """A copy of bench.py::_ctr_chunk (:3030): a synthetic Criteo-like
+    chunk of 26 hashed categoricals (two carry signal at realistic
+    cardinality, the rest uniform noise over the whole table) and 13
+    numerics."""
+    rng = np.random.default_rng(seed)
+    n = rows
+    idx = rng.integers(0, buckets, size=(n, CTR_K), dtype=np.int32)
+    idx[:, 0] = rng.integers(0, 5000, n)
+    idx[:, 1] = rng.integers(0, 3000, n)
+    num = rng.normal(size=(n, CTR_D)).astype(np.float32)
+    logit = ((idx[:, 0] % 7 < 3).astype(np.float32) * 1.2
+             - (idx[:, 1] % 5 < 2).astype(np.float32) * 1.0
+             + 0.5 * num[:, 0])
+    y = (rng.random(n) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    return {"idx": idx, "num": num, "y": y, "w": np.ones(n, np.float32)}
+
+
+def _sync_of(device):
+    return (torch.cuda.synchronize if torch.device(device).type == "cuda"
+            else (lambda: None))
+
+
+def _auroc(p, y) -> float:
+    from transmogrifai_tpu_torch.evaluators.functional import auroc
+    return float(auroc(torch.as_tensor(np.asarray(p, np.float32)),
+                       torch.as_tensor(np.asarray(y, np.float32))))
+
+
+def ctr_stream_part(seed, device, rows=CTR_CHUNK_ROWS,
+                    chunks=CTR_STREAM_CHUNKS, batch=CTR_STREAM_BATCH,
+                    buckets=CTR_BUCKETS):
+    """``fit_sparse_lr_streaming`` over ``chunks`` chunks at ``batch``:
+    streamed from the host (chunks made on the producer thread, copied
+    through pinned memory on a side stream), then with the padded
+    chunks already on the card; rows/s each (after one warm chunk), the
+    card's busy share of each, the holdout AUROC on a separate chunk.
+    The two fits see the same minibatches, so their tables must be
+    bitwise equal."""
+    from transmogrifai_tpu_torch.io.stream import tree_map
+    from transmogrifai_tpu_torch.models.sparse import (
+        _pad_chunk, fit_sparse_lr_streaming, predict_sparse_lr)
+    cuda = torch.device(device).type == "cuda"
+    sync = _sync_of(device)
+
+    def fit(factory):
+        return fit_sparse_lr_streaming(factory, buckets, CTR_D, lr=0.05,
+                                       epochs=1, batch_size=batch,
+                                       device=device)
+
+    def streamed():
+        for s in range(chunks):
+            yield ctr_chunk(seed * 1000 + s, rows, buckets)
+
+    fit(lambda: iter([ctr_chunk(seed * 1000, rows, buckets)]))   # warm
+    sync()
+    t0 = time.perf_counter()
+    host_params = fit(streamed)
+    host_wall = time.perf_counter() - t0
+    cached = [tree_map(lambda a: torch.as_tensor(a).to(device),
+                       _pad_chunk(ctr_chunk(seed * 1000 + s, rows, buckets),
+                                  batch)) for s in range(chunks)]
+    fit(lambda: iter(cached[:1]))                                 # warm
+    sync()
+    t0 = time.perf_counter()
+    dev_params = fit(lambda: iter(cached))
+    dev_wall = time.perf_counter() - t0
+    for k in host_params:
+        if not np.array_equal(host_params[k], dev_params[k]):
+            raise AssertionError(f"streamed and device-fed fits differ in "
+                                 f"{k!r}: the same minibatches must give "
+                                 f"the same bits")
+    hold = ctr_chunk(seed * 1000 + 991, rows, buckets)
+    probs = predict_sparse_lr(dev_params, hold["idx"], hold["num"],
+                              device=device)
+    auc = _auroc(probs[:, 1], hold["y"])
+    if not auc > CTR_MIN_AUROC:
+        raise AssertionError(f"streamed CTR fit holdout AUROC {auc}")
+    out = {"rows": rows * chunks, "batch": batch, "chunks": chunks,
+           "host_wall_s": host_wall, "host_rows_per_s":
+               rows * chunks / host_wall,
+           "device_fed_wall_s": dev_wall, "device_fed_rows_per_s":
+               rows * chunks / dev_wall, "holdout_auroc": auc,
+           "streamed_equals_device_fed": True}
+    if cuda:
+        from torch.autograd import DeviceType
+        prof, wall = profiled(_walled(lambda: fit(lambda: iter(cached))),
+                              host=False)
+        busy_us, ops = _device_time_us(prof)
+        top = sorted(((ev.device_time_total, ev.count, ev.key[:90])
+                      for ev in prof.key_averages()
+                      if ev.device_type == DeviceType.CUDA), reverse=True)
+        out.update(device_fed_busy_share=busy_us / 1e6 / wall,
+                   device_fed_device_ops=ops,
+                   device_fed_step_ms=busy_us / 1e3 / (
+                       chunks * -(-rows // batch)),
+                   device_fed_top_ops=[{"ms": us / 1e3, "count": c,
+                                        "name": k} for us, c, k in top[:8]])
+        del cached
+        busy, ops, wall = _device_busy(lambda: fit(streamed))
+        out.update(host_busy_share=busy / wall, host_device_ops=ops,
+                   host_profiled_wall_s=wall)
+    return out
+
+
+def _np_sigmoid(z):
+    return 1.0 / (1.0 + np.exp(-z))
+
+
+def ctr_np_oracle(family, idx, X, y, B, steps, batch, emb=None):
+    """numpy f64 minibatch steps of one family from zero state (the FM
+    from ``emb``), with ``np.add.at`` scatter-adds: Adagrad-LR and the FM
+    with lazy L2 on the hashed tables and decoupled L2 on dense,
+    FTRL-Proximal with per-row sum gradients."""
+    K, d = idx.shape[1], X.shape[1]
+    lr, l2 = 0.05, CTR_ORACLE_L2
+    alpha, beta, l1 = 0.1, 1.0, 1e-3
+    P = {"table": np.zeros(B), "dense": np.zeros(d), "bias": np.zeros(())}
+    if family == "fm":
+        P["emb"] = np.asarray(emb, np.float64).copy()
+    A = {k: np.full_like(v, 1e-6) for k, v in P.items()}
+    Z = {k: np.zeros_like(v) for k, v in P.items()}
+    N = {k: np.zeros_like(v) for k, v in P.items()}
+
+    def ftrl_w(z, n):
+        return np.where(np.abs(z) > l1,
+                        -(z - np.sign(z) * l1) / ((beta + np.sqrt(n))
+                                                  / alpha + l2), 0.0)
+
+    for s in range(steps):
+        sl = slice(s * batch, (s + 1) * batch)
+        bi, bx, by = idx[sl].astype(np.int64), X[sl].astype(np.float64), \
+            y[sl].astype(np.float64)
+        W = ({k: ftrl_w(Z[k], N[k]) for k in Z} if family == "ftrl"
+             else P)
+        z = W["table"][bi].sum(1) + bx @ W["dense"] + W["bias"]
+        if family == "fm":
+            e = W["emb"][bi]
+            sv = e.sum(1)
+            z = z + 0.5 * (sv * sv - (e * e).sum(1)).sum(1)
+        p = _np_sigmoid(z)
+        dz = (p - by) if family == "ftrl" else (p - by) / len(by)
+        g = {"table": np.zeros(B), "dense": bx.T @ dz, "bias": dz.sum()}
+        np.add.at(g["table"], bi.ravel(), np.repeat(dz, K))
+        if family == "fm":
+            g["emb"] = np.zeros_like(P["emb"])
+            np.add.at(g["emb"], bi.ravel(),
+                      (dz[:, None, None] * (sv[:, None, :] - e)
+                       ).reshape(-1, e.shape[2]))
+        if family == "ftrl":
+            for k in g:
+                sigma = (np.sqrt(N[k] + g[k] ** 2) - np.sqrt(N[k])) / alpha
+                Z[k] = Z[k] + g[k] - sigma * W[k]
+                N[k] = N[k] + g[k] ** 2
+            continue
+        touched = np.zeros(B, bool)
+        touched[bi.ravel()] = True
+        g["table"] += l2 * np.where(touched, P["table"], 0.0)
+        g["dense"] += l2 * P["dense"]
+        if family == "fm":
+            g["emb"] += l2 * np.where(touched[:, None], P["emb"], 0.0)
+        for k in g:
+            A[k] = A[k] + g[k] ** 2
+            P[k] = P[k] - lr * g[k] / np.sqrt(A[k])
+    return ({k: ftrl_w(Z[k], N[k]) for k in Z} if family == "ftrl" else P)
+
+
+def ctr_oracle_part(seed, device, buckets=CTR_BUCKETS,
+                    steps=CTR_ORACLE_STEPS, batch=CTR_ORACLE_BATCH):
+    """The first ``steps`` minibatches of Adagrad-LR, FTRL and the FM
+    (from a fixed seeded emb) on the card against numpy f64: every
+    table and ``dense`` within CTR_ORACLE_RTOL of its max|w|."""
+    from transmogrifai_tpu_torch.models import sparse as S
+    c = ctr_chunk(seed * 1000 + 7, steps * batch, buckets)
+    w = np.ones(steps * batch, np.float32)
+    emb = (0.01 * np.random.default_rng(seed + 5).normal(
+        size=(buckets, 8))).astype(np.float32)
+    out = {}
+    for fam in ("adagrad", "ftrl", "fm"):
+        if fam == "ftrl":
+            st = S.init_sparse_ftrl(buckets, CTR_D, device)
+            S.ftrl_epoch(st, c["idx"], c["num"], c["y"], w, 0.1, 1.0, 1e-3,
+                         CTR_ORACLE_L2, batch)
+            got = S.ftrl_weights(st, 0.1, 1.0, 1e-3, CTR_ORACLE_L2)
+        else:
+            init = (S.init_sparse_fm(buckets, CTR_D, 8, emb=emb,
+                                     device=device) if fam == "fm"
+                    else S.init_sparse_lr(buckets, CTR_D, device))
+            acc = S._zero_like_acc(init)
+            epoch = S.fm_epoch if fam == "fm" else S.sparse_lr_epoch
+            got, _ = epoch(init, acc, c["idx"], c["num"], c["y"], w, 0.05,
+                           CTR_ORACLE_L2, batch)
+        want = ctr_np_oracle(fam, c["idx"], c["num"], c["y"], buckets,
+                             steps, batch, emb)
+        errs = {}
+        for k in ("table", "dense") + (("emb",) if fam == "fm" else ()):
+            g = got[k].detach().cpu().numpy().astype(np.float64)
+            scale = max(float(np.abs(want[k]).max()), 1e-30)
+            errs[k] = float(np.abs(g - want[k]).max()) / scale
+            if not errs[k] <= CTR_ORACLE_RTOL:
+                raise AssertionError(f"ctr oracle: {fam} {k} differs from "
+                                     f"numpy f64 by {errs[k]} of max|w|")
+        out[fam] = errs
+    return out
+
+
+def _ctr_dataset(seed, rows, buckets, chunk_rows):
+    from transmogrifai_tpu_torch.dataset import Dataset
+    from transmogrifai_tpu_torch.features import types as ft
+    parts = [ctr_chunk(seed * 1000 + 500 + i, min(chunk_rows, rows - s),
+                       buckets)
+             for i, s in enumerate(range(0, rows, chunk_rows))]
+    cat = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    return Dataset({"y": cat["y"].astype(np.float64), "sidx": cat["idx"],
+                    "dense": cat["num"]},
+                   {"y": ft.RealNN, "sidx": ft.SparseIndices,
+                    "dense": ft.OPVector})
+
+
+def _ctr_selector(buckets, device, **kw):
+    from transmogrifai_tpu_torch.features import FeatureBuilder
+    from transmogrifai_tpu_torch.features import types as ft
+    from transmogrifai_tpu_torch.models.sparse import SparseModelSelector
+    lbl = FeatureBuilder.of(ft.RealNN, "y").from_column().as_response()
+    sf = FeatureBuilder.of(ft.SparseIndices, "sidx").from_column() \
+        .as_predictor()
+    dn = FeatureBuilder.of(ft.OPVector, "dense").from_column().as_predictor()
+    return SparseModelSelector(num_buckets=buckets, device=device,
+                               **kw).set_input(lbl, sf, dn)
+
+
+def _ctr_sync_free_epoch(ds, sel, device):
+    """One streamed epoch of the default grid's Adagrad family (12
+    instances) under ``set_sync_debug_mode("error")``: the chunks'
+    prefetch and every step queue without a host sync."""
+    from transmogrifai_tpu_torch.io.stream import prefetch_to_device
+    from transmogrifai_tpu_torch.models import sparse as S
+    p = sel.params
+    hypers = [g for g in p["grid"] if g.get("family") == "adagrad"]
+    keys, init_state, advance, _, _ = S._family_sweep_def("adagrad", 8, 0)
+    GF = len(hypers) * p["n_folds"]
+    st = S._broadcast_state(init_state(p["num_buckets"], CTR_D, p["seed"],
+                                       None, device), GF)
+    hyper_b = tuple(torch.as_tensor(np.tile([h[k] for h in hypers],
+                                            p["n_folds"]), device=device,
+                                    dtype=torch.float32) for k in keys)
+    fold_b = torch.as_tensor(np.repeat(np.arange(p["n_folds"]),
+                                       len(hypers)), device=device)
+    idx, X, y = ds.column("sidx"), ds.column("dense"), \
+        ds.column("y").astype(np.float32)
+
+    def chunks():
+        for s in range(0, len(y), p["chunk_rows"]):
+            sl = slice(s, s + p["chunk_rows"])
+            yield {"idx": idx[sl], "num": X[sl], "y": y[sl],
+                   "w": np.ones(len(y[sl]), np.float32)}
+
+    prepared = S._prepared_chunks(chunks, p["n_folds"], p["seed"],
+                                  p["batch_size"])
+    torch.cuda.synchronize()
+    steps = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for c in prefetch_to_device(prepared, 2, device=device):
+            w = c["w"][None] * (c["fold"][None] != fold_b[:, None])
+            advance(st, hyper_b, c["idx"].to(torch.int64), c["num"],
+                    c["y"], w, p["batch_size"])
+            steps += c["y"].shape[0] // p["batch_size"]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return steps
+
+
+def ctr_sweep_part(seed, device, rows=CTR_SWEEP_ROWS, buckets=CTR_BUCKETS,
+                   chunk_rows=CTR_CHUNK_ROWS):
+    """``SparseModelSelector()`` at its defaults (11-point grid over
+    adagrad / ftrl / fm, 2 folds, batch 8,192, ``chunk_rows`` chunks) on
+    ``rows`` rows, twice: the validation losses, the winner and the
+    refit's tables must be bitwise equal; each family's sweep wall and
+    the refit's; then one streamed epoch with no host sync."""
+    ds = _ctr_dataset(seed, rows, buckets, chunk_rows)
+    runs = []
+    for _ in range(2):
+        sel = _ctr_selector(buckets, device, chunk_rows=chunk_rows)
+        t0 = time.perf_counter()
+        model = sel.fit(ds)
+        _sync_of(device)()
+        runs.append((model, time.perf_counter() - t0))
+    (m1, w1), (m2, w2) = runs
+    s1, s2 = m1.summary, m2.summary
+    l1 = [r["logloss"] for r in s1["validationResults"]]
+    l2 = [r["logloss"] for r in s2["validationResults"]]
+    if l1 != l2 or s1["bestModel"] != s2["bestModel"]:
+        raise AssertionError(f"two default-grid sweeps differ: {l1} vs {l2}")
+    for k in m1.model_params:
+        if not torch.equal(m1.model_params[k], m2.model_params[k]):
+            raise AssertionError(f"two refits differ in {k!r}")
+    if not all(np.isfinite(l1)):
+        raise AssertionError(f"non-finite validation losses {l1}")
+    out = {"rows": rows, "grid": len(l1), "fit_wall_s": [w1, w2],
+           "family_wall_s": s1["wallSeconds"]["families"],
+           "family_wall_s_run2": s2["wallSeconds"]["families"],
+           "refit_wall_s": [s1["wallSeconds"]["refit"],
+                            s2["wallSeconds"]["refit"]],
+           "winner": s1["bestModel"], "logloss": l1,
+           "holdout_auroc": s1["holdoutEvaluation"]["AuROC"],
+           "bitwise_repeat": True}
+    if torch.device(device).type == "cuda":
+        out["sync_free_epoch_steps"] = _ctr_sync_free_epoch(ds, sel, device)
+    return out
+
+
+def ctr_cpu_part(seed, device, rows=CTR_CPU_ROWS, buckets=CTR_CPU_BUCKETS):
+    """The default grid on ``rows`` rows at ``buckets`` on ``device`` and
+    with ``device="cpu"``: every grid point's validation loss within
+    CTR_CPU_TOL and the same winner."""
+    ds = _ctr_dataset(seed + 3, rows, buckets, rows)
+    card = _ctr_selector(buckets, device).fit(ds).summary
+    cpu = _ctr_selector(buckets, "cpu").fit(ds).summary
+    a = [r["logloss"] for r in card["validationResults"]]
+    b = [r["logloss"] for r in cpu["validationResults"]]
+    gap = float(np.abs(np.asarray(a) - np.asarray(b)).max())
+    if not gap <= CTR_CPU_TOL or card["bestModel"] != cpu["bestModel"]:
+        raise AssertionError(f"ctr card vs CPU: loss gap {gap}, winners "
+                             f"{card['bestModel']} / {cpu['bestModel']}")
+    return {"rows": rows, "buckets": buckets, "max_loss_gap": gap,
+            "winner": card["bestModel"]}
+
+
+def ctr_records(n_rows: int, seed: int = 0):
+    """examples/op_ctr_sparse.py::make_records, a copy: device/slot/
+    campaign-style categoricals (two carry signal) and numeric
+    counters."""
+    rng = np.random.default_rng(seed)
+    device = rng.choice(["ios", "android", "web"], n_rows, p=[.3, .5, .2])
+    slot = rng.integers(0, 400, n_rows)
+    campaign = rng.integers(0, 3000, n_rows)
+    noise_cats = rng.integers(0, 100_000, size=(n_rows, CTR_N_CAT - 3))
+    nums = rng.normal(size=(n_rows, CTR_N_NUM)).astype(np.float64)
+    logit = (np.where(device == "ios", 0.8,
+                      np.where(device == "web", -0.6, 0.1))
+             + np.where(slot % 7 < 2, 0.9, -0.3) + 0.5 * nums[:, 0])
+    y = (rng.random(n_rows) < 1 / (1 + np.exp(-logit))).astype(float)
+    recs = []
+    for i in range(n_rows):
+        r = {"device": str(device[i]), "slot": f"s{slot[i]}",
+             "campaign": f"c{campaign[i]}", "click": float(y[i])}
+        for j in range(CTR_N_CAT - 3):
+            r[f"cat{j}"] = f"v{noise_cats[i, j]}"
+        for j in range(CTR_N_NUM):
+            r[f"num{j}"] = float(nums[i, j])
+        recs.append(r)
+    return recs
+
+
+def ctr_workflow(buckets=CTR_FRONT_BUCKETS, chunk_rows=CTR_FRONT_CHUNK):
+    """examples/op_ctr_sparse.py::build_workflow rebuilt from the port's
+    classes: transmogrify_sparse over the 8 categoricals and 4 numerics,
+    SparseModelSelector over 2 adagrad + ftrl + fm."""
+    from transmogrifai_tpu_torch.features import FeatureBuilder, reset_uids
+    from transmogrifai_tpu_torch.features import types as ft
+    from transmogrifai_tpu_torch.models.sparse import SparseModelSelector
+    from transmogrifai_tpu_torch.ops import transmogrify_sparse
+    from transmogrifai_tpu_torch.workflow import Workflow
+    reset_uids()
+    click = FeatureBuilder.of(ft.RealNN, "click").from_column().as_response()
+    cats = [FeatureBuilder.of(ft.PickList, c).from_column().as_predictor()
+            for c in CTR_CAT_NAMES]
+    nums = [FeatureBuilder.of(ft.Real, f"num{j}").from_column()
+            .as_predictor() for j in range(CTR_N_NUM)]
+    hashed, dense = transmogrify_sparse(cats + nums, num_buckets=buckets)
+    pred = SparseModelSelector(
+        num_buckets=buckets, n_folds=2, epochs=1, refit_epochs=2,
+        batch_size=4096, chunk_rows=chunk_rows,
+        grid=[{"family": "adagrad", "lr": lr, "l2": 0.0}
+              for lr in (0.05, 0.1)]
+        + [{"family": "ftrl", "alpha": 0.1, "l1": 0.0},
+           {"family": "fm", "lr": 0.05, "l2": 0.0}],
+    ).set_input(click, hashed, dense).output
+    return Workflow([pred])
+
+
+def _p1(model, ds) -> np.ndarray:
+    name = model.result_features[0].name
+    return np.asarray([r["probability_1"] for r in ds.column(name)])
+
+
+def ctr_front_part(seed, device, workdir, rows=CTR_FRONT_ROWS,
+                   chunk_rows=CTR_FRONT_CHUNK, buckets=CTR_FRONT_BUCKETS):
+    """The front door: the example's workflow through ``WorkflowRunner``
+    TRAIN twice (cold and warm walls) and EVALUATE; the saved model
+    loaded and scored bitwise; ``score_stream`` over 4 chunks bitwise
+    the batch scorer and ``score``; ``LocalScorer`` bitwise on 100 rows;
+    ``SparseRecordInsightsLOCO`` on 100 rows within CTR_LOCO_ATOL of a
+    numpy recomputation."""
+    from transmogrifai_tpu_torch.evaluators import Evaluators
+    from transmogrifai_tpu_torch.insights import SparseRecordInsightsLOCO
+    from transmogrifai_tpu_torch.local import LocalScorer
+    from transmogrifai_tpu_torch.ops.sparse import SparseHashingVectorizer
+    from transmogrifai_tpu_torch.readers import DataReaders
+    from transmogrifai_tpu_torch.runner import (OpParams, RunType,
+                                                WorkflowRunner)
+    from transmogrifai_tpu_torch.workflow import WorkflowModel
+    sync = _sync_of(device)
+    t0 = time.perf_counter()
+    recs = ctr_records(rows, seed)
+    gen_wall = time.perf_counter() - t0
+    reader = DataReaders.simple(recs)
+    runner = WorkflowRunner(ctr_workflow(buckets, chunk_rows),
+                            train_reader=reader, score_reader=reader,
+                            evaluator=Evaluators.binary_classification(),
+                            device=device)
+    params = OpParams(model_location=os.path.join(workdir, "ctr_model"),
+                      metrics_location=os.path.join(workdir, "ctr_metrics"),
+                      response="click")
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        train = runner.run(RunType.TRAIN, params)
+        sync()
+        walls.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ev = runner.run(RunType.EVALUATE, params)
+    eval_wall = time.perf_counter() - t0
+    auc = ev["metrics"]["AuROC"]
+    if not auc > CTR_MIN_AUROC:
+        raise AssertionError(f"ctr front door AuROC {auc}")
+    model = runner._model
+    first = _p1(model, model.score(recs))
+    loaded = WorkflowModel.load(params.model_location, device=device)
+    if not np.array_equal(_p1(loaded, loaded.score(recs)), first):
+        raise AssertionError("ctr: the loaded model's scores differ")
+    name = loaded.result_features[0].name
+    sc = loaded.compile_scoring(device=device)
+    batch = sc.score_arrays(recs)[name]
+    step = -(-rows // CTR_FRONT_STREAM_CHUNKS)
+    t0 = time.perf_counter()
+    outs = list(sc.score_stream(iter([recs[s:s + step]
+                                      for s in range(0, rows, step)])))
+    stream_wall = time.perf_counter() - t0
+    streamed = np.concatenate([o[name] for o in outs])
+    if len(outs) != CTR_FRONT_STREAM_CHUNKS or not np.array_equal(
+            streamed, batch) or not np.array_equal(
+            streamed[:, 1].astype(np.float64), first):
+        raise AssertionError("ctr: score_stream differs from the batch "
+                             "scores")
+    local = LocalScorer(loaded, device=device)
+    lp = np.asarray([local({k: v for k, v in r.items() if k != "click"})
+                     [name]["probability_1"]
+                     for r in recs[:CTR_LOCO_ROWS]])
+    if not np.array_equal(lp, first[:CTR_LOCO_ROWS]):
+        raise AssertionError(
+            f"ctr: LocalScorer differs from the batch by "
+            f"{float(np.abs(lp - first[:CTR_LOCO_ROWS]).max())}")
+    sel = loaded.selected_model()
+    vec = next(st for st in loaded.stages
+               if isinstance(st, SparseHashingVectorizer))
+    hashed, dense = sel.input_names[1], sel.input_names[2]
+    full = loaded.transform(recs[:CTR_LOCO_ROWS])
+    idx = full.column(hashed).astype(np.int64)
+    X = full.column(dense).astype(np.float64)
+    d = X.shape[1]
+    loco = SparseRecordInsightsLOCO.from_vectorizer(
+        sel, vec, dense_names=[f"d{j}" for j in range(d)],
+        top_k=idx.shape[1] + d).wire([hashed, dense], "loco")
+    col = loco.transform(full).column("loco")
+    P = {k: v.detach().cpu().numpy().astype(np.float64)
+         for k, v in sel.model_params.items()}
+
+    def p1(ix, x):
+        z = P["table"][ix].sum(1) + x @ P["dense"] + P["bias"]
+        if "emb" in P:
+            e = P["emb"][ix]
+            s = e.sum(1)
+            z = z + 0.5 * (s * s - (e * e).sum(1)).sum(1)
+        return _np_sigmoid(z)
+    base = p1(idx, X)
+    loco_err = 0.0
+    for k, fname in enumerate(vec.input_names):
+        ix = idx.copy()
+        ix[:, k] = loco.null_buckets[k]
+        want = base - p1(ix, X)
+        got = np.asarray([json.loads(r[fname])[1] for r in col])
+        loco_err = max(loco_err, float(np.abs(got - want).max()))
+    for j in range(d):
+        x = X.copy()
+        x[:, j] = 0.0
+        want = base - p1(idx, x)
+        got = np.asarray([json.loads(r[f"d{j}"])[1] for r in col])
+        loco_err = max(loco_err, float(np.abs(got - want).max()))
+    if not loco_err <= CTR_LOCO_ATOL:
+        raise AssertionError(f"ctr LOCO differs from numpy by {loco_err}")
+    summ = sel.summary
+    return {"rows": rows, "chunk_rows": chunk_rows, "buckets": buckets,
+            "records_wall_s": gen_wall, "train_cold_wall_s": walls[0],
+            "train_warm_wall_s": walls[1], "evaluate_wall_s": eval_wall,
+            "auroc": auc, "best": train["bestModel"],
+            "field_contributions": dict(zip(vec.input_names,
+                                            train["fieldContributions"])),
+            "family_wall_s": summ["wallSeconds"]["families"],
+            "refit_wall_s": summ["wallSeconds"]["refit"],
+            "stream_wall_s": stream_wall, "loaded_scores_bitwise": True,
+            "stream_bitwise": True, "local_bitwise": True,
+            "loco_max_abs_err": loco_err, "model": loaded}
+
+
+def ctr_serve_part(model, device, workdir, requests=CTR_REQUESTS,
+                   seed=0):
+    """``export_portable`` -> ``portable.load`` -> one ServingEngine,
+    ``requests`` requests of 1-8 rows from 8 threads carrying the
+    boundary columns (hashed ids as int32): every row within
+    CTR_SERVE_ATOL of a numpy mirror of the runtime's concat and
+    ``op_sparse_predict``; every request on the classic plane (its
+    engine spans), the fused kernel launched 0 times; p50 / p99."""
+    from transmogrifai_tpu_torch import portable
+    from transmogrifai_tpu_torch.models import serving_kernels as sk
+    from transmogrifai_tpu_torch.profiling import percentile_nearest_rank
+    from transmogrifai_tpu_torch.serving import (EngineConfig, ModelRegistry,
+                                                 ServingEngine)
+    from transmogrifai_tpu_torch.telemetry.spans import TRACER
+    art = os.path.join(workdir, "ctr_export")
+    model.export_portable(art, buckets=BUCKETS)
+    pm = portable.load(art, device=device)
+    man = pm.manifest
+    if "SparseHashingVectorizer" not in man["hostPrefix"] or \
+            man["stages"][-1]["op"] != "sparse_predict":
+        raise AssertionError(f"ctr export: unexpected manifest {man}")
+    host = model.compile_scoring(device=device)._host_ds(
+        ctr_records(512, seed + 1))
+    cols = {c: np.asarray(host.column(c)) for c in pm.boundary
+            if c in host and c not in pm.response_boundary}
+    params = {k: v.astype(np.float64) for k, v in
+              pm.arrays[str(len(man["stages"]) - 1)]["params"].items()}
+    concat = next(st for st in man["stages"] if st["op"] == "concat")
+    head = man["stages"][-1]
+
+    def mirror(data):
+        X = np.concatenate([np.asarray(data[c], np.float64).reshape(
+            len(data[c]), -1) for c in concat["inputs"]], axis=1)
+        ix = np.asarray(data[head["inputs"][1]]).astype(np.int64)
+        z = params["table"][ix].sum(1) + X @ params["dense"] + \
+            params["bias"]
+        if "emb" in params:
+            e = params["emb"][ix]
+            s = e.sum(1)
+            z = z + 0.5 * (s * s - (e * e).sum(1)).sum(1)
+        return _np_sigmoid(z)
+
+    reg = ModelRegistry()
+    reg.register("ctr", pm, buckets=BUCKETS,
+                 warm_sample={c: v[:1] for c, v in cols.items()})
+    rng = np.random.default_rng(seed + 31)
+    reqs = []
+    for _ in range(requests):
+        rows = rng.integers(0, 512, int(rng.integers(1, 9)))
+        reqs.append(("ctr", {c: v[rows] for c, v in cols.items()}))
+    TRACER.clear()
+    traces = [TRACER.mint("req") for _ in reqs]
+    eng = ServingEngine(registry=reg, config=EngineConfig(
+        max_batch_rows=MAX_BATCH_ROWS, fused_kernel=True)).start()
+    sk.fused_linear_scores.launches = 0
+    try:
+        results, lat, wall = _storm(eng, reqs, THREADS, traces)
+        moved = sk.fused_linear_scores.launches
+    finally:
+        eng.stop()
+    plane, _ = _served_planes(TRACER.spans(), traces)
+    worst = 0.0
+    name = pm.result_names[0]
+    for (_, data), res in zip(reqs, results):
+        got = np.asarray(res[name], np.float64)[:, 1]
+        worst = max(worst, float(np.abs(got - mirror(data)).max()))
+    if not worst <= CTR_SERVE_ATOL:
+        raise AssertionError(f"ctr served rows differ from numpy by {worst}")
+    if set(plane.values()) != {"classic"} or moved != 0:
+        raise AssertionError(f"ctr requests rode {set(plane.values())}, "
+                             f"fused launches {moved}")
+    stats = eng.stats.as_dict()
+    if stats["failed"]:
+        raise AssertionError(f"ctr serving: {stats['failed']} failed")
+    lat_ms = sorted(x * 1e3 for x in lat)
+    return {"requests": requests, "rows": sum(len(d[head["inputs"][1]])
+                                              for _, d in reqs),
+            "wall_s": wall, "max_abs_err": worst,
+            "p50_ms": percentile_nearest_rank(lat_ms, 0.50),
+            "p99_ms": percentile_nearest_rank(lat_ms, 0.99),
+            "planes": sorted(set(plane.values())), "fused_launches": moved}
+
+
+def ctr_phase(seed: int, device="cuda", stream_rows=CTR_CHUNK_ROWS,
+              stream_chunks=CTR_STREAM_CHUNKS, stream_batch=CTR_STREAM_BATCH,
+              buckets=CTR_BUCKETS, sweep_rows=CTR_SWEEP_ROWS,
+              sweep_chunk=CTR_CHUNK_ROWS, cpu_rows=CTR_CPU_ROWS,
+              front_rows=CTR_FRONT_ROWS, front_chunk=CTR_FRONT_CHUNK,
+              requests=CTR_REQUESTS):
+    """The Criteo path on ``device`` at Criteo's published widths (26
+    hashed categoricals, 13 numerics, 2^20 buckets, FM width 8): the
+    streamed fit, the numpy oracle, the default-grid sweep (twice), the
+    card against the CPU, the example's front door and its export
+    served. The three CUDA kernels' launches over the whole phase are
+    returned (the path has none). The sizes exist for a CPU
+    rehearsal."""
+    import shutil
+    import tempfile
+    from transmogrifai_tpu_torch.models import kernels as tk
+    from transmogrifai_tpu_torch.models import serving_kernels as sk
+    sk.fused_linear_scores.launches = 0
+    tk.histogram_grid.launches = 0
+    tk.ring_allreduce.launches = 0
+    workdir = tempfile.mkdtemp(prefix="tm_ctr_phase_")
+    walls = {}
+    try:
+        t0 = time.perf_counter()
+        stream = ctr_stream_part(seed, device, stream_rows, stream_chunks,
+                                 stream_batch, buckets)
+        walls["stream"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        oracle = ctr_oracle_part(seed, device, buckets)
+        walls["oracle"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sweep = ctr_sweep_part(seed, device, sweep_rows, buckets,
+                               sweep_chunk)
+        walls["sweep"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = ctr_cpu_part(seed, device, cpu_rows)
+        walls["card_vs_cpu"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        front = ctr_front_part(seed, device, workdir, front_rows,
+                               front_chunk)
+        walls["front_door"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serve = ctr_serve_part(front.pop("model"), device, workdir,
+                               requests, seed)
+        walls["serve"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    launches = {"fused_linear_scores": sk.fused_linear_scores.launches,
+                "tree_histogram": tk.histogram_grid.launches,
+                "ring_allreduce": tk.ring_allreduce.launches}
+    if any(launches.values()):
+        raise AssertionError(f"the CTR path launched a CUDA kernel: "
+                             f"{launches}")
+    return {"stream": stream, "oracle": oracle, "sweep": sweep,
+            "card_vs_cpu": cpu, "front_door": front, "serve": serve,
+            "walls_s": walls, "launches": launches}
+
+
+def ctr_lines(ctr) -> list:
+    """One line per reported CTR number, each taken from ``ctr``."""
+    st, sw, fd, sv = (ctr["stream"], ctr["sweep"], ctr["front_door"],
+                      ctr["serve"])
+    steps = [("stream host rows/s", st["host_rows_per_s"], "rows/s"),
+             ("stream device-fed rows/s", st["device_fed_rows_per_s"],
+              "rows/s"),
+             ("stream holdout AUROC", st["holdout_auroc"], ""),
+             ("stream host busy share", st.get("host_busy_share"), ""),
+             ("stream device-fed busy share",
+              st.get("device_fed_busy_share"), ""),
+             ("sweep fit walls", sw["fit_wall_s"], "s"),
+             ("sweep family walls", sw["family_wall_s"], "s"),
+             ("sweep refit walls", sw["refit_wall_s"], "s"),
+             ("sweep winner", sw["winner"], ""),
+             ("card vs cpu max loss gap", ctr["card_vs_cpu"]["max_loss_gap"],
+              ""),
+             ("front door train cold", fd["train_cold_wall_s"], "s"),
+             ("front door train warm", fd["train_warm_wall_s"], "s"),
+             ("front door AUROC", fd["auroc"], ""),
+             ("front door best", fd["best"], ""),
+             ("front door fieldContributions", fd["field_contributions"],
+              ""),
+             ("serve p50", sv["p50_ms"], "ms"),
+             ("serve p99", sv["p99_ms"], "ms")]
+    return [f"phase ctr: {label}: {json.dumps(value)} {unit}".rstrip()
+            for label, value, unit in steps]
+
+
+# ---------------------------------------------------------------------------
 
 def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
-                 wf=None):
+                 wf=None, ctr=None):
     """The ``kernels`` line from this run's phase results: every time
     and error is one this run measured, every bound one it computed
     from its own inputs, every launch count its main path's (the
     histogram's: the training phase's and the workflow phase's ``wf``;
     the serving kernel's: the serving phase's, with the workflow
-    phase's exported models apart)."""
+    phase's exported models apart; ``ctr_launches``: the CTR phase's,
+    which launches none)."""
+    ctr_launches = (ctr or {}).get("launches", {})
     # the serving pass's shape in its operand mode: the prefix form,
     # and the identity form (the JAX function) with its library call
     main_row = next(r for r in rows if r["form"] == "prefix")
@@ -2597,6 +3322,7 @@ def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
                     "transmogrifai_tpu/serving/fusion.py:265",
         "launches": serve["kernel_launches"],
         "workflow_launches": None if wf is None else wf["fused_launches"],
+        "ctr_launches": ctr_launches.get("fused_linear_scores"),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2616,6 +3342,7 @@ def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
             0 if wf is None else wf["histogram_launches"]),
         "training_launches": train["histogram_launches"],
         "workflow_launches": None if wf is None else wf["histogram_launches"],
+        "ctr_launches": ctr_launches.get("tree_histogram"),
         "max_abs_err": max(r["max_abs_err"] for r in hrows),
         "ms": hmain["ms"], "plain_ms": hmain["plain_ms"],
         "bound_ms": hmain["bound_ms"], "bound_by": hmain["bound_by"],
@@ -2629,6 +3356,7 @@ def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
         "source": "transmogrifai_tpu_torch/csrc/ring_allreduce.cu",
         "replaces": "transmogrifai_tpu/models/kernels.py:770",
         "launches": dp["ring_launches"],
+        "ctr_launches": ctr_launches.get("ring_allreduce"),
         "max_abs_err": max(r["max_abs_err"] for r in rrows),
         "ms": rmain["ms"], "plain_ms": rmain["plain_ms"],
         "bound_ms": rmain["bound_ms"], "bound_by": rmain["bound_by"],
@@ -2719,8 +3447,13 @@ def main(argv=None) -> int:
     for line in workflow_lines(wf):
         print(line, flush=True)
 
+    ctr = ctr_phase(args.seed)
+    print("phase ctr: " + json.dumps(dict(ctr, card=card)), flush=True)
+    for line in ctr_lines(ctr):
+        print(line, flush=True)
+
     print(json.dumps(kernels_line(rows, serve, empty_ms, hrows, train, hmma,
-                                  rrows, dp, wf)), flush=True)
+                                  rrows, dp, wf, ctr)), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -352,3 +352,103 @@ def test_kernels_line_adds_the_workflow_launches():
     assert hist["workflow_launches"] == 543
     assert line["kernels"][0]["launches"] == 7
     assert line["kernels"][0]["workflow_launches"] == 11
+    ctr = {"launches": {"fused_linear_scores": 0, "tree_histogram": 0,
+                        "ring_allreduce": 0}}
+    line = chip_smoke.kernels_line(
+        rows, {"kernel_launches": 7}, 0.5, hrows,
+        {"histogram_launches": 418}, 3, rrows, {"ring_launches": 24},
+        {"histogram_launches": 543, "fused_launches": 11}, ctr)
+    assert [k["ctr_launches"] for k in line["kernels"]] == [0, 0, 0]
+    assert line["kernels"][1]["launches"] == 418 + 543
+
+
+@pytest.fixture(scope="module")
+def ctr_run():
+    """The ctr phase on the CPU at small sizes (2^13 buckets, two 16k-row
+    stream chunks, a 6,000-row default-grid sweep, 3,000 front-door
+    records): every gate of the phase, here CPU against CPU where the
+    card is compared with the CPU."""
+    return chip_smoke.ctr_phase(
+        0, device="cpu", stream_rows=16384, stream_chunks=2,
+        stream_batch=1024, buckets=1 << 13, sweep_rows=6000,
+        sweep_chunk=2500, cpu_rows=3000, front_rows=3000, front_chunk=1000,
+        requests=12)
+
+
+def test_ctr_phase_runs_on_the_cpu(ctr_run):
+    st, sw, fd, sv = (ctr_run[k] for k in ("stream", "sweep", "front_door",
+                                           "serve"))
+    assert st["streamed_equals_device_fed"] and st["rows"] == 2 * 16384
+    assert st["holdout_auroc"] > chip_smoke.CTR_MIN_AUROC
+    for fam, errs in ctr_run["oracle"].items():
+        assert max(errs.values()) <= chip_smoke.CTR_ORACLE_RTOL, fam
+    assert set(ctr_run["oracle"]) == {"adagrad", "ftrl", "fm"}
+    assert sw["bitwise_repeat"] and sw["grid"] == 11
+    assert set(sw["family_wall_s"]) == {"adagrad", "ftrl", "fm"}
+    assert ctr_run["card_vs_cpu"]["max_loss_gap"] == 0.0  # CPU vs CPU
+    assert fd["loaded_scores_bitwise"] and fd["stream_bitwise"]
+    assert fd["local_bitwise"]
+    assert fd["loco_max_abs_err"] <= chip_smoke.CTR_LOCO_ATOL
+    assert list(fd["field_contributions"]) == chip_smoke.CTR_CAT_NAMES
+    assert sv["planes"] == ["classic"] and sv["fused_launches"] == 0
+    assert sv["max_abs_err"] <= chip_smoke.CTR_SERVE_ATOL
+    assert ctr_run["launches"] == {"fused_linear_scores": 0,
+                                   "tree_histogram": 0, "ring_allreduce": 0}
+
+
+def test_ctr_lines_take_every_number_from_the_run(ctr_run):
+    import json
+
+    def numbers(v):
+        if isinstance(v, dict):
+            return [x for u in v.values() for x in numbers(u)]
+        if isinstance(v, (list, tuple)):
+            return [x for u in v for x in numbers(u)]
+        return [v] if isinstance(v, float) else []
+
+    seen = set(numbers(ctr_run))
+    lines = chip_smoke.ctr_lines(ctr_run)
+    assert len(lines) == 17
+    for line in lines:
+        body = line.split(": ", 2)[2]
+        value = json.loads(body.rsplit(" ", 1)[0] if body.endswith(
+            ("s", "ms", "rows/s")) and not body.endswith("}") else body)
+        for x in numbers(value):
+            assert x in seen, line
+
+
+@pytest.mark.parametrize("family", ["adagrad", "ftrl", "fm"])
+def test_ctr_oracle_flags_a_wrong_update(family):
+    """The numpy oracle separates a right step from a planted fault: the
+    port's three minibatches at the oracle's hypers pass, the same
+    steps at lr (alpha) x 1.01 fail its limit."""
+    import numpy as np
+    from transmogrifai_tpu_torch.models import sparse as S
+    B, steps, batch = 1 << 13, 3, 512
+    c = chip_smoke.ctr_chunk(3, steps * batch, B)
+    w = np.ones(steps * batch, np.float32)
+    emb = (0.01 * np.random.default_rng(1).normal(size=(B, 8))).astype(
+        np.float32)
+    want = chip_smoke.ctr_np_oracle(family, c["idx"], c["num"], c["y"], B,
+                                    steps, batch, emb)
+    l2 = chip_smoke.CTR_ORACLE_L2
+
+    def port(scale):
+        if family == "ftrl":
+            st = S.init_sparse_ftrl(B, chip_smoke.CTR_D, "cpu")
+            S.ftrl_epoch(st, c["idx"], c["num"], c["y"], w, 0.1 * scale,
+                         1.0, 1e-3, l2, batch)
+            return S.ftrl_weights(st, 0.1 * scale, 1.0, 1e-3, l2)
+        init = (S.init_sparse_fm(B, chip_smoke.CTR_D, 8, emb=emb,
+                                 device="cpu") if family == "fm"
+                else S.init_sparse_lr(B, chip_smoke.CTR_D, "cpu"))
+        epoch = S.fm_epoch if family == "fm" else S.sparse_lr_epoch
+        return epoch(init, S._zero_like_acc(init), c["idx"], c["num"],
+                     c["y"], w, 0.05 * scale, l2, batch)[0]
+
+    def err(got):
+        return max(float(np.abs(got[k].numpy() - want[k]).max())
+                   / float(np.abs(want[k]).max()) for k in ("table",
+                                                             "dense"))
+    assert err(port(1.0)) <= chip_smoke.CTR_ORACLE_RTOL
+    assert err(port(1.01)) > chip_smoke.CTR_ORACLE_RTOL

@@ -803,3 +803,114 @@ def test_workflow_trains_and_scores_on_the_card(card, tmp_path):
     assert again == walk
     arr = loaded.compile_scoring(buckets=True).score_arrays(rows)[pred.name]
     np.testing.assert_allclose(arr[:, 1], walk, rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the Criteo path on the card (no kernel of its own: torch gathers and
+# deterministic scatter-adds)
+# ---------------------------------------------------------------------------
+
+def _ctr_rows(seed, n, K=26, d=13, B=1 << 16):
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, B, (n, K)).astype(np.int32)
+    idx[:, 0] = rng.integers(0, 50, n)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = ((idx[:, 0] % 3 == 0) ^ (rng.random(n) < 0.2)).astype(np.float32)
+    return idx, X, y, B
+
+
+@pytest.mark.cuda
+def test_prefetch_survives_overwriting_its_source_chunk(card):
+    """One host buffer, overwritten by the producer right after each
+    yield while the card is busy on the consumer's stream: every chunk
+    the consumer gets holds the values it had when it was yielded (the
+    pinned staging copies it first), and its memory is not handed to a
+    later copy while queued work still reads it."""
+    from transmogrifai_tpu_torch.io.stream import prefetch_to_device
+    buf = np.zeros(1 << 22, np.float32)
+
+    def chunks():
+        for i in range(6):
+            buf[:] = i
+            yield {"a": buf}
+            buf[:] = -1.0           # the producer reuses its buffer
+
+    sums = []
+    big = torch.randn(4096, 4096, device=card)
+    for c in prefetch_to_device(chunks(), buffer_size=2, device=card):
+        for _ in range(3):
+            big = big @ big / 64.0      # keep the consumer stream busy
+        sums.append(c["a"].sum())
+    torch.cuda.synchronize()
+    assert [float(s) for s in sums] == [float(i * (1 << 22))
+                                        for i in range(6)]
+
+
+@pytest.mark.cuda
+def test_sparse_epochs_run_without_a_host_sync(card):
+    """Each family's sweep epoch (12 adagrad instances with l2 > 0, FTRL,
+    the FM) and a single streamed-chunk epoch queue on the card with no
+    host sync (``set_sync_debug_mode("error")`` raises on one)."""
+    from transmogrifai_tpu_torch.models import sparse as S
+    idx, X, y, B = _ctr_rows(0, 16384)
+    it = torch.as_tensor(idx, device=card).long()
+    Xt, yt = torch.as_tensor(X, device=card), torch.as_tensor(y, device=card)
+    for fam in ("adagrad", "ftrl", "fm"):
+        keys, init_state, advance, _, _ = S._family_sweep_def(fam, 8, 0)
+        st = S._broadcast_state(init_state(B, 13, 0, None, card), 12)
+        hb = tuple(torch.full((12,), 1e-2, device=card) for _ in keys)
+        w = torch.ones(12, 16384, device=card)
+        advance(st, hb, it, Xt, yt, w, 8192)       # first touch
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            advance(st, hb, it, Xt, yt, w, 8192)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    p = S.init_sparse_lr(B, 13, card)
+    acc = S._zero_like_acc(p)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        S.sparse_lr_epoch(p, acc, it, Xt, yt, torch.ones(16384, device=card),
+                          0.05, 1e-6, 8192)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(p["table"]).all()
+
+
+@pytest.mark.cuda
+def test_two_sparse_sweeps_are_bitwise_equal(card):
+    """The default grid's sweep twice on the card: the same losses bit
+    for bit (deterministic scatter-adds), the same winner, and a refit
+    that reproduces its tables bit for bit."""
+    from transmogrifai_tpu_torch.models import sparse as S
+    idx, X, y, B = _ctr_rows(1, 40_000)
+    grid = S.SparseModelSelector().params["grid"]
+    a = S.validate_sparse_grid(idx, X, y, grid, B, device=card)
+    b = S.validate_sparse_grid(idx, X, y, grid, B, device=card)
+    assert a["logloss"] == b["logloss"] and a["best_index"] == b["best_index"]
+    w = np.ones_like(y)
+    f1 = S.fit_sparse_fm(idx, X, y, w, B, k=8, device=card)
+    f2 = S.fit_sparse_fm(idx, X, y, w, B, k=8, device=card)
+    for k in f1:
+        np.testing.assert_array_equal(f1[k], f2[k])
+
+
+@pytest.mark.cuda
+def test_sparse_head_scores_a_row_alone_as_in_its_batch(card):
+    """The binary head (LR and FM) on the card: each row scored alone
+    equals its row of the batch bit for bit, and the card is within 1e-6
+    of the CPU on the same parameters."""
+    from transmogrifai_tpu_torch.models import sparse as S
+    idx, X, y, B = _ctr_rows(2, 3000)
+    w = np.ones_like(y)
+    for params in (S.fit_sparse_lr(idx, X, y, w, B, epochs=1, device=card),
+                   S.fit_sparse_fm(idx, X, y, w, B, k=8, epochs=1,
+                                   device=card)):
+        batch = S.predict_sparse_lr(params, idx, X, device=card)
+        for i in (0, 1, 1234, 2999):
+            one = S.predict_sparse_lr(params, idx[i:i + 1], X[i:i + 1],
+                                      device=card)
+            np.testing.assert_array_equal(one[0], batch[i])
+        cpu = S.predict_sparse_lr(params, idx, X, device="cpu")
+        np.testing.assert_allclose(batch, cpu, rtol=0, atol=1e-6)

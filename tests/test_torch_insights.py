@@ -141,9 +141,22 @@ def test_loco_persists_with_its_model(saved, tmp_path):
 
 
 def test_sparse_loco_is_not_ported():
+    """(The name predates the port of models/sparse.py.) The sparse
+    LOCO constructs, refuses to transform without a fitted model and
+    null buckets, and refuses overlapping field and dense names; its
+    numbers are held to numpy and the JAX package in
+    tests/test_torch_sparse.py."""
+    from transmogrifai_tpu_torch.dataset import Dataset
+    from transmogrifai_tpu_torch.features import types as ft
     from transmogrifai_tpu_torch.insights import SparseRecordInsightsLOCO
-    with pytest.raises(NotImplementedError, match="models.sparse"):
-        SparseRecordInsightsLOCO()
+    loco = SparseRecordInsightsLOCO().wire(["sx", "nx"], "loco")
+    with pytest.raises(RuntimeError, match="fitted model"):
+        loco.transform(Dataset({"sx": np.zeros((2, 1), np.int32),
+                                "nx": np.zeros((2, 1), np.float32)},
+                               {"sx": ft.SparseIndices,
+                                "nx": ft.OPVector}))
+    with pytest.raises(ValueError, match="overlap"):
+        SparseRecordInsightsLOCO(field_names=["a"], dense_names=["a"])
 
 
 # -- mirrors of tests/test_workflow.py's insights cases ---------------------

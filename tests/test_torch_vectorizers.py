@@ -245,9 +245,12 @@ def test_later_slice_types_raise_not_ported(kind, module):
 
 
 def test_other_unported_entry_points_raise():
-    with pytest.raises(NotImplementedError, match="ops.sparse"):
-        ops.transmogrify_sparse([feat("x", ft.PickList),
-                                 feat("y", ft.Real)])
+    # transmogrify_sparse is ported (ops/sparse.py): the hashed indices
+    # and the dense vector
+    hashed, dense = ops.transmogrify_sparse([feat("x", ft.PickList),
+                                             feat("y", ft.Real)])
+    assert issubclass(hashed.wtype, ft.SparseIndices)
+    assert issubclass(dense.wtype, ft.OPVector)
     with pytest.raises(NotImplementedError, match="ops.analyzers"):
         ops.tokenize("The quick foxes", language="en", stem=True)
     with pytest.raises(NotImplementedError, match="ops.text_advanced"):

@@ -309,9 +309,12 @@ def test_port_loads_jax_model_without_importing_jax(titanic, tmp_path):
 
 def test_unported_class_key_raises_naming_the_item():
     from transmogrifai_tpu_torch.stages.base import resolve_stage_class
-    with pytest.raises(ValueError, match="item 6"):
-        resolve_stage_class(
-            "transmogrifai_tpu.models.sparse.SparseSelectedModel")
+    # the Criteo path's classes (item 6) are ported and resolve
+    cls = resolve_stage_class(
+        "transmogrifai_tpu.models.sparse.SparseSelectedModel")
+    assert cls.__module__ == "transmogrifai_tpu_torch.models.sparse"
+    with pytest.raises(ValueError, match="item 8"):
+        resolve_stage_class("transmogrifai_tpu.ops.lda.LDAModel")
     with pytest.raises(ValueError, match="item 2"):
         resolve_stage_class("transmogrifai_tpu.ops.parsers.StringIndexer")
     cls = resolve_stage_class("transmogrifai_tpu.ops.vectorizers.OneHotModel")
@@ -472,10 +475,16 @@ def test_unported_workflow_paths_raise(titanic):
     wf, _ = PORT.titanic()
     with pytest.raises(NotImplementedError, match="filters"):
         wf.with_raw_feature_filter(min_fill_rate=0.1)
+    # score_stream is ported (io/stream.py): one result a chunk, equal
+    # to the batch scorer's
     tm, _ = titanic["transmogrifai_tpu_torch"]
     sc = tm.compile_scoring(device="cpu")
-    with pytest.raises(NotImplementedError, match="io.stream"):
-        sc.score_stream([PORT.reader().read()[:5]])
+    rows = PORT.reader().read()[:9]
+    got = list(sc.score_stream([rows[:5], rows[5:]]))
+    want = sc.score_arrays(rows)
+    for name in want:
+        np.testing.assert_array_equal(
+            np.concatenate([g[name] for g in got]), want[name])
 
 
 def test_duplicate_output_names_raise_at_construction():
@@ -541,14 +550,50 @@ def test_all_numeric_export_loads_in_both_packages(tmp_path):
 
 def test_host_prefix_export_records_the_prefix_and_the_port_refuses(
         titanic, tmp_path):
+    """(The name predates the repair: the port used to refuse every
+    artifact with a host prefix.) The Titanic export records its four
+    OneHotModel pivots as ``hostPrefix``, and the port now scores it as
+    the JAX package's numpy runtime does, from the boundary columns
+    (the pivots' outputs and the numeric columns): every row within
+    1e-6 of the runtime (``transmogrifai_tpu.portable``, the module the
+    JAX exporter copies in as ``portable_runtime.py``). Behind a
+    ServingEngine with the fused plane on, the member is served on the
+    classic plane: its prefix holds the one-hot vector boundary columns,
+    which the prefix compiler does not take (no stack spec; beside
+    another model in a drain pass it counts as a fused fallback)."""
+    from transmogrifai_tpu import portable as jportable
     from transmogrifai_tpu_torch import portable as tportable
+    from transmogrifai_tpu_torch.serving import (EngineConfig, ModelRegistry,
+                                                 ServingEngine)
     tm, _ = titanic["transmogrifai_tpu_torch"]
     path = str(tmp_path / "titanic")
     tm.export_portable(path)
     manifest = json.load(open(os.path.join(path, "manifest.json")))
     assert manifest["hostPrefix"] == ["OneHotModel"] * 4
-    with pytest.raises(ValueError, match="host-prefix"):
-        tportable.load(path, device="cpu")
+    sc = tm.compile_scoring(device="cpu")
+    ds = sc._host_ds(PORT.reader())
+    cols = {c: np.asarray(ds.column(c)) for c in manifest["boundary"]
+            if c in ds}
+    name = manifest["resultNames"][0]
+    want = jportable.load(path).score_columns(cols)[name]
+    pm = tportable.load(path, device="cpu")
+    got = pm.compile_scoring().score_arrays(cols)[name]
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    reg = ModelRegistry()
+    reg.register("titanic", pm, buckets=(16, 64),
+                 warm_sample={c: v[:1] for c, v in cols.items()})
+    eng = ServingEngine(registry=reg, config=EngineConfig(
+        max_batch_rows=64, fused_kernel=True)).start()
+    try:
+        served = eng.submit({c: v[:40] for c, v in cols.items()}).result(
+            timeout=30)[name]
+    finally:
+        eng.stop()
+    np.testing.assert_allclose(served, got[:40], rtol=0, atol=1e-6)
+    assert eng.stats.as_dict()["fused_batches"] == 0
+    from transmogrifai_tpu_torch.serving.fusion import stack_spec_of
+    from transmogrifai_tpu_torch.serving.registry import _FusedBackend
+    assert stack_spec_of(_FusedBackend(pm.compile_scoring())) is None
 
 
 def test_prefix_compiler_reads_a_fitted_workflow_scorer():

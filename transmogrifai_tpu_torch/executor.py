@@ -320,11 +320,11 @@ def execute(ds: Dataset, layers: Sequence[Sequence[PipelineStage]],
     t_train = time.perf_counter()
     if mode == "serial":
         out = _execute_serial(ds, layers, stats, policy, checkpoint,
-                              result_names, trace, skew, device)
+                              result_names, trace, skew, device=device)
     else:
         out = _execute_parallel(ds, layers, workers, stats, policy,
                                 checkpoint, result_names, trace, skew,
-                                device)
+                                device=device)
     if trace is not None:
         from .profiling import SWEEP_STATS, SweepStats
         sweep = SweepStats.delta(sweep_before, SWEEP_STATS.snapshot())
@@ -338,8 +338,8 @@ def execute(ds: Dataset, layers: Sequence[Sequence[PipelineStage]],
 
 
 def _execute_serial(ds, layers, stats, policy=NO_RETRY, checkpoint=None,
-                    result_names=(), trace=None, skew=0.0,
-                    device=torch.device("cpu")):
+                    result_names=(), trace=None, skew=0.0, *,
+                    device: torch.device):
     """The seed training loop: one stage at a time, every transform
     materialized, nothing pruned (TM_WORKFLOW_EXECUTOR=serial keeps
     this path available as the behavioral baseline). Retry, degrade,
@@ -497,7 +497,7 @@ def _gather_in_order(futures):
 
 def _execute_parallel(ds, layers, workers, stats, policy=NO_RETRY,
                       checkpoint=None, result_names=(), trace=None,
-                      skew=0.0, device=torch.device("cpu")):
+                      skew=0.0, *, device: torch.device):
     """Pipelined layer executor.
 
     Beyond the per-layer thread pool, stages PIPELINE across layers: a

@@ -14,7 +14,9 @@ device over the masked copies of the record batch, a chunk of feature
 groups at a time (the JAX package vmaps one predict over every group
 mask). The report itself is host-side, built from the fitted stages,
 the manifest and the checker summary. ``SparseRecordInsightsLOCO``
-waits for ``models/sparse.py`` and raises "not ported".
+leaves one hashed FIELD out (its bucket replaced by the field's
+null-token bucket) or one dense column (zeroed), all counterfactuals of
+a batch scored as one stacked batch on the model's device.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from .features import types as ft
 from .features.feature import Feature
 from .features.manifest import ColumnManifest
 from .models.base import PredictionModel, params_to_numpy
-from .stages.base import BinaryTransformer, UnaryTransformer, not_ported
+from .stages.base import BinaryTransformer, UnaryTransformer
 
 
 # ---------------------------------------------------------------------------
@@ -406,11 +408,142 @@ class RecordInsightsLOCO(UnaryTransformer):
 
 class SparseRecordInsightsLOCO(BinaryTransformer):
     """Per-record leave-one-FIELD-out explanation for the hashed sparse
-    path: it scores the sparse model families of ``models/sparse.py``,
-    which are not ported yet (ROADMAP queue 1, item 6)."""
+    path (the regime dense LOCO's slot masks cannot reach: a hashed
+    field has no per-slot manifest).
+
+    Leaving a field "out" replaces its bucket index with the field's
+    NULL-token bucket — exactly what SparseHashingVectorizer emits for a
+    missing value, so the counterfactual matches the trained missing-
+    value semantics rather than an arbitrary zero. Dense numeric columns
+    get the dense convention (zeroed). Every (field x record) and
+    (column x record) counterfactual of a batch is scored as one stacked
+    batch through the model's row-independent predict, on the model's
+    device. Reference: RecordInsightsLOCO.scala over hashed vector
+    groups.
+    """
     in_types = (ft.SparseIndices, ft.OPVector)
     out_type = ft.TextMap
     operation_name = "sparseLoco"
 
-    def __init__(self, *args, **kw):
-        raise not_ported("SparseRecordInsightsLOCO", "models.sparse")
+    def __init__(self, model=None, field_names=None, null_buckets=None,
+                 dense_names=None, top_k: int = 20, uid=None, **kw):
+        super().__init__(uid=uid, top_k=int(top_k), **kw)
+        self.model = model                       # fitted SparseLogisticModel
+        self.field_names = list(field_names or [])
+        self.null_buckets = (None if null_buckets is None
+                             else np.asarray(null_buckets, np.int32))
+        self.dense_names = list(dense_names or [])
+        overlap = set(self.field_names) & set(self.dense_names)
+        if overlap:   # one output key per attribution — no silent merge
+            raise ValueError(f"field_names and dense_names overlap: "
+                             f"{sorted(overlap)}")
+
+    def extra_state_json(self):
+        from .stages.persistence import stage_to_json
+        return {"model_stage": stage_to_json(self.model) if self.model
+                else None,
+                "field_names": self.field_names,
+                "null_buckets": (None if self.null_buckets is None
+                                 else self.null_buckets),
+                "dense_names": self.dense_names}
+
+    def load_extra_state(self, d):
+        from .stages.persistence import stage_from_json
+        ms = d.get("model_stage")
+        self.model = stage_from_json(ms) if ms else None
+        self.field_names = list(d.get("field_names", []))
+        nb = d.get("null_buckets")
+        self.null_buckets = (None if nb is None
+                             else np.asarray(nb, np.int32))
+        self.dense_names = list(d.get("dense_names", []))
+
+    def to(self, device) -> "SparseRecordInsightsLOCO":
+        if self.model is not None:
+            self.model.to(device)
+        return super().to(device)
+
+    @classmethod
+    def from_vectorizer(cls, model, vectorizer, **kw):
+        """Wire field names + null buckets from the fitted
+        SparseHashingVectorizer that produced the model's index matrix."""
+        from .ops.sparse import _token, hash_tokens
+        names = [tf.name for tf in vectorizer.inputs]
+        B = vectorizer.params["num_buckets"]
+        seed = vectorizer.params["seed"]
+        nulls = hash_tokens([_token(n, None) for n in names], B, seed)
+        return cls(model=model, field_names=names, null_buckets=nulls,
+                   **kw)
+
+    def _deltas(self, idx: np.ndarray, X: np.ndarray) -> np.ndarray:
+        """(n, K + d) deltas base - counterfactual of P(class 1)."""
+        from .models.sparse import sparse_binary_probs
+        params = self.model.model_params
+        dev = self.model.device
+        n_buckets = int(params["table"].shape[0])
+        nulls = np.asarray(self.null_buckets)
+        if int(nulls.max(initial=0)) >= n_buckets:
+            # a vectorizer/model num_buckets mismatch would otherwise
+            # index past the table and attribute arbitrary weights
+            raise ValueError(
+                f"null bucket ids up to {int(nulls.max())} exceed the "
+                f"model's {n_buckets}-bucket table — the vectorizer and "
+                f"model num_buckets disagree")
+        n, K = idx.shape
+        d = X.shape[1]
+        it = torch.as_tensor(idx, device=dev).to(torch.int64)
+        Xt = torch.as_tensor(X, device=dev).to(torch.float32)
+        ks = torch.arange(K, device=dev)
+        # (K, n, K): copy k has field k at its null bucket
+        idx_f = it[None].repeat(K, 1, 1)
+        idx_f[ks, :, ks] = torch.as_tensor(nulls, device=dev).to(
+            torch.int64)[:, None]
+        # (d, n, d): copy j has dense column j zeroed
+        keep = 1.0 - torch.eye(d, device=dev)
+        X_d = Xt[None] * keep[:, None, :]
+        all_idx = torch.cat([it[None], idx_f, it[None].expand(d, n, K)])
+        all_X = torch.cat([Xt[None], Xt[None].expand(K, n, d), X_d])
+        with torch.inference_mode():
+            p1 = sparse_binary_probs(params, all_idx.reshape(-1, K),
+                                     all_X.reshape(-1, d))[:, 1]
+        p1 = p1.reshape(1 + K + d, n)
+        return (p1[:1] - p1[1:]).T.cpu().numpy()
+
+    def _transform_columns(self, ds: Dataset):
+        if self.model is None or self.null_buckets is None:
+            raise RuntimeError("SparseRecordInsightsLOCO needs a fitted "
+                               "model and null_buckets (use "
+                               "from_vectorizer)")
+        idx = np.asarray(ds.column(self.input_names[0])).astype(np.int32)
+        X = np.asarray(ds.column(self.input_names[1]), np.float32)
+        n, K = idx.shape
+        d = X.shape[1]
+        if len(self.null_buckets) != K:
+            # a shorter list would replace a field with another field's
+            # null token — wrong attributions with no error
+            raise ValueError(
+                f"null_buckets has {len(self.null_buckets)} entries but "
+                f"the index matrix has {K} fields")
+        deltas = self._deltas(idx, X)                        # (n, K + d)
+        keys = (self.field_names if len(self.field_names) == K
+                else [f"field_{k}" for k in range(K)])
+        keys = keys + (self.dense_names if len(self.dense_names) == d
+                       else [f"num_{j}" for j in range(d)])
+        top_k = min(int(self.params["top_k"]), len(keys))
+        out = np.empty(n, dtype=object)
+        for i in range(n):
+            order = np.argsort(-np.abs(deltas[i]))[:top_k]
+            # per-class deltas [class0, class1] like the dense LOCO
+            out[i] = {keys[g]: json.dumps(
+                [round(float(-deltas[i, g]), 6),
+                 round(float(deltas[i, g]), 6)]) for g in order}
+        return out, ft.TextMap, None
+
+    def transform_value(self, sidx: ft.SparseIndices, vec: ft.OPVector):
+        ds = Dataset(
+            {self.input_names[0]: np.asarray([list(sidx.value)], np.int32),
+             self.input_names[1]: np.asarray([list(vec.value)],
+                                             np.float32)},
+            {self.input_names[0]: ft.SparseIndices,
+             self.input_names[1]: ft.OPVector})
+        col, _, _ = self._transform_columns(ds)
+        return ft.TextMap(col[0])

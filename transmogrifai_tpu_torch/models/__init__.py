@@ -15,6 +15,19 @@ from .selector import (ModelSelector, SelectedModel,
                        BinaryClassificationModelSelector,
                        MultiClassificationModelSelector,
                        RegressionModelSelector)
+from .sparse import (SparseLogisticRegression, SparseLogisticModel,
+                     SparseModelSelector, SparseSelectedModel,
+                     SparseSoftmaxModel, SparseSoftmaxRegression,
+                     fit_sparse_fm, fit_sparse_fm_sharded,
+                     fit_sparse_fm_streaming,
+                     fit_sparse_ftrl, fit_sparse_ftrl_streaming,
+                     fit_sparse_lr, fit_sparse_lr_sharded,
+                     fit_sparse_lr_streaming,
+                     fit_sparse_softmax, fit_sparse_softmax_sharded,
+                     fit_sparse_softmax_streaming,
+                     predict_sparse_lr, predict_sparse_softmax,
+                     validate_sparse_grid,
+                     validate_sparse_grid_streaming)
 
 __all__ = [
     "MODEL_FAMILIES", "ModelFamily", "ModelStage", "PredictionModel",
@@ -29,4 +42,13 @@ __all__ = [
     "OpCrossValidation", "OpTrainValidationSplit", "make_fold_masks",
     "ModelSelector", "SelectedModel", "BinaryClassificationModelSelector",
     "MultiClassificationModelSelector", "RegressionModelSelector",
+    "SparseLogisticRegression", "SparseLogisticModel",
+    "SparseModelSelector", "SparseSelectedModel", "SparseSoftmaxModel",
+    "SparseSoftmaxRegression", "fit_sparse_fm", "fit_sparse_fm_sharded",
+    "fit_sparse_fm_streaming", "fit_sparse_ftrl",
+    "fit_sparse_ftrl_streaming", "fit_sparse_lr", "fit_sparse_lr_sharded",
+    "fit_sparse_lr_streaming", "fit_sparse_softmax",
+    "fit_sparse_softmax_sharded", "fit_sparse_softmax_streaming",
+    "predict_sparse_lr", "predict_sparse_softmax", "validate_sparse_grid",
+    "validate_sparse_grid_streaming",
 ]

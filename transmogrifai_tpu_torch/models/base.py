@@ -91,7 +91,10 @@ class ModelFamily:
 def params_from_numpy(arrays: Dict[str, Any], device) -> Dict[str, Any]:
     """Numpy parameter pytree (as the JAX package fits and exports it)
     -> the same pytree of tensors on ``device``: integer arrays (tree
-    ``feat`` indices) become int64, everything else float32."""
+    ``feat`` indices) become int64, everything else float32. Nested
+    dicts carry over as they are: the sparse families' ``table`` /
+    ``dense`` / ``bias`` / ``emb`` and FTRL's ``{z: {...}, n: {...}}``
+    state."""
     if isinstance(arrays, dict):
         return {k: params_from_numpy(v, device) for k, v in arrays.items()}
     a = np.array(arrays)                 # a writable copy

@@ -7,7 +7,7 @@ type and concatenates everything into one OPVector feature.
 
 The port's dispatch is the JAX package's table. Branches whose encoder
 lives in a module a later slice brings (parsers, lda, text_advanced,
-maps, sparse) raise ``NotImplementedError`` naming the feature type and
+maps) raise ``NotImplementedError`` naming the feature type and
 the module; none of them picks another encoder instead.
 """
 from __future__ import annotations
@@ -131,10 +131,43 @@ def transmogrify(features: Sequence[Feature],
 def transmogrify_sparse(features: Sequence[Feature],
                         num_buckets: int = 1 << 20,
                         seed: int = 42) -> tuple:
-    """Criteo-scale dispatch (hashed-sparse indices plus the dense
-    vector, for the sparse selector): its hashing vectorizer lives in
-    ``ops/sparse.py``, which is not ported yet, so it raises."""
-    raise not_ported("transmogrify_sparse", "ops.sparse")
+    """Criteo-scale dispatch: hashed-sparse instead of dense pivots.
+
+    All Text-typed features (PickList, ComboBox, ID, plain Text, ...)
+    hash into ONE shared space — K features become an (n, K) int32
+    `SparseIndices` matrix; no dense (n, buckets) block ever exists.
+    Every other feature keeps its dense default encoder and combines
+    into the usual OPVector. Returns ``(sparse_indices, dense_vector)``
+    — feed both to the sparse selector::
+
+        sidx, dense = transmogrify_sparse(feats, num_buckets=1 << 20)
+        pred = SparseModelSelector().set_input(label, sidx, dense).output
+
+    Reference parity: OPCollectionHashingVectorizer's shared hash space
+    (core/.../impl/feature/OPCollectionHashingVectorizer.scala) as the
+    default encoding for the high-cardinality regime where topK pivots
+    would explode (SURVEY §7 step 7, Criteo scale).
+    """
+    from .sparse import SparseHashingVectorizer
+    if not features:
+        raise ValueError("transmogrify_sparse needs at least one feature")
+    for f in features:
+        if f.is_response:
+            raise ValueError(
+                f"cannot transmogrify response feature {f.name!r}")
+    cats = [f for f in features if issubclass(f.wtype, ft.Text)]
+    rest = [f for f in features if not issubclass(f.wtype, ft.Text)]
+    if not cats:
+        raise ValueError("transmogrify_sparse: no Text-typed features to "
+                         "hash — use transmogrify() for all-dense data")
+    if not rest:
+        raise ValueError(
+            "transmogrify_sparse: the sparse model kernels take a dense "
+            "numeric block alongside the hashed indices; declare at least "
+            "one non-Text feature (numeric/date/geo)")
+    sparse = SparseHashingVectorizer(
+        num_buckets=num_buckets, seed=seed).set_input(*cats).output
+    return sparse, transmogrify(rest)
 
 
 def _feature_transmogrify(self: Feature, *others: Feature,

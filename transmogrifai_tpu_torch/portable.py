@@ -12,14 +12,17 @@ That format needs no JAX, so it is how weights carry across:
 turns the manifest and its numpy arrays into the port's stages, with
 every parameter a tensor on the scoring device.
 
-Slice limit: all-numeric workflows only — an artifact whose
-``hostPrefix`` is non-empty (text, picklists, hashing run on the host
-before the device chain) raises, as does any op outside {impute,
-concat, keep_cols, predict} or a predict family the port has not
-registered in ``MODEL_FAMILIES`` (it has every linear family —
-LogisticRegression, LinearRegression, LinearSVC, NaiveBayes and
-GeneralizedLinearRegression — and the eight tree families; not the
-FT-Transformer); the error names what is missing.
+Like the JAX package's numpy runtime (its ``score_columns``), the port
+scores an artifact from its manifest's ``boundary`` columns: a
+non-empty ``hostPrefix`` (text pivots, hashing run on the host before
+the device chain) is metadata, and the caller supplies those stages'
+outputs. Integer boundary columns (hashed bucket ids) stay integer:
+the scorer sends them to the card as int32 for the gathers, never
+through f32. Ops: impute, concat, keep_cols, predict and the hashed
+``sparse_predict`` / ``sparse_softmax`` (``models/sparse.py``); a
+predict family the port has not registered in ``MODEL_FAMILIES`` (it
+has every linear family and the eight tree families, not the
+FT-Transformer) raises naming what is missing.
 """
 from __future__ import annotations
 
@@ -32,14 +35,16 @@ import torch
 
 from ._device import resolve_device
 from .models.base import MODEL_FAMILIES, PredictionModel, params_from_numpy
+from .models.sparse import SparseLogisticModel, SparseSoftmaxModel
 from .ops.sanity_checker import SanityCheckerModel
 from .ops.vectorizers import RealVectorizerModel, VectorsCombiner
 from .resilience import atomic
 
 FORMAT_VERSION = 1
 
-#: the portable ops this slice can run on the device
-SUPPORTED_OPS = ("impute", "concat", "keep_cols", "predict")
+#: the portable ops the port runs on the device
+SUPPORTED_OPS = ("impute", "concat", "keep_cols", "predict",
+                 "sparse_predict", "sparse_softmax")
 
 
 # ---------------------------------------------------------------------------
@@ -142,6 +147,12 @@ def _build_stage(i: int, st: Dict[str, Any], arrs: Dict[str, Any],
         return PredictionModel(ins, out, family=family,
                                n_classes=int(st["nClasses"]),
                                model_params=params)
+    if op in ("sparse_predict", "sparse_softmax"):
+        # inputs: (label?, idx, Xnum); the label is a response placeholder
+        cls = SparseLogisticModel if op == "sparse_predict" \
+            else SparseSoftmaxModel
+        return cls(model_params=params_from_numpy(
+            arrs.get("params", {}), device)).wire(ins, out)
     raise ValueError(
         f"portable stage {i} ({out!r}): op {op!r} is not ported (have "
         f"{list(SUPPORTED_OPS)})")
@@ -155,16 +166,12 @@ def from_portable(manifest: Dict[str, Any],
     numpy pytrees keyed by stage index as a string, as :func:`load`
     reads them from params.npz) -> a :class:`PortableModel` whose
     parameters are tensors on ``device`` (None: CUDA, raising without
-    it). Raises ValueError naming any host-prefix stage, op or model
-    family outside the slice."""
+    it). The ``hostPrefix`` is metadata, as in the JAX runtime: the
+    chain scores its boundary columns. Raises ValueError naming any op
+    or model family the port does not have."""
     if manifest.get("format") != FORMAT_VERSION:
         raise ValueError(
             f"unsupported portable format {manifest.get('format')!r}")
-    host = manifest.get("hostPrefix") or []
-    if host:
-        raise ValueError(
-            f"portable artifact has host-prefix stages {host}: the port "
-            f"serves all-numeric workflows only (empty hostPrefix)")
     dev = resolve_device(device)
     stages = [_build_stage(i, st, arrays.get(str(i), {}), dev)
               for i, st in enumerate(manifest["stages"])]

@@ -14,8 +14,8 @@ Raw-column scoring is exact when the whole workflow is device-able (all-
 numeric pipelines). When host-only stages precede the device tail (text
 pivots, hashing over strings), the manifest records them under
 `hostPrefix` and the boundary columns are those stages' OUTPUTS, exactly
-as the JAX package writes it; the port's loader (``portable.from_portable``)
-still refuses such an artifact (ROADMAP queue 3). The JAX package also
+as the JAX package writes it, and every loader scores the boundary
+columns (``portable.from_portable`` as the JAX runtime). The JAX package also
 copies its numpy-only interpreter into the artifact as
 ``portable_runtime.py``; the port has no numpy-only runtime, so its
 artifacts carry the manifest and arrays only (every loader of either

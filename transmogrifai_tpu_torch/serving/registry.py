@@ -141,9 +141,9 @@ class _FusedBackend:
         """Run every shape bucket once on the device BEFORE the version
         takes traffic (first-touch allocations and library loads land
         here, not on live requests). `sample` (any scoreable data, e.g.
-        one row) supplies realistic boundary dtypes — required for
-        models with integer boundary columns; without it float32 zeros
-        warm all-dense models. Returns the number of warm runs. Books
+        one row) supplies realistic boundary dtypes; without it float32
+        zeros warm the dense columns and int32 zeros the hashed-index
+        columns (``index_boundary``). Returns the number of warm runs. Books
         NO batch/row/padding/seconds: warm rows are not served
         traffic."""
         from ..workflow import _pad_rows, to_device
@@ -154,8 +154,11 @@ class _FusedBackend:
             if n == 0:
                 raise ValueError("warm sample has zero rows")
         else:
+            # hashed-index columns warm as integer ids (bucket 0), never
+            # as f32: a float id column would not be the request's dtype
             n = 1
-            vals = [np.zeros(1, np.float32) for _ in sc.boundary]
+            vals = [np.zeros(1, np.int32 if name in sc.index_boundary
+                             else np.float32) for name in sc.boundary]
         runs = 0
         for b in (sc.buckets or (n,)):
             dev = [to_device(_pad_rows(v[:min(n, b)], b), sc.device)
@@ -411,10 +414,10 @@ class ModelRegistry:
         the version can become default — so a later flip is pure
         pointer swap.
 
-        Pass `warm_sample` (one scoreable row is enough) for models
-        whose boundary includes integer columns: the no-sample fallback
-        warms with float32 zeros. ServingEngine.swap() auto-falls-back
-        to the most recent request's data for exactly this reason."""
+        `warm_sample` (one scoreable row is enough) warms with the
+        request's own dtypes; without it the fallback warms dense
+        columns with float32 zeros and hashed-index columns with int32
+        zeros (bucket 0), never turning ids into f32."""
         from ..portable import PortableModel
         from ..workflow import FusedScorer
         with self._lock:

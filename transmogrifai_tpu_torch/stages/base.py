@@ -67,9 +67,6 @@ NOT_PORTED_MODULES = {
     "stages.wrappers": "item 2 (host layer)",
     "filters": "item 2 (host layer)",
     "testkit": "item 2 (host layer)",
-    "ops.sparse": "item 6 (Criteo path)",
-    "models.sparse": "item 6 (Criteo path)",
-    "io.stream": "item 6 (Criteo path)",
     "models.ft_transformer": "item 8 (FT-Transformer and LDA)",
     "ops.lda": "item 8 (FT-Transformer and LDA)",
 }

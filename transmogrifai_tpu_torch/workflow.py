@@ -284,11 +284,12 @@ class WorkflowModel:
         return None
 
     def selected_model(self):
-        """The fitted dense SelectedModel (the sparse selector is not
-        ported yet: ROADMAP queue 1, item 6)."""
+        """The fitted selector's model: a dense SelectedModel or the
+        sparse front door's SparseSelectedModel."""
         from .models.selector import SelectedModel
+        from .models.sparse import SparseSelectedModel
         for st in self.stages:
-            if isinstance(st, SelectedModel):
+            if isinstance(st, (SelectedModel, SparseSelectedModel)):
                 return st
         return None
 
@@ -491,6 +492,13 @@ class FusedScorer:
                     boundary.append(n)
             produced.add(out)
         self.boundary = boundary
+        #: boundary columns a device stage reads as hashed bucket ids
+        #: (SparseIndices): they stay integer on their way to the card
+        self.index_boundary = {
+            n for in_names, _, out in infos
+            for n, t in zip(in_names,
+                            self.device_stage_by_output[out].in_types)
+            if n in boundary and issubclass(t, ft.SparseIndices)}
         if self._workflow:
             self.result_names = [f.name for f in model.result_features
                                  if f.name in produced]
@@ -534,8 +542,9 @@ class FusedScorer:
 
     def _boundary_of(self, src) -> Tuple[int, List[np.ndarray]]:
         """Host-side boundary columns of a host-prefix result (Dataset
-        or request columns) in their device dtypes: integer columns
-        int32 (hashed ids must NOT round-trip through f32), everything
+        or request columns) in their device dtypes: integer columns and
+        hashed-index columns int32 (hashed ids must NOT round-trip
+        through f32; int32 is what the card's gathers take), everything
         else f32; absent response columns become zero placeholders; any
         other absent column raises."""
         if isinstance(src, Dataset):
@@ -547,7 +556,8 @@ class FusedScorer:
         for name in self.boundary:
             if name in src:
                 col = np.asarray(get(name))
-                if np.issubdtype(col.dtype, np.integer):
+                if (np.issubdtype(col.dtype, np.integer)
+                        or name in self.index_boundary):
                     vals.append(col.astype(np.int32))
                 else:
                     vals.append(col.astype(np.float32))
@@ -618,10 +628,56 @@ class FusedScorer:
             return self._device_arrays(self._host_ds(data))
 
     def score_stream(self, chunks: Iterable[Any], buffer_size: int = 2,
-                     host_thread: bool = True, cancel_event=None):
-        """Double-buffered streaming scoring rides ``io/stream.py``,
-        which is not ported yet."""
-        raise not_ported("FusedScorer.score_stream", "io.stream")
+                     host_thread: bool = True, cancel_event=None
+                     ) -> Iterable[Dict[str, np.ndarray]]:
+        """Double-buffered streaming scoring: yields one
+        ``{result name: array}`` dict per input chunk, in order, each
+        equal to :meth:`score_arrays` of that chunk.
+
+        The host prefix (parsing, indexing, hashing, boundary assembly)
+        for chunk k+1 runs on a background thread
+        (io.stream.host_prefetch) while chunk k's device tail runs:
+        ``_dispatch`` queues the copies and the tail without waiting on
+        the card, ``_finalize`` reads the results back
+        (io.stream.double_buffer keeps ``buffer_size`` chunks in
+        flight). Producer exceptions re-raise positionally: results for
+        every chunk before the failure are yielded first.
+
+        stats.seconds accumulates only time spent INSIDE the pipeline
+        (waiting on host production, dispatch, materialization) — the
+        consumer's work between yields is excluded.
+
+        `cancel_event` (threading.Event) aborts the stream from outside:
+        once set, the producer thread stops pulling chunks and the
+        stream raises io.stream.StreamCancelled instead of draining the
+        source."""
+        import time
+
+        from .io.stream import (StreamCancelled, double_buffer,
+                                host_prefetch)
+
+        def produce():
+            for chunk in chunks:
+                if cancel_event is not None and cancel_event.is_set():
+                    raise StreamCancelled("score_stream cancelled")
+                yield self._boundary_host(chunk)
+
+        src = (host_prefetch(produce(), buffer_size,
+                             cancel_event=cancel_event) if host_thread
+               else produce())
+        it = double_buffer(src, lambda nv: self._dispatch(*nv),
+                           self._finalize, depth=buffer_size)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                out = next(it)
+            except StopIteration:
+                return
+            finally:
+                self.stats.add_seconds(time.perf_counter() - t0)
+            if cancel_event is not None and cancel_event.is_set():
+                raise StreamCancelled("score_stream cancelled")
+            yield out
 
     def score(self, data) -> Dataset:
         """API-parity scoring of a WorkflowModel: fused compute, then
