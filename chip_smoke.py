@@ -5,8 +5,9 @@ Drives the port's paths — fused multi-model LR serving, AutoML
 training over the selector's default candidate lists (tree and linear
 families), row-sharded tree growing over a data mesh and the workflow
 front door (CSV reader, transmogrify, SanityChecker, selector,
-save/load, scoring, export and serving) and the Criteo path (hashed
-sparse families streamed, swept, served) — through the entry points a
+save/load, scoring, export and serving), the Criteo path (hashed
+sparse families streamed, swept, served) and every feature type
+through transmogrify — through the entry points a
 user calls, and holds each CUDA kernel against its plain PyTorch
 version:
 
@@ -135,6 +136,36 @@ version:
    ``SparseRecordInsightsLOCO`` against numpy; its export served by a
    ``ServingEngine`` (rows against a numpy mirror, every request on the
    classic plane). None of the three CUDA kernels may launch.
+10. features: every feature type through ``transmogrify``. The JAX
+   bench's wide CRM workflow (a copy of ``bench.py::
+   _workflow_train_data``: 56 predictors, 18 of them maps) at
+   FEAT_CRM_RUN_ROWS rows (the line prints the cut from 50,000), trained
+   as the bench's AutoML build (SanityChecker, 2-fold LR) and through
+   the default binary list with ``with_raw_feature_filter(min_fill_rate=
+   0.001)``: the walls of the feature layer, checker, selector and
+   ``Workflow.train``, histogram launches equal to the tree levels, the
+   device busy share, save/load (scores bitwise), bulk rows/s and
+   ``LocalScorer`` on 1,000 rows within FEAT_LOCAL_ATOL of the bulk
+   scores. The every-type workflow (the port's ``testkit``: Email, URL,
+   Phone, Base64, DateList, TextArea, TextList, Geolocation, seven map
+   types and a seller name removed as sensitive) at 100,000 rows through
+   the default binary list: kept slots, winner, holdout AUROC, the
+   sensitive verdict, launches. After each timed train with tree
+   families, the histogram kernel against its plain version at the
+   largest level that train gave it, in its operand mode (HIST_RTOL).
+   ``fit_lda`` alone at (100,000 docs, V = 256, k = 8): wall, device
+   time and operations beside its bound, no host sync. At 5,000 rows in
+   exact mode, card against CPU: the same LDA vocabulary and kept
+   slots, lambda within the LDA test's tolerance, LR within
+   LINEAR_CPU_TOL, DT and GBT within GBT_PARITY_TOL; then DT and GBT on
+   the card's checked matrix, card against CPU, as Titanic's GBT is
+   held (TITANIC_CV_ATOL or the near-tie contract), each side's metrics
+   recomputed on its own workflow's matrix.
+   ``examples/op_house_log.py`` through the port (the seller removed,
+   dollars within the example's bar, label-free row scoring). The
+   checked-in JAX artifact ``tests/data/jax_features_model`` loaded and
+   scored against the JAX package's scores (ARTIFACT_RTOL). Neither the
+   serving kernel nor the ring may launch.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -867,10 +898,11 @@ def kernel_split_ms(fn, calls: int = 10) -> dict:
     return split
 
 
-def hist_case(tk, label, G, n, d, S, m, B, dtype, seed):
-    """Kernel vs plain version at one shape, with timings, under knobs
-    that make the operand dtype ``dtype``. Returns one result row;
-    raises on a disagreement."""
+def hist_case(tk, label, G, n, d, S, m, B, dtype, seed, timed=True):
+    """Kernel vs plain version at one shape, with timings (``timed``
+    False: without them and the library yardstick), under knobs that
+    make the operand dtype ``dtype``. Returns one result row; raises on
+    a disagreement."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     bins = torch.randint(0, B, (n, d), generator=gen, device=dev,
@@ -905,6 +937,12 @@ def hist_case(tk, label, G, n, d, S, m, B, dtype, seed):
             raise AssertionError(f"integer stats not bitwise at {label}")
         exact = True
     del scale, ref
+    row = {"shape": label, "G": G, "n": n, "d": d, "S": S, "m": m, "B": B,
+           "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+           "integer_stats_bitwise": exact, "deterministic": True,
+           "batch_independent": True}
+    if not timed:
+        return row
     # library yardstick: the one-hot GEMM A^T Z in the operand dtype
     # (f32 accumulation), A and Z built outside the timing
     Z = torch.nn.functional.one_hot(bins.long(), B).reshape(n, d * B).to(
@@ -917,15 +955,10 @@ def hist_case(tk, label, G, n, d, S, m, B, dtype, seed):
     bytes_ms = cost["bytes"] / HBM_BYTES_PER_S * 1e3
     ops_ms = cost["adds"] / F32_FLOPS_PER_S * 1e3
     plan = tk.launch_plan(G, n, d, S, m, B)
-    row = {"shape": label, "G": G, "n": n, "d": d, "S": S, "m": m, "B": B,
-           "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
-           "integer_stats_bitwise": exact, "deterministic": True,
-           "batch_independent": True,
-           "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "onehot_gemm_gflop": 2.0 * G * m * S * d * B * n / 1e9,
-           "kernel_mma_gflop": cost["mma_flop"] / 1e9,
-           "plan": plan}
+    row.update(bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               onehot_gemm_gflop=2.0 * G * m * S * d * B * n / 1e9,
+               kernel_mma_gflop=cost["mma_flop"] / 1e9, plan=plan)
     arms = [("", lambda: tk.histogram_grid(bins, stats, pos, m, B)),
             ("plain_", lambda: tk.histogram_torch(bins, stats, pos, m, B)),
             ("library_", lambda: torch.matmul(A.T, Z))]
@@ -958,6 +991,23 @@ def sass_count(name: str, opcode: str) -> int:
                           check=True, capture_output=True, text=True,
                           timeout=300).stdout
     return sass_opcode_count(sass, opcode)
+
+
+def path_hist_check(shapes, label, seed):
+    """The kernel against its plain version at the largest level a train
+    gave it (``shapes``: :func:`hist_hook`'s record of that train), in
+    the operand mode the train ran in, on seeded inputs of that shape
+    (:func:`hist_case` untimed). None when no level was recorded or the
+    train ran on the CPU, where the wrapper is the plain version."""
+    from transmogrifai_tpu_torch.models import kernels as tk
+    if not shapes or not torch.cuda.is_available():
+        return None
+    G, n, d, S, m, B = max(shapes, key=lambda s: (int(np.prod(s)), s))
+    torch.cuda.empty_cache()
+    row = hist_case(tk, label, G, n, d, S, m, B,
+                    tk.hist_dtype(torch.device("cuda")), seed, timed=False)
+    torch.cuda.empty_cache()
+    return dict(row, levels=len(shapes), distinct_shapes=len(set(shapes)))
 
 
 def hist_phase(seed: int):
@@ -1072,17 +1122,20 @@ def _exact_fit(X, y, candidates, device):
 
 
 @contextlib.contextmanager
-def hist_hook(record=None, fault=None):
+def hist_hook(record=None, fault=None, shapes=None):
     """Pass the growers' histogram calls through a hook: where given,
     ``fault(stats, pos, m)`` replaces the stats the kernel sees (a
-    planted fault), and each level's histogram is appended, on the
-    CPU, to ``record``."""
+    planted fault), each level's histogram is appended, on the CPU, to
+    ``record``, and each call's shape (G, n, d, S, m, B) to ``shapes``."""
     from transmogrifai_tpu_torch.models import trees
     real = trees.histogram_grid
 
     def hooked(bins, stats, pos, m, B):
         if fault is not None:
             stats = fault(stats, pos, m)
+        if shapes is not None:
+            G, n, S = stats.shape
+            shapes.append((G, n, bins.shape[1], S, m, B))
         h = real(bins, stats, pos, m, B)
         if record is not None:
             record.append(h.cpu())
@@ -1094,15 +1147,23 @@ def hist_hook(record=None, fault=None):
         trees.histogram_grid = real
 
 
-def gbt_side(X, y, device, knobs, fault=None):
-    """The GBT selector on ``device`` under the environment ``knobs``:
-    its validation AUROC per grid point, and per grid point one fit on
-    all rows with each level's histogram recorded."""
-    from transmogrifai_tpu_torch import models as TM
-    fam = TM.MODEL_FAMILIES["GBTClassifier"]
+def tree_cv(family, X, y, device, knobs, fault=None):
+    """The 3-fold selector of one tree ``family`` on (X, y) on
+    ``device`` under the environment ``knobs``: its validation result
+    (grid, gridMetrics)."""
     with env(**knobs), hist_hook(fault=fault):
-        ds, sel = _selector(X, y, ["GBTClassifier"], device)
-        res = sel.fit(ds).summary["validationResults"][0]
+        ds, sel = _selector(X, y, [family], device)
+        return sel.fit(ds).summary["validationResults"][0]
+
+
+def tree_side(family, X, y, device, knobs, fault=None):
+    """One tree ``family``'s selector on ``device`` under the
+    environment ``knobs``: its validation AUROC per grid point, and per
+    grid point one fit on all rows with each level's histogram
+    recorded."""
+    from transmogrifai_tpu_torch import models as TM
+    fam = TM.MODEL_FAMILIES[family]
+    res = tree_cv(family, X, y, device, knobs, fault)
     Xt, yt = torch.from_numpy(X).to(device), torch.from_numpy(y).to(device)
     w = torch.ones(len(y), device=device)
     fits = []
@@ -1115,25 +1176,41 @@ def gbt_side(X, y, device, knobs, fault=None):
             "fits": fits}
 
 
-def _node_gains(hist, node, lam, min_w, B):
+def split_knobs(hyper):
+    """(lambda, least child weight, least gain) of a tree grid point:
+    the boosted families' knobs, else the single tree's and the
+    forest's (whose grower takes lambda 1e-6)."""
+    if "regLambda" in hyper:
+        return (hyper["regLambda"], hyper["minChildWeight"],
+                hyper["minSplitGain"])
+    return (1e-6, hyper.get("minInstancesPerNode", 1.0),
+            hyper.get("minInfoGain", 0.0))
+
+
+def _node_gains(hist, node, m, lam, min_w, B):
     """The gain of every (feature, bin) split of ``node``, in f64, from
-    one level's (1, m*S, d*B) logistic histogram (stats g, h, w): the
-    grower's formula, -inf where a child would weigh under ``min_w``;
-    and each gain's scale, the sum of its three terms' magnitudes (what
-    f32 rounding of the histogram moves a gain in proportion to)."""
+    one level's (1, m*S, d*B) histogram of C classes (stats g_1..g_C,
+    h_1..h_C, w; C = 1 for a boosted logistic tree): the grower's
+    formula summed over the classes, -inf where a child would weigh
+    under ``min_w``; and each gain's scale, the sum of its terms'
+    magnitudes (what f32 rounding of the histogram moves a gain in
+    proportion to)."""
     h = hist[0].double()
     d = h.shape[1] // B
-    cum = h.reshape(-1, 3, d, B)[node].cumsum(-1)             # (3, d, B)
-    GL, HL, WL = cum[0, :, :-1], cum[1, :, :-1], cum[2, :, :-1]
-    G, H, W = cum[0, :, -1:], cum[1, :, -1:], cum[2, :, -1:]
+    S = h.shape[0] // m
+    C = (S - 1) // 2
+    cum = h.reshape(m, S, d, B)[node].cumsum(-1)              # (S, d, B)
+    GL, HL = cum[:C, :, :-1], cum[C:2 * C, :, :-1]
+    WL = cum[2 * C, :, :-1]
+    G, H, W = cum[:C, :, -1:], cum[C:2 * C, :, -1:], cum[2 * C, :, -1:]
 
     def score(g, hh):
         return g * g / (hh + lam + 1e-12)
     left, right, parent = score(GL, HL), score(G - GL, H - HL), score(G, H)
     ok = (WL >= min_w) & (W - WL >= min_w)
-    gain = torch.where(ok, left + right - parent,
-                       torch.full_like(left, -np.inf))
-    return gain, left.abs() + right.abs() + parent.abs()
+    gain = torch.where(ok, (left + right - parent).sum(0),
+                       torch.full_like(WL, -np.inf))
+    return gain, (left.abs() + right.abs() + parent.abs()).sum(0)
 
 
 def first_divergence(card, cpu, edges, hyper, max_depth):
@@ -1153,6 +1230,7 @@ def first_divergence(card, cpu, edges, hyper, max_depth):
     level = (i + 1).bit_length() - 1
     node = i - ((1 << level) - 1)
     B = edges.shape[1] + 1
+    lam, min_w, least_gain = split_knobs(hyper)
 
     def split(f, t):                      # (feature, bin); None: a leaf
         if torch.isinf(t):
@@ -1164,10 +1242,9 @@ def first_divergence(card, cpu, edges, hyper, max_depth):
            "split_card": sa, "split_cpu": sb}
     call = r * max_depth + level
     for side, h in (("card", ha[call]), ("cpu", hb[call])):
-        gains, scale = _node_gains(h, node, hyper["regLambda"],
-                                   hyper["minChildWeight"], B)
-        # a leaf's "gain" is minSplitGain, the bar a split must clear
-        val = [float(hyper["minSplitGain"]) if sp is None
+        gains, scale = _node_gains(h, node, 1 << level, lam, min_w, B)
+        # a leaf's "gain" is the least gain, the bar a split must clear
+        val = [float(least_gain) if sp is None
                else float(gains[sp]) if sp[1] >= 0 else float("nan")
                for sp in (sa, sb)]
         top = max([float(scale[sp]) for sp in (sa, sb)
@@ -1180,14 +1257,14 @@ def first_divergence(card, cpu, edges, hyper, max_depth):
     return out
 
 
-def gbt_compare(card, cpu, X):
-    """Card side against CPU side (:func:`gbt_side`): the largest AUROC
-    difference over grid points, and each grid point's first
-    divergence with the largest gain gap and histogram difference over
-    them."""
+def tree_compare(family, card, cpu, X):
+    """Card side against CPU side (:func:`tree_side`) of one tree
+    ``family``: the largest AUROC difference over grid points, and each
+    grid point's first divergence with the largest gain gap and
+    histogram difference over them."""
     from transmogrifai_tpu_torch import models as TM
     from transmogrifai_tpu_torch.models import trees
-    fam = TM.MODEL_FAMILIES["GBTClassifier"]
+    fam = TM.MODEL_FAMILIES[family]
     edges = trees._prep(torch.from_numpy(X), fam.n_bins,
                         torch.ones(len(X)))[1]
     divs = [first_divergence(a, b, edges, hyper, fam.max_depth_cap)
@@ -1343,12 +1420,13 @@ def _card_vs_cpu(X, y, device):
         - dt_cpu.summary["validationResults"][0]["gridMetrics"])))
     # ... and GBT on a row count the CPU fits in seconds
     Xs, ys = X[:GBT_PARITY_ROWS], y[:GBT_PARITY_ROWS]
+    exact = {"TM_KERNEL_EXACT": "1"}
     t2 = time.perf_counter()
-    card = gbt_side(Xs, ys, device, {"TM_KERNEL_EXACT": "1"})
+    card = tree_side("GBTClassifier", Xs, ys, device, exact)
     t3 = time.perf_counter()
-    cpu = gbt_side(Xs, ys, "cpu", {"TM_KERNEL_EXACT": "1"})
+    cpu = tree_side("GBTClassifier", Xs, ys, "cpu", exact)
     t4 = time.perf_counter()
-    gbt = gbt_compare(card, cpu, Xs)
+    gbt = tree_compare("GBTClassifier", card, cpu, Xs)
     if not (gbt["gain_gap_max"] <= GBT_GAP_RTOL
             and gbt["hist_diff_max"] <= GBT_HIST_RTOL):
         raise AssertionError(
@@ -2134,7 +2212,8 @@ def titanic_compare(card, cpu, reader, device, check=None):
     """The Titanic workflow fitted in exact mode on ``device`` (``card``)
     against its CPU fit: the same kept slots and removal reasons, LR's
     CV metrics within TITANIC_CV_ATOL, GBT's too or else the near-tie
-    analysis (:func:`_titanic_gbt_ties`), the same winner unless RF is
+    analysis on the card's checked matrix (:func:`tree_near_ties`), the
+    same winner unless RF is
     within TITANIC_RF_MARGIN of it. ``check`` (a test's planted fault)
     may rewrite a copy of the card's summary first."""
     import copy
@@ -2156,7 +2235,11 @@ def titanic_compare(card, cpu, reader, device, check=None):
                              f"vs CPU differ by {gaps['LogisticRegression']}")
     gbt = None
     if not gaps["GBTClassifier"] <= TITANIC_CV_ATOL:
-        gbt = _titanic_gbt_ties(card, reader, device, gm_card, gm_cpu)
+        X, y = checked_matrix(card, reader, "survived")
+        fam = "GBTClassifier"
+        gbt = tree_near_ties(fam, X, y, device, "Titanic",
+                             held=[("card", X, gm_card[fam]),
+                                   ("cpu", X, gm_cpu[fam])])
     w_card, w_cpu = cs["bestModel"], ps["bestModel"]
     if (w_card["family"], w_card["hyper"]) != (w_cpu["family"],
                                                w_cpu["hyper"]):
@@ -2174,32 +2257,45 @@ def titanic_compare(card, cpu, reader, device, check=None):
             "exact_winner_card": w_card, "exact_winner_cpu": w_cpu}
 
 
-def _titanic_gbt_ties(model, reader, device, gm_card, gm_cpu):
-    """GBT on the checker's Titanic matrix in exact mode, on the card
-    and on the CPU, each grid point refit with its histograms recorded:
-    the validation metrics must be the workflow's own on each side, the
-    trees may part only at a near tie and the AUROC per grid point
-    within GBT_PARITY_TOL. Returns the comparison."""
-    checker = _checker_of(model)
-    full = model.transform(reader)
-    X = np.ascontiguousarray(full.column(checker.output.name), np.float32)
-    y = full.column("survived").astype(np.float32)
+def checked_matrix(model, data, label):
+    """(the checker's output matrix of ``model`` on ``data``, the label
+    column), f32 numpy."""
+    full = model.transform(data)
+    X = np.ascontiguousarray(full.column(_checker_of(model).output.name),
+                             np.float32)
+    return X, np.asarray(full.column(label), np.float32)
+
+
+def tree_near_ties(family, X, y, device, what, held=()):
+    """One tree ``family``'s selector in exact mode on (X, y), on
+    ``device`` and on the CPU, each grid point refit with its histograms
+    recorded: the AUROC per grid point within TITANIC_CV_ATOL, or else
+    the trees may part only at a near tie (GBT_GAP_RTOL, GBT_HIST_RTOL)
+    and the AUROC within GBT_PARITY_TOL. ``held``: (side, matrix,
+    metrics) triples, a workflow's own CV metrics of ``family`` that the
+    selector on that side ("card": ``device``; "cpu") must give again,
+    exactly, on ``matrix``. Returns the comparison."""
     knobs = {"TM_KERNEL_EXACT": "1"}
-    card, cpu = gbt_side(X, y, device, knobs), gbt_side(X, y, "cpu", knobs)
-    for side, got, want in (("card", card, gm_card), ("cpu", cpu, gm_cpu)):
-        if list(got["metrics"]) != list(want["GBTClassifier"]):
-            raise AssertionError(f"Titanic GBT metrics recomputed on the "
-                                 f"{side} differ from the workflow's")
-    gbt = gbt_compare(card, cpu, X)
-    if not (gbt["gain_gap_max"] <= GBT_GAP_RTOL
-            and gbt["hist_diff_max"] <= GBT_HIST_RTOL
-            and gbt["metric_max_diff"] <= GBT_PARITY_TOL):
+    sides = {"card": tree_side(family, X, y, device, knobs),
+             "cpu": tree_side(family, X, y, "cpu", knobs)}
+    for side, Xh, want in held:
+        got = (sides[side]["metrics"] if np.array_equal(Xh, X)
+               else tree_cv(family, Xh, y, device if side == "card"
+                            else "cpu", knobs)["gridMetrics"])
+        if list(got) != list(want):
+            raise AssertionError(f"{what} {family} metrics recomputed on "
+                                 f"the {side} differ from the workflow's")
+    cmp = tree_compare(family, sides["card"], sides["cpu"], X)
+    if not (cmp["metric_max_diff"] <= TITANIC_CV_ATOL
+            or (cmp["gain_gap_max"] <= GBT_GAP_RTOL
+                and cmp["hist_diff_max"] <= GBT_HIST_RTOL
+                and cmp["metric_max_diff"] <= GBT_PARITY_TOL)):
         raise AssertionError(
-            f"Titanic GBT card vs CPU parts at a split that is no near "
-            f"tie or past {GBT_PARITY_TOL}: gain gap "
-            f"{gbt['gain_gap_max']}, histograms {gbt['hist_diff_max']}, "
-            f"AUROC {gbt['metric_max_diff']}: {gbt['divergence']}")
-    return {k: gbt[k] for k in ("metric_max_diff", "gain_gap_max",
+            f"{what} {family} card vs CPU parts at a split that is no "
+            f"near tie or past {GBT_PARITY_TOL}: gain gap "
+            f"{cmp['gain_gap_max']}, histograms {cmp['hist_diff_max']}, "
+            f"AUROC {cmp['metric_max_diff']}: {cmp['divergence']}")
+    return {k: cmp[k] for k in ("metric_max_diff", "gain_gap_max",
                                 "hist_diff_max", "divergence")}
 
 
@@ -3296,17 +3392,836 @@ def ctr_lines(ctr) -> list:
 
 
 # ---------------------------------------------------------------------------
+# features: every feature type through transmogrify
+
+#: the JAX bench's wide CRM workflow (bench.py:579-657), at the card's
+#: row count (the bench's 12,000 rows, TM_BENCH_WF_ROWS, is a CPU size)
+FEAT_CRM_ROWS = 50_000
+#: part 1 ran 104 s at 50,000 rows on the card (data, two trains, two
+#: save/load/score passes and 2 x 1,000 LocalScorer rows), past the
+#: ~90 s it may take, so it runs cut to FEAT_CRM_RUN_ROWS (printed)
+FEAT_CRM_RUN_ROWS = 40_000
+FEAT_CRM_MIN_ROWS = 12_000      # the least part 1 may be cut to
+FEAT_EVERY_ROWS = 100_000
+FEAT_PARITY_ROWS = 5_000        # card vs CPU in exact mode
+FEAT_LOCAL_ROWS = 1_000         # LocalScorer rows against the bulk scores
+FEAT_LOCAL_ATOL = 1e-5
+FEAT_MIN_AUROC = 0.7            # the every-type label is learnable
+#: OpLDA alone, at the TextArea default's widths (k = 8, V = 256)
+LDA_DOCS, LDA_VOCAB, LDA_K = 100_000, 256, 8
+LDA_EM_ITERS, LDA_E_ITERS = 30, 20
+#: lambda card vs CPU: tests/test_torch_text_advanced.py's tolerance
+#: (rtol, and atol as a share of max|lambda|)
+LDA_LAM_RTOL, LDA_LAM_ATOL_SCALE = 1e-4, 1e-6
+ARTIFACT_RTOL = 1e-4            # the checked-in JAX artifact's scores
+#: examples/op_house_log.py's bar: median relative dollar error
+HOUSE_MAX_REL_ERR = 0.15
+HOUSE_ROWS = 400
+#: the every-type parity gate's candidates (RF's draws differ by device)
+PARITY_CANDIDATES = [
+    ["LogisticRegression", {"regParam": [0.01, 0.1]}],
+    ["DecisionTreeClassifier", None], ["GBTClassifier", None]]
+JAX_ARTIFACT = ("tests", "data", "jax_features_model")
+
+
+def _sub(pkg, name: str):
+    """Submodule ``name`` of the package ``pkg`` (the port here; the
+    tests hand in the JAX package to build the same workflow there)."""
+    import importlib
+    return importlib.import_module(f"{pkg.__name__}.{name}")
+
+
+def crm_data(pkg, n: int, seed: int = 0):
+    """``bench.py::_workflow_train_data`` at ``n`` rows: 12 Real and 6
+    Binary columns (5% missing), 8 PickLists of 30 levels, 6
+    MultiPickLists over 60 tags, 4 Dates, 8 RealMaps of 32 keys, 4
+    TextMaps of 24 keys x 8 values, 2 BinaryMaps of 32 keys and 4
+    DateMaps of 16 keys (25% key presence), 2 hashed Texts and the
+    label as written: 56 predictors. The bench's generator seed is 3."""
+    ft = pkg.types
+    rng = np.random.default_rng(3 + seed)
+    cols, schema = {}, {}
+    for i in range(12):
+        cols[f"r{i}"] = np.where(rng.random(n) < 0.05, np.nan,
+                                 rng.normal(size=n))
+        schema[f"r{i}"] = ft.Real
+    for i in range(6):
+        b = (rng.random(n) < 0.4).astype(np.float64)
+        cols[f"b{i}"] = np.where(rng.random(n) < 0.05, np.nan, b)
+        schema[f"b{i}"] = ft.Binary
+    cats = [f"cat{j:02d}" for j in range(30)]
+    for i in range(8):
+        v = np.asarray(cats, object)[rng.integers(0, 30, n)]
+        v[rng.random(n) < 0.05] = None
+        cols[f"c{i}"] = list(v)
+        schema[f"c{i}"] = ft.PickList
+    tags = [f"tag{j}" for j in range(60)]
+    for i in range(6):
+        sizes = rng.integers(0, 6, n)
+        picks = rng.integers(0, 60, int(sizes.sum()))
+        out, at = [], 0
+        for s in sizes:
+            out.append(frozenset(tags[p] for p in picks[at:at + s]))
+            at += s
+        cols[f"m{i}"] = out
+        schema[f"m{i}"] = ft.MultiPickList
+    for i in range(4):
+        cols[f"d{i}"] = rng.integers(int(1.5e12), int(1.7e12), n
+                                     ).astype(np.float64)
+        schema[f"d{i}"] = ft.Date
+    map_keys = [f"k{j:02d}" for j in range(32)]
+
+    def map_col(n_keys, make_value, presence=0.25):
+        present = rng.random((n, n_keys)) < presence
+        vals = rng.random((n, n_keys))
+        return [{map_keys[j]: make_value(vals[r, j])
+                 for j in range(n_keys) if present[r, j]}
+                for r in range(n)]
+
+    for i in range(8):
+        cols[f"rm{i}"] = map_col(32, float)
+        schema[f"rm{i}"] = ft.RealMap
+    for i in range(4):
+        cols[f"tm{i}"] = map_col(24, lambda v: f"v{int(v * 8)}")
+        schema[f"tm{i}"] = ft.TextMap
+    for i in range(2):
+        cols[f"bm{i}"] = map_col(32, lambda v: bool(v < 0.5))
+        schema[f"bm{i}"] = ft.BinaryMap
+    for i in range(4):
+        cols[f"dm{i}"] = map_col(
+            16, lambda v: float(int(1.5e12 + v * 2e11)))
+        schema[f"dm{i}"] = ft.DateMap
+    for i in range(2):
+        cols[f"t{i}"] = [f"token{int(v):06d} token{int(w):06d}"
+                         for v, w in zip(rng.integers(0, 50_000, n),
+                                         rng.integers(0, 50_000, n))]
+        schema[f"t{i}"] = ft.Text
+    drive = np.nan_to_num(cols["r0"]) - np.nan_to_num(cols["r1"]) \
+        + np.nan_to_num(cols["b0"])
+    cols["label"] = (rng.random(n) < 1 / (1 + np.exp(-drive))
+                     ).astype(np.float64)
+    schema["label"] = ft.RealNN
+    return pkg.Dataset.from_dict(cols, schema)
+
+
+def crm_workflow(pkg, ds, default_list: bool, candidates=None):
+    """``bench.py::_workflow_train_build(automl=True)`` (transmogrify,
+    SanityChecker, 2-fold LR) or, with ``default_list``, the same
+    features through ``with_cross_validation()``'s default candidate
+    list with ``with_raw_feature_filter(min_fill_rate=0.001)`` as
+    ``bench.py:2770`` adds it (``candidates``: another list, for a CPU
+    rehearsal). Returns (workflow, selector)."""
+    ft, ops = pkg.types, _sub(pkg, "ops")
+    M, W = _sub(pkg, "models"), _sub(pkg, "workflow")
+    pkg.reset_uids()
+    label = pkg.FeatureBuilder.of(ft.RealNN, "label").from_column() \
+        .as_response()
+    preds = [pkg.FeatureBuilder.of(t, name).from_column().as_predictor()
+             for name, t in ds.schema.items() if name != "label"]
+    checked = ops.SanityChecker().set_input(label,
+                                            ops.transmogrify(preds)).output
+    if default_list:
+        sel = M.BinaryClassificationModelSelector.with_cross_validation(
+            candidates=candidates)
+        wf = W.Workflow([sel.set_input(label, checked).output]) \
+            .with_raw_feature_filter(min_fill_rate=0.001)
+    else:
+        sel = M.BinaryClassificationModelSelector.with_cross_validation(
+            n_folds=2, candidates=[["LogisticRegression",
+                                    {"regParam": [0.01],
+                                     "elasticNetParam": [0.0]}]])
+        wf = W.Workflow([sel.set_input(label, checked).output])
+    return wf, sel
+
+
+_DOMAINS = ("corp.com", "free.net", "mail.org")
+_FIRST = ("James", "Mary", "Robert", "Elena", "Carlos", "Yuki", "Omar",
+          "Linda")
+_LAST = ("Smith", "Garcia", "Lee", "Brown", "Davis", "Wilson")
+
+
+def every_type_data(pkg, n: int, seed: int = 0):
+    """One column of each type the CRM set lacks, from the package's
+    ``testkit`` (its seeded generators, one draw a row;
+    ``TestFeatureBuilder``): Email, URL, Phone, Base64, DateList,
+    TextArea, TextList, Geolocation and the map types IntegralMap,
+    CurrencyMap, DateTimeMap, PickListMap, MultiPickListMap, TextAreaMap
+    and GeolocationMap, and a seller-name Text. The label depends on the email's domain, the TextArea's topic
+    (one of LDA_K, 30 words each) and the IntegralMap's key ``a``.
+    Returns (Dataset, {name: Feature})."""
+    tk, ft = _sub(pkg, "testkit"), pkg.types
+    rng = np.random.default_rng(100 + seed)
+    dom = rng.integers(0, 3, n)
+    topic = rng.integers(0, LDA_K, n)
+    a = rng.integers(-5, 6, n)
+    has_a = rng.random(n) < 0.8
+    # LDA_K topics of 30 words each; a document draws 12 of its topic's
+    vocab = np.asarray([f"t{t}w{j}" for t in range(LDA_K)
+                        for j in range(30)], object)
+    words = vocab[topic[:, None] * 30 + rng.integers(0, 30, (n, 12))]
+    logit = (2.0 * (dom == 0) - 1.5 * (dom == 2)
+             + 1.8 * (topic < LDA_K // 2) + 0.5 * np.where(has_a, a, 0)
+             - 0.9)
+    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-logit))).astype(float)
+    s = 1000 * seed
+    imap = tk.RandomMap.of(tk.RandomIntegral.integers(
+        -5, 6, wtype=ft.Integral, seed=s + 1), min_size=0, max_size=3,
+        seed=s + 2).take(n)
+    for i in range(n):
+        imap[i] = {k: v for k, v in imap[i].items() if k != "a"}
+        if has_a[i]:
+            imap[i]["a"] = int(a[i])
+    cols = {
+        "email": (ft.Email, [f"user{i % 997}@{_DOMAINS[d]}"
+                             for i, d in enumerate(dom)]),
+        "site": (ft.URL, tk.RandomText.urls(seed=s + 3)
+                 .with_probability_of_empty(0.1).take(n)),
+        "phone": (ft.Phone, tk.RandomText.phones(seed=s + 4)
+                  .with_probability_of_empty(0.1).take(n)),
+        "blob": (ft.Base64, tk.RandomText.base64(seed=s + 5).take(n)),
+        "visits": (ft.DateList, tk.RandomList.of_dates(seed=s + 6).take(n)),
+        "notes": (ft.TextArea, [" ".join(r) for r in words]),
+        "tags": (ft.TextList, tk.RandomList.of_texts(seed=s + 7).take(n)),
+        "where": (ft.Geolocation, tk.RandomGeolocation.of(
+            seed=s + 8).with_probability_of_empty(0.1).take(n)),
+        "imap": (ft.IntegralMap, imap),
+        "cmap": (ft.CurrencyMap, tk.RandomMap.of(
+            tk.RandomReal.lognormal(wtype=ft.Currency, seed=s + 9),
+            seed=s + 10).take(n)),
+        "tmap": (ft.DateTimeMap, tk.RandomMap.of(
+            tk.RandomIntegral.dates(seed=s + 11), wtype=ft.DateTimeMap,
+            seed=s + 12).take(n)),
+        "pmap": (ft.PickListMap, tk.RandomMap.of(
+            tk.RandomText.picklists(["x", "y", "z"], seed=s + 13),
+            seed=s + 14).take(n)),
+        "mmap": (ft.MultiPickListMap, tk.RandomMap.of(
+            tk.RandomMultiPickList.of(["p", "q", "r", "s"], seed=s + 15),
+            seed=s + 16).take(n)),
+        "amap": (ft.TextAreaMap, tk.RandomMap.of(
+            tk.RandomText.text_areas(seed=s + 17), seed=s + 18).take(n)),
+        "gmap": (ft.GeolocationMap, tk.RandomMap.of(
+            tk.RandomGeolocation.of(seed=s + 19), seed=s + 20).take(n)),
+        "seller": (ft.Text, [f"{_FIRST[i % 8]} {_LAST[(i // 8) % 6]}"
+                             for i in range(n)]),
+        "label": (ft.RealNN, list(y)),
+    }
+    return tk.TestFeatureBuilder.of(cols, response="label")
+
+
+def every_type_workflow(pkg, feats, candidates=None, folds: int = 3,
+                        textarea: str = "lda"):
+    """transmogrify over every column but the seller, whose name column
+    goes through ``SmartTextVectorizer(sensitive_feature_mode="remove")``
+    into the same combiner; SanityChecker; the binary selector (3-fold
+    CV; ``candidates`` None: the default list; ``textarea``: the
+    TextArea route, ``transmogrify``'s). Returns (workflow, selector)."""
+    ops, M, W = _sub(pkg, "ops"), _sub(pkg, "models"), _sub(pkg, "workflow")
+    seller = ops.SmartTextVectorizer(sensitive_feature_mode="remove") \
+        .set_input(feats["seller"]).output
+    fv = ops.transmogrify([f for n, f in feats.items()
+                           if n not in ("label", "seller")],
+                          textarea=textarea)
+    both = ops.VectorsCombiner().set_input(seller, fv).output
+    checked = ops.SanityChecker().set_input(feats["label"], both).output
+    sel = M.BinaryClassificationModelSelector.with_cross_validation(
+        n_folds=folds, candidates=candidates)
+    return W.Workflow([sel.set_input(feats["label"], checked).output]), sel
+
+
+def _stage_walls(model) -> dict:
+    """Fit seconds by kind from ``stageTimings``: the SanityChecker, the
+    selector, and every other stage (the feature layer)."""
+    walls = {"feature_layer": 0.0, "checker": 0.0, "selector": 0.0}
+    for st in model.train_summaries["stageTimings"]["stages"]:
+        kind = {"SanityCheckerModel": "checker",
+                "SelectedModel": "selector"}.get(st["operation"],
+                                                 "feature_layer")
+        walls[kind] += st["fit_s"]
+    return walls
+
+
+def _trained(wf, ds, device):
+    """Train ``wf`` on ``device``: (model, wall s, device busy s, device
+    events). On the card the train runs under torch.profiler (CUDA
+    activity only) for the busy share; on the CPU there is none."""
+    held = []
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        held.append(wf.train(ds, device=device))
+        return held[0], time.perf_counter() - t0, None, None
+    busy_s, events, wall = _device_busy(
+        lambda: held.append(wf.train(ds, device=device)))
+    return held[-1], wall, busy_s, events
+
+
+def _first_probs(model, ds):
+    return _probs(model, model.score(ds))
+
+
+def _save_load_score(model, ds, device, workdir, name, local_rows=0):
+    """Save, load on ``device`` and score ``ds`` in bulk: the loaded
+    model's scores must equal the trained one's bitwise; LocalScorer on
+    ``local_rows`` label-free rows within FEAT_LOCAL_ATOL of them."""
+    from transmogrifai_tpu_torch.local import LocalScorer
+    from transmogrifai_tpu_torch.workflow import WorkflowModel
+    sync = _sync_of(device)
+    first = _first_probs(model, ds)
+    path = os.path.join(workdir, name)
+    t0 = time.perf_counter()
+    model.save(path)
+    loaded = WorkflowModel.load(path, device=device)
+    save_load = time.perf_counter() - t0
+    sync()
+    t0 = time.perf_counter()
+    scored = loaded.score(ds)
+    sync()
+    score_wall = time.perf_counter() - t0
+    again = _probs(loaded, scored)
+    if not np.array_equal(again, first):
+        raise AssertionError(f"{name}: the loaded model's scores differ "
+                             f"from the trained one's")
+    if not (np.isfinite(first).all() and (first >= 0).all()
+            and (first <= 1).all()):
+        raise AssertionError(f"{name}: scores malformed")
+    label = next(f.name for f in loaded.raw_features if f.is_response)
+    local = LocalScorer(loaded, device=device)
+    res = loaded.result_features[0].name
+    k = min(local_rows, ds.n_rows)
+    t0 = time.perf_counter()
+    lp = np.asarray([local({c: v for c, v in r.items() if c != label})
+                     [res]["probability_1"] for r in ds.head(k).rows()])
+    local_wall = time.perf_counter() - t0
+    local_err = float(np.abs(lp - first[:k]).max()) if k else None
+    if k and not local_err <= FEAT_LOCAL_ATOL:
+        raise AssertionError(f"{name}: LocalScorer differs from the bulk "
+                             f"scores by {local_err}")
+    return {"save_load_wall_s": save_load, "score_wall_s": score_wall,
+            "score_rows_per_s": ds.n_rows / score_wall,
+            "loaded_scores_bitwise": True, "local_rows": k,
+            "local_wall_s": local_wall,
+            "local_max_abs_err": local_err}, first
+
+
+def _train_report(model, sel, wall, busy_s, events, launches, device):
+    summ = model.selected_model().summary
+    families = [c[0] for c in sel.params["candidates"]]
+    cuda = torch.device(device).type == "cuda"
+    expected = _expected_levels(summ, families) if cuda else 0
+    if launches != expected:
+        raise AssertionError(f"{launches} histogram launches, the "
+                             f"selector grew {expected} tree levels")
+    checker = _checker_of(model)
+    return {"train_wall_s": wall, **{f"{k}_fit_s": v for k, v in
+                                     _stage_walls(model).items()},
+            "device_busy_s": busy_s, "device_events": events,
+            "device_busy_share": None if busy_s is None else busy_s / wall,
+            "histogram_launches": launches, "expected_launches": expected,
+            "features_in": checker.summary["featuresIn"],
+            "kept_slots": len(checker.params["keep_indices"]),
+            "winner": summ["bestModel"],
+            "holdout_auroc": summ["holdoutEvaluation"].get("AuROC"),
+            "family_wall_s": summ["wallSeconds"]["families"]}
+
+
+def crm_part(seed, device, workdir, rows=FEAT_CRM_ROWS, cut_from=None,
+             candidates=None):
+    """Part 1: the bench's wide CRM workflow at ``rows`` rows, trained
+    twice on ``device`` — the bench's AutoML build and the default list
+    with the raw feature filter — each saved, loaded and scored."""
+    import transmogrifai_tpu_torch as P
+    from transmogrifai_tpu_torch.models import kernels as tk
+    if torch.device(device).type == "cuda" and rows < FEAT_CRM_MIN_ROWS:
+        raise ValueError(f"the CRM workflow runs at >= {FEAT_CRM_MIN_ROWS} "
+                         f"rows on the card, not {rows}")
+    t0 = time.perf_counter()
+    ds = crm_data(P, rows, seed)
+    data_wall = time.perf_counter() - t0
+    out = {"rows": rows, "rows_cut_from": cut_from,
+           "predictors": len(ds.schema) - 1, "data_wall_s": data_wall}
+    for name, default_list in (("automl", False), ("default_list", True)):
+        wf, sel = crm_workflow(P, ds, default_list, candidates)
+        shapes = []
+        tk.histogram_grid.launches = 0
+        with hist_hook(shapes=shapes):
+            model, wall, busy_s, events = _trained(wf, ds, device)
+        rep = _train_report(model, sel, wall, busy_s, events,
+                            tk.histogram_grid.launches, device)
+        rep["hist_check"] = path_hist_check(shapes, f"crm_{name}", seed)
+        scoring, _ = _save_load_score(model, ds, device, workdir,
+                                      f"crm_{name}", FEAT_LOCAL_ROWS)
+        rep.update(scoring)
+        if default_list:
+            rff = model.train_summaries.get("rawFeatureFilter")
+            if rff is None:
+                raise AssertionError("the raw feature filter left no "
+                                     "rawFeatureFilter summary")
+            rep["raw_filter_excluded"] = sorted(rff["exclusionReasons"])
+        out[name] = rep
+    if out["predictors"] != 56:
+        raise AssertionError(f"{out['predictors']} CRM predictors, not 56")
+    return out
+
+
+def _lda_stage(model):
+    return next(st for st in model.stages
+                if type(st).__name__ == "LDAModel")
+
+
+def _sensitive(model):
+    info = model.model_insights().get("sensitiveFeatureInformation") or []
+    hit = [s for s in info if s.get("name") == "seller"
+           or s.get("featureName") == "seller"]
+    if not hit:
+        raise AssertionError(f"the seller column was not reported "
+                             f"sensitive: {info}")
+    return hit
+
+
+def every_part(seed, device, workdir, rows=FEAT_EVERY_ROWS, candidates=None):
+    """Part 2: every type through transmogrify -> SanityChecker -> the
+    default binary list -> save/load -> scoring on ``device``."""
+    import transmogrifai_tpu_torch as P
+    from transmogrifai_tpu_torch.models import kernels as tk
+    P.reset_uids()
+    t0 = time.perf_counter()
+    ds, feats = every_type_data(P, rows, seed)
+    data_wall = time.perf_counter() - t0
+    wf, sel = every_type_workflow(P, feats, candidates)
+    shapes = []
+    tk.histogram_grid.launches = 0
+    with hist_hook(shapes=shapes):
+        model, wall, busy_s, events = _trained(wf, ds, device)
+    rep = _train_report(model, sel, wall, busy_s, events,
+                        tk.histogram_grid.launches, device)
+    rep["hist_check"] = path_hist_check(shapes, "every_type", seed)
+    if not rep["holdout_auroc"] >= FEAT_MIN_AUROC:
+        raise AssertionError(f"every-type holdout AUROC "
+                             f"{rep['holdout_auroc']} < {FEAT_MIN_AUROC}")
+    scoring, _ = _save_load_score(model, ds, device, workdir, "every")
+    rep.update(scoring)
+    rep.update(rows=rows, data_wall_s=data_wall,
+               sensitive=_sensitive(model),
+               lda_vocab=len(_lda_stage(model).params["vocab"]))
+    return rep
+
+
+def _lda_counts(seed, n=LDA_DOCS, V=LDA_VOCAB, k=LDA_K, length=40):
+    """A (n, V) count matrix of ``k`` planted topics, from numpy."""
+    rng = np.random.default_rng(200 + seed)
+    topics = rng.dirichlet(np.full(V, 0.05), size=k)
+    doc_topic = rng.integers(0, k, n)
+    counts = np.zeros((n, V), np.float32)
+    for t in range(k):
+        rows = np.nonzero(doc_topic == t)[0]
+        counts[rows] = rng.multinomial(length, topics[t], size=len(rows))
+    return counts
+
+
+def lda_cost(n, V, k, em_iters=LDA_EM_ITERS, e_iters=LDA_E_ITERS):
+    """(bytes, flops) the fit must spend: the count matrix read once per
+    E-step iteration (a fused step reads it once for both products) and
+    once more for each EM step's sufficient statistics, and the
+    E-steps' two (n, K) x (K, V) products plus each EM step's
+    sufficient statistics. (Counting two reads per E-step iteration
+    would about double these bytes.)"""
+    steps = em_iters * e_iters
+    byts = em_iters * (e_iters + 1) * n * V * 4
+    flops = steps * 4 * n * k * V + em_iters * 4 * n * k * V
+    return byts, flops
+
+
+def lda_part(seed, device, docs=LDA_DOCS):
+    """``fit_lda`` alone at (LDA_DOCS, LDA_VOCAB, LDA_K): wall, device
+    time and operations (torch.profiler) beside its bound, and on the
+    card a fit under ``set_sync_debug_mode("error")`` (no host sync)."""
+    from transmogrifai_tpu_torch.ops import lda as L
+    from transmogrifai_tpu_torch.workflow import to_device
+    counts = to_device(_lda_counts(seed, docs), torch.device(device))
+    sync = _sync_of(device)
+
+    def fit():
+        return L.fit_lda(counts, LDA_K, 0.1, 0.01, LDA_EM_ITERS,
+                         LDA_E_ITERS, seed)
+    lam = fit()                               # warm (library handles)
+    sync()
+    t0 = time.perf_counter()
+    lam = fit()
+    sync()
+    wall = time.perf_counter() - t0
+    if not (torch.isfinite(lam).all() and (lam > 0).all()):
+        raise AssertionError("fit_lda's lambda is not finite and positive")
+    byts, flops = lda_cost(*counts.shape, LDA_K)
+    out = {"shape": [int(counts.shape[0]), int(counts.shape[1]), LDA_K],
+           "em_iters": LDA_EM_ITERS, "e_iters": LDA_E_ITERS,
+           "wall_ms": wall * 1e3,
+           "bound_ms": max(byts / HBM_BYTES_PER_S,
+                           flops / F32_FLOPS_PER_S) * 1e3,
+           "bound_by": ("bytes" if byts / HBM_BYTES_PER_S
+                        >= flops / F32_FLOPS_PER_S else "operations"),
+           "bytes": byts, "flops": flops}
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fit()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        prof, _ = profiled(fit, host=False)
+        busy_us, events = _device_time_us(prof)
+        out.update(device_ms=busy_us / 1e3, device_ops=events,
+                   sync_free=True)
+    return out
+
+
+def parity_part(seed, device, rows=FEAT_PARITY_ROWS, check=None):
+    """The every-type workflow at ``rows`` rows in exact mode on
+    ``device`` and on the CPU (PARITY_CANDIDATES): the same LDA
+    vocabulary and kept slots, lambda within the test's tolerance, LR's
+    CV metrics within LINEAR_CPU_TOL. The topics differ card vs CPU in
+    their last bits, which can move a tree split at a bin edge, so the
+    two workflows' DT and GBT CV metrics are held to GBT_PARITY_TOL;
+    then DT and GBT on the card's checked matrix, card against CPU, as
+    Titanic's GBT is held (:func:`tree_near_ties`), each side's selector
+    recomputed on its own workflow's matrix to that workflow's metrics.
+    ``check`` (a test's planted fault) may rewrite the card model's
+    lambda first."""
+    import transmogrifai_tpu_torch as P
+    models = {}
+    for side in (device, "cpu"):
+        P.reset_uids()
+        ds, feats = every_type_data(P, rows, seed)
+        wf, _ = every_type_workflow(P, feats, PARITY_CANDIDATES)
+        with env(TM_KERNEL_EXACT="1"):
+            models[side] = wf.train(ds, device=side)
+    card, cpu = models[device], models["cpu"]
+    la, lb = _lda_stage(card), _lda_stage(cpu)
+    if la.params["vocab"] != lb.params["vocab"]:
+        raise AssertionError("LDA vocabularies differ card vs CPU")
+    lam_card, lam_cpu = la.lam.cpu().numpy(), lb.lam.cpu().numpy()
+    if check is not None:
+        lam_card = check(lam_card)
+    lam_gap = np.abs(lam_card - lam_cpu)
+    lam_ok = lam_gap <= (LDA_LAM_RTOL * np.abs(lam_cpu)
+                         + LDA_LAM_ATOL_SCALE * np.abs(lam_cpu).max())
+    if not lam_ok.all():
+        raise AssertionError(f"LDA lambda card vs CPU past the tolerance: "
+                             f"max gap {float(lam_gap.max())}")
+    kc, kp = (_checker_of(m).params["keep_indices"] for m in (card, cpu))
+    if kc != kp:
+        raise AssertionError("kept slots differ card vs CPU")
+    gm_card, gm_cpu = (_grid_metrics(m.selected_model().summary)
+                       for m in (card, cpu))
+    gaps = {f: float(np.abs(np.subtract(gm_card[f], gm_cpu[f])).max())
+            for f in gm_card}
+    if not gaps["LogisticRegression"] <= LINEAR_CPU_TOL["binary"]:
+        raise AssertionError(f"LR CV metrics card vs CPU differ by "
+                             f"{gaps['LogisticRegression']}")
+    trees = {}
+    with env(TM_KERNEL_EXACT="1"):
+        Xc, y = checked_matrix(card, ds, "label")
+        Xp, _ = checked_matrix(cpu, ds, "label")
+    for fam in ("DecisionTreeClassifier", "GBTClassifier"):
+        if not gaps[fam] <= GBT_PARITY_TOL:
+            raise AssertionError(f"{fam} CV metrics card vs CPU differ by "
+                                 f"{gaps[fam]}")
+        trees[fam] = tree_near_ties(fam, Xc, y, device, "every-type",
+                                    held=[("card", Xc, gm_card[fam]),
+                                          ("cpu", Xp, gm_cpu[fam])])
+    return {"rows": rows, "lda_vocab": len(la.params["vocab"]),
+            "lam_max_abs_gap": float(lam_gap.max()),
+            "lam_max_rel_gap": float((lam_gap / np.abs(lam_cpu)).max()),
+            "kept_slots": len(kc), "cv_gap": gaps,
+            "matrix_max_abs_gap": float(np.abs(Xc - Xp).max()),
+            "trees_on_card_matrix": trees,
+            "winner_card": card.selected_model().summary["bestModel"],
+            "winner_cpu": cpu.selected_model().summary["bestModel"]}
+
+
+def house_dataset(n=HOUSE_ROWS, seed=0):
+    """``examples/op_house_log.py::make_dataset`` with the port's
+    Dataset."""
+    from transmogrifai_tpu_torch.dataset import Dataset
+    from transmogrifai_tpu_torch.features import types as ft
+    rng = np.random.default_rng(seed)
+    sqft = rng.uniform(40, 400, n)
+    rooms = rng.integers(1, 8, n).astype(float)
+    age = rng.uniform(0, 80, n)
+    first = ["James", "Mary", "Robert", "Elena", "Carlos", "Yuki",
+             "Omar", "Linda"]
+    last = ["Smith", "Garcia", "Lee", "Brown", "Davis", "Wilson"]
+    seller = [f"{first[i % 8]} {last[i % 6]}" for i in range(n)]
+    price = np.exp(10.0 + 0.004 * sqft + 0.08 * rooms - 0.003 * age
+                   + 0.08 * rng.normal(size=n))
+    return Dataset(
+        {"sqft": sqft, "rooms": rooms, "age": age,
+         "seller": np.asarray(seller, dtype=object), "price": price},
+        {"sqft": ft.Real, "rooms": ft.Integral, "age": ft.Real,
+         "seller": ft.Text, "price": ft.RealNN})
+
+
+def house_workflow():
+    """``examples/op_house_log.py::build_workflow`` with the port's
+    imports."""
+    from transmogrifai_tpu_torch import FeatureBuilder, models as M
+    from transmogrifai_tpu_torch.features import types as ft
+    from transmogrifai_tpu_torch.ops import (PredictionDescaler,
+                                             ScalerTransformer)
+    from transmogrifai_tpu_torch.ops.transmogrifier import transmogrify
+    from transmogrifai_tpu_torch.ops.vectorizers import (SmartTextVectorizer,
+                                                         VectorsCombiner)
+    from transmogrifai_tpu_torch.workflow import Workflow
+    price = FeatureBuilder.of(ft.RealNN, "price").from_column() \
+        .as_response()
+    nums = [FeatureBuilder.of(t, n).from_column().as_predictor()
+            for n, t in (("sqft", ft.Real), ("rooms", ft.Integral),
+                         ("age", ft.Real))]
+    seller = FeatureBuilder.of(ft.Text, "seller").from_column() \
+        .as_predictor()
+    log_price = ScalerTransformer(scaling_type="log") \
+        .set_input(price).output
+    seller_vec = SmartTextVectorizer(sensitive_feature_mode="remove") \
+        .set_input(seller).output
+    fv = VectorsCombiner().set_input(
+        seller_vec, transmogrify(nums)).output
+    pred = M.RegressionModelSelector.with_train_validation_split(
+        train_ratio=0.75,
+        candidates=[["LinearRegression", {"regParam": [0.001, 0.01]}],
+                    ["GBTRegressor", None]],
+    ).set_input(log_price, fv).output
+    served = PredictionDescaler().set_input(pred, log_price).output
+    return Workflow([served]), served
+
+
+def house_part(device):
+    """Part 3: ``examples/op_house_log.py`` through the port on
+    ``device``: the seller column detected and removed (its verdict in
+    ``sensitiveFeatureInformation``), predictions descaled to dollars
+    (the example's median relative error bar), label-free row scoring."""
+    from transmogrifai_tpu_torch.features import reset_uids
+    from transmogrifai_tpu_torch.local import LocalScorer
+    from transmogrifai_tpu_torch.models import kernels as tk
+    reset_uids()
+    ds = house_dataset()
+    wf, served = house_workflow()
+    tk.histogram_grid.launches = 0
+    t0 = time.perf_counter()
+    model = wf.train(ds, device=device)
+    _sync_of(device)()
+    wall = time.perf_counter() - t0
+    launches = tk.histogram_grid.launches
+    out = np.asarray(model.score(ds).column(served.name), np.float64)
+    y = np.asarray(ds.column("price"), np.float64)
+    rel = float(np.median(np.abs(out - y) / y))
+    if not rel < HOUSE_MAX_REL_ERR:
+        raise AssertionError(f"op_house_log median relative dollar error "
+                             f"{rel} >= {HOUSE_MAX_REL_ERR}")
+    sens = _sensitive(model)
+    seller_vec = next(st for st in model.stages
+                      if type(st).__name__ == "SmartTextModel")
+    width = len(seller_vec.manifest())
+    if width:
+        raise AssertionError(f"the seller column kept {width} slots")
+    row = {k: v for k, v in next(iter(ds.head(1).rows())).items()
+           if k != "price"}
+    local = LocalScorer(model, device=device)(row)[served.name]
+    if not (np.isfinite(local) and abs(local - out[0]) <= 1e-3 * out[0]):
+        raise AssertionError(f"label-free row score {local} vs bulk "
+                             f"{out[0]}")
+    return {"train_wall_s": wall, "median_rel_dollar_error": rel,
+            "sensitive": sens, "seller_slots": width,
+            "label_free_row_score": float(local),
+            "histogram_launches": launches,
+            "winner": model.selected_model().summary["bestModel"]}
+
+
+def artifact_part(device):
+    """Part 4: the workflow the JAX package saved on the CPU
+    (``tests/data/jax_features_model``: parsers, a map vectorizer,
+    OpLDA, a RawFeatureFilter summary) loaded by the port on
+    ``device``; its scores against the JAX package's stored beside it
+    (ARTIFACT_RTOL)."""
+    from transmogrifai_tpu_torch.workflow import WorkflowModel
+    base = _repo_file(*JAX_ARTIFACT)
+    model = WorkflowModel.load(os.path.join(base, "model"), device=device)
+    with open(os.path.join(base, "rows.json")) as f:
+        rows = json.load(f)
+    with open(os.path.join(base, "scores.json")) as f:
+        want = np.asarray(json.load(f), np.float64)
+    got = _first_probs(model, rows)
+    err = float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                        1e-12)))
+    if not err <= ARTIFACT_RTOL:
+        raise AssertionError(f"the JAX artifact's scores differ by rtol "
+                             f"{err}")
+    kinds = sorted({type(st).__name__ for st in model.stages})
+    for need in ("LDAModel", "EmailToPickList", "RealMapModel"):
+        if need not in kinds:
+            raise AssertionError(f"the JAX artifact holds no {need}")
+    if "rawFeatureFilter" not in model.train_summaries:
+        raise AssertionError("the JAX artifact has no rawFeatureFilter "
+                             "summary")
+    return {"rows": len(rows), "max_rel_err": err, "stages": kinds}
+
+
+def _part_done(name: str, t0: float) -> float:
+    wall = time.perf_counter() - t0
+    print(f"phase features: part {name} done in {wall:.3f} s", flush=True)
+    return wall
+
+
+def features_phase(seed: int, device="cuda", crm_rows=FEAT_CRM_RUN_ROWS,
+                   every_rows=FEAT_EVERY_ROWS, parity_rows=FEAT_PARITY_ROWS,
+                   lda_docs=LDA_DOCS, candidates=None, check=None):
+    """Every feature type through transmogrify on ``device``: the wide
+    CRM workflow, the every-type workflow, OpLDA alone, the every-type
+    card-vs-CPU gate, op_house_log and the JAX artifact. The sizes and
+    ``candidates`` (in place of the two default lists) exist for a CPU
+    rehearsal."""
+    import shutil
+    import tempfile
+    from transmogrifai_tpu_torch.models import kernels as tk
+    from transmogrifai_tpu_torch.models import serving_kernels as sk
+    workdir = tempfile.mkdtemp(prefix="tm_features_phase_")
+    before = {"fused_linear_scores": sk.fused_linear_scores.launches,
+              "ring_allreduce": tk.ring_allreduce.launches}
+    walls = {}
+    try:
+        t0 = time.perf_counter()
+        cut = crm_rows if crm_rows < FEAT_CRM_ROWS else None
+        crm = crm_part(seed, device, workdir, crm_rows,
+                       cut_from=FEAT_CRM_ROWS if cut else None,
+                       candidates=candidates)
+        walls["crm"] = _part_done("crm", t0)
+        t0 = time.perf_counter()
+        every = every_part(seed, device, workdir, every_rows, candidates)
+        walls["every_type"] = _part_done("every_type", t0)
+        t0 = time.perf_counter()
+        lda_out = lda_part(seed, device, lda_docs)
+        walls["lda"] = _part_done("lda", t0)
+        t0 = time.perf_counter()
+        parity = parity_part(seed, device, parity_rows, check=check)
+        walls["parity"] = _part_done("parity", t0)
+        t0 = time.perf_counter()
+        house = house_part(device)
+        walls["house"] = _part_done("house", t0)
+        t0 = time.perf_counter()
+        art = artifact_part(device)
+        walls["artifact"] = _part_done("artifact", t0)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    others = {"fused_linear_scores": sk.fused_linear_scores.launches
+              - before["fused_linear_scores"],
+              "ring_allreduce": tk.ring_allreduce.launches
+              - before["ring_allreduce"]}
+    if any(others.values()):
+        raise AssertionError(f"the features phase launched {others}")
+    hist = (crm["automl"]["histogram_launches"]
+            + crm["default_list"]["histogram_launches"]
+            + every["histogram_launches"] + house["histogram_launches"])
+    checks = [r["hist_check"] for r in (crm["automl"], crm["default_list"],
+                                        every) if r["hist_check"]]
+    return {"crm": crm, "every_type": every, "lda": lda_out,
+            "parity": parity, "house": house, "artifact": art,
+            "walls_s": walls, "histogram_launches": hist,
+            "hist_checks": checks,
+            "launches": dict(others, tree_histogram=hist)}
+
+
+def features_lines(fe) -> list:
+    """One line per reported number of the features phase, each taken
+    from its result ``fe``."""
+    out = []
+    crm = fe["crm"]
+    cut = (f" (cut from {crm['rows_cut_from']})"
+           if crm["rows_cut_from"] else "")
+    out.append(f"phase features: crm rows {crm['rows']}{cut}, "
+               f"{crm['predictors']} predictors")
+    for name in ("automl", "default_list"):
+        r = crm[name]
+        for label, key, unit in (
+                ("vectorizer fits", "feature_layer_fit_s", "s"),
+                ("checker", "checker_fit_s", "s"),
+                ("selector", "selector_fit_s", "s"),
+                ("Workflow.train", "train_wall_s", "s"),
+                ("histogram launches", "histogram_launches", ""),
+                ("device busy share", "device_busy_share", ""),
+                ("save/load", "save_load_wall_s", "s"),
+                ("bulk score", "score_rows_per_s", "rows/s"),
+                ("LocalScorer max abs err", "local_max_abs_err",
+                 f"(atol {FEAT_LOCAL_ATOL}, {r['local_rows']} rows)")):
+            out.append(f"phase features: crm {name} {label}: "
+                       f"{json.dumps(r[key])} {unit}".rstrip())
+    ev = fe["every_type"]
+    for label, value in (("rows", ev["rows"]),
+                         ("data wall", ev["data_wall_s"]),
+                         ("kept slots", ev["kept_slots"]),
+                         ("winner", ev["winner"]),
+                         ("holdout AUROC", ev["holdout_auroc"]),
+                         ("sensitive", ev["sensitive"]),
+                         ("histogram launches", ev["histogram_launches"]),
+                         ("Workflow.train", ev["train_wall_s"]),
+                         ("device busy share", ev["device_busy_share"])):
+        out.append(f"phase features: every_type {label}: "
+                   f"{json.dumps(value)}")
+    for r in fe["hist_checks"]:
+        out.append(f"phase features: tree_histogram at the {r['shape']} "
+                   f"train's largest level (G, n, d, S, m, B) = "
+                   f"{[r[k] for k in ('G', 'n', 'd', 'S', 'm', 'B')]} "
+                   f"({r['levels']} levels, {r['distinct_shapes']} shapes), "
+                   f"{r['dtype']} operands, against its plain version: max "
+                   f"abs err {r['max_abs_err']} (each cell within "
+                   f"{HIST_RTOL} of the sum of its |terms|)")
+    la = fe["lda"]
+    if la is not None:
+        out.append(f"phase features: OpLDA fit {la['shape']} wall "
+                   f"{la['wall_ms']} ms, device {la.get('device_ms')} ms "
+                   f"in {la.get('device_ops')} operations, bound "
+                   f"{la['bound_ms']} ms ({la['bound_by']}), no host sync: "
+                   f"{la.get('sync_free')}")
+    pa = fe["parity"]
+    out.append(f"phase features: card vs CPU at {pa['rows']} rows "
+               f"(TM_KERNEL_EXACT=1): lambda largest |gap| "
+               f"{pa['lam_max_abs_gap']}, largest |gap|/|lambda| over "
+               f"entries {pa['lam_max_rel_gap']} (each entry within rtol "
+               f"{LDA_LAM_RTOL} + {LDA_LAM_ATOL_SCALE} x max|lambda|), "
+               f"checked matrices {pa['matrix_max_abs_gap']} apart, "
+               f"workflow CV gaps {json.dumps(pa['cv_gap'])} (LR "
+               f"{LINEAR_CPU_TOL['binary']}, DT/GBT {GBT_PARITY_TOL})")
+    for fam, t in pa["trees_on_card_matrix"].items():
+        out.append(f"phase features: {fam} on the card's matrix, card vs "
+                   f"CPU: AUROC gap {t['metric_max_diff']}, gain gap "
+                   f"{t['gain_gap_max']}, histograms {t['hist_diff_max']} "
+                   f"(AUROC {TITANIC_CV_ATOL}, or the near-tie contract: "
+                   f"gain gap {GBT_GAP_RTOL}, histograms {GBT_HIST_RTOL}, "
+                   f"AUROC {GBT_PARITY_TOL}); each side's metrics "
+                   f"recomputed on its own matrix")
+    ho = fe["house"]
+    out.append(f"phase features: op_house_log median relative dollar "
+               f"error {ho['median_rel_dollar_error']} (< "
+               f"{HOUSE_MAX_REL_ERR}), seller slots {ho['seller_slots']}, "
+               f"label-free row score {ho['label_free_row_score']}")
+    ar = fe["artifact"]
+    out.append(f"phase features: JAX artifact {ar['rows']} rows, max rel "
+               f"err {ar['max_rel_err']} (rtol {ARTIFACT_RTOL})")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
-                 wf=None, ctr=None):
+                 wf=None, ctr=None, fe=None):
     """The ``kernels`` line from this run's phase results: every time
     and error is one this run measured, every bound one it computed
     from its own inputs, every launch count its main path's (the
     histogram's: the training phase's and the workflow phase's ``wf``;
     the serving kernel's: the serving phase's, with the workflow
     phase's exported models apart; ``ctr_launches``: the CTR phase's,
-    which launches none)."""
+    which launches none; ``features_launches``: the features phase's,
+    whose histogram launches add to the histogram's count; the
+    histogram's error also covers the features phase's checks at its
+    trains' own levels)."""
     ctr_launches = (ctr or {}).get("launches", {})
+    fe_launches = (fe or {}).get("launches", {})
     # the serving pass's shape in its operand mode: the prefix form,
     # and the identity form (the JAX function) with its library call
     main_row = next(r for r in rows if r["form"] == "prefix")
@@ -3323,6 +4238,7 @@ def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
         "launches": serve["kernel_launches"],
         "workflow_launches": None if wf is None else wf["fused_launches"],
         "ctr_launches": ctr_launches.get("fused_linear_scores"),
+        "features_launches": fe_launches.get("fused_linear_scores"),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -3339,11 +4255,14 @@ def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
         "replaces": "transmogrifai_tpu/models/kernels.py:612 and "
                     "transmogrifai_tpu/models/kernels.py:649",
         "launches": train["histogram_launches"] + (
-            0 if wf is None else wf["histogram_launches"]),
+            0 if wf is None else wf["histogram_launches"]) + (
+            0 if fe is None else fe["histogram_launches"]),
         "training_launches": train["histogram_launches"],
         "workflow_launches": None if wf is None else wf["histogram_launches"],
         "ctr_launches": ctr_launches.get("tree_histogram"),
-        "max_abs_err": max(r["max_abs_err"] for r in hrows),
+        "features_launches": fe_launches.get("tree_histogram"),
+        "max_abs_err": max(r["max_abs_err"] for r in hrows + (
+            fe or {}).get("hist_checks", [])),
         "ms": hmain["ms"], "plain_ms": hmain["plain_ms"],
         "bound_ms": hmain["bound_ms"], "bound_by": hmain["bound_by"],
         "library_ms": hmain["library_ms"],
@@ -3357,6 +4276,7 @@ def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
         "replaces": "transmogrifai_tpu/models/kernels.py:770",
         "launches": dp["ring_launches"],
         "ctr_launches": ctr_launches.get("ring_allreduce"),
+        "features_launches": fe_launches.get("ring_allreduce"),
         "max_abs_err": max(r["max_abs_err"] for r in rrows),
         "ms": rmain["ms"], "plain_ms": rmain["plain_ms"],
         "bound_ms": rmain["bound_ms"], "bound_by": rmain["bound_by"],
@@ -3452,8 +4372,14 @@ def main(argv=None) -> int:
     for line in ctr_lines(ctr):
         print(line, flush=True)
 
+    fe = features_phase(args.seed)
+    print("phase features: " + json.dumps(dict(fe, card=card), default=str),
+          flush=True)
+    for line in features_lines(fe):
+        print(line, flush=True)
+
     print(json.dumps(kernels_line(rows, serve, empty_ms, hrows, train, hmma,
-                                  rrows, dp, wf, ctr)), flush=True)
+                                  rrows, dp, wf, ctr, fe)), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,6 +48,7 @@ def drop_last_row(stats: torch.Tensor, pos: torch.Tensor,
     return out
 
 
+GBT = "GBTClassifier"
 ARMS = {
     "sound": ({"TM_KERNEL_EXACT": "1"}, None),
     "bf16": ({"TM_KERNEL_EXACT": "0", "TM_HIST_BF16": "1"}, None),
@@ -70,13 +71,13 @@ def main(argv=None) -> int:
     for seed in (int(s) for s in args.seeds.split(",")):
         X, y = cs.training_data(seed, args.rows)
         t0 = time.perf_counter()
-        cpu = cs.gbt_side(X, y, "cpu", {"TM_KERNEL_EXACT": "1"})
+        cpu = cs.tree_side(GBT, X, y, "cpu", {"TM_KERNEL_EXACT": "1"})
         cpu_s = time.perf_counter() - t0
         for arm, (knobs, fault) in ARMS.items():
             t0 = time.perf_counter()
-            side = cs.gbt_side(X, y, args.device, knobs, fault)
-            row = dict(cs.gbt_compare(side, cpu, X), seed=seed, arm=arm,
-                       rows=args.rows, device=args.device,
+            side = cs.tree_side(GBT, X, y, args.device, knobs, fault)
+            row = dict(cs.tree_compare(GBT, side, cpu, X), seed=seed,
+                       arm=arm, rows=args.rows, device=args.device,
                        wall_s=time.perf_counter() - t0, cpu_wall_s=cpu_s)
             print(json.dumps(row), flush=True)
     return 0

@@ -7,7 +7,8 @@ exact-mode decision tree bitwise and GBT per grid point, here CPU
 against CPU) and the launch count it derives from the code, which the
 CPU path does not move. And the GBT check against planted histogram
 faults (gbt_parity_probe.py's arms), CPU against CPU: each must part
-the trees at a split that is no near tie. Then the linear phase (the
+the trees at a split that is no near tie, and the same analysis on a
+decision tree. Then the linear phase (the
 oracle, card-vs-CPU here CPU against CPU, the invariance) and the
 multiclass and regression default lists at small sizes.
 """
@@ -56,19 +57,51 @@ def test_training_phase_runs_on_the_cpu():
 @pytest.fixture(scope="module")
 def gbt_reference():
     X, y = chip_smoke.training_data(0, 2000)
-    return X, y, chip_smoke.gbt_side(X, y, "cpu", {"TM_KERNEL_EXACT": "1"})
+    return X, y, chip_smoke.tree_side("GBTClassifier", X, y, "cpu",
+                                      {"TM_KERNEL_EXACT": "1"})
 
 
 @pytest.mark.parametrize("arm", ["bf16", "drop_row"])
 def test_gbt_check_flags_a_planted_histogram_fault(gbt_reference, arm):
     X, y, ref = gbt_reference
     knobs, fault = gbt_parity_probe.ARMS[arm]
-    out = chip_smoke.gbt_compare(
-        chip_smoke.gbt_side(X, y, "cpu", knobs, fault), ref, X)
+    out = chip_smoke.tree_compare(
+        "GBTClassifier",
+        chip_smoke.tree_side("GBTClassifier", X, y, "cpu", knobs, fault),
+        ref, X)
     assert out["gain_gap_max"] > chip_smoke.GBT_GAP_RTOL
     first = [d for d in out["divergence"] if d]
     assert first and all(d["hist_rel_diff"] > chip_smoke.GBT_HIST_RTOL
                          for d in first)
+
+
+def test_tree_check_flags_a_planted_decision_tree_fault(gbt_reference):
+    """The near-tie analysis on a single tree of two classes (stats
+    g_1, g_2, h_1, h_2, w): a planted histogram fault parts the trees at
+    a split that is no near tie."""
+    X, y, _ = gbt_reference
+    fam, knobs = "DecisionTreeClassifier", {"TM_KERNEL_EXACT": "1"}
+    ref = chip_smoke.tree_side(fam, X, y, "cpu", knobs)
+    same = chip_smoke.tree_compare(
+        fam, chip_smoke.tree_side(fam, X, y, "cpu", knobs), ref, X)
+    assert same["divergence"] == [None] * len(ref["grid"])
+    out = chip_smoke.tree_compare(fam, chip_smoke.tree_side(
+        fam, X, y, "cpu", knobs, gbt_parity_probe.drop_last_row), ref, X)
+    assert out["gain_gap_max"] > chip_smoke.GBT_GAP_RTOL
+
+
+def test_hist_hook_records_each_levels_shape():
+    X, y = chip_smoke.training_data(0, 500)
+    shapes = []
+    with chip_smoke.hist_hook(shapes=shapes):
+        chip_smoke.tree_cv("DecisionTreeClassifier", X, y, "cpu", {})
+    fam = TM.MODEL_FAMILIES["DecisionTreeClassifier"]
+    levels = fam.levels_per_fit()            # the folded grid, the refit
+    assert [s[4] for s in shapes] == [1 << i for i in range(levels)] * 2
+    assert [s[0] for s in shapes] == [3 * 2] * levels + [1] * levels
+    assert {s[2] for s in shapes} == {X.shape[1]}
+    assert {(s[3], s[5]) for s in shapes} == {(5, fam.n_bins)}
+    assert chip_smoke.path_hist_check([], "none", 0) is None
 
 
 def test_linear_phase_runs_on_the_cpu():
@@ -290,7 +323,7 @@ def titanic_pair():
 @pytest.mark.parametrize("family,match", [
     (None, None),
     ("LogisticRegression", "LogisticRegression CV"),
-    ("GBTClassifier", "GBT metrics recomputed on the card")])
+    ("GBTClassifier", "GBTClassifier metrics recomputed on the card")])
 def test_titanic_check_flags_a_planted_cv_gap(titanic_pair, family, match):
     """The two sides agree; a planted gap of 1e-3 in one grid point of
     the card's summary makes the comparison raise: LR's past 1e-4 at
@@ -452,3 +485,122 @@ def test_ctr_oracle_flags_a_wrong_update(family):
                                                              "dense"))
     assert err(port(1.0)) <= chip_smoke.CTR_ORACLE_RTOL
     assert err(port(1.01)) > chip_smoke.CTR_ORACLE_RTOL
+
+
+# -- features: every feature type through transmogrify ----------------------
+
+FEATURE_CANDIDATES = [["LogisticRegression", {"regParam": [0.1]}],
+                      ["DecisionTreeClassifier", None]]
+
+
+@pytest.fixture(scope="module")
+def features_run():
+    """The features phase on the CPU at small sizes (the CRM workflow at
+    300 rows, the every-type one at 600, the card-vs-CPU gate at 300,
+    OpLDA on 500 documents), the two default lists replaced by LR and DT
+    for time: every gate of the phase, CPU against CPU where the card is
+    compared with the CPU."""
+    return chip_smoke.features_phase(
+        0, device="cpu", crm_rows=300, every_rows=600, parity_rows=300,
+        lda_docs=500, candidates=FEATURE_CANDIDATES)
+
+
+def test_features_phase_runs_on_the_cpu(features_run):
+    crm, ev, pa = (features_run[k] for k in ("crm", "every_type", "parity"))
+    assert crm["predictors"] == 56 and crm["rows_cut_from"] == \
+        chip_smoke.FEAT_CRM_ROWS
+    for name in ("automl", "default_list"):
+        r = crm[name]
+        assert r["loaded_scores_bitwise"] and r["local_rows"] == 300
+        assert r["local_max_abs_err"] <= chip_smoke.FEAT_LOCAL_ATOL
+        assert r["histogram_launches"] == r["expected_launches"] == 0
+        assert r["device_busy_share"] is None        # the profiler: CUDA
+    assert crm["default_list"]["raw_filter_excluded"] == []
+    assert ev["holdout_auroc"] >= chip_smoke.FEAT_MIN_AUROC
+    assert ev["sensitive"][0]["actionTaken"] == "removed"
+    assert ev["lda_vocab"] == chip_smoke.LDA_K * 30
+    assert pa["lam_max_abs_gap"] == 0.0                  # CPU vs CPU
+    assert set(pa["cv_gap"].values()) == {0.0}
+    assert pa["matrix_max_abs_gap"] == 0.0
+    assert sorted(pa["trees_on_card_matrix"]) == ["DecisionTreeClassifier",
+                                                  "GBTClassifier"]
+    for t in pa["trees_on_card_matrix"].values():
+        assert t["metric_max_diff"] == 0.0 and not any(t["divergence"])
+    assert features_run["hist_checks"] == []     # the kernel: CUDA only
+    la = features_run["lda"]
+    assert la["shape"] == [500, chip_smoke.LDA_VOCAB, chip_smoke.LDA_K]
+    assert la["bound_ms"] > 0 and "device_ms" not in la
+    assert features_run["house"]["seller_slots"] == 0
+    assert features_run["house"]["median_rel_dollar_error"] < \
+        chip_smoke.HOUSE_MAX_REL_ERR
+    assert features_run["artifact"]["max_rel_err"] <= \
+        chip_smoke.ARTIFACT_RTOL
+    assert features_run["launches"] == {"fused_linear_scores": 0,
+                                        "ring_allreduce": 0,
+                                        "tree_histogram": 0}
+
+
+def test_features_lines_take_every_number_from_the_run(features_run):
+    import copy
+    run = copy.deepcopy(features_run)
+    run["crm"]["automl"]["train_wall_s"] = 12345.5
+    run["every_type"]["kept_slots"] = 4321
+    run["lda"]["device_ms"] = 777.25
+    run["parity"]["lam_max_abs_gap"] = 0.0625
+    lines = chip_smoke.features_lines(run)
+    assert all(line.startswith("phase features: ") for line in lines)
+    text = "\n".join(lines)
+    for value in ("12345.5", "4321", "777.25", "0.0625",
+                  f"cut from {chip_smoke.FEAT_CRM_ROWS}"):
+        assert value in text
+    assert "crm default_list histogram launches: 0" in text
+    assert "GBTClassifier on the card's matrix, card vs CPU" in text
+    row = {k: 7 for k in ("G", "n", "d", "S", "m", "B", "levels",
+                          "distinct_shapes")}
+    run["hist_checks"] = [dict(row, shape="every_type", dtype="bfloat16",
+                               max_abs_err=0.03125)]
+    text = "\n".join(chip_smoke.features_lines(run))
+    assert "every_type train's largest level" in text and "0.03125" in text
+
+
+def test_lda_bound_reads_the_count_matrix_once_an_e_step_iteration():
+    byts, flops = chip_smoke.lda_cost(100_000, 256, 8)
+    assert byts == 30 * (20 + 1) * 100_000 * 256 * 4
+    assert flops == (30 * 20 + 30) * 4 * 100_000 * 8 * 256
+    assert byts / chip_smoke.HBM_BYTES_PER_S > \
+        flops / chip_smoke.F32_FLOPS_PER_S
+
+
+def test_parity_gate_flags_a_planted_lambda_fault():
+    with pytest.raises(AssertionError, match="lambda card vs CPU"):
+        chip_smoke.parity_part(0, "cpu", 200,
+                               check=lambda lam: lam * (1 + 1e-3))
+
+
+def test_kernels_line_adds_the_features_launches():
+    row = {k: 1.5 for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                            "max_abs_err", "call_ms", "plain_call_ms",
+                            "library_call_ms", "span_ms",
+                            "library_device_ms")}
+    row["bound_by"] = "bytes"
+    rows = [dict(row, form="identity", shape=[1], dtype="f"),
+            dict(row, form="prefix", shape=[2], act="a", dtype="f")]
+    hrows = [dict(row, dtype="f", **{k: 1 for k in "GndSmB"})]
+    rrows = [dict(row, layout="one card", shape="gbt_level",
+                  ndev=chip_smoke.DP_RANKS, dims=[1])]
+    fe = {"histogram_launches": 668,
+          "launches": {"fused_linear_scores": 0, "ring_allreduce": 0,
+                       "tree_histogram": 668}}
+    line = chip_smoke.kernels_line(
+        rows, {"kernel_launches": 7}, 0.5, hrows,
+        {"histogram_launches": 418}, 3, rrows, {"ring_launches": 24},
+        {"histogram_launches": 543, "fused_launches": 11}, None, fe)
+    assert line["kernels"][1]["launches"] == 418 + 543 + 668
+    assert line["kernels"][1]["max_abs_err"] == 1.5
+    fe["hist_checks"] = [{"max_abs_err": 2.5}]
+    assert chip_smoke.kernels_line(
+        rows, {"kernel_launches": 7}, 0.5, hrows,
+        {"histogram_launches": 418}, 3, rrows, {"ring_launches": 24},
+        None, None, fe)["kernels"][1]["max_abs_err"] == 2.5
+    assert [k["features_launches"] for k in line["kernels"]] == [0, 668, 0]
+    assert line["kernels"][0]["launches"] == 7

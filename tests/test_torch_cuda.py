@@ -914,3 +914,46 @@ def test_sparse_head_scores_a_row_alone_as_in_its_batch(card):
             np.testing.assert_array_equal(one[0], batch[i])
         cpu = S.predict_sparse_lr(params, idx, X, device="cpu")
         np.testing.assert_allclose(batch, cpu, rtol=0, atol=1e-6)
+
+
+def _lda_corpus(n=4000, V=128, k=6, seed=0):
+    rng = np.random.default_rng(seed)
+    topics = rng.dirichlet(np.full(V, 0.1), size=k)
+    theta = rng.dirichlet(np.full(k, 0.3), size=n)
+    return np.stack([rng.multinomial(40, theta[i] @ topics)
+                     for i in range(n)]).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_fit_lda_queues_without_a_host_sync(card):
+    """OpLDA's variational EM (30 EM x 20 E-steps) on the card: no host
+    read inside the loops, the initial lambda uploaded pinned."""
+    from transmogrifai_tpu_torch.ops import lda
+    from transmogrifai_tpu_torch.workflow import to_device
+    counts = to_device(_lda_corpus(), card)
+    lda.fit_lda(counts, 6)                    # library handles, warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lam = lda.fit_lda(counts, 6)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(lam).all()
+
+
+@pytest.mark.cuda
+def test_fit_lda_card_matches_cpu_within_the_lda_tolerance(card):
+    """The card's fit against the CPU's from the same initial lambda:
+    tests/test_torch_text_advanced.py's tolerance (rtol 1e-4 + 1e-6 of
+    max|lambda|; topics rtol 1e-4 + atol 1e-6)."""
+    from transmogrifai_tpu_torch.ops import lda
+    counts = _lda_corpus()
+    lam_cpu = lda.fit_lda(torch.from_numpy(counts), 6).numpy()
+    lam_card = lda.fit_lda(torch.from_numpy(counts).to(card), 6).cpu()
+    np.testing.assert_allclose(lam_card.numpy(), lam_cpu, rtol=1e-4,
+                               atol=1e-6 * np.abs(lam_cpu).max())
+    t_cpu = lda.infer_topics(torch.from_numpy(counts),
+                             torch.from_numpy(lam_cpu)).numpy()
+    t_card = lda.infer_topics(torch.from_numpy(counts).to(card),
+                              torch.from_numpy(lam_cpu).to(card)).cpu()
+    np.testing.assert_allclose(t_card.numpy(), t_cpu, rtol=1e-4, atol=1e-6)

@@ -239,9 +239,31 @@ def test_transmogrify_titanic_same_slots_in_same_order():
     ("TextArea", "ops.lda"), ("TextList", "ops.text_advanced"),
     ("RealMap", "ops.maps"), ("PickListMap", "ops.maps")])
 def test_later_slice_types_raise_not_ported(kind, module):
+    # the types a later slice brought now dispatch to the JAX package's
+    # encoder chain, reaching ``module``: the same stage classes in the
+    # same order as the JAX package's transmogrify
+    _reset_uids()
     f = feat("x", getattr(ft, kind))
-    with pytest.raises(NotImplementedError, match=module):
-        ops.transmogrify([f])
+    out = ops.transmogrify([f])
+    _reset_uids()
+    jf = JFB.of(getattr(jft, kind), "x").from_column().as_predictor()
+    jout = jops.transmogrify([jf])
+
+    def chain(v):
+        stages, todo = [], [v]
+        while todo:
+            g = todo.pop()
+            if g.origin_stage is not None:
+                stages.append(g.origin_stage)
+                todo += list(g.parents)
+        return stages
+
+    got, want = chain(out), chain(jout)
+    assert [type(s).__name__ for s in got] == [type(s).__name__
+                                               for s in want]
+    assert [s.params for s in got] == [s.params for s in want]
+    assert any(type(s).__module__ == f"transmogrifai_tpu_torch.{module}"
+               for s in got)
 
 
 def test_other_unported_entry_points_raise():
@@ -251,16 +273,18 @@ def test_other_unported_entry_points_raise():
                                              feat("y", ft.Real)])
     assert issubclass(hashed.wtype, ft.SparseIndices)
     assert issubclass(dense.wtype, ft.OPVector)
-    with pytest.raises(NotImplementedError, match="ops.analyzers"):
-        ops.tokenize("The quick foxes", language="en", stem=True)
-    with pytest.raises(NotImplementedError, match="ops.text_advanced"):
-        ops.tokenize("The quick foxes", language="auto", stem=True)
+    # tokenizing with a language (ops.analyzers) and with detection
+    # (ops.text_advanced) is ported: the JAX package's tokens
+    for lang in ("en", "auto"):
+        assert ops.tokenize("The quick foxes", language=lang, stem=True) \
+            == jops.tokenize("The quick foxes", language=lang, stem=True)
     # the bare regex split is ported
     assert ops.tokenize("Hello, World!") == ["hello", "world"]
-    with pytest.raises(NotImplementedError, match="ops.ner_data"):
-        ops.SmartTextVectorizer(sensitive_feature_mode="detect_only") \
-            .set_input(feat("t", ft.Text)).fit(Dataset.from_dict(
-                {"t": ["Ann Lee", "Bob Ray"]}, {"t": ft.Text}))
+    # sensitive-name detection (ops.ner_data's lexicons) is ported
+    m = ops.SmartTextVectorizer(sensitive_feature_mode="detect_only") \
+        .set_input(feat("t", ft.Text)).fit(Dataset.from_dict(
+            {"t": ["Ann Lee", "Bob Ray"]}, {"t": ft.Text}))
+    assert m is not None
     # smart text routes TextArea with textarea='smart'
     st = ops.default_vectorizer(feat("d", ft.TextArea), textarea="smart")
     assert type(st).__name__ == "SmartTextVectorizer"

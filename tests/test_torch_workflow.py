@@ -313,10 +313,15 @@ def test_unported_class_key_raises_naming_the_item():
     cls = resolve_stage_class(
         "transmogrifai_tpu.models.sparse.SparseSelectedModel")
     assert cls.__module__ == "transmogrifai_tpu_torch.models.sparse"
+    # the feature layer (item 2) and LDA are ported and resolve
+    for key in ("transmogrifai_tpu.ops.lda.LDAModel",
+                "transmogrifai_tpu.ops.parsers.StringIndexer"):
+        cls = resolve_stage_class(key)
+        assert cls.__module__ == "transmogrifai_tpu_torch." + key.split(
+            ".", 1)[1].rsplit(".", 1)[0]
     with pytest.raises(ValueError, match="item 8"):
-        resolve_stage_class("transmogrifai_tpu.ops.lda.LDAModel")
-    with pytest.raises(ValueError, match="item 2"):
-        resolve_stage_class("transmogrifai_tpu.ops.parsers.StringIndexer")
+        resolve_stage_class(
+            "transmogrifai_tpu.models.ft_transformer.OpFTTransformerClassifier")
     cls = resolve_stage_class("transmogrifai_tpu.ops.vectorizers.OneHotModel")
     assert cls.__module__ == "transmogrifai_tpu_torch.ops.vectorizers"
 
@@ -473,8 +478,11 @@ def test_profile_location_writes_a_chrome_trace(tmp_path):
 
 def test_unported_workflow_paths_raise(titanic):
     wf, _ = PORT.titanic()
-    with pytest.raises(NotImplementedError, match="filters"):
-        wf.with_raw_feature_filter(min_fill_rate=0.1)
+    # the raw feature filter is ported (filters/)
+    assert wf.with_raw_feature_filter(min_fill_rate=0.1) is wf
+    assert type(wf.raw_feature_filter).__module__ == \
+        "transmogrifai_tpu_torch.filters"
+    assert wf.raw_feature_filter.min_fill_rate == 0.1
     # score_stream is ported (io/stream.py): one result a chunk, equal
     # to the batch scorer's
     tm, _ = titanic["transmogrifai_tpu_torch"]

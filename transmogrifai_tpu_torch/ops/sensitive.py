@@ -21,6 +21,7 @@ Design notes vs the reference:
 """
 from __future__ import annotations
 
+import functools
 import re
 from typing import Any, Dict, Optional
 
@@ -28,20 +29,25 @@ import numpy as np
 
 from ..dataset import Dataset
 from ..features import types as ft
-from ..stages.base import UnaryEstimator, UnaryTransformer, not_ported
+from ..stages.base import UnaryEstimator, UnaryTransformer
 
 
 _MALE_HON = {"mr", "sir", "lord"}
 _FEMALE_HON = {"mrs", "ms", "miss", "lady", "madam"}
 
 
+@functools.lru_cache(maxsize=None)
 def _lexicons():
-    """The name lexicons (first names, last names, honorifics) live in
-    ``ops/ner_data.py``, which is not ported yet."""
-    raise not_ported("sensitive-feature name detection (its name "
-                     "lexicons)", "ops.ner_data")
-
-
+    from .ner_data import (HELD_FIRST, HELD_LAST, HONORIFICS, TRAIN_FIRST,
+                           TRAIN_LAST)
+    first = frozenset(n.lower() for n in TRAIN_FIRST + HELD_FIRST)
+    last = frozenset(n.lower() for n in TRAIN_LAST + HELD_LAST)
+    # ONE honorific set: the NER lexicon plus every honorific the
+    # gender map knows — detection and gender inference must agree
+    # ("Miss Kwame Acheampong" is a name exactly like "Mr. ...")
+    hon = (frozenset(h.strip(".").lower() for h in HONORIFICS)
+           | _MALE_HON | _FEMALE_HON)
+    return first, last, hon
 _TOKEN_RE = re.compile(r"[A-Za-z][A-Za-z.'-]*")
 
 

@@ -8,10 +8,6 @@ mirrors the Lucene pipeline natively: regex token split -> lowercase ->
 per-language stopword filter -> stemmer (Porter for English, light
 stemmers otherwise; see ops/analyzers.py). `language="auto"` detects the
 language per value like the reference's autoDetectLanguage param.
-
-In the port the analyzers (stop words, stemmers) and the language
-detector are not ported yet: the bare regex split works, and asking for
-a language chain raises naming the module still to port.
 """
 from __future__ import annotations
 
@@ -22,7 +18,8 @@ import numpy as np
 
 from ..dataset import column_to_numpy
 from ..features import types as ft
-from ..stages.base import UnaryTransformer, not_ported
+from ..stages.base import UnaryTransformer
+from .analyzers import analyze_tokens
 
 _TOKEN_RE = re.compile(r"[^\W_]+", re.UNICODE)
 
@@ -38,9 +35,10 @@ def tokenize(text: Optional[str], min_token_length: int = 1,
     if language is None or not (remove_stopwords or stem):
         return toks
     if language == "auto":
-        raise not_ported("tokenize(language='auto')", "ops.text_advanced")
-    raise not_ported(f"tokenize(language={language!r}) with stop words or "
-                     f"stemming", "ops.analyzers")
+        from .text_advanced import detect_language
+        language = detect_language(text) or "en"
+    return analyze_tokens(toks, language, remove_stopwords=remove_stopwords,
+                          stem=stem)
 
 
 class TextTokenizer(UnaryTransformer):

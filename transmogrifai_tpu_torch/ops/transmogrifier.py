@@ -4,19 +4,14 @@
 Reference: core/.../stages/impl/feature/Transmogrifier.scala — the
 `.transmogrify()` entry picks a sensible default vectorizer per feature
 type and concatenates everything into one OPVector feature.
-
-The port's dispatch is the JAX package's table. Branches whose encoder
-lives in a module a later slice brings (parsers, lda, text_advanced,
-maps) raise ``NotImplementedError`` naming the feature type and
-the module; none of them picks another encoder instead.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Sequence, Type
 
 from ..features import types as ft
 from ..features.feature import Feature
-from ..stages.base import PipelineStage, not_ported
+from ..stages.base import PipelineStage
 from . import vectorizers as V
 
 # Categorical text subtypes that default to topK pivot rather than smart
@@ -29,12 +24,23 @@ def _specialized_vector_feature(f: Feature) -> "Feature | None":
     """Parser chains for types with richer-than-text default encodings
     (Transmogrifier.scala dispatches these through RichTextFeature ops):
     Email/URL pivot their domain, Phone pivots validity, Base64 pivots
-    detected MIME type, DateList gets its recency/gap stats. The
-    parsers are not ported yet, so each of these types raises."""
+    detected MIME type, DateList gets its recency/gap stats."""
+    from . import parsers as P
     t = f.wtype
-    if issubclass(t, (ft.Email, ft.URL, ft.Phone, ft.Base64, ft.DateList)):
-        raise not_ported(f"transmogrify of {t.__name__} (feature "
-                         f"{f.name!r})", "ops.parsers")
+    if issubclass(t, ft.Email):
+        dom = P.EmailToPickList().set_input(f).output
+        return V.OneHotVectorizer().set_input(dom).output
+    if issubclass(t, ft.URL):
+        dom = P.UrlToDomain().set_input(f).output
+        return V.OneHotVectorizer().set_input(dom).output
+    if issubclass(t, ft.Phone):
+        ok = P.IsValidPhoneTransformer().set_input(f).output
+        return V.BinaryVectorizer().set_input(ok).output
+    if issubclass(t, ft.Base64):
+        mime = P.MimeTypeDetector().set_input(f).output
+        return V.OneHotVectorizer().set_input(mime).output
+    if issubclass(t, ft.DateList):
+        return P.DateListVectorizerEstimator().set_input(f).output
     return None
 
 
@@ -91,22 +97,23 @@ def default_vectorizer(f: Feature,
     if issubclass(t, ft.TextArea) and textarea == "lda":
         # long free text defaults to topic proportions (OpLDA.scala);
         # shorter Text still goes cardinality-adaptive smart text
-        raise not_ported(f"transmogrify of {t.__name__} (feature "
-                         f"{f.name!r}, textarea='lda')", "ops.lda")
+        from .lda import OpLDA
+        return OpLDA(k=8, vocab_size=256)
     if issubclass(t, ft.Text):
         return V.SmartTextVectorizer()
     if issubclass(t, ft.MultiPickList):
         return V.MultiPickListVectorizer()
     if issubclass(t, ft.TextList):
-        raise not_ported(f"transmogrify of {t.__name__} (feature "
-                         f"{f.name!r})", "ops.text_advanced")
+        from .text_advanced import CountVectorizer
+        return CountVectorizer()
     if issubclass(t, ft.Geolocation):
         return V.GeolocationVectorizer()
     if issubclass(t, ft.OPVector):
         return None  # already vectorized; passes straight to the combiner
-    if issubclass(t, ft.OPMap):
-        raise not_ported(f"transmogrify of {t.__name__} (feature "
-                         f"{f.name!r})", "ops.maps")
+    from .maps import default_map_vectorizer
+    mv = default_map_vectorizer(t)
+    if mv is not None:
+        return mv
     raise TypeError(f"transmogrify: no default vectorizer for "
                     f"{t.__name__} (feature {f.name!r})")
 

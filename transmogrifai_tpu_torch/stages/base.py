@@ -56,29 +56,8 @@ PORT_PACKAGE = "transmogrifai_tpu_torch"
 #: JAX-package modules holding stage classes that the port has not
 #: ported yet -> the ROADMAP queue-1 item that brings them
 NOT_PORTED_MODULES = {
-    "ops.parsers": "item 2 (host layer)",
-    "ops.maps": "item 2 (host layer)",
-    "ops.numeric": "item 2 (host layer)",
-    "ops.text_advanced": "item 2 (host layer)",
-    "ops.dsl": "item 2 (host layer)",
-    "ops.analyzers": "item 2 (host layer)",
-    "ops.ner": "item 2 (host layer)",
-    "ops.ner_data": "item 2 (host layer)",
-    "stages.wrappers": "item 2 (host layer)",
-    "filters": "item 2 (host layer)",
-    "testkit": "item 2 (host layer)",
-    "models.ft_transformer": "item 8 (FT-Transformer and LDA)",
-    "ops.lda": "item 8 (FT-Transformer and LDA)",
+    "models.ft_transformer": "item 8 (the FT-Transformer)",
 }
-
-
-def not_ported(what: str, module: str) -> NotImplementedError:
-    """The error a branch of the port raises where it reaches a module
-    of the JAX package that a later slice brings (never a substitute)."""
-    item = NOT_PORTED_MODULES.get(module, "queue 1")
-    return NotImplementedError(
-        f"{what} needs transmogrifai_tpu.{module}, which is not ported "
-        f"to transmogrifai_tpu_torch yet (ROADMAP queue 1, {item})")
 
 
 def stage_class_key(cls: type) -> str:

@@ -40,7 +40,7 @@ from .features import types as ft
 from .features.feature import Feature
 from .stages.base import (BinarySequenceEstimator, BinarySequenceTransformer,
                           Estimator, PipelineStage, SequenceEstimator,
-                          SequenceTransformer, Transformer, not_ported)
+                          SequenceTransformer, Transformer)
 from .stages.generator import FeatureGeneratorStage, raw_dataset_for
 from .stages.persistence import stage_from_json, stage_to_json
 
@@ -709,17 +709,14 @@ class Workflow:
     """Lazy workflow: set result features (+ optional reader), then train.
 
     Reference: core/OpWorkflow.scala. `train` fits the DAG layer by layer
-    (estimators become transformers). The JAX package's optional
-    RawFeatureFilter (filters/ module) is not ported yet: setting one
-    raises.
+    (estimators become transformers); an optional RawFeatureFilter runs
+    first (filters/ module).
     """
 
     def __init__(self, result_features: Sequence[Feature],
                  reader=None, raw_feature_filter=None):
         if not result_features:
             raise ValueError("workflow needs at least one result feature")
-        if raw_feature_filter is not None:
-            raise not_ported("Workflow(raw_feature_filter=...)", "filters")
         self.result_features = list(result_features)
         self.reader = reader
         self.raw_feature_filter = raw_feature_filter
@@ -735,8 +732,10 @@ class Workflow:
 
     def with_raw_feature_filter(self, **kwargs) -> "Workflow":
         """Attach a RawFeatureFilter (reference: OpWorkflow
-        .withRawFeatureFilter): the filters module is not ported yet."""
-        raise not_ported("Workflow.with_raw_feature_filter", "filters")
+        .withRawFeatureFilter). kwargs pass through to RawFeatureFilter."""
+        from .filters import RawFeatureFilter
+        self.raw_feature_filter = RawFeatureFilter(**kwargs)
+        return self
 
     def _training_data(self, data):
         # readers are dispatched inside raw_dataset_for
@@ -838,6 +837,45 @@ class Workflow:
         # policy wraps it too.
         ds = policy.run(lambda: raw_dataset_for(data, raw),
                         what="training data read")
+
+        if self.raw_feature_filter is not None:
+            rff = self.raw_feature_filter
+            try:
+                kept, filter_summary = policy.run(
+                    lambda: rff.filter_features(raw, ds),
+                    what="raw feature filter")
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except Exception as e:
+                if getattr(rff, "failure_policy", "fail") != "degrade":
+                    raise
+                # the filter is advisory (it only ever REMOVES inputs):
+                # train on the unfiltered features rather than discard
+                # the run, and record the degradation loudly
+                self.train_summaries.setdefault("degraded", []).append({
+                    "uid": "rawFeatureFilter",
+                    "operation": type(rff).__name__,
+                    "output": None, "layer": -1,
+                    "attempts": int(getattr(e, "attempts", 1)),
+                    "error": f"{type(e).__name__}: {e}",
+                    "droppedDownstream": []})
+                kept, filter_summary = list(raw), None
+            if filter_summary is not None:
+                self.train_summaries["rawFeatureFilter"] = filter_summary
+            dropped = {f.name for f in raw} - {f.name for f in kept}
+            if dropped:
+                layers = prune_layers(layers, set(dropped))
+                missing = [f.name for f in self.result_features
+                           if f.name in dropped
+                           or (not f.is_raw and not any(
+                               st.uid == f.origin_stage.uid
+                               for lay in layers for st in lay))]
+                if missing:
+                    raise ValueError(
+                        f"RawFeatureFilter removed features that the result "
+                        f"features depend on non-redundantly: {missing}")
+            raw = kept
+            ds = ds.select([f.name for f in raw])
 
         ckpt = None
         ckpt_dir = ckpt_mod.resolve_checkpoint_dir(checkpoint_dir)
