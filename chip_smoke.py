@@ -6,10 +6,11 @@ training over the selector's default candidate lists (tree and linear
 families), row-sharded tree growing over a data mesh and the workflow
 front door (CSV reader, transmogrify, SanityChecker, selector,
 save/load, scoring, export and serving), the Criteo path (hashed
-sparse families streamed, swept, served) and every feature type
-through transmogrify — through the entry points a
-user calls, and holds each CUDA kernel against its plain PyTorch
-version:
+sparse families streamed, swept, served), every feature type
+through transmogrify and the serving tier (fleets on both transports,
+failover, rollout, the CLI, the continuum loop) — through the entry
+points a user calls, and holds each CUDA kernel against its plain
+PyTorch version:
 
 1. device: the card's name and power limit (nvidia-smi), then every
    kernel under ``transmogrifai_tpu_torch/csrc`` built with nvcc for
@@ -166,6 +167,35 @@ version:
    checked-in JAX artifact ``tests/data/jax_features_model`` loaded and
    scored against the JAX package's scores (ARTIFACT_RTOL). Neither the
    serving kernel nor the ring may launch.
+11. fleet: the serving tier. The serving phase's 100-id catalog (plus
+   a default ``v1``) written as a registry root, so both transports
+   load it by path. An inproc ``ServingFleet`` of 4 replicas (the JAX
+   bench's ``fleet_failover``: buckets (64, 256), open-loop Poisson
+   arrivals at 60 requests/s of 1-16 rows, 5 s steady, the busiest
+   replica hard-killed, 5 s more, under torch.profiler for the busy
+   share), then a staged ``rollout`` to v2 (seed + 1) under traffic:
+   no lost request and no client error, every answer within SERVE_ATOL
+   of numpy under the operand policy of the plane its spans name and
+   equal to the same request scored alone through that plane
+   (FLEET_REF_ATOL, bitwise counted), the rollout not rolled back, no
+   fused fallback, one kernel launch a fused bucket slice. Two socket
+   workers (``python -m transmogrifai_tpu_torch.serving.worker
+   --device cuda``, each its own CUDA context on the card) under the
+   JAX bench's ``cross_host_load`` (250 requests/s of 1-8 rows for 4
+   s, deadline 400 ms, no emulated dispatch hang), one SIGKILLed
+   halfway: no lost request, answers as above, each worker's status
+   naming the card with a fused launch a fused pass and no fallback,
+   the restarted worker serving again; the wire overhead from
+   ``TransportStats``. An LR workflow over the same 12 columns trained
+   on the card and saved, then served by ``python -m
+   transmogrifai_tpu_torch serve --engine --replicas 2`` as a
+   subprocess with TM_TRACE_DIR set (every row within CLI_ATOL of
+   ``WorkflowModel.score``, spans written) and by ``serve`` in stream
+   mode over a CSV of the same rows. A drift drill: x0-shifted traffic
+   through a 2-replica fleet, detection, a retrain on the card, lint
+   and shadow gates, one promotion, zero client errors; ``/metricsz``
+   scraped from the socket fleet and the controller must carry the
+   ``tm_fleet_*``, ``tm_transport_*`` and ``tm_continuum_*`` families.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -3207,7 +3237,8 @@ def ctr_front_part(seed, device, workdir, rows=CTR_FRONT_ROWS,
         loco_err = max(loco_err, float(np.abs(got - want).max()))
     if not loco_err <= CTR_LOCO_ATOL:
         raise AssertionError(f"ctr LOCO differs from numpy by {loco_err}")
-    summ = sel.summary
+    # the walls stay on the trained model (a saved one holds none)
+    summ = model.selected_model().summary
     return {"rows": rows, "chunk_rows": chunk_rows, "buckets": buckets,
             "records_wall_s": gen_wall, "train_cold_wall_s": walls[0],
             "train_warm_wall_s": walls[1], "evaluate_wall_s": eval_wall,
@@ -3402,8 +3433,8 @@ FEAT_CRM_ROWS = 50_000
 #: ~90 s it may take, so it runs cut to FEAT_CRM_RUN_ROWS (printed)
 FEAT_CRM_RUN_ROWS = 40_000
 FEAT_CRM_MIN_ROWS = 12_000      # the least part 1 may be cut to
-FEAT_EVERY_ROWS = 100_000
-FEAT_PARITY_ROWS = 5_000        # card vs CPU in exact mode
+FEAT_EVERY_ROWS = 50_000         # cut from 100,000 for the fleet phase
+FEAT_PARITY_ROWS = 2_500        # card vs CPU in exact mode (cut from 5,000)
 FEAT_LOCAL_ROWS = 1_000         # LocalScorer rows against the bulk scores
 FEAT_LOCAL_ATOL = 1e-5
 FEAT_MIN_AUROC = 0.7            # the every-type label is learnable
@@ -4208,8 +4239,1080 @@ def features_lines(fe) -> list:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 11: the serving tier — fleets on both transports, the CLI, continuum
+# ---------------------------------------------------------------------------
+
+#: the JAX bench's fleet_failover settings (bench.py:1154-1159, :1169):
+#: replicas, open-loop Poisson rate, steady and post-kill seconds, the
+#: "during failover" window after the kill, buckets, rows a request
+FLEET_REPLICAS = 4
+FLEET_RPS = 60.0
+FLEET_STEADY_S = 5.0
+FLEET_FAILOVER_S = 5.0
+FLEET_WINDOW_S = 2.0
+FLEET_BUCKETS = (64, 256)
+FLEET_MAX_ROWS = 16
+#: seconds of further load under torch.profiler (device activity only,
+#: so the timed storm pays no tracing) for the busy share and the
+#: profiler's count of kernel launches
+FLEET_BUSY_S = 3.0
+#: requests after the rollout (half to the default, v2)
+FLEET_V2_REQUESTS = 96
+#: the JAX bench's cross_host_load settings (bench.py:2304-2324, :2411),
+#: without its emulated dispatch hang: the card does the work
+XHOST_WORKERS = 2
+XHOST_RPS = 250.0
+XHOST_DURATION_S = 4.0
+XHOST_DEADLINE_MS = 400.0
+XHOST_MAX_ROWS = 8
+#: "during failover" after the kill -9 (the run's second half: the
+#: rest is "recovered")
+XHOST_WINDOW_S = 1.0
+#: the CLI and continuum legs: an LR workflow over the same 12 columns
+FLEET_WF_ROWS = 4_000
+CLI_REQUESTS = 64
+CLI_CLIENTS = 8
+CLI_REPLICAS = 2
+#: served rows against the in-process WorkflowModel.score
+CLI_ATOL = 1e-5
+#: an answer against the same request scored alone through its plane's
+#: scorer: bitwise, unless the kernel's bits depend on how micro-batches
+#: are composed (then this bound, reported as a finding)
+FLEET_REF_ATOL = 1e-6
+FLEET_TIMEOUT_S = 120.0
+#: /metricsz families the phase's scrapes must carry together
+FLEET_METRIC_FAMILIES = ("tm_fleet_", "tm_transport_", "tm_continuum_")
+
+
+def write_portable(path: str, manifest, arrays) -> None:
+    """One portable artifact directory (manifest.json + params.npz,
+    stamped complete), as ``export_portable`` writes it."""
+    from transmogrifai_tpu_torch import portable
+    from transmogrifai_tpu_torch.resilience import atomic
+    os.makedirs(path, exist_ok=True)
+    atomic.atomic_write_json(os.path.join(path, "manifest.json"), manifest)
+    flat = {}
+    for sid, tree in arrays.items():
+        for key, val in portable.flatten_tree(tree).items():
+            flat[f"{sid}/{key}"] = np.asarray(val)
+    atomic.atomic_write_npz(os.path.join(path, "params.npz"), flat)
+    atomic.mark_complete(path)
+
+
+#: the result column of the registry default (v1, then v2 after the
+#: rollout): one name, so only the weights tell the versions apart
+DEFAULT_RESULT = "pred_default"
+
+
+def write_catalog(root: str, seed: int):
+    """The serving phase's 100-id catalog (build_catalog's draws) as a
+    registry root: m000..m003 portable artifacts and 96 aliases in
+    registry.json, so both transports load it by path, plus the
+    registry default ``v1`` (an LR model of the same layout, the first
+    draw from ``seed`` + 1), which the rollout replaces. Returns
+    {model id: (result name, oracle parameters)}, the default under
+    ``None``."""
+    from transmogrifai_tpu_torch.portable_export import (
+        write_registry_manifest)
+    rng = np.random.default_rng(seed)
+    backends = {}
+    for k in range(N_BACKENDS):
+        name = f"m{k:03d}"
+        manifest, arrays, par = make_model_ir(rng, f"pred_{name}")
+        manifest["scoreBuckets"] = list(FLEET_BUCKETS)
+        write_portable(os.path.join(root, name), manifest, arrays)
+        backends[name] = (f"pred_{name}", par)
+    manifest, arrays, par = make_model_ir(np.random.default_rng(seed + 1),
+                                          DEFAULT_RESULT)
+    manifest["scoreBuckets"] = list(FLEET_BUCKETS)
+    write_portable(os.path.join(root, "v1"), manifest, arrays)
+    aliases = {f"m{k:03d}": f"m{k % N_BACKENDS:03d}"
+               for k in range(N_BACKENDS, N_MODELS)}
+    write_registry_manifest(root, default="v1", aliases=aliases)
+    catalog = dict(backends)
+    catalog.update({a: backends[t] for a, t in aliases.items()})
+    catalog[None] = (DEFAULT_RESULT, par)
+    return catalog
+
+
+def write_v2(path: str, seed: int):
+    """The rollout's v2: the second draw from ``seed`` + 1, in v1's
+    layout and under its result name. Returns (result name, oracle
+    parameters)."""
+    rng = np.random.default_rng(seed + 1)
+    make_model_ir(rng, DEFAULT_RESULT)          # v1's draw
+    manifest, arrays, par = make_model_ir(rng, DEFAULT_RESULT)
+    manifest["scoreBuckets"] = list(FLEET_BUCKETS)
+    write_portable(path, manifest, arrays)
+    return DEFAULT_RESULT, par
+
+
+def poisson_arrivals(duration_s: float, rps: float, seed: int):
+    """Arrival times of a Poisson process at ``rps`` over
+    ``duration_s`` (bench.py::_poisson_arrivals, one segment)."""
+    rng = np.random.default_rng(seed)
+    out, t = [], 0.0
+    while True:
+        t += float(rng.exponential(1.0 / rps))
+        if t >= duration_s:
+            return out
+        out.append(t)
+
+
+def fleet_requests(seed: int, n: int, ids, max_rows: int,
+                   default_share: float = 0.0):
+    """``n`` requests of 1..max_rows rows of the catalog's 12 columns
+    (5% missing), model ids Zipf(1.1) over ``ids``; a ``default_share``
+    of them name no model (the registry default)."""
+    rng = np.random.default_rng(seed)
+    pz = 1.0 / np.arange(1, len(ids) + 1) ** ZIPF_A
+    picks = rng.choice(len(ids), size=n, p=pz / pz.sum())
+    out = []
+    for j in picks:
+        rows = int(rng.integers(1, max_rows + 1))
+        cols = {f"x{i}": np.where(rng.random(rows) < 0.05, np.nan,
+                                  rng.normal(size=rows))
+                for i in range(N_COLUMNS)}
+        model = None if rng.random() < default_share else ids[j]
+        out.append((model, cols))
+    return out
+
+
+def open_loop(submit, reqs, arrivals, timeout: float = FLEET_TIMEOUT_S):
+    """Open-loop drive (bench.py::_open_loop_drive): sleep to each
+    arrival, ``submit(cols, model)``, book arrival-to-completion
+    latency. Returns (records [(due s, latency s, future or the
+    submit's exception)], futures, requests never resolved)."""
+    from concurrent.futures import wait
+    recs = [None] * len(arrivals)
+    futs = []
+    t0 = time.perf_counter()
+    for i, due in enumerate(arrivals):
+        lag = due - (time.perf_counter() - t0)
+        if lag > 0:
+            time.sleep(lag)
+        model, cols = reqs[i]
+        try:
+            fut = submit(cols, model)
+        except Exception as e:      # noqa: BLE001 — a client error
+            recs[i] = (due, 0.0, e)
+            continue
+
+        def done(f, i=i, due=due):
+            recs[i] = (due, time.perf_counter() - t0 - due, f)
+
+        fut.add_done_callback(done)
+        futs.append(fut)
+    _done, not_done = wait(futs, timeout=timeout)
+    deadline = time.perf_counter() + 5.0
+    while any(r is None for r in recs) and time.perf_counter() < deadline:
+        time.sleep(0.01)            # done-callbacks run after waiters wake
+    return recs, futs, len(not_done)
+
+
+def _outcome(rec):
+    """(result dict or None, exception or None) of one record."""
+    if rec is None:
+        return None, TimeoutError("never resolved")
+    what = rec[2]
+    if isinstance(what, BaseException):
+        return None, what
+    exc = what.exception()
+    return (None, exc) if exc is not None else (what.result(), None)
+
+
+class PlaneReference:
+    """Each request scored alone through either plane by one engine's
+    scorers, built from the same artifacts on the same device: the
+    classic plane (the version's own scorer, launch + finalize) and the
+    fused plane (one FusedGroupScorer pass over every catalog backend,
+    the engine's canonical member order, the request's rows under its
+    model's index)."""
+
+    def __init__(self, root: str, device, v2_path=None):
+        from transmogrifai_tpu_torch.serving import build_registry
+        from transmogrifai_tpu_torch.serving.fusion import (
+            FusedGroupScorer, stack_spec_of)
+        self.reg = build_registry(root, buckets=FLEET_BUCKETS,
+                                  device=device)
+        names = [f"m{k:03d}" for k in range(N_BACKENDS)] + ["v1"]
+        if v2_path is not None:
+            self.reg.register("v2", v2_path, buckets=FLEET_BUCKETS,
+                              device=device)
+            names.append("v2")
+        self.backends = {}
+        for name in names:
+            with self.reg.acquire(name) as (_v, backend):
+                self.backends[name] = backend
+        order = sorted(names)
+        self.pos = {n: i for i, n in enumerate(order)}
+        self.fused = FusedGroupScorer(
+            [(self.backends[n], stack_spec_of(self.backends[n]))
+             for n in order])
+
+    def version(self, model) -> str:
+        """``None``: the fleet's default after the rollout when a v2
+        is registered, else v1."""
+        if model is None:
+            return "v2" if "v2" in self.backends else "v1"
+        return self.reg.resolve(model)
+
+    def classic(self, model, cols):
+        b = self.backends[self.version(model)]
+        n, vals = b.prepare(cols)
+        return b.finalize(b.launch(n, vals))
+
+    def fused_pass(self, model, cols):
+        name = self.version(model)
+        b = self.backends[name]
+        n, vals = b.prepare(cols)
+        mid = np.full(n, self.pos[name], np.int32)
+        return self.fused.finalize(self.fused.launch(n, vals, mid))
+
+
+def _against_reference(ref: PlaneReference, model, cols, res, name):
+    """Which plane's alone-scoring ``res[name]`` equals: ("fused" |
+    "classic", bitwise?, max abs err against it)."""
+    got = np.asarray(res[name])
+    cands = {"fused": ref.fused_pass(model, cols),
+             "classic": ref.classic(model, cols)[name]}
+    errs = {k: float(np.abs(got - np.asarray(v)).max())
+            for k, v in cands.items()}
+    plane = min(errs, key=errs.get)
+    return plane, errs[plane] == 0.0, errs[plane]
+
+
+def _check_answer(model, cols, res, catalog, bf16: bool, plane: str):
+    """Max abs err of one answer against its model's numpy score under
+    its plane's operand policy; raises past SERVE_ATOL."""
+    name, par = catalog[model]
+    if name not in res:
+        raise AssertionError(
+            f"an answer for {model} lacks {name}: another version "
+            f"served it ({sorted(res)})")
+    want = oracle_probs(cols, par, bf16 and plane == "fused")
+    err = float(np.abs(np.asarray(res[name]) - want).max())
+    if not err <= SERVE_ATOL:
+        raise AssertionError(
+            f"a fleet answer for {model} ({plane} plane) is {err} from "
+            f"its numpy score")
+    return err
+
+
+def _phase_latency(recs, kill_at: float, window_s: float):
+    phases = {"steady": [], "failover": [], "recovered": []}
+    for due, lat, _f in recs:
+        phase = ("steady" if due < kill_at else
+                 "failover" if due < kill_at + window_s else "recovered")
+        phases[phase].append(lat * 1e3)
+    from transmogrifai_tpu_torch.profiling import percentile_nearest_rank
+    out = {}
+    for phase, lats in phases.items():
+        lats.sort()
+        out[f"{phase}_requests"] = len(lats)
+        out[f"{phase}_p50_ms"] = (percentile_nearest_rank(lats, 0.5)
+                                  if lats else None)
+        out[f"{phase}_p99_ms"] = (percentile_nearest_rank(lats, 0.99)
+                                  if lats else None)
+    return out
+
+
+def _kernel_events(prof) -> int:
+    """Launches of the fused serving kernel in a torch.profiler trace."""
+    from torch.autograd import DeviceType
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and "fused_scores_kernel" in ev.key)
+
+
+def inproc_fleet_part(seed, device, root, catalog, v2, *,
+                      replicas=FLEET_REPLICAS, rps=FLEET_RPS,
+                      steady_s=FLEET_STEADY_S, failover_s=FLEET_FAILOVER_S,
+                      window_s=FLEET_WINDOW_S, busy_s=FLEET_BUSY_S,
+                      v2_requests=FLEET_V2_REQUESTS, fault=None):
+    """The inproc fleet under failover: ``replicas`` replicas of the
+    registry root at ``root`` on ``device``, open-loop Poisson arrivals
+    at ``rps`` of 1-16 rows, the busiest replica hard-killed after
+    ``steady_s``, ``failover_s`` more; on the card ``busy_s`` more
+    under torch.profiler (its kernel launches counted by the profiler
+    must equal the wrapper's count); then a staged rollout to v2 and
+    ``v2_requests`` requests, half to the default. Every answer is held
+    to numpy under the operand policy of the plane its spans name and,
+    bit for bit, to the same request scored alone through that plane.
+    ``fault`` plants a defect the gates must catch ("v1_after_rollout":
+    one replica keeps v1 as its default after the rollout; "lost": one
+    answer dropped). Returns the part's measurements."""
+    from transmogrifai_tpu_torch.models import serving_kernels as sk
+    from transmogrifai_tpu_torch.serving import (EngineConfig, FleetConfig,
+                                                 ServingFleet)
+    from transmogrifai_tpu_torch.telemetry import spans as tspans
+    from transmogrifai_tpu_torch.telemetry.spans import TRACER
+    on_card = device.type == "cuda"
+    ids = sorted(k for k in catalog if k is not None)
+    arrivals = poisson_arrivals(steady_s + failover_s, rps, seed + 29)
+    reqs = fleet_requests(seed + 3, len(arrivals), ids, FLEET_MAX_ROWS)
+    cfg = FleetConfig(replicas=replicas, supervise_s=0.05,
+                      breaker_open_s=0.3, restart_backoff_s=0.2,
+                      backoff_s=0.005, rollout_bake_s=2.0,
+                      rollout_min_requests=16, rollout_p99_floor_ms=60.0)
+    ecfg = EngineConfig(max_wait_ms=2.0, fused_kernel=True)
+    old_tracer = (TRACER.sample, TRACER.capacity)
+    tspans.configure(sample=1.0, capacity=1 << 17)
+    v2_path, (v2_name, v2_par) = v2
+    cat2 = dict(catalog)
+    cat2[None] = (v2_name, v2_par)
+    try:
+        with ServingFleet(root, replicas=replicas, buckets=FLEET_BUCKETS,
+                          config=cfg, engine_config=ecfg,
+                          device=device) as fleet:
+            for i in range(8):          # first touch, untimed
+                fleet.score(reqs[i][1], version=reqs[i][0],
+                            timeout=FLEET_TIMEOUT_S)
+            TRACER.clear()
+            kill = {}
+            t_start = time.perf_counter()
+
+            def killer():
+                time.sleep(steady_s)
+                disp = fleet.status()["fleet"]["dispatches"]
+                name = max(disp, key=disp.get) if disp else "r0"
+                kill.update(name=name, at=time.perf_counter() - t_start)
+                fleet.chaos_kill(name, reason="chip_smoke fleet drill")
+
+            def submit(c, m):
+                return fleet.submit(c, version=m)
+
+            sk.fused_linear_scores.launches = 0
+            t0 = time.perf_counter()
+            kt = threading.Thread(target=killer)
+            kt.start()
+            recs, futs, lost = open_loop(submit, reqs, arrivals)
+            kt.join()
+            storm_wall = time.perf_counter() - t0
+            h = fleet._handle(kill["name"])
+            deadline = time.perf_counter() + 60
+            while (h.dead or h.restarts < 1) and \
+                    time.perf_counter() < deadline:
+                time.sleep(0.05)
+            restarted = h.restarts >= 1 and not h.dead
+            busy_reqs, busy_recs = [], []
+            busy_us = events = prof_launches = busy_wall = None
+            window_launches = 0
+            if on_card:
+                barr = poisson_arrivals(busy_s, rps, seed + 37)
+                busy_reqs = fleet_requests(seed + 11, len(barr), ids,
+                                           FLEET_MAX_ROWS)
+                before = sk.fused_linear_scores.launches
+
+                def window():
+                    t1 = time.perf_counter()
+                    out = open_loop(submit, busy_reqs, barr)
+                    return out, time.perf_counter() - t1
+
+                # the wall inside the profiled run: the profiler's start
+                # and stop are not the storm's
+                prof, ((busy_recs, _bf, busy_lost), busy_wall) = profiled(
+                    window, host=False)
+                window_launches = sk.fused_linear_scores.launches - before
+                lost += busy_lost
+                busy_us, events = _device_time_us(prof)
+                prof_launches = _kernel_events(prof)
+            # the staged rollout to v2, under traffic from a pump
+            report = {}
+            stop = threading.Event()
+            pump_errors = []
+
+            def pump():
+                k = 0
+                while not stop.is_set():
+                    m, c = reqs[k % len(reqs)]
+                    try:
+                        fleet.score(c, version=None if k % 2 else m,
+                                    timeout=FLEET_TIMEOUT_S)
+                    except Exception as e:  # noqa: BLE001 — gated below
+                        pump_errors.append(e)
+                    k += 1
+                    time.sleep(0.005)
+
+            pt = threading.Thread(target=pump)
+            pt.start()
+            try:
+                report = fleet.rollout("v2", v2_path)
+            finally:
+                stop.set()
+                pt.join()
+            if fault == "v1_after_rollout":
+                # one replica goes back to v1's weights under the default
+                reg0 = fleet.replica_handles()[0].engine.registry
+                reg0.register("v1_again", os.path.join(root, "v1"),
+                              buckets=FLEET_BUCKETS, device=device)
+                reg0.set_default("v1_again")
+            v2_reqs = fleet_requests(seed + 5, v2_requests, ids,
+                                     FLEET_MAX_ROWS, default_share=0.5)
+            v2_futs = [fleet.submit(c, version=m) for m, c in v2_reqs]
+            v2_res = [f.result(FLEET_TIMEOUT_S) for f in v2_futs]
+            launches = sk.fused_linear_scores.launches
+            status = fleet.status()
+            spans = TRACER.spans()
+    finally:
+        tspans.configure(sample=old_tracer[0], capacity=old_tracer[1])
+    if fault == "lost":
+        recs[len(recs) // 2] = None
+
+    # -- gates -----------------------------------------------------------
+    errors = [e for e in (_outcome(r)[1] for r in recs + busy_recs)
+              if e is not None]
+    if lost or errors or pump_errors:
+        raise AssertionError(
+            f"inproc fleet: {lost} requests lost, {len(errors)} client "
+            f"errors ({errors[:1]}), {len(pump_errors)} rollout-traffic "
+            f"errors")
+    if not restarted:
+        raise AssertionError(f"killed replica {kill['name']} did not "
+                             f"restart")
+    if report.get("rolled_back"):
+        raise AssertionError(f"the rollout to v2 rolled back: "
+                             f"{report.get('reason')}")
+    timed = list(zip(reqs, recs)) + list(zip(busy_reqs, busy_recs))
+    traces = [tspans.get_trace(r[2]) for _q, r in timed] + \
+        [tspans.get_trace(f) for f in v2_futs]
+    if any(t is None for t in traces):
+        raise AssertionError("a routed request carries no trace id")
+    plane, fused_spans = _served_planes(spans, traces)
+    bf16 = sk.serve_dtype(device) == torch.bfloat16
+    ref = PlaneReference(root, device, v2_path)
+    matched = {"fused": 0, "classic": 0}
+    bitwise = {"fused": 0, "classic": 0}
+    max_ref_err = max_err = 0.0
+    answers = [(m, c, _outcome(r)[0], t) for ((m, c), r), t in
+               zip(timed, traces)] + [
+        (m, c, res, t) for (m, c), res, t in
+        zip(v2_reqs, v2_res, traces[len(timed):])]
+    for m, c, res, tid in answers:
+        how = plane[tid]
+        name = cat2[m][0]
+        max_err = max(max_err, _check_answer(m, c, res, cat2, bf16, how))
+        want = (ref.fused_pass(m, c) if how == "fused"
+                else ref.classic(m, c)[name])
+        err = float(np.abs(np.asarray(res[name]) - np.asarray(want)).max())
+        if not err <= FLEET_REF_ATOL:
+            raise AssertionError(
+                f"a fleet answer for {m or ref.version(None)} is {err} "
+                f"from the same request scored alone through the {how} "
+                f"plane")
+        matched[how] += 1
+        bitwise[how] += err == 0.0
+        max_ref_err = max(max_ref_err, err)
+    fl = status["fleet"]
+    per = {}
+    fused_total = 0
+    for rname, snap in status["replicas"].items():
+        eng = snap.get("engine") or {}
+        if eng.get("fused_fallbacks"):
+            raise AssertionError(f"replica {rname}: "
+                                 f"{eng['fused_fallbacks']} fused fallbacks")
+        if snap.get("device", {}).get("device") is None or \
+                torch.device(snap["device"]["device"]).type != device.type:
+            raise AssertionError(f"replica {rname} serves on "
+                                 f"{snap.get('device')}, not {device}")
+        per[rname] = {"completed": eng.get("completed"),
+                      "fused_batches": eng.get("fused_batches"),
+                      "fused_requests": eng.get("fused_requests"),
+                      "fused_fallbacks": eng.get("fused_fallbacks"),
+                      "restarts": snap["supervision"]["restarts"]}
+        fused_total += eng.get("fused_batches") or 0
+    fused_slices = sum(max(1, -(-s["attrs"]["rows"] // FLEET_BUCKETS[-1]))
+                       for s in fused_spans)
+    if not fused_slices:
+        raise AssertionError("the inproc fleet never ran a fused pass")
+    want_launches = fused_slices if on_card else 0
+    if launches != want_launches:
+        raise AssertionError(f"the fused kernel launched {launches} times "
+                             f"for {fused_slices} fused bucket slices")
+    if prof_launches is not None and prof_launches != window_launches:
+        raise AssertionError(f"the profiler saw {prof_launches} fused "
+                             f"kernel launches in its window, the "
+                             f"wrapper counted {window_launches}")
+    rows = sum(len(c["x0"]) for _m, c in reqs)
+    out = {"replicas": replicas, "offered_rps": rps,
+           "requests": len(recs), "rows": rows,
+           "rows_per_s": rows / storm_wall, "storm_wall_s": storm_wall,
+           "killed_replica": kill["name"], "kill_at_s": kill["at"],
+           "lost_requests": lost, "client_errors": len(errors),
+           "failovers": fl["failovers"], "breaker_opens": fl["breaker_opens"],
+           "breaker_closes": fl["breaker_closes"],
+           "breaker_probes": fl.get("breaker_probes"),
+           "replica_crashes": fl["replica_crashes"],
+           "replica_restarts": fl["replica_restarts"],
+           "rollout": {"rolled_back": report.get("rolled_back"),
+                       "replicas": {k: {"ok": v.get("ok"),
+                                        "served": v.get("served")}
+                                    for k, v in report["replicas"].items()}},
+           "v2_requests": len(v2_reqs),
+           "v2_default_requests": sum(m is None for m, _c in v2_reqs),
+           "matched": matched, "bitwise_alone": bitwise,
+           "max_abs_err_vs_numpy": max_err,
+           "max_abs_err_vs_alone": max_ref_err,
+           "kernel_launches": launches,
+           "profiler_kernel_launches": prof_launches,
+           "profiled_window_launches": window_launches,
+           "busy_window_s": busy_wall,
+           "busy_window_requests": len(busy_reqs),
+           "ejections": fl.get("ejections"), "hedges": fl.get("hedges"),
+           "retries": fl.get("retries"),
+           "fused_slices": fused_slices, "fused_batches": fused_total,
+           "per_replica": per,
+           "device_busy_s": None if busy_us is None else busy_us / 1e6,
+           "device_busy_share": (None if busy_us is None
+                                 else busy_us / 1e6 / busy_wall),
+           "device_events": events}
+    out.update(_phase_latency(recs, kill["at"], window_s))
+    return out
+
+
+def socket_fleet_part(seed, device, root, catalog, *,
+                      workers=XHOST_WORKERS, rps=XHOST_RPS,
+                      duration_s=XHOST_DURATION_S,
+                      deadline_ms=XHOST_DEADLINE_MS,
+                      window_s=XHOST_WINDOW_S):
+    """Socket workers under a kill -9: ``workers`` worker processes
+    serving the registry root on ``device`` (each its own CUDA context
+    on the same card), open-loop Poisson at ``rps`` of 1-8 rows for
+    ``duration_s`` with a ``deadline_ms`` deadline, the busiest worker
+    SIGKILLed halfway. Every answer is held to numpy and, bit for bit,
+    to the same request scored alone through one plane (the inproc
+    fleet's gate); each worker's status must name ``device`` and, on
+    the card, a fused launch count equal to its fused passes, with no
+    fallback (``check_workers``); the restarted worker must serve
+    again. Returns the part's measurements (latency phases split at
+    the kill and ``window_s`` after it)."""
+    from transmogrifai_tpu_torch.models import serving_kernels as sk
+    from transmogrifai_tpu_torch.serving import (FleetConfig, HealthServer,
+                                                 ServingFleet)
+    from transmogrifai_tpu_torch.serving.transport import TransportConfig
+    on_card = device.type == "cuda"
+    ids = sorted(k for k in catalog if k is not None)
+    arrivals = poisson_arrivals(duration_s, rps, seed + 31)
+    reqs = fleet_requests(seed + 7, len(arrivals), ids, XHOST_MAX_ROWS)
+    cfg = FleetConfig(replicas=workers, supervise_s=0.05,
+                      breaker_open_s=0.3, restart_backoff_s=0.2,
+                      backoff_s=0.005)
+    env = {"TM_SERVE_FUSED_KERNEL": "1", "TM_ENGINE_MAX_WAIT_MS": "2.0"}
+    t0 = time.perf_counter()
+    with ServingFleet(root, replicas=workers, buckets=FLEET_BUCKETS,
+                      config=cfg, transport="socket", worker_env=env,
+                      transport_config=TransportConfig(spawn_timeout_s=180),
+                      device=device) as fleet:
+        spawn_s = time.perf_counter() - t0
+        # every backend loaded in each worker and the admission latency
+        # model seeded by warm passes, untimed
+        for i in range(8 * workers):
+            fleet.score(reqs[i % len(reqs)][1],
+                        version=f"m{i % N_BACKENDS:03d}",
+                        timeout=FLEET_TIMEOUT_S)
+        kill = {}
+        t_start = time.perf_counter()
+
+        def killer():
+            time.sleep(duration_s / 2)
+            disp = fleet.status()["fleet"]["dispatches"]
+            name = max(disp, key=disp.get) if disp else "r0"
+            h = fleet._handle(name)
+            kill.update(name=name, at=time.perf_counter() - t_start,
+                        before=h.transport.status_snapshot())
+            fleet.chaos_kill(name, reason="chip_smoke kill -9")
+
+        kt = threading.Thread(target=killer)
+        kt.start()
+        recs, futs, lost = open_loop(
+            lambda c, m: fleet.submit(c, version=m,
+                                      deadline_ms=deadline_ms),
+            reqs, arrivals)
+        kt.join()
+        wall = time.perf_counter() - t_start
+        h = fleet._handle(kill["name"])
+        deadline = time.perf_counter() + 120
+        while (h.dead or h.restarts < 1 or not h.transport.live()) and \
+                time.perf_counter() < deadline:
+            time.sleep(0.05)
+        if h.dead or h.restarts < 1:
+            raise AssertionError(f"killed worker {kill['name']} did not "
+                                 f"restart")
+        served_before = h.transport.outcome_counters()["completed"]
+        after = fleet_requests(seed + 9, 64, ids, XHOST_MAX_ROWS)
+        deadline = time.perf_counter() + 30
+        while time.perf_counter() < deadline:
+            # bursts, so the restarted worker's passes co-batch several
+            # backends (fused) as under load
+            for f in [fleet.submit(c, version=m) for m, c in after]:
+                f.result(FLEET_TIMEOUT_S)
+            eng = h.transport.status_snapshot()["engine"]
+            if eng["completed"] > served_before and (
+                    eng["fused_batches"] or not on_card):
+                break
+        served_again = (h.transport.outcome_counters()["completed"]
+                        - served_before)
+        health = HealthServer(fleet).start()
+        try:
+            import urllib.request
+            scrape = urllib.request.urlopen(
+                f"http://127.0.0.1:{health.port}/metricsz",
+                timeout=30).read().decode()
+        finally:
+            health.stop()
+        snaps = {x.name: x.transport.status_snapshot()
+                 for x in fleet.replica_handles()}
+        wire = {x.name: x.transport.stats.as_dict()
+                for x in fleet.replica_handles()}
+        status = fleet.status()
+
+    errors = [e for e in (_outcome(r)[1] for r in recs) if e is not None]
+    if lost or errors:
+        raise AssertionError(f"socket fleet: {lost} requests lost, "
+                             f"{len(errors)} client errors ({errors[:1]})")
+    if served_again <= 0:
+        raise AssertionError(f"restarted worker {kill['name']} served "
+                             f"nothing")
+    bf16 = sk.serve_dtype(device) == torch.bfloat16
+    ref = PlaneReference(root, device)
+    planes = {"fused": 0, "classic": 0}
+    bitwise = 0
+    max_err = max_ref_err = 0.0
+    for (m, c), r in zip(reqs, recs):
+        res = _outcome(r)[0]
+        name = catalog[m][0]
+        how, exact, err = _against_reference(ref, m, c, res, name)
+        if not err <= FLEET_REF_ATOL:
+            raise AssertionError(
+                f"a socket answer for {m} is {err} from the same request "
+                f"scored alone through either plane")
+        max_err = max(max_err, _check_answer(m, c, res, catalog, bf16, how))
+        planes[how] += 1
+        bitwise += exact
+        max_ref_err = max(max_ref_err, err)
+    workers_out = check_workers(snaps, device)
+    for name, w in workers_out.items():
+        w.update(wire_p50_us=wire[name].get("wire_p50_us"),
+                 wire_p99_us=wire[name].get("wire_p99_us"))
+    worker_launches = sum(w["launches"] for w in workers_out.values())
+    before = kill["before"]
+    killed_launches = (before.get("device") or {}).get(
+        "kernels", {}).get("fused_linear_scores") or 0
+    fl = status["fleet"]
+    rows = sum(len(c["x0"]) for _m, c in reqs)
+    out = {"workers": workers, "offered_rps": rps,
+           "requests": len(recs), "rows": rows, "rows_per_s": rows / wall,
+           "deadline_ms": deadline_ms, "spawn_s": spawn_s,
+           "killed_worker": kill["name"], "kill_at_s": kill["at"],
+           "lost_requests": lost, "client_errors": len(errors),
+           "restarted_served": served_again,
+           "ejections": fl.get("ejections"),
+           "readmissions": fl.get("readmissions"),
+           "hedges": fl.get("hedges"), "retries": fl.get("retries"),
+           "supervision": {k: v.get("supervision")
+                           for k, v in status["replicas"].items()},
+           "failovers": fl["failovers"], "breaker_opens": fl["breaker_opens"],
+           "breaker_closes": fl["breaker_closes"],
+           "replica_crashes": fl["replica_crashes"],
+           "replica_restarts": fl["replica_restarts"],
+           "planes": planes, "bitwise_alone": bitwise,
+           "max_abs_err_vs_numpy": max_err,
+           "max_abs_err_vs_alone": max_ref_err,
+           "worker_launches": worker_launches + killed_launches,
+           "killed_worker_launches_before_kill": killed_launches,
+           "per_worker": workers_out,
+           "metricsz_families": sorted(
+               {f for f in FLEET_METRIC_FAMILIES if f in scrape})}
+    out.update(_phase_latency(recs, kill["at"], window_s))
+    return out
+
+
+def check_workers(snaps, device):
+    """Each socket worker's status (``{name: status snapshot}``) must
+    name ``device``, show no fused fallback and, on the card, a fused
+    kernel launch for each of its fused passes (each pass holds at most
+    the top bucket's rows: one slice); on the CPU none. Returns
+    {name: the worker's numbers}; raises on the first that fails."""
+    out = {}
+    for name, snap in snaps.items():
+        dev = snap.get("device") or {}
+        eng = snap.get("engine") or {}
+        launched = (dev.get("kernels") or {}).get("fused_linear_scores")
+        if dev.get("device") is None or \
+                torch.device(dev["device"]).type != device.type:
+            raise AssertionError(f"worker {name} reports device "
+                                 f"{dev.get('device')}, not {device}")
+        if eng.get("fused_fallbacks"):
+            raise AssertionError(f"worker {name}: "
+                                 f"{eng['fused_fallbacks']} fused fallbacks")
+        on_card = device.type == "cuda"
+        want = eng.get("fused_batches") if on_card else 0
+        if on_card and not launched:
+            raise AssertionError(f"worker {name} launched no fused kernel")
+        if launched != want:
+            raise AssertionError(f"worker {name} launched the fused kernel "
+                                 f"{launched} times for {want} fused passes")
+        out[name] = {
+            "device": dev.get("device"), "launches": launched,
+            "fused_batches": eng.get("fused_batches"),
+            "fused_fallbacks": eng.get("fused_fallbacks"),
+            "completed": eng.get("completed"),
+            "pid": snap.get("transport", {}).get("pid"),
+            "generation": snap.get("transport", {}).get("generation")}
+    return out
+
+
+def wf_data(pkg, n: int, seed: int, shift: float = 0.0):
+    """``n`` rows of the catalog's 12 Real columns (5% missing; x0
+    shifted by ``shift``) with a logistic label: the LR workflow the
+    CLI and continuum legs serve."""
+    import importlib
+    root = importlib.import_module(pkg)
+    ft = root.features.types
+    rng = np.random.default_rng(seed)
+    cols = {f"x{i}": np.where(rng.random(n) < 0.05, np.nan,
+                              rng.normal(size=n)) for i in range(N_COLUMNS)}
+    z = np.nan_to_num(cols["x0"]) - np.nan_to_num(cols["x1"])
+    cols["label"] = (rng.random(n) < 1 / (1 + np.exp(-z))).astype(np.float64)
+    cols["x0"] = cols["x0"] + shift
+    schema = {f"x{i}": ft.Real for i in range(N_COLUMNS)}
+    schema["label"] = ft.RealNN
+    return root.Dataset(cols, schema)
+
+
+def wf_workflow():
+    """The served LR workflow: the continuum test's recipe at 12
+    columns (raw feature filter included, so the saved model carries
+    the drift baseline)."""
+    from transmogrifai_tpu_torch import FeatureBuilder
+    from transmogrifai_tpu_torch import models as TM
+    from transmogrifai_tpu_torch.features import reset_uids, types as ft
+    from transmogrifai_tpu_torch.ops.sanity_checker import SanityChecker
+    from transmogrifai_tpu_torch.ops.transmogrifier import transmogrify
+    from transmogrifai_tpu_torch.workflow import Workflow
+    reset_uids()
+    label = FeatureBuilder.of(ft.RealNN, "label").from_column().as_response()
+    preds = [FeatureBuilder.of(ft.Real, f"x{i}").from_column().as_predictor()
+             for i in range(N_COLUMNS)]
+    pred = TM.BinaryClassificationModelSelector.with_cross_validation(
+        n_folds=2, candidates=[["LogisticRegression",
+                                {"regParam": [0.01],
+                                 "elasticNetParam": [0.0]}]]
+    ).set_input(label, SanityChecker().set_input(
+        label, transmogrify(preds)).output).output
+    return Workflow([pred]).with_raw_feature_filter(min_fill_rate=0.001)
+
+
+def _ds_slice(ds, lo: int, hi: int):
+    return type(ds)({k: ds.column(k)[lo:hi] for k in ds.column_names},
+                    {k: ds.ftype(k) for k in ds.column_names})
+
+
+def cli_part(model, ds, device, workdir, requests=CLI_REQUESTS,
+             replicas=CLI_REPLICAS):
+    """``python -m transmogrifai_tpu_torch serve --engine`` as a
+    subprocess on the saved workflow (``--replicas``, TM_TRACE_DIR set),
+    every output row held to the in-process ``WorkflowModel.score``;
+    then ``serve`` in stream mode over a CSV of the same rows."""
+    import csv
+    path = os.path.join(workdir, "wf_model")
+    model.save(path)
+    rng = np.random.default_rng(11)
+    spans_dir = os.path.join(workdir, "cli_trace")
+    cols = {k: np.asarray(ds.column(k)) for k in ds.column_names
+            if k != "label"}
+    n = len(cols["x0"])
+    slices = []
+    with open(os.path.join(workdir, "r.jsonl"), "w") as f:
+        for _ in range(requests):
+            lo = int(rng.integers(0, n - 8))
+            hi = lo + int(rng.integers(1, 9))
+            slices.append((lo, hi))
+            f.write(json.dumps({"columns": {
+                k: [None if np.isnan(x) else float(x) for x in v[lo:hi]]
+                for k, v in cols.items()}}) + "\n")
+    dev_args = [] if device.type == "cuda" else ["--device", str(device)]
+    env = dict(os.environ, TM_TRACE_DIR=spans_dir, TM_TRACE_SAMPLE="1")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "transmogrifai_tpu_torch", "serve",
+         "--engine", "--model", path,
+         "--input", os.path.join(workdir, "r.jsonl"),
+         "--output", os.path.join(workdir, "o.jsonl"),
+         "--clients", str(CLI_CLIENTS), "--replicas", str(replicas)]
+        + dev_args, cwd=here, env=env, capture_output=True, text=True,
+        timeout=600)
+    engine_wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"cli serve --engine exited "
+                             f"{res.returncode}: {res.stderr[-2000:]}")
+    summary = json.loads(res.stdout.strip().splitlines()[-1])
+    if summary["ok"] != requests or summary["errors"]:
+        raise AssertionError(f"cli serve --engine: ok {summary['ok']} of "
+                             f"{requests}, errors {summary['errors']}")
+    name = model.result_features[0].name
+    want = _probs(model, model.score(ds))
+    out = [json.loads(x) for x in open(os.path.join(workdir, "o.jsonl"))]
+    max_err = 0.0
+    for o, (lo, hi) in zip(out, slices):
+        got = np.asarray(o["results"][name])[:, -1]
+        max_err = max(max_err, float(np.abs(got - want[lo:hi]).max()))
+    if not max_err <= CLI_ATOL:
+        raise AssertionError(f"cli serve --engine rows are {max_err} from "
+                             f"WorkflowModel.score")
+    span_file = os.path.join(spans_dir, "tm_spans.jsonl")
+    n_spans = (sum(1 for _ in open(span_file))
+               if os.path.exists(span_file) else 0)
+    if not n_spans:
+        raise AssertionError("cli serve --engine wrote no spans under "
+                             "TM_TRACE_DIR")
+    # stream mode over a CSV of every request's rows
+    csv_path = os.path.join(workdir, "r.csv")
+    with open(csv_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(sorted(cols))
+        for lo, hi in slices:
+            for r in range(lo, hi):
+                w.writerow(["" if np.isnan(cols[k][r]) else repr(
+                    float(cols[k][r])) for k in sorted(cols)])
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "transmogrifai_tpu_torch", "serve",
+         "--model", path, "--input", csv_path,
+         "--output", os.path.join(workdir, "o.csv")] + dev_args,
+        cwd=here, env=dict(os.environ), capture_output=True, text=True,
+        timeout=600)
+    stream_wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"cli serve (stream) exited "
+                             f"{res.returncode}: {res.stderr[-2000:]}")
+    stream = json.loads(res.stdout.strip().splitlines()[-1])
+    with open(os.path.join(workdir, "o.csv")) as f:
+        rows = list(csv.reader(f))
+    got = np.asarray([float(r[-1]) for r in rows[1:]])
+    want_rows = np.concatenate([want[lo:hi] for lo, hi in slices])
+    stream_err = float(np.abs(got - want_rows).max())
+    if len(got) != len(want_rows) or not stream_err <= CLI_ATOL:
+        raise AssertionError(f"cli serve (stream): {len(got)} rows, max "
+                             f"abs err {stream_err}")
+    return {"requests": requests, "ok": summary["ok"],
+            "replicas": replicas, "rows": summary["rows"],
+            "engine_wall_s": engine_wall,
+            "engine_rows_per_s": summary["rows_per_sec"],
+            "max_abs_err": max_err, "spans_written": n_spans,
+            "stream_rows": stream["rows"], "stream_wall_s": stream_wall,
+            "stream_max_abs_err": stream_err}
+
+
+def continuum_part(model, train_ds, drifted, device, workdir):
+    """A drift drill (tests/test_continuum.py's): traffic with x0
+    shifted → debounced detection → a retrain of the LR workflow on
+    ``device`` → lint and shadow gates → staged promotion across a
+    two-replica inproc fleet, with zero client-visible errors; then
+    one /metricsz scrape of the controller. Returns the part's
+    measurements."""
+    from transmogrifai_tpu_torch.continuum import (ContinuumConfig,
+                                                   ContinuumController,
+                                                   DriftConfig)
+    from transmogrifai_tpu_torch.serving import (EngineConfig, FleetConfig,
+                                                 HealthServer, ServingFleet)
+    fcfg = FleetConfig(replicas=2, supervise_s=0.05, breaker_open_s=0.3,
+                       restart_backoff_s=0.1, backoff_s=0.005,
+                       rollout_bake_s=2.0, rollout_min_requests=6,
+                       rollout_p99_floor_ms=60.0)
+    ccfg = ContinuumConfig(tick_s=0.05, cooldown_s=0.5, retrain_attempts=2,
+                           retrain_backoff_s=0.01, shadow_min_samples=6,
+                           shadow_timeout_s=15.0, stop_timeout_s=60.0,
+                           checkpoint_dir=os.path.join(workdir, "ckpt"))
+    dcfg = DriftConfig(threshold=0.4, debounce_windows=2,
+                       window_min_rows=24)
+    errors = []
+    stop = threading.Event()
+    t0 = time.perf_counter()
+    with ServingFleet(model, replicas=2, buckets=(32,),
+                      warm_sample=_ds_slice(train_ds, 0, 1), config=fcfg,
+                      engine_config=EngineConfig(max_wait_ms=1.0),
+                      device=device) as fleet:
+        ctl = ContinuumController(fleet, model, wf_workflow, train_ds,
+                                  buckets=(32,), config=ccfg,
+                                  drift_config=dcfg)
+
+        def pump(seed):
+            rng = np.random.default_rng(seed)
+            n = drifted.n_rows
+            while not stop.is_set():
+                lo = int(rng.integers(0, n - 12))
+                try:
+                    fleet.score(_ds_slice(drifted, lo,
+                                          lo + int(rng.integers(4, 12))),
+                                timeout=FLEET_TIMEOUT_S)
+                except Exception as e:  # noqa: BLE001 — gated below
+                    errors.append(e)
+                    return
+                time.sleep(0.004)
+
+        threads = [threading.Thread(target=pump, args=(s,))
+                   for s in range(4)]
+        with ctl:
+            for t in threads:
+                t.start()
+            deadline = time.perf_counter() + 90
+            while time.perf_counter() < deadline and not (
+                    (ctl.last_cycle or {}).get("outcome") == "promoted"
+                    and not ctl.continuum_status()["cycle_in_flight"]):
+                time.sleep(0.05)
+            health = HealthServer(ctl).start()
+            try:
+                import urllib.request
+                scrape = urllib.request.urlopen(
+                    f"http://127.0.0.1:{health.port}/metricsz",
+                    timeout=30).read().decode()
+            finally:
+                health.stop()
+            stop.set()
+            for t in threads:
+                t.join()
+            st = ctl.continuum_status()
+            last = dict(ctl.last_cycle or {})
+    wall = time.perf_counter() - t0
+    stats = st["stats"]
+    if errors:
+        raise AssertionError(f"continuum drill: {len(errors)} client "
+                             f"errors ({errors[0]!r})")
+    if stats["promotions"] != 1 or last.get("outcome") != "promoted":
+        raise AssertionError(f"continuum drill: {stats['promotions']} "
+                             f"promotions, last cycle {last}")
+    return {"wall_s": wall, "promotions": stats["promotions"],
+            "triggers": stats["triggers"],
+            "retrains": stats.get("retrains"),
+            "shadow_samples": stats.get("shadow_samples"),
+            "trigger_reason": stats.get("last_trigger_reason"),
+            "version": last.get("version"), "phases_s": last.get("phases"),
+            "client_errors": len(errors),
+            "metricsz_families": sorted(
+                {f for f in FLEET_METRIC_FAMILIES if f in scrape})}
+
+
+def fleet_phase(seed: int, device="cuda", workdir=None,
+                replicas=FLEET_REPLICAS, rps=FLEET_RPS,
+                steady_s=FLEET_STEADY_S, failover_s=FLEET_FAILOVER_S,
+                window_s=FLEET_WINDOW_S, busy_s=FLEET_BUSY_S,
+                v2_requests=FLEET_V2_REQUESTS,
+                workers=XHOST_WORKERS, xhost_rps=XHOST_RPS,
+                xhost_s=XHOST_DURATION_S, wf_rows=FLEET_WF_ROWS,
+                cli_requests=CLI_REQUESTS, fault=None):
+    """The serving tier end to end on ``device``: the catalog written as
+    a registry root, the inproc fleet under failover and a staged
+    rollout, socket workers under a kill -9, the CLI as a subprocess
+    (engine and stream modes) and the continuum drift drill. ``fault``
+    plants a defect the inproc part's gates must catch (see
+    ``inproc_fleet_part``). Returns every part's measurements; raises
+    on any failure."""
+    import tempfile
+    device = torch.device(device)
+    own = workdir is None
+    workdir = workdir or tempfile.mkdtemp(prefix="tm_smoke_fleet_")
+    t0 = time.perf_counter()
+    try:
+        root = os.path.join(workdir, "catalog")
+        catalog = write_catalog(root, seed)
+        v2_path = os.path.join(workdir, "v2")
+        v2 = (v2_path, write_v2(v2_path, seed))
+        inproc = inproc_fleet_part(
+            seed, device, root, catalog, v2, replicas=replicas, rps=rps,
+            steady_s=steady_s, failover_s=failover_s, window_s=window_s,
+            busy_s=busy_s, v2_requests=v2_requests,
+            fault=fault)
+        socket = socket_fleet_part(
+            seed, device, root, catalog, workers=workers, rps=xhost_rps,
+            duration_s=xhost_s, window_s=min(XHOST_WINDOW_S, xhost_s / 4))
+        train_ds = wf_data("transmogrifai_tpu_torch", wf_rows, seed + 13)
+        t_train = time.perf_counter()
+        model = wf_workflow().train(train_ds, device=device)
+        train_wall = time.perf_counter() - t_train
+        cli = cli_part(model, wf_data("transmogrifai_tpu_torch", 512,
+                                      seed + 17), device, workdir,
+                       requests=cli_requests,
+                       replicas=min(CLI_REPLICAS, max(1, replicas)))
+        cont = continuum_part(model, train_ds,
+                              wf_data("transmogrifai_tpu_torch", 512,
+                                      seed + 19, shift=50.0),
+                              device, workdir)
+        families = set(socket["metricsz_families"]) | set(
+            cont["metricsz_families"])
+        if families != set(FLEET_METRIC_FAMILIES):
+            raise AssertionError(f"/metricsz scrapes carry {sorted(families)}"
+                                 f", not every one of "
+                                 f"{list(FLEET_METRIC_FAMILIES)}")
+        return {"device": str(device), "inproc": inproc, "socket": socket,
+                "workflow_train_s": train_wall, "cli": cli,
+                "continuum": cont, "phase_wall_s": time.perf_counter() - t0,
+                "kernel_launches": inproc["kernel_launches"]
+                + socket["worker_launches"]}
+    finally:
+        if own:
+            import shutil
+            shutil.rmtree(workdir, ignore_errors=True)
+
+
+def fleet_lines(fl) -> list:
+    """One printed line per number of the fleet phase, each its run's."""
+    ip, so, cli, co = (fl["inproc"], fl["socket"], fl["cli"],
+                       fl["continuum"])
+    lines = []
+    for label, part in (("inproc", ip), ("socket", so)):
+        lines.append(
+            f"phase fleet: {label} p50/p99 ms steady "
+            f"{part['steady_p50_ms']}/{part['steady_p99_ms']} failover "
+            f"{part['failover_p50_ms']}/{part['failover_p99_ms']} "
+            f"recovered {part['recovered_p50_ms']}/"
+            f"{part['recovered_p99_ms']}; {part['rows_per_s']} rows/s; "
+            f"lost {part['lost_requests']}, client errors "
+            f"{part['client_errors']}")
+        lines.append(
+            f"phase fleet: {label} failovers {part['failovers']}, "
+            f"retries {part['retries']}, ejections {part['ejections']}, "
+            f"crashes {part['replica_crashes']}, restarts "
+            f"{part['replica_restarts']}, breaker opens "
+            f"{part['breaker_opens']} closes {part['breaker_closes']}")
+    lines.append(
+        f"phase fleet: inproc rollout to v2 rolled back "
+        f"{ip['rollout']['rolled_back']}; answers vs numpy "
+        f"{ip['max_abs_err_vs_numpy']}, vs alone {ip['max_abs_err_vs_alone']}"
+        f" (bitwise {ip['bitwise_alone']} of {ip['matched']}); kernel "
+        f"launches {ip['kernel_launches']} for {ip['fused_slices']} fused "
+        f"slices, {ip['profiler_kernel_launches']} by the profiler in its "
+        f"{ip['busy_window_s']} s window; busy share "
+        f"{ip['device_busy_share']}")
+    for name, w in so["per_worker"].items():
+        lines.append(
+            f"phase fleet: worker {name} on {w['device']} launches "
+            f"{w['launches']} fused passes {w['fused_batches']} fallbacks "
+            f"{w['fused_fallbacks']}; wire overhead p50/p99 us "
+            f"{w['wire_p50_us']}/{w['wire_p99_us']}")
+    lines.append(
+        f"phase fleet: socket answers vs numpy {so['max_abs_err_vs_numpy']}"
+        f", vs alone {so['max_abs_err_vs_alone']} (bitwise "
+        f"{so['bitwise_alone']} of {so['requests']}, planes "
+        f"{so['planes']}); restarted worker served {so['restarted_served']}")
+    lines.append(
+        f"phase fleet: cli serve --engine {cli['ok']}/{cli['requests']} ok "
+        f"in {cli['engine_wall_s']} s, max abs err {cli['max_abs_err']}, "
+        f"{cli['spans_written']} spans; stream {cli['stream_rows']} rows in "
+        f"{cli['stream_wall_s']} s, max abs err {cli['stream_max_abs_err']}")
+    lines.append(
+        f"phase fleet: continuum promotions {co['promotions']} in "
+        f"{co['wall_s']} s (phases {co['phases_s']}), client errors "
+        f"{co['client_errors']}; /metricsz families "
+        f"{sorted(set(co['metricsz_families']) | set(so['metricsz_families']))}")
+    lines.append(f"phase fleet: wall {fl['phase_wall_s']} s")
+    return lines
+
+
 def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
-                 wf=None, ctr=None, fe=None):
+                 wf=None, ctr=None, fe=None, fl=None):
     """The ``kernels`` line from this run's phase results: every time
     and error is one this run measured, every bound one it computed
     from its own inputs, every launch count its main path's (the
@@ -4217,9 +5320,11 @@ def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
     the serving kernel's: the serving phase's, with the workflow
     phase's exported models apart; ``ctr_launches``: the CTR phase's,
     which launches none; ``features_launches``: the features phase's,
-    whose histogram launches add to the histogram's count; the
-    histogram's error also covers the features phase's checks at its
-    trains' own levels)."""
+    whose histogram launches add to the histogram's count;
+    ``fleet_launches``: the fleet phase's, the inproc fleet's by the
+    wrapper's count and by the profiler's, every socket worker's from
+    its own status; the histogram's error also covers the features
+    phase's checks at its trains' own levels)."""
     ctr_launches = (ctr or {}).get("launches", {})
     fe_launches = (fe or {}).get("launches", {})
     # the serving pass's shape in its operand mode: the prefix form,
@@ -4239,6 +5344,10 @@ def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
         "workflow_launches": None if wf is None else wf["fused_launches"],
         "ctr_launches": ctr_launches.get("fused_linear_scores"),
         "features_launches": fe_launches.get("fused_linear_scores"),
+        "fleet_launches": None if fl is None else {
+            "inproc": fl["inproc"]["kernel_launches"],
+            "inproc_profiler": fl["inproc"]["profiler_kernel_launches"],
+            "workers": fl["socket"]["worker_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -4378,8 +5487,14 @@ def main(argv=None) -> int:
     for line in features_lines(fe):
         print(line, flush=True)
 
+    fl = fleet_phase(args.seed)
+    print("phase fleet: " + json.dumps(dict(fl, card=card), default=str),
+          flush=True)
+    for line in fleet_lines(fl):
+        print(line, flush=True)
+
     print(json.dumps(kernels_line(rows, serve, empty_ms, hrows, train, hmma,
-                                  rrows, dp, wf, ctr, fe)), flush=True)
+                                  rrows, dp, wf, ctr, fe, fl)), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -604,3 +604,132 @@ def test_kernels_line_adds_the_features_launches():
         None, None, fe)["kernels"][1]["max_abs_err"] == 2.5
     assert [k["features_launches"] for k in line["kernels"]] == [0, 668, 0]
     assert line["kernels"][0]["launches"] == 7
+
+
+# -- fleet: the serving tier ---------------------------------------------------
+
+#: the fleet phase at its CPU size: two replicas (one cannot fail over),
+#: two socket workers, about a second of traffic each
+FLEET_SMALL = dict(replicas=2, rps=60.0, steady_s=0.6, failover_s=0.6,
+                   window_s=0.3, v2_requests=16, workers=2,
+                   xhost_rps=60.0, xhost_s=1.0, wf_rows=600,
+                   cli_requests=8)
+
+
+@pytest.fixture(scope="module")
+def fleet_run():
+    """The fleet phase on the CPU at FLEET_SMALL: every gate of the
+    phase (the kernel counts, CUDA only, must stay 0)."""
+    return chip_smoke.fleet_phase(0, device="cpu", **FLEET_SMALL)
+
+
+def test_fleet_phase_runs_on_the_cpu(fleet_run):
+    ip, so, cli, co = (fleet_run[k] for k in ("inproc", "socket", "cli",
+                                              "continuum"))
+    for part in (ip, so):
+        assert part["lost_requests"] == part["client_errors"] == 0
+        assert part["replica_crashes"] == part["replica_restarts"] == 1
+        assert part["max_abs_err_vs_numpy"] <= chip_smoke.SERVE_ATOL
+        assert part["max_abs_err_vs_alone"] <= chip_smoke.FLEET_REF_ATOL
+    assert ip["replicas"] == 2 and so["workers"] == 2
+    assert ip["rollout"]["rolled_back"] is False
+    assert ip["v2_default_requests"] > 0
+    assert ip["kernel_launches"] == 0 and ip["fused_slices"] > 0
+    assert ip["device_busy_share"] is None          # the profiler: CUDA
+    assert sum(ip["matched"].values()) == ip["requests"] + ip["v2_requests"]
+    assert so["restarted_served"] > 0 and so["worker_launches"] == 0
+    assert {w["device"] for w in so["per_worker"].values()} == {"cpu"}
+    assert all(w["wire_p50_us"] is not None
+               for w in so["per_worker"].values())
+    assert cli["ok"] == cli["requests"] == 8
+    assert cli["max_abs_err"] <= chip_smoke.CLI_ATOL
+    assert cli["stream_max_abs_err"] <= chip_smoke.CLI_ATOL
+    assert cli["spans_written"] > 0
+    assert co["promotions"] == 1 and co["client_errors"] == 0
+    assert set(so["metricsz_families"]) | set(co["metricsz_families"]) == \
+        set(chip_smoke.FLEET_METRIC_FAMILIES)
+    assert fleet_run["kernel_launches"] == 0
+
+
+def test_fleet_lines_take_every_number_from_the_run(fleet_run):
+    import copy
+    run = copy.deepcopy(fleet_run)
+    run["inproc"]["steady_p99_ms"] = 12345.5
+    run["inproc"]["failovers"] = 4321
+    run["socket"]["recovered_p50_ms"] = 777.25
+    name = sorted(run["socket"]["per_worker"])[0]
+    run["socket"]["per_worker"][name]["wire_p99_us"] = 0.0625
+    run["cli"]["engine_wall_s"] = 98.5
+    run["continuum"]["wall_s"] = 3.125
+    run["phase_wall_s"] = 61.75
+    run["inproc"]["device_busy_share"] = 0.015625
+    lines = chip_smoke.fleet_lines(run)
+    assert all(line.startswith("phase fleet: ") for line in lines)
+    text = "\n".join(lines)
+    for value in ("12345.5", "4321", "777.25", "0.0625", "98.5", "3.125",
+                  "61.75", "0.015625"):
+        assert value in text
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("v1_after_rollout", "numpy score|lacks"),
+    ("lost", "lost|client errors"),
+], ids=["v1_weights_after_rollout", "lost_request"])
+def test_fleet_gates_flag_a_planted_fault(tmp_path, fault, match):
+    import torch as _torch
+    root = str(tmp_path / "catalog")
+    catalog = chip_smoke.write_catalog(root, 0)
+    v2_path = str(tmp_path / "v2")
+    v2 = (v2_path, chip_smoke.write_v2(v2_path, 0))
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.inproc_fleet_part(
+            0, _torch.device("cpu"), root, catalog, v2, replicas=2,
+            rps=60.0, steady_s=0.4, failover_s=0.4, window_s=0.2,
+            v2_requests=32, fault=fault)
+
+
+def test_worker_gate_flags_a_worker_on_the_cpu(fleet_run):
+    """A worker whose status reports the CPU fails the card's gate, as
+    does one that launched no kernel or fell back."""
+    import copy
+    import torch as _torch
+    snap = {"device": {"device": "cuda:0",
+                       "kernels": {"fused_linear_scores": 5}},
+            "engine": {"fused_batches": 5, "fused_fallbacks": 0},
+            "transport": {"pid": 1, "generation": 1}}
+    cuda = _torch.device("cuda")
+    assert chip_smoke.check_workers({"r0": snap}, cuda)["r0"]["launches"] == 5
+    on_cpu = copy.deepcopy(snap)
+    on_cpu["device"]["device"] = "cpu"
+    with pytest.raises(AssertionError, match="reports device cpu"):
+        chip_smoke.check_workers({"r0": snap, "r1": on_cpu}, cuda)
+    idle = copy.deepcopy(snap)
+    idle["device"]["kernels"]["fused_linear_scores"] = 0
+    with pytest.raises(AssertionError, match="launched no fused kernel"):
+        chip_smoke.check_workers({"r0": idle}, cuda)
+    fell = copy.deepcopy(snap)
+    fell["engine"]["fused_fallbacks"] = 2
+    with pytest.raises(AssertionError, match="fallbacks"):
+        chip_smoke.check_workers({"r0": fell}, cuda)
+
+
+def test_kernels_line_adds_the_fleet_launches():
+    row = {k: 1.5 for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                            "max_abs_err", "call_ms", "plain_call_ms",
+                            "library_call_ms", "span_ms",
+                            "library_device_ms")}
+    row["bound_by"] = "bytes"
+    rows = [dict(row, form="identity", shape=[1], dtype="f"),
+            dict(row, form="prefix", shape=[2], act="a", dtype="f")]
+    hrows = [dict(row, dtype="f", **{k: 1 for k in "GndSmB"})]
+    rrows = [dict(row, layout="one card", shape="gbt_level",
+                  ndev=chip_smoke.DP_RANKS, dims=[1])]
+    fl = {"inproc": {"kernel_launches": 31, "profiler_kernel_launches": 31},
+          "socket": {"worker_launches": 17}}
+    line = chip_smoke.kernels_line(
+        rows, {"kernel_launches": 7}, 0.5, hrows,
+        {"histogram_launches": 418}, 3, rrows, {"ring_launches": 24},
+        None, None, None, fl)
+    assert line["kernels"][0]["fleet_launches"] == {
+        "inproc": 31, "inproc_profiler": 31, "workers": 17}
+    assert line["kernels"][0]["launches"] == 7

@@ -957,3 +957,54 @@ def test_fit_lda_card_matches_cpu_within_the_lda_tolerance(card):
     t_card = lda.infer_topics(torch.from_numpy(counts).to(card),
                               torch.from_numpy(lam_cpu).to(card)).cpu()
     np.testing.assert_allclose(t_card.numpy(), t_cpu, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_inproc_fleet_on_the_card_launches_the_kernel(card, tmp_path):
+    """Two inproc replicas sharing the card under a kill and a staged
+    rollout (the smoke's inproc part, a second of traffic): no lost
+    request, every answer within 1e-4 of numpy under its plane's policy
+    and equal to the request scored alone through that plane, one fused
+    kernel launch a fused bucket slice."""
+    import chip_smoke
+    root = str(tmp_path / "catalog")
+    catalog = chip_smoke.write_catalog(root, 0)
+    v2_path = str(tmp_path / "v2")
+    v2 = (v2_path, chip_smoke.write_v2(v2_path, 0))
+    out = chip_smoke.inproc_fleet_part(
+        0, card, root, catalog, v2, replicas=2, rps=60.0, steady_s=0.8,
+        failover_s=0.8, window_s=0.4, v2_requests=32)
+    assert out["lost_requests"] == out["client_errors"] == 0
+    assert out["kernel_launches"] == out["fused_slices"] > 0
+    assert out["max_abs_err_vs_alone"] <= chip_smoke.FLEET_REF_ATOL
+
+
+@pytest.mark.cuda
+def test_socket_workers_on_the_card_launch_the_kernel(card, tmp_path):
+    """Two socket workers on cuda:0 (each its own CUDA context) under a
+    kill -9: every worker's status names the card and counts a fused
+    launch a fused pass, no fallback, the restarted worker serves."""
+    import chip_smoke
+    root = str(tmp_path / "catalog")
+    catalog = chip_smoke.write_catalog(root, 0)
+    out = chip_smoke.socket_fleet_part(0, card, root, catalog, workers=2,
+                                       rps=120.0, duration_s=2.0,
+                                       window_s=0.5)
+    assert out["lost_requests"] == out["client_errors"] == 0
+    assert out["restarted_served"] > 0
+    for w in out["per_worker"].values():
+        assert torch.device(w["device"]).type == "cuda"
+        assert w["launches"] == w["fused_batches"]
+
+
+@pytest.mark.cuda
+def test_worker_on_the_card_serves_a_saved_workflow(card, tmp_path):
+    """``python -m transmogrifai_tpu_torch serve --engine`` on the card
+    as a subprocess: every row within CLI_ATOL of WorkflowModel.score."""
+    import chip_smoke
+    import transmogrifai_tpu_torch as P
+    ds = chip_smoke.wf_data(P.__name__, 600, 13)
+    model = chip_smoke.wf_workflow().train(ds, device=card)
+    out = chip_smoke.cli_part(model, chip_smoke.wf_data(P.__name__, 200, 17),
+                              card, str(tmp_path), requests=8, replicas=2)
+    assert out["ok"] == 8 and out["max_abs_err"] <= chip_smoke.CLI_ATOL

@@ -349,3 +349,54 @@ def test_workflow_entry_points_default_to_cuda(monkeypatch, tmp_path):
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_serving_tier_modules_are_in_the_import_probe():
+    """The serving tier (health, router, fleet, worker, autoscaler,
+    shadow, the transports, metrics, continuum) and the CLI are among
+    the modules the probe above imports, so none of them reaches JAX;
+    importing the package's ``__main__`` runs nothing."""
+    import pkgutil
+    import transmogrifai_tpu_torch as P
+    mods = {m.name for m in pkgutil.walk_packages(P.__path__,
+                                                  P.__name__ + ".")}
+    want = {"serving.health", "serving.router", "serving.fleet",
+            "serving.worker", "serving.autoscaler", "serving.shadow",
+            "serving.transport", "serving.transport.base",
+            "serving.transport.inproc", "serving.transport.wire",
+            "serving.transport.tcp", "serving.transport.netchaos",
+            "telemetry.metrics", "continuum", "continuum.monitor",
+            "continuum.controller", "cli", "__main__"}
+    assert {f"transmogrifai_tpu_torch.{m}" for m in want} <= mods
+
+
+def test_serving_tier_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """ServingFleet (either transport), build_registry, the CLI's
+    serving modes and a worker's main resolve to CUDA with no device,
+    so without a card each raises; nothing serves on the CPU unasked."""
+    from transmogrifai_tpu_torch import models as M
+    from transmogrifai_tpu_torch.cli import main as cli_main
+    from transmogrifai_tpu_torch.features import FeatureBuilder
+    from transmogrifai_tpu_torch.features import types as ft
+    from transmogrifai_tpu_torch.ops.sanity_checker import SanityChecker
+    from transmogrifai_tpu_torch.ops.transmogrifier import transmogrify
+    from transmogrifai_tpu_torch.serving import ServingFleet, build_registry
+    from transmogrifai_tpu_torch.serving.worker import main as worker_main
+    from transmogrifai_tpu_torch.workflow import Workflow
+    path = str(tmp_path / "m")
+    _tiny_workflow(FeatureBuilder, ft, M, transmogrify, SanityChecker,
+                   Workflow).train(_tiny_rows(), device="cpu").save(path)
+    (tmp_path / "r.jsonl").write_text('{"a": 1.0, "c": "x"}\n')
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: ServingFleet(path, replicas=2),
+        lambda: ServingFleet(path, replicas=1, transport="socket"),
+        lambda: build_registry(path),
+        lambda: cli_main(["serve", "--engine", "--model", path, "--input",
+                          str(tmp_path / "r.jsonl"), "--output",
+                          str(tmp_path / "o.jsonl")]),
+        lambda: worker_main(["--model", path]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

@@ -3,7 +3,9 @@
 :func:`load_mirror` reads ``tests/<file>`` and executes its text with
 every ``transmogrifai_tpu`` import pointed at ``transmogrifai_tpu_torch``,
 so each case's inputs and assertions are the JAX test's own, applied to
-the port's classes. :func:`mirror_cases` expands the module's test
+the port's classes. A shared test helper the JAX test imports by bare
+name (``serving_util``, which trains the serving suites' model) is
+loaded with the same rewrite, and the import points at that copy. :func:`mirror_cases` expands the module's test
 functions (and their ``parametrize`` marks) into ``pytest.param``s, and
 :func:`run_mirror_case` calls one, handing it the pytest fixtures it asks
 for (``tmp_path``, ``monkeypatch``, ...).
@@ -11,8 +13,8 @@ for (``tmp_path``, ``monkeypatch``, ...).
 The JAX tests name no device. The port's entry points run on the card
 unless asked for the CPU, so :func:`port_on_cpu` makes ``None`` resolve
 to the CPU for the duration of a mirrored case (as a caller passing
-``device="cpu"`` everywhere would); a device named explicitly resolves
-as always.
+``device="cpu"`` everywhere would), socket workers included; a device
+named explicitly resolves as always.
 """
 from __future__ import annotations
 
@@ -26,17 +28,43 @@ import pytest
 
 _TESTS = os.path.dirname(os.path.abspath(__file__))
 _REF = re.compile(r"\btransmogrifai_tpu\b(?!_torch)")
+#: test helper modules a JAX test imports by bare name; each is loaded
+#: with the same rewrite (so ``serving_util`` trains with the port) and
+#: the import pointed at that copy
+_HELPERS = ("serving_util",)
+_HELPER_IMPORT = re.compile(
+    r"^(\s*)(from|import)\s+(" + "|".join(_HELPERS) + r")\b", re.M)
+
+
+def _helper_import(m: "re.Match") -> str:
+    load_mirror(m.group(3) + ".py")
+    return f"{m.group(1)}{m.group(2)} torch_mirror_{m.group(3)}"
 
 
 def load_mirror(filename: str) -> types.ModuleType:
     path = os.path.join(_TESTS, filename)
     src = _REF.sub("transmogrifai_tpu_torch", open(path).read())
+    src = _HELPER_IMPORT.sub(_helper_import, src)
     mod = types.ModuleType("torch_mirror_" + filename[:-3])
     mod.__file__ = path
     # importable by name, so objects of its classes pickle
     sys.modules[mod.__name__] = mod
     exec(compile(src, path, "exec"), mod.__dict__)
     return mod
+
+
+def mirror_fixtures(mod: types.ModuleType) -> dict:
+    """The fixtures ``mod`` defines (``served``, an autouse reset, ...),
+    by name: a calling test file binds them into its own namespace
+    (``globals().update(mirror_fixtures(MIRROR))``) so pytest serves
+    them to the mirrored cases with their own scopes."""
+    out = {}
+    for name, obj in vars(mod).items():
+        if type(obj).__name__ == "FixtureFunctionDefinition" or (
+                isinstance(obj, types.FunctionType)
+                and hasattr(obj, "_pytestfixturefunction")):
+            out[name] = obj
+    return out
 
 
 def _param_values(v, n):
@@ -101,19 +129,34 @@ def run_mirror_case(mod: types.ModuleType, name: str, kwargs: dict,
     fn(**args)
 
 
-@pytest.fixture
-def port_on_cpu(monkeypatch):
-    """``resolve_device(None)`` -> the CPU in every loaded port module
-    while the case runs."""
+def cpu_default(monkeypatch) -> None:
+    """Through ``monkeypatch``: ``resolve_device(None)`` -> the CPU in
+    every loaded port module, and a socket worker built with no device
+    is handed the CPU."""
     from transmogrifai_tpu_torch import _device
     orig = _device.resolve_device
 
-    def cpu_default(device=None):
+    def resolve_cpu(device=None):
         return orig("cpu" if device is None else device)
 
-    monkeypatch.setattr(_device, "resolve_device", cpu_default)
+    monkeypatch.setattr(_device, "resolve_device", resolve_cpu)
     for m in list(sys.modules.values()):
         if getattr(m, "__name__", "").startswith("transmogrifai_tpu_torch") \
                 and getattr(m, "resolve_device", None) is orig:
-            monkeypatch.setattr(m, "resolve_device", cpu_default)
+            monkeypatch.setattr(m, "resolve_device", resolve_cpu)
+    # a worker process resolves its own device: a transport built with
+    # none names the CPU for it, as such a caller would
+    from transmogrifai_tpu_torch.serving.transport import tcp
+    init = tcp.ProcessWorkerTransport.__init__
+
+    def cpu_worker(self, *args, device=None, **kw):
+        init(self, *args, device="cpu" if device is None else device, **kw)
+
+    monkeypatch.setattr(tcp.ProcessWorkerTransport, "__init__", cpu_worker)
+
+
+@pytest.fixture
+def port_on_cpu(monkeypatch):
+    """:func:`cpu_default` while the case runs."""
+    cpu_default(monkeypatch)
     yield

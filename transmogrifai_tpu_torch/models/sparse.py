@@ -977,7 +977,11 @@ class SparseSelectedModel(SparseLogisticModel):
 
     def extra_state_json(self):
         d = super().extra_state_json()
-        d["summary"] = self.summary
+        # the host-clock walls stay on the fitted object: persisted, a
+        # model would differ from an identical train (or a resumed one)
+        # in its bytes, and the JAX package's layout holds no walls
+        d["summary"] = {k: v for k, v in self.summary.items()
+                        if k != "wallSeconds"}
         return d
 
     def load_extra_state(self, d):

@@ -119,7 +119,8 @@ def export_registry_version(model: WorkflowModel, root: str, version: str,
 
 
 def write_registry_manifest(root: str, default: str = None,
-                            fallback_exclude: str = None) -> str:
+                            fallback_exclude: str = None,
+                            aliases: Dict[str, str] = None) -> str:
     """Scan `root` for version artifact dirs and (re)write
     registry.json. `default=None` keeps the previous manifest's default
     when that version still exists, else falls back to the
@@ -168,6 +169,13 @@ def write_registry_manifest(root: str, default: str = None,
         raise ValueError(f"default version {default!r} not found under "
                          f"{root} (have {sorted(versions)})")
     doc = {"format": 1, "default": default, "versions": versions}
+    if aliases:
+        # {model id: version}: ids the serving registry registers as
+        # aliases over the versions (read by ModelRegistry.from_dir)
+        unknown = sorted(set(aliases.values()) - set(versions))
+        if unknown:
+            raise ValueError(f"aliases target unknown versions {unknown}")
+        doc["aliases"] = dict(sorted(aliases.items()))
     from .resilience import atomic
     # tmp+fsync+rename: readers never see a half-written index, and the
     # index survives an OS crash right after the swap

@@ -1,21 +1,31 @@
-"""Serving counters of the ported path: the jax-free part of
-``transmogrifai_tpu.profiling``.
+"""Counters and snapshots of the ported paths: the jax-free part of
+``transmogrifai_tpu.profiling``, every snapshot keyed as the JAX
+package's (``/statusz`` readers and the mirrored tests read the same
+document).
 
 * ``SnapshotStats`` — the ``snapshot_seq`` torn-read convention.
-* ``ScoringStats`` — per-bucket batch/row/padding counters of one
-  ``workflow.FusedScorer`` (without the JAX package's compile counter:
-  PyTorch runs eagerly, so there is no program trace to count).
+* ``ScoringStats`` — per-bucket compile/batch/row/padding counters of
+  one ``workflow.FusedScorer`` (``compiles``: each bucket shape's first
+  pass — the port traces no program).
+* ``CacheStats`` / ``register_cache`` / ``program_caches_dict`` — the
+  bounded caches ``/statusz`` lists as ``programCaches``: the serving
+  engine's fused group scorers and the CUDA kernel libraries loaded,
+  where the JAX package lists its XLA program caches.
 * ``FaultStats`` — arrival/injection counters of the fault harness.
-* ``EngineStats`` — the serving engine's queue, wait, fused-plane,
-  per-model/per-tenant and host-overhead counters, with the shared
-  ``percentile_nearest_rank`` and ``shape_bucket`` helpers.
+* ``EngineStats`` — the serving engine's queue, wait, outcome-ring,
+  fused-plane, per-model/per-tenant, tap and host-overhead counters,
+  with the shared ``percentile_nearest_rank`` and ``shape_bucket``
+  helpers.
+* ``FleetStats`` / ``TransportStats`` / ``ScalerStats`` /
+  ``ContinuumStats`` — the fleet router, a socket transport's wire
+  plane, the autoscaler and the continuum loop.
 * ``SweepStats`` — execute and per-device dispatch attribution of the
   validation sweep's batches (``SWEEP_STATS``), without the JAX
   package's compile entries: nothing is traced.
 * ``TrainStats`` — per-stage/per-layer observability of one
   ``Workflow.train`` (``train_summaries["stageTimings"]``).
 * ``trace`` — a ``torch.profiler`` Chrome trace of a block (the
-  runner's ``profile_location``).
+  runner's ``profile_location``, the CLI's ``TM_TRACE_DIR``).
 * ``check_finite`` — the post-fit guard on fitted parameters.
 """
 from __future__ import annotations
@@ -63,18 +73,29 @@ class ScoringStats(SnapshotStats):
     """Per-bucket serving counters for the (bucketed) fused scorer.
 
     One instance rides each FusedScorer; keys are padded row-bucket
-    sizes (or the exact batch size when bucketing is off). The lock
-    keeps the counters safe to update from the engine's dispatcher and
-    to READ from any thread — a metrics scraper polling as_dict()."""
+    sizes (or the exact batch size when bucketing is off). `compiles`
+    keeps the JAX package's key and counts each bucket shape's FIRST
+    pass through this scorer — the port runs eagerly and traces no
+    program, so the first pass at a shape (the warm pass, which pays
+    the allocator and the kernel library's load) is what stands where
+    a trace would; the bucketing guarantee (total compiles <=
+    len(buckets)) reads the same. The lock keeps the counters safe to
+    update from the engine's dispatcher and to READ from any thread —
+    a metrics scraper polling as_dict()."""
 
     def __init__(self):
         super().__init__()
+        self.compiles: Dict[int, int] = {}
         self.batches: Dict[int, int] = {}
         self.rows: Dict[int, int] = {}
         self.padded_rows: Dict[int, int] = {}
         self.seconds = 0.0
 
     # -- recording (FusedScorer internals) --------------------------------
+    def note_compile(self, bucket: int) -> None:
+        with self._mutating():
+            self.compiles[bucket] = self.compiles.get(bucket, 0) + 1
+
     def note_batch(self, bucket: int, rows: int) -> None:
         with self._mutating():
             self.batches[bucket] = self.batches.get(bucket, 0) + 1
@@ -95,6 +116,11 @@ class ScoringStats(SnapshotStats):
             self.add_seconds(time.perf_counter() - t0)
 
     # -- reading ----------------------------------------------------------
+    @property
+    def total_compiles(self) -> int:
+        with self._lock:
+            return sum(self.compiles.values())
+
     @property
     def total_rows(self) -> int:
         with self._lock:
@@ -126,6 +152,7 @@ class ScoringStats(SnapshotStats):
         them (no torn read across separately-polled endpoints)."""
         with self._lock:
             seq = self._seq
+            compiles = dict(self.compiles)
             batches = dict(self.batches)
             rows = dict(self.rows)
             padded = dict(self.padded_rows)
@@ -135,10 +162,12 @@ class ScoringStats(SnapshotStats):
         return {
             "snapshot_seq": seq,
             "per_bucket": {
-                str(b): {"batches": batches.get(b, 0),
+                str(b): {"compiles": compiles.get(b, 0),
+                         "batches": batches.get(b, 0),
                          "rows": rows.get(b, 0),
                          "padded_rows": padded.get(b, 0)}
-                for b in sorted(batches)},
+                for b in sorted(set(compiles) | set(batches))},
+            "total_compiles": sum(compiles.values()),
             "total_rows": n_rows,
             "total_padded_rows": n_padded,
             "padding_overhead": (n_padded / (n_rows + n_padded)
@@ -146,7 +175,6 @@ class ScoringStats(SnapshotStats):
             "seconds": seconds,
             "rows_per_sec": n_rows / seconds if seconds > 0 else None,
         }
-
 
 
 class FaultStats:
@@ -191,6 +219,79 @@ class FaultStats:
                     "injected": dict(self.injected)}
 
 
+class CacheStats:
+    """Size/traffic counters for one bounded program cache.
+
+    The stable-identity jit caches (tuning._FIT_EVAL_CACHE /
+    _FOLDED_PROGRAMS, selector._REFIT_PROGRAMS) are LRU-bounded; each
+    registers here so a long-lived process can see how many compiled
+    programs it is holding, how often they hit, and whether eviction is
+    churning (an eviction storm means the bound is too small for the
+    workload and every train is re-tracing). Read via
+    `program_caches_dict()` — surfaced by serving /statusz."""
+
+    def __init__(self, name: str, capacity: int):
+        self._lock = threading.Lock()
+        self.name = name
+        self.capacity = int(capacity)
+        self.size = 0
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def note_hit(self) -> None:
+        with self._lock:
+            self.hits += 1
+
+    def note_miss(self, size: int) -> None:
+        with self._lock:
+            self.misses += 1
+            self.size = int(size)
+
+    def note_evict(self, size: int) -> None:
+        with self._lock:
+            self.evictions += 1
+            self.size = int(size)
+
+    def as_dict(self) -> Dict[str, int]:
+        with self._lock:
+            return {"size": self.size, "capacity": self.capacity,
+                    "hits": self.hits, "misses": self.misses,
+                    "evictions": self.evictions}
+
+
+#: name -> CacheStats for every registered bounded program cache
+_PROGRAM_CACHES: Dict[str, CacheStats] = {}
+_PROGRAM_CACHES_LOCK = threading.Lock()
+
+
+def register_cache(name: str, capacity: int) -> CacheStats:
+    """One CacheStats per cache name, created on first registration
+    (module-level caches register at import; re-imports reuse)."""
+    with _PROGRAM_CACHES_LOCK:
+        st = _PROGRAM_CACHES.get(name)
+        if st is None:
+            st = _PROGRAM_CACHES[name] = CacheStats(name, capacity)
+        return st
+
+
+def program_caches_dict() -> Dict[str, Dict[str, int]]:
+    """Every registered bounded cache, plus ``cuda.kernel_libraries``:
+    the hand-written CUDA kernels' shared libraries this process built
+    or loaded (``_cuda_build``; size = loaded, capacity = sources,
+    misses = loads). The port traces no programs, so these stand where
+    the JAX package lists its XLA program caches."""
+    with _PROGRAM_CACHES_LOCK:
+        caches = list(_PROGRAM_CACHES.values())
+    out = {c.name: c.as_dict() for c in caches}
+    from . import _cuda_build
+    loaded = len(_cuda_build._LIBS)
+    out["cuda.kernel_libraries"] = {
+        "size": loaded, "capacity": len(_cuda_build.kernel_names()),
+        "hits": 0, "misses": loaded, "evictions": 0}
+    return out
+
+
 def percentile_nearest_rank(sorted_vals, q: float) -> float:
     """Nearest-rank percentile over pre-sorted values (0.0 on empty).
     THE percentile definition for every serving latency number — the
@@ -208,9 +309,8 @@ def shape_bucket(rows: int) -> int:
     bucketing for the engine's observed batch-shape mix. Pow2 bounds
     the label cardinality of the ``tm_engine_batch_shape_total``
     /metricsz family no matter what the traffic looks like; the exact
-    per-batch row counts ride EngineStats' bounded ring for the bucket
-    tuner (autotune.buckets.observed_mix), which needs full
-    resolution."""
+    per-batch row counts ride EngineStats' bounded ring
+    (``recent_batch_rows``) for readers that need full resolution."""
     rows = int(rows)
     if rows <= 0:
         return 0
@@ -268,12 +368,18 @@ class EngineStats(SnapshotStats):
         self.fused_fallbacks = 0
         self.queue_depth_requests = 0      # gauges (set, not summed)
         self.queue_depth_rows = 0
+        self.tap_errors = 0         # request-tap callbacks that raised
         self.wait_seconds_total = 0.0
         self.wait_seconds_max = 0.0
         self._waits = deque(maxlen=wait_samples)
+        #: recent request outcomes (True=completed, False=failed) — the
+        #: rollout monitor's recent-history error-rate baseline
+        self._outcomes = deque(maxlen=wait_samples)
         #: observed batch-shape mix: pow2 rows-bucket -> batches (the
-        #: cumulative, bounded-cardinality view)
+        #: cumulative, bounded-cardinality /metricsz view) plus a ring
+        #: of EXACT recent batch row counts (``recent_batch_rows``)
         self.batch_shape_counts: Dict[int, int] = {}
+        self._batch_rows = deque(maxlen=wait_samples)
         #: per-model / per-tenant traffic attribution (multi-model
         #: serving). Models are bounded by the registry catalog (alias
         #: ids included); the SNAPSHOT view is top-``model_topk`` by
@@ -300,6 +406,9 @@ class EngineStats(SnapshotStats):
         self._oh_resolve = deque(maxlen=wait_samples)
         self._oh_total = deque(maxlen=wait_samples)
 
+    def note_submit(self) -> None:
+        self._bump(submitted=1)
+
     def note_fused(self, requests: int, rows: int, models: int) -> None:
         """One fused family launch completed: ``models`` backends'
         requests scored in ONE device dispatch."""
@@ -311,8 +420,22 @@ class EngineStats(SnapshotStats):
         multi-result tail) and kept the classic path with fusion on."""
         self._bump(fused_fallbacks=1)
 
-    def note_failed(self, n: int = 1) -> None:
-        self._bump(failed=n)
+    def note_complete(self, n: int = 1) -> None:
+        with self._mutating():
+            self.completed += n
+            self._outcomes.extend([True] * n)
+
+    def note_failed(self, n: int = 1, ring: bool = True) -> None:
+        """ring=False keeps the ledger counter moving WITHOUT booking a
+        serving outcome: a non-drain stop flushing queued futures with
+        EngineStopped is shutdown bookkeeping the router makes client-
+        invisible by re-dispatching — recording those as ring failures
+        would poison the next rollout's recent-history error baseline
+        (a post-crash rollout would tolerate a genuinely bad candidate)."""
+        with self._mutating():
+            self.failed += n
+            if ring:
+                self._outcomes.extend([False] * n)
 
     def note_shed(self, n: int = 1) -> None:
         self._bump(shed_expired=n)
@@ -330,20 +453,72 @@ class EngineStats(SnapshotStats):
         else:
             raise ValueError(f"unknown rejection reason {reason!r}")
 
+    def note_model_traffic(self, model: str, tenant: str,
+                           rows: int) -> None:
+        """One dispatched request's model/tenant attribution. Models
+        track exactly (catalog-bounded); tenants past
+        TENANT_TRACK_LIMIT distinct ids fold into "other"."""
+        with self._mutating():
+            self.model_requests[model] = \
+                self.model_requests.get(model, 0) + 1
+            self.model_rows[model] = self.model_rows.get(model, 0) + rows
+            if tenant not in self.tenant_requests and \
+                    len(self.tenant_requests) >= self.TENANT_TRACK_LIMIT:
+                tenant = "other"
+            self.tenant_requests[tenant] = \
+                self.tenant_requests.get(tenant, 0) + 1
+            self.tenant_rows[tenant] = \
+                self.tenant_rows.get(tenant, 0) + rows
+
     def note_swap(self) -> None:
         self._bump(swaps=1)
+
+    def note_tap_error(self) -> None:
+        """A request-tap callback raised. The tap contract is that
+        observers (drift monitor, shadow mirror) NEVER fail the live
+        path — the exception is swallowed at the call site, but never
+        silently: this counter is the evidence."""
+        self._bump(tap_errors=1)
+
+    def note_batch(self, requests: int, rows: int) -> None:
+        with self._mutating():
+            self.batches += 1
+            self.batched_requests += requests
+            self.batched_rows += rows
+            b = shape_bucket(rows)
+            self.batch_shape_counts[b] = self.batch_shape_counts.get(b, 0) + 1
+            self._batch_rows.append(int(rows))
+
+    def recent_batch_rows(self, last_n: int) -> list:
+        """EXACT row counts of the last ``last_n`` coalesced batches —
+        the bucket tuner's observed traffic mix (the pow2
+        batch_shape_counts are the scrape-visible mirror)."""
+        with self._lock:
+            return list(self._batch_rows)[-int(last_n):] if last_n > 0 \
+                else []
 
     def note_queue_depth(self, requests: int, rows: int) -> None:
         with self._mutating():
             self.queue_depth_requests = requests
             self.queue_depth_rows = rows
 
-    # -- batched dispatch-plane bookkeeping: one lock hold per drain
-    # -- pass / finalized group instead of one (or several) per request
+    def note_wait(self, seconds: float) -> None:
+        with self._mutating():
+            self.wait_seconds_total += seconds
+            if seconds > self.wait_seconds_max:
+                self.wait_seconds_max = seconds
+            self._waits.append(seconds)
+
+    # -- batched dispatch-plane bookkeeping (the request-plane fast
+    # -- path): one lock hold per drain pass / finalized group instead
+    # -- of one (or several) per request ------------------------------
 
     def note_submit_depth(self, requests: int, rows: int) -> None:
         """One accepted submit + the queue-depth gauges it produced,
-        under ONE lock hold."""
+        under ONE lock hold — the fast submit path's replacement for
+        the note_queue_depth + note_submit pair (two stats-lock
+        acquisitions per submit, one of them inside the engine
+        condition hold)."""
         with self._lock:
             self._seq += 1
             self.submitted += 1
@@ -351,7 +526,10 @@ class EngineStats(SnapshotStats):
             self.queue_depth_rows = rows
 
     def note_dispatch_waits(self, waits) -> None:
-        """All of one drain pass's wait samples under ONE lock hold."""
+        """All of one drain pass's wait samples under ONE lock hold.
+        Sample order and float accumulation order match the legacy
+        per-request note_wait loop exactly (bitwise-pinned: sum, max
+        and ring contents are identical)."""
         with self._mutating():
             total = self.wait_seconds_total
             mx = self.wait_seconds_max
@@ -367,7 +545,11 @@ class EngineStats(SnapshotStats):
                             overhead) -> None:
         """One finalized co-batch group's COMPLETE bookkeeping —
         batch shape, model/tenant attribution, completion outcomes and
-        host-overhead samples — under one lock hold.
+        host-overhead samples — under one lock hold. Replaces the
+        legacy note_batch + N x note_model_traffic + note_complete
+        chain (2 + N stats-lock acquisitions per group) on the
+        dispatcher hot path; every counter lands exactly as the legacy
+        calls would have left it.
 
         ``traffic`` is an iterable of (model, tenant, rows) per
         request; ``overhead`` an iterable of (admission, queue, build,
@@ -379,6 +561,7 @@ class EngineStats(SnapshotStats):
             b = shape_bucket(rows)
             self.batch_shape_counts[b] = \
                 self.batch_shape_counts.get(b, 0) + 1
+            self._batch_rows.append(int(rows))
             mreq = self.model_requests
             mrow = self.model_rows
             treq = self.tenant_requests
@@ -392,11 +575,22 @@ class EngineStats(SnapshotStats):
                 treq[tenant] = treq.get(tenant, 0) + 1
                 trow[tenant] = trow.get(tenant, 0) + n
             self.completed += requests
+            self._outcomes.extend([True] * requests)
             if overhead:
                 self._book_overhead(overhead)
 
+    def note_host_overhead(self, overhead) -> None:
+        """Book host-overhead samples on their own (the legacy
+        resolution path, which keeps its historical per-request
+        bookkeeping, still carries the clock — one extra batched call
+        per group, the same recording cost the fast path pays)."""
+        with self._mutating():
+            self._book_overhead(overhead)
+
     def _book_overhead(self, overhead) -> None:
-        """Callers hold self._lock (via _mutating)."""
+        """Callers hold self._lock (via _mutating) — the lexical
+        stats-discipline scan cannot see a caller's hold, hence the
+        explicit waivers below."""
         for adm, queue, build, resolve in overhead:
             self.host_admission_seconds += adm
             self.host_queue_seconds += queue
@@ -409,7 +603,68 @@ class EngineStats(SnapshotStats):
             self._oh_total.append(adm + queue + build + resolve)
             self.host_overhead_requests += 1
 
+    def recent_host_overhead(self, last_n: int):
+        """The last ``last_n`` per-request overhead samples as
+        (admission, queue, build, resolve, total) second tuples — the
+        segment-sum-equals-total pin's input (and any offline
+        analysis that wants full resolution instead of percentiles)."""
+        with self._lock:
+            n = int(last_n)
+            if n <= 0:
+                return []
+            return list(zip(list(self._oh_admission)[-n:],
+                            list(self._oh_queue)[-n:],
+                            list(self._oh_build)[-n:],
+                            list(self._oh_resolve)[-n:],
+                            list(self._oh_total)[-n:]))
+
     _percentile = staticmethod(percentile_nearest_rank)
+
+    def recent_wait_ms(self, last_n: int, q: float) -> float:
+        """Percentile (ms) over the LAST ``last_n`` wait samples only —
+        the staged-rollout monitor's bake-window latency: counter
+        deltas give how many requests the window served, and this
+        slices exactly that many samples off the ring tail, so the
+        verdict reflects the candidate version, not the mixed history
+        the full-ring p99 would blend in."""
+        with self._lock:
+            tail = list(self._waits)[-int(last_n):] if last_n > 0 else []
+        return self._percentile(sorted(tail), q) * 1e3
+
+    def recent_outcomes(self, last_n: int) -> tuple:
+        """(completed, failed) counts over the LAST ``last_n`` request
+        outcomes — the rollout monitor's baseline error rate. Lifetime
+        cumulative counters would not do: a crash storm hours ago
+        inflates a lifetime rate until a candidate failing 25% of its
+        bake passes the error-rate gate; the ring tail is what healthy
+        serving looked like just before the rollout."""
+        with self._lock:
+            tail = list(self._outcomes)[-int(last_n):] if last_n > 0 else []
+        ok = sum(1 for o in tail if o)
+        return ok, len(tail) - ok
+
+    def load_gauges(self) -> Dict[str, int]:
+        """Queue-depth gauges only — O(1) under the lock. The
+        autoscaler's tick polls this per replica several times a
+        second; as_dict() would copy and sort the whole wait ring per
+        poll (the same hazard outcome_counters() exists for)."""
+        with self._lock:
+            return {"queue_depth_requests": self.queue_depth_requests,
+                    "queue_depth_rows": self.queue_depth_rows}
+
+    def outcome_counters(self) -> Dict[str, int]:
+        """Just the request-outcome counters — O(1) under the lock.
+        The rollout monitor polls this every 10 ms during a bake
+        window; as_dict() would copy and sort the whole wait ring per
+        poll, contending with note_wait on the dispatch hot path during
+        exactly the window whose wait p99 is being judged."""
+        with self._lock:
+            return {"completed": self.completed,
+                    "failed": self.failed,
+                    "shed_expired": self.shed_expired,
+                    "rejected_queue_full": self.rejected_queue_full,
+                    "rejected_predicted_late": self.rejected_predicted_late,
+                    "rejected_tenant_budget": self.rejected_tenant_budget}
 
     @staticmethod
     def _models_view(reqs: Dict[str, int], rows: Dict[str, int],
@@ -460,6 +715,19 @@ class EngineStats(SnapshotStats):
         out["segments"] = segments
         return out
 
+    def models_snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            reqs = dict(self.model_requests)
+            rows = dict(self.model_rows)
+            k = self.model_topk
+        return self._models_view(reqs, rows, k)
+
+    def tenants_snapshot(self) -> Dict[str, Dict[str, int]]:
+        with self._lock:
+            reqs = dict(self.tenant_requests)
+            rows = dict(self.tenant_rows)
+        return self._tenants_view(reqs, rows)
+
     def as_dict(self) -> Dict[str, Any]:
         with self._lock:
             seq = self._seq
@@ -484,6 +752,7 @@ class EngineStats(SnapshotStats):
                 "fused_fallbacks": self.fused_fallbacks,
                 "queue_depth_requests": self.queue_depth_requests,
                 "queue_depth_rows": self.queue_depth_rows,
+                "tap_errors": self.tap_errors,
                 "wait_seconds_total": self.wait_seconds_total,
                 "wait_seconds_max": self.wait_seconds_max,
                 "batch_shapes": {str(b): c for b, c in
@@ -525,6 +794,444 @@ class EngineStats(SnapshotStats):
         out["requestOverhead"] = self._overhead_view(
             oh_requests, oh_totals, oh_rings)
         return out
+
+
+class FleetStats(SnapshotStats):
+    """Fleet-level counters (serving.fleet.ServingFleet): failover
+    re-dispatches, circuit-breaker transitions, replica crash/restart
+    supervision events, staged-rollout outcomes, and per-replica
+    dispatch counts. Snapshot discipline is the shared SnapshotStats
+    base — a scraper polling the aggregated fleet /statusz twice can
+    prove nothing moved (equal seqs) or that a read straddled a
+    mutation, never a torn aggregate."""
+
+    def __init__(self):
+        super().__init__()
+        self.routed = 0             # requests accepted by the router
+        self.completed = 0          # router futures resolved with a result
+        self.failed = 0             # router futures resolved with an error
+        self.cancelled = 0          # router futures cancelled by the caller
+        self.failovers = 0          # re-dispatches to a DIFFERENT replica
+        self.retries = 0            # re-dispatch attempts (any replica)
+        self.breaker_opens = 0      # closed/half-open -> open
+        self.breaker_probes = 0     # half-open probe dispatches allowed
+        self.breaker_closes = 0     # half-open -> closed (probe success)
+        self.replica_crashes = 0    # hard kills (chaos or injected)
+        self.replica_restarts = 0   # supervisor restarts
+        self.rollouts = 0           # staged rollouts started
+        self.rollbacks = 0          # fleet-wide automatic rollbacks
+        self.no_replica_available = 0   # every candidate down/open
+        self.tap_errors = 0         # request-tap callbacks that raised
+        self.replicas_added = 0     # elastic scale-up joins
+        self.replicas_removed = 0   # elastic scale-down drains
+        self.hedges = 0             # speculative second dispatches fired
+        self.hedge_wins = 0         # hedges that resolved their request
+        self.ejections = 0          # hung replicas pulled from placement
+        self.readmissions = 0       # degraded replicas back in the ring
+        self.retry_budget_exhausted = 0  # retries/hedges denied by budget
+        self.deadline_sheds = 0     # shed at router: deadline below floor
+        self.dispatches: Dict[str, int] = {}    # per-replica
+
+    def note_routed(self) -> None:
+        self._bump(routed=1)
+
+    def note_completed(self) -> None:
+        self._bump(completed=1)
+
+    def note_failed(self) -> None:
+        self._bump(failed=1)
+
+    def note_cancelled(self) -> None:
+        self._bump(cancelled=1)
+
+    def note_dispatch(self, replica: str) -> None:
+        with self._mutating():
+            self.dispatches[replica] = self.dispatches.get(replica, 0) + 1
+
+    def note_failover(self) -> None:
+        self._bump(failovers=1, retries=1)
+
+    def note_retry(self) -> None:
+        self._bump(retries=1)
+
+    def note_breaker(self, event: str) -> None:
+        field = {"open": "breaker_opens", "probe": "breaker_probes",
+                 "close": "breaker_closes"}[event]
+        self._bump(**{field: 1})
+
+    def note_crash(self) -> None:
+        self._bump(replica_crashes=1)
+
+    def note_restart(self) -> None:
+        self._bump(replica_restarts=1)
+
+    def note_rollout(self) -> None:
+        self._bump(rollouts=1)
+
+    def note_rollback(self) -> None:
+        self._bump(rollbacks=1)
+
+    def note_no_replica(self) -> None:
+        self._bump(no_replica_available=1)
+
+    def note_tap_error(self) -> None:
+        self._bump(tap_errors=1)
+
+    def note_replica_added(self) -> None:
+        self._bump(replicas_added=1)
+
+    def note_replica_removed(self) -> None:
+        self._bump(replicas_removed=1)
+
+    def note_hedge(self) -> None:
+        self._bump(hedges=1)
+
+    def note_hedge_win(self) -> None:
+        self._bump(hedge_wins=1)
+
+    def note_ejection(self) -> None:
+        self._bump(ejections=1)
+
+    def note_readmission(self) -> None:
+        self._bump(readmissions=1)
+
+    def note_retry_budget_exhausted(self) -> None:
+        self._bump(retry_budget_exhausted=1)
+
+    def note_deadline_shed(self) -> None:
+        self._bump(deadline_sheds=1)
+
+    def as_dict(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "snapshot_seq": self._seq,
+                "routed": self.routed,
+                "completed": self.completed,
+                "failed": self.failed,
+                "cancelled": self.cancelled,
+                "failovers": self.failovers,
+                "retries": self.retries,
+                "breaker_opens": self.breaker_opens,
+                "breaker_probes": self.breaker_probes,
+                "breaker_closes": self.breaker_closes,
+                "replica_crashes": self.replica_crashes,
+                "replica_restarts": self.replica_restarts,
+                "rollouts": self.rollouts,
+                "rollbacks": self.rollbacks,
+                "no_replica_available": self.no_replica_available,
+                "tap_errors": self.tap_errors,
+                "replicas_added": self.replicas_added,
+                "replicas_removed": self.replicas_removed,
+                "hedges": self.hedges,
+                "hedge_wins": self.hedge_wins,
+                "ejections": self.ejections,
+                "readmissions": self.readmissions,
+                "retry_budget_exhausted": self.retry_budget_exhausted,
+                "deadline_sheds": self.deadline_sheds,
+                "dispatches": dict(self.dispatches),
+            }
+
+
+class TransportStats(SnapshotStats):
+    """Wire-plane counters + overhead rings for one socket transport
+    (serving.transport.tcp). The engine's host-overhead clock stops at
+    the process boundary, so the ``transport`` segment is booked HERE,
+    client-side: per round trip the worker reports its own engine
+    seconds and the client attributes ``rtt − engine`` to the wire
+    (encode + send + remote accept + reply decode). ``wire_p99_us`` is
+    the cross_host_load bench's budget gate."""
+
+    RING = 4096
+
+    def __init__(self):
+        super().__init__()
+        self.requests = 0           # round trips resolved with scores
+        self.errors = 0             # round trips resolved with an error
+        self.disconnects = 0        # connections torn (any reason)
+        self.reconnects = 0         # successful re-dials
+        self._rtt_s: deque = deque(maxlen=self.RING)
+        self._wire_s: deque = deque(maxlen=self.RING)
+
+    def note_roundtrip(self, rtt_s: float, wire_s: float) -> None:
+        with self._mutating():
+            self.requests += 1
+            self._rtt_s.append(float(rtt_s))
+            self._wire_s.append(float(wire_s))
+
+    def note_error(self) -> None:
+        self._bump(errors=1)
+
+    def note_disconnect(self) -> None:
+        self._bump(disconnects=1)
+
+    def note_reconnect(self) -> None:
+        self._bump(reconnects=1)
+
+    def recent_wire_us(self, last_n: int, q: float) -> Optional[float]:
+        """q-quantile of the wire-overhead segment over the last
+        ``last_n`` round trips, in µs (None until traffic flows)."""
+        with self._lock:
+            tail = list(self._wire_s)[-int(last_n):]
+        if not tail:
+            return None
+        return percentile_nearest_rank(sorted(tail), q) * 1e6
+
+    def as_dict(self) -> Dict[str, Any]:
+        with self._lock:
+            rtt = sorted(self._rtt_s)
+            wires = sorted(self._wire_s)
+            doc: Dict[str, Any] = {
+                "snapshot_seq": self._seq,
+                "requests": self.requests,
+                "errors": self.errors,
+                "disconnects": self.disconnects,
+                "reconnects": self.reconnects,
+                "sampled": len(wires),
+            }
+        for label, vals in (("rtt", rtt), ("wire", wires)):
+            if vals:
+                doc[f"{label}_p50_us"] = round(
+                    percentile_nearest_rank(vals, 0.50) * 1e6, 1)
+                doc[f"{label}_p99_us"] = round(
+                    percentile_nearest_rank(vals, 0.99) * 1e6, 1)
+        return doc
+
+
+class ScalerStats(SnapshotStats):
+    """Elastic-fleet autoscaler counters
+    (serving.autoscaler.FleetAutoscaler): tick/evaluation volume,
+    pressure and forecast breaches, scale decisions by direction,
+    provision retries/failures, admission re-prices, and the
+    provision-to-serving latency of the most recent scale-up (the
+    number the elastic_load bench reports as
+    ``scale_up_to_serving_s``). Snapshot discipline is the shared
+    SnapshotStats base — every mutation bumps ``snapshot_seq`` under
+    the lock, as_dict() is one lock hold."""
+
+    def __init__(self):
+        super().__init__()
+        self.ticks = 0              # evaluation loop wakeups
+        self.evaluations = 0        # ticks that sampled + decided
+        self.evaluations_dropped = 0    # tick bodies lost to faults
+        self.pressure_breaches = 0  # ticks over the scale-up thresholds
+        self.calm_ticks = 0         # ticks under the scale-down ones
+        self.forecast_breaches = 0  # predicted load over fleet capacity
+        self.scale_ups = 0          # scale-up decisions applied
+        self.scale_downs = 0        # scale-down decisions applied
+        self.decisions_deferred = 0  # decisions skipped: action in flight
+        self.replicas_added = 0     # replicas provisioned + joined
+        self.replicas_removed = 0   # replicas drained + removed
+        self.provision_retries = 0  # replica builds retried after a fault
+        self.provision_failures = 0  # scale-ups abandoned (retries spent)
+        self.reprices = 0           # admission price pushes (price != 1)
+        self.last_price = 1.0
+        self.last_scale_up_s: Optional[float] = None
+        self.scale_up_seconds_total = 0.0
+        self.last_decision: Optional[Dict[str, Any]] = None
+        self.last_forecast: Optional[Dict[str, Any]] = None
+
+    def note_tick(self) -> None:
+        self._bump(ticks=1)
+
+    def note_evaluation(self) -> None:
+        self._bump(evaluations=1)
+
+    def note_evaluation_dropped(self) -> None:
+        self._bump(evaluations_dropped=1)
+
+    def note_pressure(self, breach: bool, calm: bool) -> None:
+        if breach:
+            self._bump(pressure_breaches=1)
+        elif calm:
+            self._bump(calm_ticks=1)
+
+    def note_forecast(self, snapshot: Dict[str, Any],
+                      breach: bool) -> None:
+        with self._mutating():
+            self.last_forecast = dict(snapshot)
+            if breach:
+                self.forecast_breaches += 1
+
+    def note_decision(self, decision: Dict[str, Any]) -> None:
+        with self._mutating():
+            self.last_decision = dict(decision)
+            if decision.get("direction") == "up":
+                self.scale_ups += 1
+            elif decision.get("direction") == "down":
+                self.scale_downs += 1
+
+    def note_deferred(self) -> None:
+        self._bump(decisions_deferred=1)
+
+    def note_replica_added(self, scale_up_s: float) -> None:
+        with self._mutating():
+            self.replicas_added += 1
+            self.last_scale_up_s = float(scale_up_s)
+            self.scale_up_seconds_total += float(scale_up_s)
+
+    def note_replica_removed(self) -> None:
+        self._bump(replicas_removed=1)
+
+    def note_provision_retry(self) -> None:
+        self._bump(provision_retries=1)
+
+    def note_provision_failure(self) -> None:
+        self._bump(provision_failures=1)
+
+    def note_reprice(self, price: float) -> None:
+        with self._mutating():
+            self.reprices += 1
+            self.last_price = float(price)
+
+    def as_dict(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "snapshot_seq": self._seq,
+                "ticks": self.ticks,
+                "evaluations": self.evaluations,
+                "evaluations_dropped": self.evaluations_dropped,
+                "pressure_breaches": self.pressure_breaches,
+                "calm_ticks": self.calm_ticks,
+                "forecast_breaches": self.forecast_breaches,
+                "scale_ups": self.scale_ups,
+                "scale_downs": self.scale_downs,
+                "decisions_deferred": self.decisions_deferred,
+                "replicas_added": self.replicas_added,
+                "replicas_removed": self.replicas_removed,
+                "provision_retries": self.provision_retries,
+                "provision_failures": self.provision_failures,
+                "reprices": self.reprices,
+                "last_price": self.last_price,
+                "last_scale_up_s": self.last_scale_up_s,
+                "scale_up_seconds_total": self.scale_up_seconds_total,
+                "last_decision": (dict(self.last_decision)
+                                  if self.last_decision else None),
+                "last_forecast": (dict(self.last_forecast)
+                                  if self.last_forecast else None),
+            }
+
+
+class ContinuumStats(SnapshotStats):
+    """Continuous-learning control-loop counters
+    (continuum.controller.ContinuumController): monitor ticks and
+    per-feature drift scores, debounced triggers (and the coalesced
+    ones that did NOT stack a second retrain), retrain attempts/
+    resumes/failures, gate outcomes (lint, shadow), promotions and
+    bake-window rollbacks, and the cycle-phase wall clocks the bench's
+    drift_loop section reports. Snapshot discipline is the shared
+    SnapshotStats base: every mutation bumps ``snapshot_seq`` under
+    the lock and ``as_dict()`` is one lock hold."""
+
+    def __init__(self):
+        super().__init__()
+        self.ticks = 0              # controller loop monitor ticks
+        self.observed_requests = 0  # tapped requests folded into sketches
+        self.observed_rows = 0
+        self.dropped_observations = 0   # tap queue full (bounded, lossy)
+        self.monitor_errors = 0     # observe/tick bodies that raised
+        self.windows = 0            # completed evaluation windows
+        self.triggers = 0           # debounced drift triggers fired
+        self.coalesced_triggers = 0  # triggers while a cycle was in flight
+        self.cycles = 0             # retrain cycles started
+        self.retrains = 0           # retrain attempts launched
+        self.retrain_retries = 0    # attempts after a failed/killed one
+        self.retrain_failures = 0   # cycles whose retrain exhausted
+        self.lint_rejects = 0       # candidates failing the strict gate
+        self.shadow_samples = 0     # mirrored requests candidate-scored
+        self.shadow_rejects = 0     # candidates failing shadow verdict
+        self.promotions = 0         # candidates promoted fleet/engine-wide
+        self.promote_rollbacks = 0  # promotions undone by the bake window
+        self.cycle_errors = 0       # cycles ended by an unexpected error
+        self.last_drift_scores: Dict[str, float] = {}
+        self.peak_drift_scores: Dict[str, float] = {}
+        self.last_trigger_reason: Optional[str] = None
+
+    def note_tick(self) -> None:
+        self._bump(ticks=1)
+
+    def note_observed(self, requests: int, rows: int) -> None:
+        self._bump(observed_requests=requests, observed_rows=rows)
+
+    def note_dropped(self, n: int = 1) -> None:
+        self._bump(dropped_observations=n)
+
+    def note_monitor_error(self) -> None:
+        self._bump(monitor_errors=1)
+
+    def note_scores(self, scores: Dict[str, float],
+                    window_complete: bool) -> None:
+        with self._mutating():
+            self.last_drift_scores = dict(scores)
+            for k, v in scores.items():
+                if v > self.peak_drift_scores.get(k, 0.0):
+                    self.peak_drift_scores[k] = v
+            if window_complete:
+                self.windows += 1
+
+    def note_trigger(self, reason: str) -> None:
+        with self._mutating():
+            self.triggers += 1
+            self.last_trigger_reason = reason
+
+    def note_coalesced(self) -> None:
+        self._bump(coalesced_triggers=1)
+
+    def note_cycle(self) -> None:
+        self._bump(cycles=1)
+
+    def note_retrain(self) -> None:
+        self._bump(retrains=1)
+
+    def note_retrain_retry(self) -> None:
+        self._bump(retrain_retries=1)
+
+    def note_retrain_failure(self) -> None:
+        self._bump(retrain_failures=1)
+
+    def note_lint_reject(self) -> None:
+        self._bump(lint_rejects=1)
+
+    def note_shadow_samples(self, n: int) -> None:
+        self._bump(shadow_samples=n)
+
+    def note_shadow_reject(self) -> None:
+        self._bump(shadow_rejects=1)
+
+    def note_promotion(self) -> None:
+        self._bump(promotions=1)
+
+    def note_promote_rollback(self) -> None:
+        self._bump(promote_rollbacks=1)
+
+    def note_cycle_error(self) -> None:
+        self._bump(cycle_errors=1)
+
+    def as_dict(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "snapshot_seq": self._seq,
+                "ticks": self.ticks,
+                "observed_requests": self.observed_requests,
+                "observed_rows": self.observed_rows,
+                "dropped_observations": self.dropped_observations,
+                "monitor_errors": self.monitor_errors,
+                "windows": self.windows,
+                "triggers": self.triggers,
+                "coalesced_triggers": self.coalesced_triggers,
+                "cycles": self.cycles,
+                "retrains": self.retrains,
+                "retrain_retries": self.retrain_retries,
+                "retrain_failures": self.retrain_failures,
+                "lint_rejects": self.lint_rejects,
+                "shadow_samples": self.shadow_samples,
+                "shadow_rejects": self.shadow_rejects,
+                "promotions": self.promotions,
+                "promote_rollbacks": self.promote_rollbacks,
+                "cycle_errors": self.cycle_errors,
+                "last_drift_scores": dict(self.last_drift_scores),
+                "peak_drift_scores": dict(self.peak_drift_scores),
+                "last_trigger_reason": self.last_trigger_reason,
+            }
 
 
 class SweepStats:
@@ -570,6 +1277,19 @@ class SweepStats:
                                       for d, c in rec["devices"].items()}
                 out[k] = rec
             return out
+
+    def devices_dict(self) -> Dict[str, Dict[str, int]]:
+        """Process-cumulative per-chip totals across every sweep
+        program: {device: {dispatches, items}} — the /statusz
+        ``sweepDevices`` block and the /metricsz {device=} source."""
+        with self._lock:
+            agg: Dict[str, Dict[str, int]] = {}
+            for rec in self.programs.values():
+                for dev, c in (rec.get("devices") or {}).items():
+                    e = agg.setdefault(dev, {"dispatches": 0, "items": 0})
+                    e["dispatches"] += c["dispatches"]
+                    e["items"] += c["items"]
+            return agg
 
     @staticmethod
     def delta(before: Dict[str, Dict[str, Any]],

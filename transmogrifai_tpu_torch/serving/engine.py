@@ -47,12 +47,15 @@ Multi-model, multi-tenant serving:
   admission budgets (``tenant_queue_share``) sit in front.
 
 The request plane is the JAX package's fast plane only (its legacy
-plane, dict-of-deques queues, one-model-per-pass dispatch and request
-taps are benchmark baselines and shadow-traffic hooks the port has no
-use for): per-request stats are booked once per drain pass / finalized
-group, and each tenant keeps one queue slot object. Every request
-carries four monotonic stamps (submit, enqueue, dispatch, resolve)
-feeding the always-on host-overhead clock in ``EngineStats``.
+plane, dict-of-deques queues and one-model-per-pass dispatch are
+benchmark baselines): per-request stats are booked once per drain pass
+/ finalized group, and each tenant keeps one queue slot object.
+Request taps (``add_tap``: the continuum drift monitor, the shadow
+mirror) see every accepted request; with none registered the fan-out
+is one tuple test, so the fused pass keeps its device operations.
+Every request carries four monotonic stamps (submit, enqueue,
+dispatch, resolve) feeding the always-on host-overhead clock in
+``EngineStats``.
 """
 from __future__ import annotations
 
@@ -61,13 +64,13 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import Future
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from ..models.serving_kernels import (
     serve_policy_token as _serve_policy_token)
-from ..profiling import EngineStats, shape_bucket
+from ..profiling import EngineStats, register_cache, shape_bucket
 from ..resilience.faults import fault_point
 from ..telemetry import recorder as _flight
 from ..telemetry import spans as _spans
@@ -236,6 +239,42 @@ class EngineConfig:
         fields.update(ff)
         fields.update(overrides)
         return cls(**fields)
+
+
+#: the engine's bounded fused-scorer caches (each scorer holds its
+#: members' stacked weights and compiled prefix tables), process-wide:
+#: /statusz ``programCaches``
+_FUSED_SCORER_CAP = 32
+_FUSED_SCORER_STATS = register_cache("serving.fused_scorers",
+                                     _FUSED_SCORER_CAP)
+
+
+class RequestTaps:
+    """Copy-on-write request-tap set — THE one implementation of the
+    observe-only tap contract, shared by ServingEngine and
+    ServingFleet: registration under a lock, lock-free tuple read on
+    the hot path, and a raising tap swallowed (the live request
+    proceeds) but counted via ``on_error``, never silent."""
+
+    def __init__(self, on_error):
+        self._lock = threading.Lock()
+        self._taps: tuple = ()
+        self._on_error = on_error
+
+    def add(self, fn) -> None:
+        with self._lock:
+            self._taps = self._taps + (fn,)
+
+    def remove(self, fn) -> None:
+        with self._lock:
+            self._taps = tuple(t for t in self._taps if t is not fn)
+
+    def notify(self, data, future) -> None:
+        for tap in self._taps:
+            try:
+                tap(data, future)
+            except Exception:   # noqa: BLE001 — observers never fail
+                self._on_error()                # the live path; counted
 
 
 class _Request:
@@ -468,6 +507,9 @@ class ServingEngine:
         self._accepting = False
         self._thread: Optional[threading.Thread] = None
         self._dispatcher_alive = False      # flipped ONLY under _cond
+        #: request-plane observers: fn(data, future) per ACCEPTED
+        #: request — the continuum drift monitor / shadow mirror
+        self._taps = RequestTaps(self.stats.note_tap_error)
         self.started_at: Optional[float] = None
 
     # -- lifecycle --------------------------------------------------------
@@ -508,7 +550,12 @@ class ServingEngine:
                 for r in self._tq.flush():
                     if self._fail_future(r.future, EngineStopped(
                             "engine stopped before dispatch")):
-                        self.stats.note_failed()
+                        # ledger only, NOT a serving outcome: the
+                        # fleet router re-dispatches these client-
+                        # invisibly, and ring failures here would
+                        # poison the next rollout's recent-history
+                        # error baseline
+                        self.stats.note_failed(ring=False)
                 self._note_depth_locked()
             self._cond.notify_all()
         self.cancel_event.set()
@@ -630,7 +677,23 @@ class ServingEngine:
                                model=vname, tenant=tenant)
             req.future.add_done_callback(
                 lambda f, sp=sp: sp.end(outcome=_future_outcome(f)))
+        taps = self._taps
+        if taps._taps:
+            taps.notify(data, req.future)
         return req.future
+
+    # -- request taps (continuum monitor / shadow mirror) ------------------
+    def add_tap(self, fn) -> None:
+        """Register a request-plane observer: ``fn(data, future)`` is
+        called once per ACCEPTED request (after admission + enqueue, on
+        the submitting thread). The contract is observe-only: a tap
+        must be O(1)-cheap and must never raise — a raising tap is
+        swallowed (the live request proceeds) and counted in
+        ``EngineStats.tap_errors``, never silent."""
+        self._taps.add(fn)
+
+    def remove_tap(self, fn) -> None:
+        self._taps.remove(fn)
 
     def score(self, data, timeout: Optional[float] = None,
               deadline_ms: Optional[float] = None,
@@ -680,6 +743,10 @@ class ServingEngine:
             return True
         except KeyError:
             return False
+
+    def status(self) -> Dict[str, Any]:
+        from .health import status_snapshot
+        return status_snapshot(self)
 
     # -- dispatcher internals ---------------------------------------------
     def _fail_future(self, fut: Future, exc: BaseException) -> bool:
@@ -1037,6 +1104,7 @@ class ServingEngine:
         tail = (members[0][0], _serve_policy_token(members[0][4].device))
         sc = self._fused_scorers.get((ids,) + tail)
         if sc is not None:
+            _FUSED_SCORER_STATS.note_hit()
             return sc, tuple(range(len(members)))
         want = set(ids)
         for ckey, csc in self._fused_scorers.items():
@@ -1044,14 +1112,17 @@ class ServingEngine:
                 pos = dict()
                 for j, bid in enumerate(ckey[0]):
                     pos[bid] = j
+                _FUSED_SCORER_STATS.note_hit()
                 return csc, tuple(pos[b] for b in ids)
         sc = FusedGroupScorer([(m[3], m[4]) for m in members])
-        if len(self._fused_scorers) >= 32:
+        if len(self._fused_scorers) >= _FUSED_SCORER_CAP:
             # catalogs churn: drop the oldest entry (insertion
             # order); a re-fused family just rebuilds
             self._fused_scorers.pop(
                 next(iter(self._fused_scorers)))
+            _FUSED_SCORER_STATS.note_evict(len(self._fused_scorers))
         self._fused_scorers[(ids,) + tail] = sc
+        _FUSED_SCORER_STATS.note_miss(len(self._fused_scorers))
         return sc, tuple(range(len(members)))
 
     def _launch_fused(self, members):

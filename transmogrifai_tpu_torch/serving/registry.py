@@ -16,12 +16,16 @@ hot-swap safe and downtime-free:
    before dropping the backend reference (releasing its device
    tensors). Nothing in flight is ever cut off.
 
-Versions load from two artifact layouts (auto-detected): a portable
-export (`manifest.json` + params.npz, written by the JAX package's
-``portable_export``) -> a :class:`workflow.FusedScorer` over the port's
+Versions load from three artifact layouts (auto-detected): a saved
+``WorkflowModel`` (`workflow.json`, written by either package's
+``WorkflowModel.save``) and a portable export (`manifest.json` +
+params.npz) each -> a :class:`workflow.FusedScorer` over the port's
 stage chain on the registry's device, and a registry root
 (`registry.json`) naming many versions. Every load resolves its device
 with ``resolve_device``: CUDA unless ``device="cpu"`` is asked for.
+Loads retry TRANSIENT failures (``TM_SERVE_LOAD_RETRIES``, counted in
+``LOAD_STATS``) and pass a pre-publish lint gate: a portable manifest
+that disagrees with its backend's outputs never becomes servable.
 
 Multi-model serving (the model plane behind the engine's (model,
 bucket) dispatcher):
@@ -144,8 +148,8 @@ class _FusedBackend:
         one row) supplies realistic boundary dtypes; without it float32
         zeros warm the dense columns and int32 zeros the hashed-index
         columns (``index_boundary``). Returns the number of warm runs. Books
-        NO batch/row/padding/seconds: warm rows are not served
-        traffic."""
+        each bucket's first pass (``compiles``) but NO batch/row/
+        padding/seconds: warm rows are not served traffic."""
         from ..workflow import _pad_rows, to_device
 
         sc = self.scorer
@@ -165,6 +169,8 @@ class _FusedBackend:
                    for v in vals]
             for o in sc.run_tail(dev):
                 o.cpu()             # block: the device really ran it
+            if b not in sc.stats.compiles:
+                sc.stats.note_compile(b)    # the shape's first pass
             runs += 1
         return runs
 
@@ -312,18 +318,124 @@ class ModelVersion:
                     "registered_at": self.registered_at}
 
 
-def _load_backend(path: str, buckets=True, device=None):
-    """Build a version's backend from a portable artifact directory;
-    returns (backend, source path)."""
+def _lint_artifact_manifest(path: str, backend) -> None:
+    """Pre-publish skew gate: a version whose portable manifest
+    disagrees with the backend's terminal outputs (or carries invalid
+    bucket metadata) must never become eligible for traffic — serving
+    it would silently score different columns than training produced.
+    Runs on every artifact load (register / hot_swap / lazy first
+    acquire / from_dir); TM_LINT=off disables."""
+    man_path = os.path.join(path, "manifest.json")
+    if not os.path.exists(man_path):
+        return
+    from ..lint import (LintError, LintReport, check_export_manifest,
+                        resolve_lint_mode)
+    # default TM_LINT is "off" for the TRAIN gate; the artifact gate
+    # runs unless off is set EXPLICITLY — a skewed artifact must not
+    # publish just because nobody exported TM_LINT. A typo'd TM_LINT
+    # value runs the gate rather than crashing a lazy load mid-request.
+    try:
+        explicit_off = bool(os.environ.get("TM_LINT")) \
+            and resolve_lint_mode() == "off"
+    except ValueError:
+        explicit_off = False
+    if explicit_off:
+        return
+    with open(man_path) as f:
+        manifest = json.load(f)
+    findings = check_export_manifest(
+        manifest, result_names=getattr(backend, "result_names", None))
+    report = LintReport(findings)
+    if report.has_errors:
+        raise LintError(report, context=f"model artifact {path!r}")
+
+
+class _LoadStats:
+    """Registry artifact-load resilience counters, surfaced by
+    serving.health.status_snapshot — every retried or failed load is a
+    counter, never a silent event."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.attempts = 0
+        self.retries = 0
+        self.failures = 0
+        self.loaded = 0
+
+    def bump(self, **fields) -> None:
+        with self._lock:
+            for k, v in fields.items():
+                setattr(self, k, getattr(self, k) + v)
+
+    def as_dict(self) -> Dict[str, int]:
+        with self._lock:
+            return {"attempts": self.attempts, "retries": self.retries,
+                    "failures": self.failures, "loaded": self.loaded}
+
+
+#: process-wide: registries come and go (from_dir per serve), the
+#: operator's question — "how flaky are my artifact loads?" — does not
+LOAD_STATS = _LoadStats()
+
+
+def _load_retry_policy():
+    """TM_SERVE_LOAD_RETRIES (attempt count, default 3) for TRANSIENT
+    load failures only — a corrupt or incomplete artifact fails on the
+    first attempt with its original error, while an NFS hiccup gets
+    retried with deterministic backoff."""
+    from ..resilience.config import parse_env_fields
+    from ..resilience.policy import RetryPolicy
+    fields = parse_env_fields(
+        "TM_SERVE_LOAD_RETRIES",
+        {"TM_SERVE_LOAD_RETRIES": ("attempts", int)},
+        what="serving load-retry env var")
+    # 0 (or any value below 1) means "no retries", not a crash
+    return RetryPolicy(attempts=max(1, fields.get("attempts", 3)),
+                       backoff_s=0.05)
+
+
+def _load_backend_once(path: str, buckets=True, device=None):
     from ..resilience.faults import fault_point
     fault_point("serving.registry.load", path=path)
+    if os.path.exists(os.path.join(path, "workflow.json")):
+        from ..workflow import WorkflowModel
+        # checks the _SUCCESS sentinel
+        model = WorkflowModel.load(path, device=device)
+        backend = _FusedBackend(model.compile_scoring(buckets=buckets,
+                                                      device=device))
+        _lint_artifact_manifest(path, backend)
+        return backend, path
     if os.path.exists(os.path.join(path, "manifest.json")):
         from .. import portable
         pm = portable.load(path, device=device)     # checks _SUCCESS
-        return _FusedBackend(pm.compile_scoring(buckets=buckets)), path
+        backend = _FusedBackend(pm.compile_scoring(buckets=buckets))
+        _lint_artifact_manifest(path, backend)
+        return backend, path
     raise ValueError(
-        f"{path}: not a portable export (manifest.json); the port serves "
-        f"portable artifacts only")
+        f"{path}: neither a saved WorkflowModel (workflow.json) nor a "
+        f"portable export (manifest.json)")
+
+
+def _load_backend(path: str, buckets=True, device=None):
+    """Auto-detect a version artifact layout and build its backend on
+    ``device``, retrying TRANSIENT failures under the load retry
+    policy. A partial (sentinel-less) or corrupt artifact is rejected
+    on the first attempt — retrying a deterministic failure only
+    delays the page. Returns (backend, source path)."""
+    policy = _load_retry_policy()
+
+    def attempt():
+        LOAD_STATS.bump(attempts=1)
+        return _load_backend_once(path, buckets=buckets, device=device)
+
+    try:
+        out = policy.run(attempt, what=f"registry load {path!r}",
+                         on_retry=lambda k, e: LOAD_STATS.bump(retries=1))
+    except BaseException:
+        LOAD_STATS.bump(failures=1)
+        raise
+    LOAD_STATS.bump(loaded=1)
+    return out
 
 
 class _Lease:
@@ -405,8 +517,9 @@ class ModelRegistry:
                  warm_sample=None, warm: bool = True,
                  make_default: bool = False, source: Optional[str] = None,
                  device=None) -> ModelVersion:
-        """Add a version. `model` may be a portable artifact directory
-        path, a ``portable.PortableModel`` or an already built
+        """Add a version. `model` may be an artifact directory path (a
+        saved WorkflowModel or a portable export), a ``WorkflowModel``,
+        a ``portable.PortableModel`` or an already built
         ``workflow.FusedScorer``. ``device`` places it: None loads a
         path onto CUDA (raising without it) and keeps an in-memory
         model on the device it was built for; an explicit device moves
@@ -419,7 +532,7 @@ class ModelRegistry:
         columns with float32 zeros and hashed-index columns with int32
         zeros (bucket 0), never turning ids into f32."""
         from ..portable import PortableModel
-        from ..workflow import FusedScorer
+        from ..workflow import FusedScorer, WorkflowModel
         with self._lock:
             # RESERVE the name before the (slow) load/warm below: two
             # concurrent registers of the same name must not both pass
@@ -433,6 +546,9 @@ class ModelRegistry:
             if isinstance(model, str):
                 backend, source = _load_backend(
                     model, buckets=buckets, device=resolve_device(device))
+            elif isinstance(model, WorkflowModel):
+                backend = _FusedBackend(
+                    model.compile_scoring(buckets=buckets, device=device))
             elif isinstance(model, PortableModel):
                 backend = _FusedBackend(
                     model.compile_scoring(buckets=buckets, device=device))
@@ -677,9 +793,10 @@ class ModelRegistry:
 
         With a `registry.json` manifest (the JAX package's
         portable_export.write_registry_manifest), its version list and
-        default are authoritative; otherwise every subdirectory holding
-        a portable export is indexed and the lexicographically last
-        becomes the default. Only the DEFAULT version loads eagerly —
+        default are authoritative, and its optional ``aliases`` map
+        ({model id: version}) registers tenant-facing aliases; otherwise every subdirectory holding
+        a saved workflow or a portable export is indexed and the
+        lexicographically last becomes the default. Only the DEFAULT version loads eagerly —
         deploy history stays lazy (loads on first acquire)."""
         dev = resolve_device(device)
         reg = ModelRegistry()
@@ -710,11 +827,18 @@ class ModelRegistry:
                     reg.register_lazy(name, path, buckets=vb, device=dev)
             if default:
                 reg.set_default(default)
+            # tenant-facing ids over the versions (the port's addition
+            # to the manifest; the JAX package's reader ignores it)
+            for alias, target in sorted((doc.get("aliases")
+                                         or {}).items()):
+                reg.alias(alias, target)
             return reg
         entries = [e for e in sorted(os.listdir(root))
                    if os.path.isdir(os.path.join(root, e))
-                   and os.path.exists(os.path.join(root, e,
-                                                   "manifest.json"))]
+                   and (os.path.exists(os.path.join(root, e,
+                                                    "workflow.json"))
+                        or os.path.exists(os.path.join(root, e,
+                                                       "manifest.json")))]
         if not entries:
             raise ValueError(f"{root}: no loadable model versions")
         for entry in entries[:-1]:
@@ -733,16 +857,31 @@ def build_registry(source, *, buckets=True, version: str = "v1",
     "is this a registry root or a plain model/artifact": a directory
     containing ``registry.json`` loads via :meth:`ModelRegistry.from_dir`
     (its manifest names versions and the default); anything else (a
-    portable-export artifact dir, a ``portable.PortableModel`` or a
-    built ``FusedScorer``) registers as ``version`` and becomes the
-    default. An already built :class:`ModelRegistry` passes through
-    unchanged — a whole catalog (versions + aliases)."""
+    WorkflowModel, a saved-workflow dir, a portable-export artifact
+    dir, a ``portable.PortableModel`` or a built ``FusedScorer``)
+    registers as ``version`` and becomes the default. Both the fleet's
+    per-replica builds and the CLI's single-engine path call this, so
+    the two serving modes cannot drift on source detection. An already built :class:`ModelRegistry` passes through
+    unchanged — a whole catalog (versions + aliases). ``warm`` warms
+    the single artifact, or a registry root's default version (the
+    JAX package warms only the former; the port's first pass on the
+    card pays the CUDA context and library loads)."""
     if isinstance(source, ModelRegistry):
         return source
     if isinstance(source, str) and os.path.exists(
             os.path.join(source, "registry.json")):
-        return ModelRegistry.from_dir(source, buckets=buckets,
-                                      device=device)
+        reg = ModelRegistry.from_dir(source, buckets=buckets,
+                                     device=device)
+        if warm:
+            # the root's default serves first: warm it here, as a
+            # single artifact is, so its first pass on the device
+            # (context, libraries) is not a live request's — nor the
+            # sample that seeds the admission latency model
+            v = reg.get()
+            if v.backend is not None and not v.warmed:
+                v.backend.warm(warm_sample)
+                v.warmed = True
+        return reg
     registry = ModelRegistry()
     registry.register(version, source, buckets=buckets,
                       warm_sample=warm_sample, warm=warm,

@@ -601,6 +601,8 @@ class FusedScorer:
             dev = [to_device(_pad_rows(v[start:stop], bucket), self.device)
                    for v in vals]
             outs = self.run_tail(dev)
+            if bucket not in self.stats.compiles:
+                self.stats.note_compile(bucket)    # this shape's first pass
             self.stats.note_batch(bucket, stop - start)
             parts.append((stop - start, outs))
         return parts
