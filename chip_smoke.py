@@ -7,7 +7,8 @@ families), row-sharded tree growing over a data mesh and the workflow
 front door (CSV reader, transmogrify, SanityChecker, selector,
 save/load, scoring, export and serving), the Criteo path (hashed
 sparse families streamed, swept, served), every feature type
-through transmogrify and the serving tier (fleets on both transports,
+through transmogrify, the FT-Transformer (grid fit, selector, export,
+serving) and the serving tier (fleets on both transports,
 failover, rollout, the CLI, the continuum loop) — through the entry
 points a user calls, and holds each CUDA kernel against its plain
 PyTorch version:
@@ -196,6 +197,27 @@ PyTorch version:
    and shadow gates, one promotion, zero client errors; ``/metricsz``
    scraped from the socket fleet and the controller must carry the
    ``tm_fleet_*``, ``tm_transport_*`` and ``tm_continuum_*`` families.
+12. ft: the FT-Transformer (run after features, before fleet). The
+   family's 3-fold CV over its default grid (18 fits of 200 full-batch
+   AdamW steps at d_model 32, 4 heads, 2 layers, d_ff 64) through
+   ``OpCrossValidation.dispatch`` at ``bench.py::bench_ft_transformer``'s
+   shape (896 x 16 rows from ``--seed``, a label of x0 * x1 + x2), in
+   bf16 (the CUDA default) and with TM_FT_BF16=0, then at d_model 128 /
+   d_ff 256: wall, fits/s, one AdamW step's device time and device
+   operations on a sweep chunk (torch.profiler, two fits' difference),
+   the busy share, and the analytic FLOPs and bytes (copies of
+   ``bench.py``'s ``_ft_flops`` / ``_ft_bytes``) with the bound at the
+   dtype's peak; the bf16 grid's best held-out AUROC within
+   FT_BF16_AUROC_TOL of the f32 one's. One fit on the card and on the
+   CPU from the same injected draw (TM_FT_BF16=0, TF32 off), the
+   probabilities within FT_CPU_ATOL. Titanic through a selector over
+   LogisticRegression and FTTransformerClassifier (FT alone as well
+   when LR wins, so an FT head is served): save/load and the exported
+   artifact's batch scores bitwise, ``LocalScorer`` and
+   ``export_portable`` -> ``portable.load`` -> a ``ServingEngine``
+   within FT_ROW_ATOL of the batch scores, every
+   request on the classic plane (no stack spec, the fallback counted),
+   no kernel launched anywhere in the phase.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -1365,8 +1387,8 @@ def training_phase(seed: int, rows: int = TRAIN_ROWS, device="cuda"):
            "train_rows": summ["dataCounts"]["train"],
            "families": families,
            "fit_transform_wall_s": fit_wall,
-           "family_wall_s": summ["wallSeconds"]["families"],
-           "refit_wall_s": summ["wallSeconds"]["refit"],
+           "family_wall_s": model.wall_seconds["families"],
+           "refit_wall_s": model.wall_seconds["refit"],
            "winner": winner, "winner_hyper": summ["bestModel"]["hyper"],
            "winner_val_auroc":
                summ["bestModel"]["validationMetric"]["auroc"],
@@ -1421,7 +1443,7 @@ def _linear_family_profile(X, y):
 
         def run():
             p = cv.dispatch_many([("0", fam, fam.make_grid())], X, y, w,
-                                 2, "cuda")
+                                 2, device="cuda")
             return cv.collect(p["0"])
         prof, wall = profiled(_walled(run), host=False)
         busy_us, events = _device_time_us(prof)
@@ -1586,7 +1608,7 @@ def _sweep_metrics(entries, X, y, k, metric, device, sync_error=False):
     if sync_error:
         torch.cuda.set_sync_debug_mode("error")
     try:
-        pending = cv.dispatch_many(entries, X, y, w, k, device)
+        pending = cv.dispatch_many(entries, X, y, w, k, device=device)
     finally:
         if sync_error:
             torch.cuda.set_sync_debug_mode("default")
@@ -1684,14 +1706,14 @@ def other_lists_phase(seed: int, rows: int = OTHER_ROWS, device="cuda"):
         for name, p in params_to_numpy(model.model_params).items():
             if p.dtype.kind == "f" and np.isnan(p).any():
                 raise AssertionError(f"{problem}: NaN in refit {name}")
-        if set(summ["wallSeconds"]["families"]) != set(families):
+        if set(model.wall_seconds["families"]) != set(families):
             raise AssertionError(f"{problem}: families validated "
-                                 f"{sorted(summ['wallSeconds']['families'])}"
+                                 f"{sorted(model.wall_seconds['families'])}"
                                  f" of {families}")
         out[problem] = {
             "rows": rows, "families": families, "fit_wall_s": wall,
-            "family_wall_s": summ["wallSeconds"]["families"],
-            "refit_wall_s": summ["wallSeconds"]["refit"],
+            "family_wall_s": model.wall_seconds["families"],
+            "refit_wall_s": model.wall_seconds["refit"],
             "winner": winner, "winner_hyper": summ["bestModel"]["hyper"],
             "validation_metric": summ["bestModel"]["validationMetric"],
             "holdout": summ["holdoutEvaluation"],
@@ -2116,10 +2138,10 @@ def _types(schema):
     return {k: getattr(ft, v) for k, v in schema.items()}
 
 
-def _titanic_workflow():
+def _titanic_workflow(candidates=None):
     """examples/op_titanic_simple.py's workflow from the port's classes:
     typed columns, transmogrify, SanityChecker, the binary selector with
-    3-fold CV over its candidates."""
+    3-fold CV over its candidates (or ``candidates``)."""
     from transmogrifai_tpu_torch import models as TM
     from transmogrifai_tpu_torch.features import FeatureBuilder, reset_uids
     from transmogrifai_tpu_torch.ops import SanityChecker, transmogrify
@@ -2133,7 +2155,7 @@ def _titanic_workflow():
     checked = SanityChecker().set_input(survived,
                                         transmogrify(preds)).output
     pred = TM.BinaryClassificationModelSelector.with_cross_validation(
-        n_folds=3, candidates=TITANIC_CANDIDATES).set_input(
+        n_folds=3, candidates=candidates or TITANIC_CANDIDATES).set_input(
             survived, checked).output
     return Workflow([pred])
 
@@ -2537,7 +2559,7 @@ def scale_part(seed: int, device, workdir, rows: int = SCALE_ROWS):
             "features_out": checker.summary["featuresOut"],
             "dropped": len(checker.summary["dropped"]),
             "winner": summ["bestModel"], "family_wall_s":
-                summ["wallSeconds"]["families"],
+                model.selected_model().wall_seconds["families"],
             "holdout_auroc": summ["holdoutEvaluation"].get("AuROC"),
             "histogram_launches": launches, "expected_launches": expected,
             "loaded_scores_bitwise": True, "local_max_abs_err": local_err,
@@ -3045,10 +3067,10 @@ def ctr_sweep_part(seed, device, rows=CTR_SWEEP_ROWS, buckets=CTR_BUCKETS,
     if not all(np.isfinite(l1)):
         raise AssertionError(f"non-finite validation losses {l1}")
     out = {"rows": rows, "grid": len(l1), "fit_wall_s": [w1, w2],
-           "family_wall_s": s1["wallSeconds"]["families"],
-           "family_wall_s_run2": s2["wallSeconds"]["families"],
-           "refit_wall_s": [s1["wallSeconds"]["refit"],
-                            s2["wallSeconds"]["refit"]],
+           "family_wall_s": m1.wall_seconds["families"],
+           "family_wall_s_run2": m2.wall_seconds["families"],
+           "refit_wall_s": [m1.wall_seconds["refit"],
+                            m2.wall_seconds["refit"]],
            "winner": s1["bestModel"], "logloss": l1,
            "holdout_auroc": s1["holdoutEvaluation"]["AuROC"],
            "bitwise_repeat": True}
@@ -3238,15 +3260,15 @@ def ctr_front_part(seed, device, workdir, rows=CTR_FRONT_ROWS,
     if not loco_err <= CTR_LOCO_ATOL:
         raise AssertionError(f"ctr LOCO differs from numpy by {loco_err}")
     # the walls stay on the trained model (a saved one holds none)
-    summ = model.selected_model().summary
+    walls_s = model.selected_model().wall_seconds
     return {"rows": rows, "chunk_rows": chunk_rows, "buckets": buckets,
             "records_wall_s": gen_wall, "train_cold_wall_s": walls[0],
             "train_warm_wall_s": walls[1], "evaluate_wall_s": eval_wall,
             "auroc": auc, "best": train["bestModel"],
             "field_contributions": dict(zip(vec.input_names,
                                             train["fieldContributions"])),
-            "family_wall_s": summ["wallSeconds"]["families"],
-            "refit_wall_s": summ["wallSeconds"]["refit"],
+            "family_wall_s": walls_s["families"],
+            "refit_wall_s": walls_s["refit"],
             "stream_wall_s": stream_wall, "loaded_scores_bitwise": True,
             "stream_bitwise": True, "local_bitwise": True,
             "loco_max_abs_err": loco_err, "model": loaded}
@@ -3751,7 +3773,8 @@ def _train_report(model, sel, wall, busy_s, events, launches, device):
             "kept_slots": len(checker.params["keep_indices"]),
             "winner": summ["bestModel"],
             "holdout_auroc": summ["holdoutEvaluation"].get("AuROC"),
-            "family_wall_s": summ["wallSeconds"]["families"]}
+            "family_wall_s": model.selected_model().wall_seconds[
+                "families"]}
 
 
 def crm_part(seed, device, workdir, rows=FEAT_CRM_ROWS, cut_from=None,
@@ -5311,6 +5334,510 @@ def fleet_lines(fl) -> list:
     return lines
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the FT-Transformer — grid fit, card vs CPU, the front door
+# ---------------------------------------------------------------------------
+
+#: bench.py::bench_ft_transformer's shape (:3352, :3361; N_ROWS :39): rows,
+#: features, folds; the family's default grid (6 points) makes 18 fits
+FT_ROWS = 896
+FT_FEATURES = 16
+FT_FOLDS = 3
+#: the bench's widest point (d_model at the tile boundary, d_ff = 2x)
+FT_WIDE = (128, 256)
+#: AdamW steps of the two short fits whose difference gives one step's
+#: device time and operations
+FT_PROFILE_STEPS = (5, 15)
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet): the rate
+#: that bounds the bf16 fit's matrix products; the f32 fit (TF32 off)
+#: runs on the F32_FLOPS_PER_S pipes
+BF16_FLOPS_PER_S = 989e12
+#: card vs CPU, f32 (TM_FT_BF16=0, TF32 off), the same initial draw,
+#: 200 AdamW steps: probabilities after the fit. Both sides are f32 in
+#: another summation order; Adam's normalised steps carry an ulp-level
+#: gradient difference into each step, so the gap grows with the steps
+FT_CPU_ATOL = 1e-3
+#: the bf16 grid's held-out AUROC (mean over folds, best grid point)
+#: against the f32 grid's (the JAX package's test_ft_bf16_compute_quality
+#: allows 0.08 of accuracy)
+FT_BF16_AUROC_TOL = 0.02
+#: a row scored alone (LocalScorer) or in another co-batch (the engine)
+#: against the batch score: read 6.0e-8 and 1.2e-7 on an H100 (the
+#: bf16 products of the trunk round alike at every batch shape the
+#: buckets give; the f32 norm and head differ by an f32 ulp). Far under
+#: the gap between two passengers' probabilities, so a row given
+#: another row's answer fails it
+FT_ROW_ATOL = 1e-5
+FT_REQUESTS = 96
+FT_LOCAL_ROWS = 100
+FT_CANDIDATES = [["LogisticRegression", None],
+                 ["FTTransformerClassifier", None]]
+
+
+def ft_data(seed: int, rows=FT_ROWS, d=FT_FEATURES):
+    """(X, y) from ``seed``: normal features, a label the FT-Transformer
+    can learn and a linear model cannot fully (x0 * x1 + x2)."""
+    rng = np.random.default_rng(seed + 12)
+    X = rng.normal(size=(rows, d)).astype(np.float32)
+    logit = 2.0 * X[:, 0] * X[:, 1] + X[:, 2]
+    y = (logit + 0.3 * rng.normal(size=rows) > 0).astype(np.float32)
+    return X, y
+
+
+def ft_flops(n, d, fits, d_model, n_layers, d_ff, n_steps) -> float:
+    """A copy of bench.py::_ft_flops: per forward, T = d+1 tokens through
+    n_layers of (QKV+O 8TD^2, attention 4T^2D, FFN 4TDd_ff) per row,
+    plus the tokenizer (2TD); an Adam step ~ 3 forwards; n_steps steps
+    a fit plus one predict forward."""
+    T, D = d + 1, d_model
+    fwd_row = n_layers * (8 * T * D * D + 4 * T * T * D + 4 * T * D * d_ff) \
+        + 2 * T * D
+    return fits * (3 * n_steps + 1) * n * fwd_row
+
+
+def ft_bytes(n, d, fits, d_model, n_layers, d_ff, n_steps) -> float:
+    """A copy of bench.py::_ft_bytes: per Adam step each fit's parameters
+    read and re-written with gradients and two moments (~3x the
+    parameter bytes), the batch read once; activations not counted."""
+    T, D = d + 1, d_model
+    params = T * D + n_layers * (4 * D * D + 2 * D * d_ff) + D
+    return 4.0 * (n * d + fits * n_steps * 3.0 * params)
+
+
+@contextlib.contextmanager
+def ft_sizes(d_model, d_ff, n_steps=None):
+    """The FT classifier family at another width (and step count) for
+    the block: its static attributes, read at fit time."""
+    from transmogrifai_tpu_torch.models import MODEL_FAMILIES
+    fam = MODEL_FAMILIES["FTTransformerClassifier"]
+    old = (fam.d_model, fam.d_ff, fam.n_steps)
+    fam.d_model, fam.d_ff = d_model, d_ff
+    if n_steps is not None:
+        fam.n_steps = n_steps
+    try:
+        yield fam
+    finally:
+        fam.d_model, fam.d_ff, fam.n_steps = old
+
+
+def _ft_step_device(fam, X, y, device, chunk):
+    """One AdamW step's device time (ms) and device operations on a
+    chunk of ``chunk`` instances: two fits of FT_PROFILE_STEPS steps
+    under torch.profiler (device activity), their difference over the
+    steps between them; and the longer fit's top device operations
+    (ms and count per step)."""
+    from torch.autograd import DeviceType
+    Xt = torch.as_tensor(X, device=device).expand(chunk, -1, -1)
+    yt = torch.as_tensor(y, device=device).expand(chunk, -1)
+    wt = torch.ones_like(yt)
+    hyper = {"learningRate": torch.full((chunk,), 3e-3, device=device),
+             "weightDecay": torch.full((chunk,), 1e-4, device=device)}
+    out = []
+    for steps in FT_PROFILE_STEPS:
+        old = fam.n_steps
+        fam.n_steps = steps
+        try:
+            prof, _ = profiled(lambda: fam.fit_batch(Xt, yt, wt, hyper, 2),
+                               host=False)
+        finally:
+            fam.n_steps = old
+        out.append(_device_time_us(prof))
+    (us0, ev0), (us1, ev1) = out
+    k = FT_PROFILE_STEPS[1] - FT_PROFILE_STEPS[0]
+    steps = FT_PROFILE_STEPS[1]
+    top = sorted(((ev.device_time_total, ev.count, ev.key[:70])
+                  for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CUDA), reverse=True)[:8]
+    return ((us1 - us0) / k / 1e3, (ev1 - ev0) / k,
+            [{"ms_per_step": us / 1e3 / steps, "per_step": c / steps,
+              "name": name} for us, c, name in top])
+
+
+def ft_grid_run(X, y, device, d_model, d_ff, profile=True, busy=False):
+    """The FT classifier's 3-fold CV over its default grid through
+    ``OpCrossValidation.dispatch`` on ``device`` at one width, in the
+    compute dtype the knobs give: wall, fits/s, the best mean AUROC;
+    with ``profile``, one AdamW step's device time and operations on a
+    sweep chunk, and with ``busy`` the same dispatch at
+    FT_PROFILE_STEPS[1] AdamW steps under torch.profiler (device
+    activity) for the busy share (the whole dispatch's ~10^5 device
+    events take the profiler longer to read than the budget allows)."""
+    from transmogrifai_tpu_torch.models.ft_transformer import ft_dtype
+    from transmogrifai_tpu_torch.models.tuning import (OpCrossValidation,
+                                                       SWEEP_CHUNK)
+    w = np.ones(len(y), np.float32)
+    dev = torch.device(device)
+    sync = _sync_of(device)
+    with ft_sizes(d_model, d_ff) as fam:
+        grid = fam.make_grid()
+        cv = OpCrossValidation(n_folds=FT_FOLDS, metric="auroc")
+
+        def run():
+            return cv.collect(cv.dispatch(fam, grid, X, y, w, 2,
+                                          device=device))
+        sync()
+        t0 = time.perf_counter()
+        res = run()
+        sync()
+        wall = time.perf_counter() - t0
+        fits = FT_FOLDS * len(grid)
+        chunk = SWEEP_CHUNK.get(dev.type, 1)
+        dtype = ft_dtype(dev)
+        flops = ft_flops(len(y), X.shape[1], fits, d_model, fam.n_layers,
+                         d_ff, fam.n_steps)
+        nbytes = ft_bytes(len(y), X.shape[1], fits, d_model, fam.n_layers,
+                          d_ff, fam.n_steps)
+        peak, peak_name = ((BF16_FLOPS_PER_S, "bf16 989 TFLOP/s")
+                           if dtype == torch.bfloat16 else
+                           (F32_FLOPS_PER_S, "f32 67 TFLOP/s"))
+        flop_ms, byte_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        out = {"d_model": d_model, "d_ff": d_ff, "dtype": str(dtype),
+               "rows": len(y), "features": X.shape[1], "folds": FT_FOLDS,
+               "grid": len(grid), "fits": fits, "chunk": chunk,
+               "instances_computed": -(-fits // chunk) * chunk,
+               "adam_steps": fam.n_steps, "wall_s": wall,
+               "fits_per_s": fits / wall,
+               "best_auroc": float(res.best_metric),
+               "grid_auroc": [float(m) for m in res.grid_metrics],
+               "flops": flops, "bytes": nbytes,
+               "bound_ms": max(flop_ms, byte_ms),
+               "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+               "peak": peak_name}
+        if profile and dev.type == "cuda":
+            t0 = time.perf_counter()
+            step_ms, step_ops, top = _ft_step_device(fam, X, y, device,
+                                                     chunk)
+            out.update(step_device_ms=step_ms, step_device_ops=step_ops,
+                       step_top_device_ops=top,
+                       step_profile_wall_s=time.perf_counter() - t0)
+        if busy and dev.type == "cuda":
+            t0 = time.perf_counter()
+            fam.n_steps = FT_PROFILE_STEPS[1]
+            try:
+                prof, pwall = profiled(_walled(run), host=False)
+            finally:
+                fam.n_steps = out["adam_steps"]
+            busy_us, events = _device_time_us(prof)
+            out.update(busy_window_steps=FT_PROFILE_STEPS[1],
+                       profiled_wall_s=pwall, device_busy_s=busy_us / 1e6,
+                       device_events=events,
+                       device_busy_share=busy_us / 1e6 / pwall,
+                       busy_profile_wall_s=time.perf_counter() - t0)
+    return out
+
+
+def ft_cpu_part(X, y, device, fits_check=None):
+    """Card against CPU: the same inputs and the same injected initial
+    draw, TM_FT_BF16=0 (TF32 is off for the run), one fit at the
+    default hypers on each side, probabilities compared on every row
+    (FT_CPU_ATOL). ``fits_check``: a test's planted fault on the
+    card side's probabilities."""
+    from transmogrifai_tpu_torch.models import MODEL_FAMILIES
+    from transmogrifai_tpu_torch.models.base import params_to_numpy
+    fam = MODEL_FAMILIES["FTTransformerClassifier"]
+    init = params_to_numpy(fam.init_params(X.shape[1], 2))
+    probs, walls = {}, {}
+    with env(TM_FT_BF16="0"):
+        for side in (device, "cpu"):
+            sync = _sync_of(side)
+            Xt = torch.as_tensor(X, device=side)
+            yt = torch.as_tensor(y, device=side)
+            sync()
+            t0 = time.perf_counter()
+            p = fam.fit_kernel(Xt, yt, torch.ones_like(yt),
+                               fam.default_hyper, 2, init=init)
+            pr = fam.predict_kernel(p, Xt, 2)[:, 1].cpu().numpy()
+            walls[side] = time.perf_counter() - t0
+            probs[side] = pr
+    card = probs[device] if fits_check is None else fits_check(probs[device])
+    gap = float(np.abs(card - probs["cpu"]).max())
+    if not gap <= FT_CPU_ATOL:
+        raise AssertionError(f"FT card vs CPU: probabilities {gap} apart "
+                             f"(atol {FT_CPU_ATOL})")
+    return {"rows": len(y), "max_abs_gap": gap,
+            "card_fit_s": walls[device], "cpu_fit_s": walls["cpu"]}
+
+
+def _ft_train(reader, device, candidates):
+    """(model, wall, histogram launches) of the Titanic workflow with
+    ``candidates``; the launch counter is read, not reset (the phase
+    reads its own difference over the whole phase)."""
+    from transmogrifai_tpu_torch.models import kernels as tk
+    sync = _sync_of(device)
+    sync()
+    before = tk.histogram_grid.launches
+    t0 = time.perf_counter()
+    model = _titanic_workflow(candidates).train(reader, device=device)
+    sync()
+    return (model, time.perf_counter() - t0,
+            tk.histogram_grid.launches - before)
+
+
+def ft_front_part(device, workdir, requests=FT_REQUESTS,
+                  local_rows=FT_LOCAL_ROWS, seed=0):
+    """Titanic through ``Workflow.train`` with the selector's candidates
+    LogisticRegression and FTTransformerClassifier (default grids): the
+    winner and both CV results; the served model is the FT one (the
+    winner, or else the same workflow with FT alone). Save and load
+    (scores bitwise); ``export_portable`` (its batch scores bitwise the
+    workflow's) -> ``portable.load`` -> one ServingEngine under ``requests`` requests of 1-8 rows from 8
+    threads carrying the boundary columns: every answer within
+    FT_ROW_ATOL of the portable chain's batch scores, every request on
+    the classic plane (FT's head is not linear: no stack spec, no fused
+    launch); LocalScorer on ``local_rows`` rows within FT_ROW_ATOL of
+    the batch scores. No kernel launches (no tree family, no fused
+    plane)."""
+    from transmogrifai_tpu_torch import portable
+    from transmogrifai_tpu_torch.local import LocalScorer
+    from transmogrifai_tpu_torch.models import serving_kernels as sk
+    from transmogrifai_tpu_torch.profiling import percentile_nearest_rank
+    from transmogrifai_tpu_torch.readers import DataReaders
+    from transmogrifai_tpu_torch.serving import (EngineConfig, ModelRegistry,
+                                                 ServingEngine)
+    from transmogrifai_tpu_torch.serving.fusion import stack_spec_of
+    from transmogrifai_tpu_torch.telemetry.spans import TRACER
+    from transmogrifai_tpu_torch.workflow import WorkflowModel
+    reader = DataReaders.csv(_repo_file("examples", "data", "titanic.csv"),
+                             _types(TITANIC_SCHEMA), key="id")
+    model, wall, launches = _ft_train(reader, device, FT_CANDIDATES)
+    summ = model.selected_model().summary
+    winner = summ["bestModel"]["family"]
+    cv = {r["family"]: max(r["gridMetrics"])
+          for r in summ["validationResults"]}
+    if sorted(cv) != sorted(c for c, _ in FT_CANDIDATES):
+        raise AssertionError(f"FT front door validated {sorted(cv)}")
+    served, ft_wall = model, None
+    if winner != "FTTransformerClassifier":
+        served, ft_wall, more = _ft_train(
+            reader, device, [["FTTransformerClassifier", None]])
+        launches += more
+    if launches:
+        raise AssertionError(f"FT front door: {launches} histogram "
+                             f"launches with no tree family")
+    head = served.selected_model()
+    if head.params["family"] != "FTTransformerClassifier":
+        raise AssertionError(f"served head is {head.params['family']}")
+    first = _probs(served, served.score(reader))
+    if not (np.isfinite(first).all() and (first >= 0).all()
+            and (first <= 1).all()):
+        raise AssertionError("FT front door: scores malformed")
+    t0 = time.perf_counter()
+    served.save(os.path.join(workdir, "ft_model"))
+    loaded = WorkflowModel.load(os.path.join(workdir, "ft_model"),
+                                device=device)
+    save_load = time.perf_counter() - t0
+    if not np.array_equal(_probs(loaded, loaded.score(reader)), first):
+        raise AssertionError("FT: the loaded model scores differently")
+    # LocalScorer: one row at a time
+    recs = reader.read()[:local_rows]
+    local = LocalScorer(loaded, device=device)
+    name = loaded.result_features[0].name
+    lp = np.asarray([local({k: v for k, v in r.items() if k != "survived"})
+                     [name]["probability_1"] for r in recs])
+    local_err = float(np.abs(lp - first[:local_rows]).max())
+    if not local_err <= FT_ROW_ATOL:
+        raise AssertionError(f"FT LocalScorer differs from the batch "
+                             f"scores by {local_err}")
+    # export -> portable.load -> ServingEngine (classic plane)
+    art = os.path.join(workdir, "ft_export")
+    served.export_portable(art, buckets=BUCKETS)
+    pm = portable.load(art, device=device)
+    stage = pm.manifest["stages"][-1]
+    if stage.get("family") != "FTTransformerClassifier" or \
+            stage.get("nHeads") != 4:
+        raise AssertionError(f"FT export: head stage {stage}")
+    host = served.compile_scoring(device=device)._host_ds(reader)
+    cols = {c: np.asarray(host.column(c)) for c in pm.boundary
+            if c in host and c not in pm.response_boundary}
+    batch = np.asarray(pm.compile_scoring(buckets=BUCKETS).score_arrays(
+        cols)[pm.result_names[0]], np.float64)[:, 1]
+    export_gap = float(np.abs(batch - first).max())
+    if not np.array_equal(batch, first):
+        raise AssertionError(f"FT export scores {export_gap} from the "
+                             f"workflow's (bitwise required)")
+    # two backends of the artifact, so a drain pass holds two groups and
+    # the engine considers the fused plane: each FT group falls back
+    reg = ModelRegistry()
+    names = ("ft", "ft_b")
+    for v in names:
+        reg.register(v, pm if v == "ft" else portable.load(art, device),
+                     buckets=BUCKETS,
+                     warm_sample={c: x[:1] for c, x in cols.items()})
+        if stack_spec_of(reg.get(v).backend) is not None:
+            raise AssertionError("an FT head got a fused stack spec")
+    rng = np.random.default_rng(seed + 41)
+    n = len(first)
+    reqs, picks = [], []
+    for i in range(requests):
+        rows = rng.integers(0, n, int(rng.integers(1, 9)))
+        picks.append(rows)
+        reqs.append((names[i % 2], {c: v[rows] for c, v in cols.items()}))
+    TRACER.clear()
+    traces = [TRACER.mint("req") for _ in reqs]
+    eng = ServingEngine(registry=reg, config=EngineConfig(
+        max_batch_rows=MAX_BATCH_ROWS, fused_kernel=True)).start()
+    before = sk.fused_linear_scores.launches
+    try:
+        results, lat, swall = _storm(eng, reqs, THREADS, traces)
+        moved = sk.fused_linear_scores.launches - before
+    finally:
+        eng.stop()
+    plane, _ = _served_planes(TRACER.spans(), traces)
+    worst, bitwise = 0.0, 0
+    for rows, res in zip(picks, results):
+        got = np.asarray(res[pm.result_names[0]], np.float64)[:, 1]
+        worst = max(worst, float(np.abs(got - batch[rows]).max()))
+        bitwise += int(np.array_equal(got, batch[rows]))
+    if not worst <= FT_ROW_ATOL:
+        raise AssertionError(f"FT served rows differ from the batch "
+                             f"scores by {worst}")
+    stats = eng.stats.as_dict()
+    if set(plane.values()) != {"classic"} or moved != 0 or \
+            not stats["fused_fallbacks"] >= 1:
+        raise AssertionError(f"FT requests rode {set(plane.values())}, "
+                             f"fused launches {moved}, fallbacks "
+                             f"{stats['fused_fallbacks']}")
+    if stats["failed"]:
+        raise AssertionError(f"FT serving: {stats['failed']} failed")
+    lat_ms = sorted(x * 1e3 for x in lat)
+    return {"rows": n, "train_wall_s": wall, "winner": winner,
+            "cv_best_auroc": cv, "ft_only_train_wall_s": ft_wall,
+            "served_family": head.params["family"],
+            "holdout_auroc": head.summary["holdoutEvaluation"].get("AuROC"),
+            "save_load_wall_s": save_load, "loaded_scores_bitwise": True,
+            "local_rows": len(recs), "local_max_abs_err": local_err,
+            "export_max_abs_err": export_gap, "requests": requests,
+            "serve_wall_s": swall, "serve_max_abs_err": worst,
+            "serve_bitwise_requests": bitwise,
+            "p50_ms": percentile_nearest_rank(lat_ms, 0.50),
+            "p99_ms": percentile_nearest_rank(lat_ms, 0.99),
+            "planes": sorted(set(plane.values())),
+            "fused_fallbacks": stats.get("fused_fallbacks")}
+
+
+def _ft_done(name: str, t0: float) -> float:
+    wall = time.perf_counter() - t0
+    print(f"phase ft: part {name} done in {wall:.3f} s", flush=True)
+    return wall
+
+
+def ft_phase(seed: int, device="cuda", rows=FT_ROWS, wide=FT_WIDE,
+             n_steps=None):
+    """The FT-Transformer on ``device``: the grid fit at the bench's
+    shape in bf16 (the CUDA default) and f32 (TM_FT_BF16=0), at the
+    family's width and at ``wide``; card against CPU; Titanic through
+    the selector, save/load, export and serving. ``rows``, ``wide`` and
+    ``n_steps`` (the family's 200 when None) exist for a CPU
+    rehearsal."""
+    import shutil
+    import tempfile
+    from transmogrifai_tpu_torch.models import MODEL_FAMILIES
+    from transmogrifai_tpu_torch.models import kernels as tk
+    from transmogrifai_tpu_torch.models import serving_kernels as sk
+    fam = MODEL_FAMILIES["FTTransformerClassifier"]
+    before = {"fused_linear_scores": sk.fused_linear_scores.launches,
+              "ring_allreduce": tk.ring_allreduce.launches,
+              "tree_histogram": tk.histogram_grid.launches}
+    X, y = ft_data(seed, rows)
+    old_steps = fam.n_steps
+    if n_steps is not None:
+        fam.n_steps = n_steps
+    workdir = tempfile.mkdtemp(prefix="tm_ft_phase_")
+    t0 = time.perf_counter()
+    walls = {}
+    try:
+        grids = []
+        for d_model, d_ff in ((fam.d_model, fam.d_ff), wide):
+            for flag in ("", "0"):
+                t1 = time.perf_counter()
+                with env(TM_FT_BF16=flag) if flag else contextlib.nullcontext():
+                    grids.append(ft_grid_run(
+                        X, y, device, d_model, d_ff,
+                        busy=(d_model == fam.d_model and not flag)))
+                walls[f"grid d{d_model} {grids[-1]['dtype']}"] = _ft_done(
+                    f"grid d_model {d_model} {grids[-1]['dtype']}", t1)
+        base = [g for g in grids if g["d_model"] == fam.d_model]
+        auroc_gap = abs(base[0]["best_auroc"] - base[1]["best_auroc"])
+        if not auroc_gap <= FT_BF16_AUROC_TOL:
+            raise AssertionError(f"FT bf16 grid AUROC {base[0]['best_auroc']}"
+                                 f" vs f32 {base[1]['best_auroc']}")
+        t1 = time.perf_counter()
+        cpu = ft_cpu_part(X, y, device)
+        walls["card_vs_cpu"] = _ft_done("card_vs_cpu", t1)
+        t1 = time.perf_counter()
+        front_out = ft_front_part(device, workdir)
+        walls["front"] = _ft_done("front", t1)
+    finally:
+        fam.n_steps = old_steps
+        shutil.rmtree(workdir, ignore_errors=True)
+    launches = {"fused_linear_scores": sk.fused_linear_scores.launches
+                - before["fused_linear_scores"],
+                "ring_allreduce": tk.ring_allreduce.launches
+                - before["ring_allreduce"],
+                "tree_histogram": tk.histogram_grid.launches
+                - before["tree_histogram"]}
+    if any(launches.values()):
+        raise AssertionError(f"the FT phase launched {launches}")
+    return {"grids": grids, "bf16_vs_f32_auroc_gap": auroc_gap,
+            "card_vs_cpu": cpu, "front": front_out, "launches": launches,
+            "part_walls_s": walls, "wall_s": time.perf_counter() - t0}
+
+
+def ft_lines(fr) -> list:
+    """One line per reported number of the FT phase, each taken from
+    its result ``fr``."""
+    out = []
+    for g in fr["grids"]:
+        tag = f"d_model {g['d_model']} d_ff {g['d_ff']} {g['dtype']}"
+        out.append(
+            f"phase ft: grid {tag}: {g['fits']} fits ({g['folds']} folds x "
+            f"{g['grid']} points, {g['rows']} x {g['features']}, "
+            f"{g['adam_steps']} AdamW steps; {g['instances_computed']} "
+            f"instances in chunks of {g['chunk']}) wall {g['wall_s']} s, "
+            f"{g['fits_per_s']} fits/s, best AUROC {g['best_auroc']}")
+        out.append(
+            f"phase ft: grid {tag}: one AdamW step on a chunk "
+            f"{g.get('step_device_ms', 'not measured')} ms of device time "
+            f"in {g.get('step_device_ops', 'not measured')} device "
+            f"operations; device busy share "
+            + (f"{g['device_busy_share']} (the dispatch at "
+               f"{g.get('busy_window_steps')} steps)"
+               if "device_busy_share" in g else "not measured")
+            + "; top device "
+            f"operations a step {json.dumps(g.get('step_top_device_ops'))}")
+        out.append(
+            f"phase ft: grid {tag}: {g['flops']} FLOPs, {g['bytes']} bytes "
+            f"(bench.py's _ft_flops / _ft_bytes), bound {g['bound_ms']} ms "
+            f"by {g['bound_by']} ({g['peak']}, 3.35 TB/s)")
+    out.append(f"phase ft: bf16 vs f32 best held-out AUROC gap "
+               f"{fr['bf16_vs_f32_auroc_gap']} (<= {FT_BF16_AUROC_TOL})")
+    c = fr["card_vs_cpu"]
+    out.append(f"phase ft: card vs CPU (TM_FT_BF16=0, TF32 off, the same "
+               f"draw) {c['rows']} rows: probabilities {c['max_abs_gap']} "
+               f"apart (atol {FT_CPU_ATOL}); fit {c['card_fit_s']} s card, "
+               f"{c['cpu_fit_s']} s CPU")
+    f = fr["front"]
+    out.append(f"phase ft: Titanic LR + FT selector train "
+               f"{f['train_wall_s']} s, winner {f['winner']}, CV best "
+               f"AUROC {json.dumps(f['cv_best_auroc'])}; served "
+               f"{f['served_family']} (FT alone "
+               f"{f['ft_only_train_wall_s']} s), holdout AUROC "
+               f"{f['holdout_auroc']}")
+    out.append(f"phase ft: save/load {f['save_load_wall_s']} s (scores "
+               f"bitwise), LocalScorer {f['local_rows']} rows max abs "
+               f"err {f['local_max_abs_err']} (atol {FT_ROW_ATOL}), export "
+               f"max abs err {f['export_max_abs_err']} (bitwise required)")
+    out.append(f"phase ft: served {f['requests']} requests on "
+               f"{f['planes']} (fused fallbacks {f['fused_fallbacks']}):"
+               f" max abs err {f['serve_max_abs_err']} (atol "
+               f"{FT_ROW_ATOL}), {f['serve_bitwise_requests']} bitwise, "
+               f"p50 {f['p50_ms']} ms, p99 {f['p99_ms']} ms")
+    out.append(f"phase ft: kernel launches {json.dumps(fr['launches'])}; "
+               f"phase wall {fr['wall_s']} s, parts "
+               f"{json.dumps(fr['part_walls_s'])}")
+    return out
+
+
 def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
                  wf=None, ctr=None, fe=None, fl=None):
     """The ``kernels`` line from this run's phase results: every time
@@ -5486,6 +6013,12 @@ def main(argv=None) -> int:
           flush=True)
     for line in features_lines(fe):
         print(line, flush=True)
+
+    fr = ft_phase(args.seed)
+    print("phase ft: " + json.dumps(dict(fr, card=card), default=str),
+          flush=True)
+    for line in ft_lines(fr):
+        print(line + f" [{card}]", flush=True)
 
     fl = fleet_phase(args.seed)
     print("phase fleet: " + json.dumps(dict(fl, card=card), default=str),

@@ -12,6 +12,7 @@ decision tree. Then the linear phase (the
 oracle, card-vs-CPU here CPU against CPU, the invariance) and the
 multiclass and regression default lists at small sizes.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -733,3 +734,107 @@ def test_kernels_line_adds_the_fleet_launches():
     assert line["kernels"][0]["fleet_launches"] == {
         "inproc": 31, "inproc_profiler": 31, "workers": 17}
     assert line["kernels"][0]["launches"] == 7
+
+
+# -- phase 12: the FT-Transformer ---------------------------------------------
+
+@pytest.fixture(scope="module")
+def ft_run():
+    """The FT phase on the CPU at a small size (192 rows, 3 AdamW steps,
+    the wide point at d_model 32 / d_ff 64): every gate of the phase,
+    CPU against CPU where the card is compared with the CPU."""
+    from transmogrifai_tpu_torch.models import serving_kernels as sk
+    counters = (tk.histogram_grid, tk.ring_allreduce, sk.fused_linear_scores)
+    old = [c.launches for c in counters]
+    # an earlier phase's counts: the phase reads its own difference and
+    # must reset none of them
+    for i, c in enumerate(counters):
+        c.launches = 100 + i
+    try:
+        run = chip_smoke.ft_phase(0, device="cpu", rows=192, wide=(32, 64),
+                                  n_steps=3)
+        run["counters_after"] = [c.launches for c in counters]
+    finally:
+        for c, v in zip(counters, old):
+            c.launches = v
+    return run
+
+
+def test_ft_phase_runs_on_the_cpu(ft_run):
+    grids = ft_run["grids"]
+    assert [(g["d_model"], g["dtype"]) for g in grids] == [
+        (32, "torch.float32")] * 4          # bf16 is CUDA's default only
+    for g in grids:
+        assert g["fits"] == 18 and g["grid"] == 6 and g["folds"] == 3
+        assert g["chunk"] == 1 and g["instances_computed"] == 18
+        assert g["adam_steps"] == 3 and g["rows"] == 192
+        assert g["bound_ms"] > 0 and g["bound_by"] == "operations"
+        assert "step_device_ms" not in g        # the profiler: CUDA
+        assert "device_busy_share" not in g
+    assert ft_run["bf16_vs_f32_auroc_gap"] == 0.0
+    assert ft_run["card_vs_cpu"]["max_abs_gap"] == 0.0    # CPU vs CPU
+    f = ft_run["front"]
+    assert sorted(f["cv_best_auroc"]) == ["FTTransformerClassifier",
+                                          "LogisticRegression"]
+    assert f["served_family"] == "FTTransformerClassifier"
+    assert f["loaded_scores_bitwise"] and f["local_rows"] == 100
+    assert f["local_max_abs_err"] <= chip_smoke.FT_ROW_ATOL
+    assert f["serve_max_abs_err"] <= chip_smoke.FT_ROW_ATOL
+    assert f["planes"] == ["classic"] and f["fused_fallbacks"] >= 1
+    assert ft_run["launches"] == {"fused_linear_scores": 0,
+                                  "ring_allreduce": 0, "tree_histogram": 0}
+    assert ft_run["counters_after"] == [100, 101, 102]
+    assert TM.MODEL_FAMILIES["FTTransformerClassifier"].n_steps == 200
+
+
+def test_ft_lines_take_every_number_from_the_run(ft_run):
+    import copy
+    run = copy.deepcopy(ft_run)
+    run["grids"][0]["wall_s"] = 12345.5
+    run["grids"][1]["step_device_ms"] = 777.25
+    run["grids"][2]["device_busy_share"] = 0.0625
+    run["card_vs_cpu"]["max_abs_gap"] = 0.03125
+    run["front"]["p99_ms"] = 98.5
+    run["wall_s"] = 61.75
+    lines = chip_smoke.ft_lines(run)
+    assert all(line.startswith("phase ft: ") for line in lines)
+    text = "\n".join(lines)
+    for value in ("12345.5", "777.25", "0.0625", "0.03125", "98.5",
+                  "61.75", "not measured"):
+        assert value in text
+
+
+def test_ft_bound_uses_the_bench_formulas():
+    import bench
+    args = (896, 16, 18, 32, 2, 64, 200)
+    assert chip_smoke.ft_flops(*args) == bench._ft_flops(*args)
+    assert chip_smoke.ft_bytes(*args) == bench._ft_bytes(*args)
+    wide = (896, 16, 18, 128, 2, 256, 200)
+    assert chip_smoke.ft_flops(*wide) == bench._ft_flops(*wide)
+    assert chip_smoke.ft_bytes(*wide) == bench._ft_bytes(*wide)
+
+
+def test_ft_card_vs_cpu_gate_flags_a_planted_fault():
+    X, y = chip_smoke.ft_data(0, rows=64)
+    with chip_smoke.ft_sizes(16, 32, 5):
+        chip_smoke.ft_cpu_part(X, y, "cpu")
+        with pytest.raises(AssertionError, match="FT card vs CPU"):
+            chip_smoke.ft_cpu_part(X, y, "cpu",
+                                   fits_check=lambda p: p + 0.01)
+
+
+def test_ft_served_gate_flags_a_row_mix_up(monkeypatch, tmp_path):
+    """A served answer that carries another row's score of its request
+    (each answer's rows rolled by one) fails the FT_ROW_ATOL gate."""
+    real = chip_smoke._storm
+
+    def mixed(*args, **kwargs):
+        results, lat, wall = real(*args, **kwargs)
+        return ([{c: np.roll(np.asarray(v), 1, axis=0) for c, v in r.items()}
+                 for r in results], lat, wall)
+
+    monkeypatch.setattr(chip_smoke, "_storm", mixed)
+    with chip_smoke.ft_sizes(16, 32, 3):
+        with pytest.raises(AssertionError, match="FT served rows differ"):
+            chip_smoke.ft_front_part("cpu", str(tmp_path), requests=16,
+                                     local_rows=10)

@@ -666,7 +666,7 @@ def test_linear_sweep_on_the_card_matches_the_cpu(card, problem, k, metric):
         cv = OpCrossValidation(n_folds=3, metric=metric)
         got[dev] = {key: cv.collect(p).grid_metrics for key, p in
                     cv.dispatch_many(_linear_entries(problem), X, y, w, k,
-                                     dev).items()}
+                                     device=dev).items()}
     for key in got["cpu"]:
         np.testing.assert_allclose(got["cuda"][key], got["cpu"][key],
                                    rtol=1e-4, atol=1e-4, err_msg=key)
@@ -690,9 +690,9 @@ def test_linear_sweep_items_are_bitwise_independent_on_the_card(
     two = ("two", lr, lr.make_grid({"regParam": [0.05, 0.2],
                                     "elasticNetParam": [0.0, 0.5]}))
     cv = OpCrossValidation(n_folds=3, metric="logloss")
-    alone = cv.collect(cv.dispatch_many([one], X, y, w, 2, "cuda")["one"])
+    alone = cv.collect(cv.dispatch_many([one], X, y, w, 2, device="cuda")["one"])
     both = cv.collect(cv.dispatch_many([one, two], X, y, w, 2,
-                                       "cuda")["one"])
+                                       device="cuda")["one"])
     assert np.array_equal(alone.grid_metrics, both.grid_metrics)
 
 
@@ -721,7 +721,7 @@ def test_linear_sweep_dispatch_never_waits_on_the_card(card):
                 try:
                     pend = cv.dispatch_many(entries, X, y,
                                             np.ones(len(y), np.float32),
-                                            k, "cuda")
+                                            k, device="cuda")
                 finally:
                     torch.cuda.set_sync_debug_mode("default")
             for p in pend.values():

@@ -19,8 +19,8 @@
   in the other; the checked-in JAX artifact loads and scores in both.
 * ``FusedScorer``'s host/device split names the same stages in both.
 * A planted fault (a map's key order, one LDA E-step fewer) fails.
-* Every module this slice lifted resolves its JAX class keys; the
-  FT-Transformer's still raises naming its item.
+* Every module this slice lifted resolves its JAX class keys, as the
+  FT-Transformer's (a later slice) now does.
 * The Feature DSL verbs build the JAX package's stages.
 """
 import importlib
@@ -480,13 +480,13 @@ LIFTED = {
         "CountVectorizerModel", "ops.dsl": "ArithmeticTransformer",
     "ops.analyzers": None, "ops.ner": "NameEntityRecognizer",
     "ops.ner_data": None, "ops.lda": "LDAModel",
-    "stages.wrappers": "WrappedModel", "filters": None, "testkit": None}
+    "stages.wrappers": "WrappedModel", "filters": None, "testkit": None,
+    "models.ft_transformer": "OpFTTransformerClassifier"}
 
 
 @pytest.mark.parametrize("module,cls", sorted(LIFTED.items()))
 def test_lifted_module_resolves_its_jax_keys(module, cls):
     from transmogrifai_tpu_torch.stages import base
-    assert module not in base.NOT_PORTED_MODULES
     port = importlib.import_module(f"transmogrifai_tpu_torch.{module}")
     ref = importlib.import_module(f"transmogrifai_tpu.{module}")
     if cls is None:      # no stage class: the module itself is there
@@ -496,15 +496,6 @@ def test_lifted_module_resolves_its_jax_keys(module, cls):
     got = base.resolve_stage_class(f"transmogrifai_tpu.{module}.{cls}")
     assert got is getattr(port, cls)
     assert base.stage_class_key(got) == f"transmogrifai_tpu.{module}.{cls}"
-
-
-def test_ft_transformer_key_still_raises_naming_its_item():
-    from transmogrifai_tpu_torch.stages import base
-    assert list(base.NOT_PORTED_MODULES) == ["models.ft_transformer"]
-    with pytest.raises(ValueError, match="item 8"):
-        base.resolve_stage_class(
-            "transmogrifai_tpu.models.ft_transformer."
-            "OpFTTransformerClassifier")
 
 
 # -- the Feature DSL ----------------------------------------------------------

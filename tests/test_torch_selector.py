@@ -211,7 +211,8 @@ def test_selector_matches_jax_on_xor(monkeypatch):
         assert ts[k] == js[k]
     assert ts["holdoutEvaluation"]["AuROC"] == pytest.approx(
         js["holdoutEvaluation"]["AuROC"], abs=0.02)
-    assert set(ts["wallSeconds"]["families"]) == set(TREES)
+    assert set(tmodel.wall_seconds["families"]) == set(TREES)
+    assert "wallSeconds" not in ts
     col = out.column(tmodel.output.name)
     assert len(col) == 200 and 0.0 <= col[0]["probability_1"] <= 1.0
 
@@ -248,9 +249,14 @@ def test_unported_families_and_knobs_raise(monkeypatch):
     assert [c for c, _ in default.params["candidates"]] == [
         c for c, _ in JM.BinaryClassificationModelSelector
         .with_cross_validation().params["candidates"]]
+    # the FT-Transformer is an opt-in candidate, not a default one
+    assert "FTTransformerClassifier" not in [
+        c for c, _ in default.params["candidates"]]
+    TM.BinaryClassificationModelSelector.with_cross_validation(
+        candidates=["FTTransformerClassifier"])
     with pytest.raises(ValueError, match="unknown model family"):
         TM.BinaryClassificationModelSelector.with_cross_validation(
-            candidates=["FTTransformerClassifier"])
+            candidates=["TabTransformerClassifier"])
     monkeypatch.setenv("TM_TREE_GRID_FOLD", "0")
     with pytest.raises(NotImplementedError, match="TM_TREE_GRID_FOLD=0"):
         TM.BinaryClassificationModelSelector.with_cross_validation(
@@ -279,7 +285,8 @@ def test_out_of_memory_retries_in_halved_chunks(monkeypatch):
     y = (X[:, 0] > 0).astype(np.float32)
     grid = fam.make_grid({"maxDepth": [2.0, 3.0, 4.0]})
     v = TTU.OpCrossValidation(n_folds=3)
-    ref = v.validate(fam, grid, X, y, np.ones(150, np.float32), 2, "cpu")
+    ref = v.validate(fam, grid, X, y, np.ones(150, np.float32), 2,
+                   device="cpu")
     real = type(fam).fit_eval_grid
     sizes = []
 
@@ -290,7 +297,8 @@ def test_out_of_memory_retries_in_halved_chunks(monkeypatch):
         return real(self, X, y, w, tr, va, hy, n_classes, metric_fn)
 
     monkeypatch.setattr(type(fam), "fit_eval_grid", flaky)
-    got = v.validate(fam, grid, X, y, np.ones(150, np.float32), 2, "cpu")
+    got = v.validate(fam, grid, X, y, np.ones(150, np.float32), 2,
+                   device="cpu")
     assert sizes[:2] == [9, 5] and max(sizes[2:]) <= 3
     np.testing.assert_array_equal(got.grid_metrics, ref.grid_metrics)
     assert got.best_index == ref.best_index
@@ -300,4 +308,5 @@ def test_out_of_memory_retries_in_halved_chunks(monkeypatch):
 
     monkeypatch.setattr(type(fam), "fit_eval_grid", broken)
     with pytest.raises(ValueError, match="host-side"):
-        v.validate(fam, grid, X, y, np.ones(150, np.float32), 2, "cpu")
+        v.validate(fam, grid, X, y, np.ones(150, np.float32), 2,
+                   device="cpu")

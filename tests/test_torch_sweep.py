@@ -102,7 +102,7 @@ def _entries(F=TM.MODEL_FAMILIES):
 
 def _fused(cv, entries, X, y, w, k=2):
     return {key: cv.collect(p) for key, p in
-            cv.dispatch_many(entries, X, y, w, k, "cpu").items()}
+            cv.dispatch_many(entries, X, y, w, k, device="cpu").items()}
 
 
 def test_resolve_sweep_mode_and_knobs(clean_knobs):
@@ -131,7 +131,7 @@ def test_fused_exact_bitwise_vs_serial_validator(lr_data, clean_knobs):
     clean_knobs.setenv("TM_SWEEP_EXACT", "1")
     X, y, w = lr_data
     cv = TTU.OpCrossValidation(n_folds=3, metric="auroc")
-    legacy = {key: cv.validate(fam, grid, X, y, w, 2, "cpu")
+    legacy = {key: cv.validate(fam, grid, X, y, w, 2, device="cpu")
               for key, fam, grid in _entries()}
     fused = _fused(cv, _entries(), X, y, w)
     for key in legacy:
@@ -143,7 +143,7 @@ def test_fused_exact_bitwise_vs_serial_validator(lr_data, clean_knobs):
 def test_fused_default_equivalent_and_specialized(lr_data):
     X, y, w = lr_data
     cv = TTU.OpCrossValidation(n_folds=3, metric="auroc")
-    legacy = {key: cv.validate(fam, grid, X, y, w, 2, "cpu")
+    legacy = {key: cv.validate(fam, grid, X, y, w, 2, device="cpu")
               for key, fam, grid in _entries()}
     fused = _fused(cv, _entries(), X, y, w)
     for key in legacy:
@@ -172,7 +172,7 @@ def test_ragged_hyper_key_sets_split_groups(lr_data, clean_knobs):
                                    "elasticNetParam": [0.0]})),
     ]
     cv = TTU.OpCrossValidation(n_folds=3, metric="auroc")
-    legacy = {key: cv.validate(fam, grid, X, y, w, 2, "cpu")
+    legacy = {key: cv.validate(fam, grid, X, y, w, 2, device="cpu")
               for key, fam, grid in entries}
     for order in (entries, entries[::-1]):
         fused = _fused(cv, order, X, y, w)
@@ -377,11 +377,21 @@ def test_unported_sweep_knobs_raise(lr_data, clean_knobs):
     with pytest.raises(NotImplementedError, match="TM_TREE_GRID_FOLD=0"):
         cv.dispatch_many([("t", TM.MODEL_FAMILIES["GBTClassifier"],
                            [TM.MODEL_FAMILIES["GBTClassifier"]
-                            .default_hyper])], X, y, w, 2, "cpu")
+                            .default_hyper])], X, y, w, 2, device="cpu")
     clean_knobs.delenv("TM_TREE_GRID_FOLD")
     clean_knobs.setenv("TM_MESH_AXIS", "grid,data")
     with pytest.raises(NotImplementedError, match="grid,data"):
         _fused(cv, _entries()[2:], X, y, w)
+    clean_knobs.delenv("TM_MESH_AXIS")
+    # the JAX signatures: mesh=None positional or keyword, the device a
+    # keyword resolved as every entry point's (None: CUDA, or raise)
+    key, fam, grid = _entries()[2]
+    cv.validate(fam, grid, X, y, w, 2, None, device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        cv.validate(fam, grid, X, y, w, 2, mesh=object(), device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cv.dispatch_many([(key, fam, grid)], X, y, w, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -497,11 +507,11 @@ def test_default_selectors_match_jax(problem, small_trees, clean_knobs):
     assert (TM.ModelSelector.default_candidates(problem)
             == JM.ModelSelector.default_candidates(problem))
     X, y = _problem_data(problem)
-    out = []
+    models = []
     for pkg in ("jax", "torch"):
         sel, ds = _selector(pkg, problem, _ds(pkg, X, y))
-        out.append(sel.fit(ds).summary)
-    js, ts = out
+        models.append(sel.fit(ds))
+    js, ts = (m.summary for m in models)
     assert ts["bestModel"]["family"] == js["bestModel"]["family"]
     assert ts["bestModel"]["hyper"] == js["bestModel"]["hyper"]
     for jr, tr in zip(js["validationResults"], ts["validationResults"]):
@@ -510,8 +520,9 @@ def test_default_selectors_match_jax(problem, small_trees, clean_knobs):
         np.testing.assert_allclose(tr["gridMetrics"], jr["gridMetrics"],
                                    atol=atol, rtol=rtol,
                                    err_msg=jr["family"])
-    assert set(ts["wallSeconds"]["families"]) == {
+    assert set(models[1].wall_seconds["families"]) == {
         r["family"] for r in ts["validationResults"]}
+    assert set(ts) == set(js)
 
 
 def _titanic():
@@ -560,15 +571,12 @@ def _resume_selector(ckpt=None):
     return sel, ds
 
 
-def _without_walls(summary):
-    return {k: v for k, v in summary.items() if k != "wallSeconds"}
-
-
 def test_selector_family_level_resume(tmp_path):
     """A fit stopped by a fault after the first candidate resumes after
     it: only the unvalidated candidates re-run (as a smaller fused
-    batch), and the summary less wallSeconds, the refit and its scores
-    are bitwise the uninterrupted fit's."""
+    batch), and the summary, the refit and its scores are bitwise the
+    uninterrupted fit's (the host-clock walls stay on the fitted
+    objects, out of the summary)."""
     sel, ds = _resume_selector()
     baseline = sel.fit(ds)
     ckpt = str(tmp_path / "ckpt")
@@ -583,8 +591,9 @@ def test_selector_family_level_resume(tmp_path):
     sel, ds = _resume_selector(ckpt)
     resumed = sel.fit(ds)
     assert faults.stats_dict()["arrivals"]["models.selector.validate"] == 2
-    assert (json.dumps(_without_walls(baseline.summary), sort_keys=True)
-            == json.dumps(_without_walls(resumed.summary), sort_keys=True))
+    assert (json.dumps(baseline.summary, sort_keys=True)
+            == json.dumps(resumed.summary, sort_keys=True))
+    assert set(resumed.wall_seconds) == {"families", "refit"}
     for k in baseline.model_params:
         assert torch.equal(baseline.model_params[k], resumed.model_params[k])
     X = ds.column("x")
@@ -624,9 +633,8 @@ def test_drifted_checkpoint_rejected_loudly(tmp_path):
     sel, ds = _resume_selector(ckpt)
     resumed = sel.fit(ds)
     sel, ds = _resume_selector()
-    assert (json.dumps(_without_walls(resumed.summary), sort_keys=True)
-            == json.dumps(_without_walls(sel.fit(ds).summary),
-                          sort_keys=True))
+    assert (json.dumps(resumed.summary, sort_keys=True)
+            == json.dumps(sel.fit(ds).summary, sort_keys=True))
 
 
 def test_sweep_stats_attribute_items_to_the_device(lr_data):

@@ -4,9 +4,7 @@
 Every generator draws the same values in both packages for the same
 seed (the streams are numpy, copied), ``TestFeatureBuilder`` builds the
 same columns, and the spec bases hold the port's stages to their
-contracts. The JAX test's FT-Transformer contract
-(``TestFTTransformerContract``) is left out: ``models.ft_transformer``
-is not ported (ROADMAP queue 1, item 8).
+contracts, the FT-Transformer's included.
 """
 import numpy as np
 import pytest
@@ -81,7 +79,6 @@ def test_feature_builder_random_matches_jax():
 MIRROR = load_mirror("test_testkit.py")
 
 
-@pytest.mark.parametrize("name,kwargs", mirror_cases(
-    MIRROR, skip=("TestFTTransformerContract",)))
+@pytest.mark.parametrize("name,kwargs", mirror_cases(MIRROR))
 def test_testkit_case_on_the_port(name, kwargs, request, port_on_cpu):
     run_mirror_case(MIRROR, name, kwargs, request)

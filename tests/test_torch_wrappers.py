@@ -106,6 +106,26 @@ def test_wrapped_stage_loads_across_packages(cls, obj, inputs, response):
             src.output.name)
 
 
+def test_stages_package_exports_the_wrappers():
+    """As the JAX ``stages/__init__.py`` does: the four wrapper classes
+    import from ``stages``, and importing the package alone (a fresh
+    interpreter) registers their bare names."""
+    import subprocess
+    import sys
+    from transmogrifai_tpu import stages as J
+    from transmogrifai_tpu_torch import stages as T
+    names = ("EstimatorWrapper", "PredictorWrapper", "TransformerWrapper",
+             "WrappedModel")
+    for name in names:
+        assert getattr(T, name).__name__ == getattr(J, name).__name__
+        assert name in T.__all__
+    code = ("import transmogrifai_tpu_torch.stages as S; "
+            f"print(all(n in S.STAGE_REGISTRY for n in {names!r}))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.stdout.strip() == "True", out.stderr[-500:]
+
+
 MIRROR = load_mirror("test_wrappers.py")
 
 

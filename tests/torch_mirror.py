@@ -4,8 +4,9 @@
 every ``transmogrifai_tpu`` import pointed at ``transmogrifai_tpu_torch``,
 so each case's inputs and assertions are the JAX test's own, applied to
 the port's classes. A shared test helper the JAX test imports by bare
-name (``serving_util``, which trains the serving suites' model) is
-loaded with the same rewrite, and the import points at that copy. :func:`mirror_cases` expands the module's test
+name (``serving_util``, which trains the serving suites' model) or as
+``tests.serving_util`` is loaded with the same rewrite, and the import
+points at that copy. :func:`mirror_cases` expands the module's test
 functions (and their ``parametrize`` marks) into ``pytest.param``s, and
 :func:`run_mirror_case` calls one, handing it the pytest fixtures it asks
 for (``tmp_path``, ``monkeypatch``, ...).
@@ -33,7 +34,8 @@ _REF = re.compile(r"\btransmogrifai_tpu\b(?!_torch)")
 #: the import pointed at that copy
 _HELPERS = ("serving_util",)
 _HELPER_IMPORT = re.compile(
-    r"^(\s*)(from|import)\s+(" + "|".join(_HELPERS) + r")\b", re.M)
+    r"^(\s*)(from|import)\s+(?:tests\.)?(" + "|".join(_HELPERS) + r")\b",
+    re.M)
 
 
 def _helper_import(m: "re.Match") -> str:
@@ -160,3 +162,17 @@ def port_on_cpu(monkeypatch):
     """:func:`cpu_default` while the case runs."""
     cpu_default(monkeypatch)
     yield
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Autouse in a mirror file that imports it: one torch thread while
+    the mirrored module runs. The suite runs several workers at once,
+    and torch's intra-op threads on these small tensors only contend
+    (the JAX cases' watchdog budgets assume a process that is not
+    oversubscribed)."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -2,6 +2,9 @@ from .base import (MODEL_FAMILIES, ModelFamily, ModelStage, PredictionModel,
                    params_from_numpy, params_to_numpy)
 from . import linear  # registers the linear families
 from . import trees  # registers the tree families
+from . import ft_transformer  # registers the FT-Transformer families
+from .ft_transformer import (OpFTTransformerClassifier,
+                             OpFTTransformerRegressor)
 from .stages import (OpLogisticRegression, OpLinearSVC, OpNaiveBayes,
                      OpLinearRegression, OpGeneralizedLinearRegression)
 from .trees import (OpDecisionTreeClassifier, OpDecisionTreeRegressor,
@@ -32,6 +35,7 @@ from .sparse import (SparseLogisticRegression, SparseLogisticModel,
 __all__ = [
     "MODEL_FAMILIES", "ModelFamily", "ModelStage", "PredictionModel",
     "params_from_numpy", "params_to_numpy", "linear", "trees",
+    "ft_transformer", "OpFTTransformerClassifier", "OpFTTransformerRegressor",
     "OpLogisticRegression", "OpLinearSVC", "OpNaiveBayes",
     "OpLinearRegression", "OpGeneralizedLinearRegression",
     "OpDecisionTreeClassifier", "OpDecisionTreeRegressor",

@@ -17,7 +17,9 @@ the port: the selector's refit (params on the fit device) and the
 serving chain a portable artifact builds (params on the scoring
 device). :func:`params_from_numpy` / :func:`params_to_numpy` carry
 fitted parameters between the JAX package's numpy pytrees and the
-port's tensors.
+port's tensors. A pytree is nested dicts, lists and tuples (the
+FT-Transformer's ``layers`` is a list, which JSON and ``params.npz``
+carry as a list) with arrays or tensors at its leaves.
 """
 from __future__ import annotations
 
@@ -88,28 +90,50 @@ class ModelFamily:
                 for k in keys}
 
 
+def tree_map(fn: Callable, tree: Any) -> Any:
+    """``fn`` applied to every leaf of a parameter pytree, its dicts,
+    lists and tuples rebuilt around the results."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of a parameter pytree, depth first in key order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
 def params_from_numpy(arrays: Dict[str, Any], device) -> Dict[str, Any]:
     """Numpy parameter pytree (as the JAX package fits and exports it)
     -> the same pytree of tensors on ``device``: integer arrays (tree
     ``feat`` indices) become int64, everything else float32. Nested
-    dicts carry over as they are: the sparse families' ``table`` /
-    ``dense`` / ``bias`` / ``emb`` and FTRL's ``{z: {...}, n: {...}}``
-    state."""
-    if isinstance(arrays, dict):
-        return {k: params_from_numpy(v, device) for k, v in arrays.items()}
-    a = np.array(arrays)                 # a writable copy
-    dt = torch.int64 if np.issubdtype(a.dtype, np.integer) else torch.float32
-    return torch.as_tensor(a, dtype=dt, device=device)
+    dicts and lists carry over as they are: the sparse families'
+    ``table`` / ``dense`` / ``bias`` / ``emb``, FTRL's ``{z: {...},
+    n: {...}}`` state, the FT-Transformer's ``layers`` list."""
+    def leaf(a):
+        a = np.array(a)                  # a writable copy
+        dt = (torch.int64 if np.issubdtype(a.dtype, np.integer)
+              else torch.float32)
+        return torch.as_tensor(a, dtype=dt, device=device)
+
+    return tree_map(leaf, arrays)
 
 
 def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     """Inverse of :func:`params_from_numpy`: integer tensors -> int32
     arrays (the JAX package's index dtype), floats -> float32 arrays."""
-    if isinstance(params, dict):
-        return {k: params_to_numpy(v) for k, v in params.items()}
-    a = params.detach().cpu().numpy()
-    return a.astype(np.int32 if np.issubdtype(a.dtype, np.integer)
-                    else np.float32)
+    def leaf(t):
+        a = t.detach().cpu().numpy()
+        return a.astype(np.int32 if np.issubdtype(a.dtype, np.integer)
+                        else np.float32)
+
+    return tree_map(leaf, params)
 
 
 def prediction_column(probs: np.ndarray, problem: str) -> np.ndarray:
@@ -132,17 +156,14 @@ def prediction_column(probs: np.ndarray, problem: str) -> np.ndarray:
 
 def params_on(params: Dict[str, Any], device) -> Dict[str, Any]:
     """The parameter pytree with every tensor on ``device``."""
-    return {k: (params_on(v, device) if isinstance(v, dict)
-                else v.to(device) if isinstance(v, torch.Tensor) else v)
-            for k, v in params.items()}
+    return tree_map(lambda v: v.to(device) if isinstance(v, torch.Tensor)
+                    else v, params)
 
 
 def _params_device(params: Dict[str, Any]) -> torch.device:
-    for v in params.values():
+    for v in tree_leaves(params):
         if isinstance(v, torch.Tensor):
             return v.device
-        if isinstance(v, dict):
-            return _params_device(v)
     return torch.device("cpu")
 
 
@@ -153,7 +174,8 @@ class PredictionModel(BinaryTransformer):
     tensors, all on the model's device (where it scores). The fitted
     tensors persist as the JAX package's numpy pytree
     (``extra_state_json``); a loaded model holds them on the CPU until
-    :meth:`to` moves them."""
+    :meth:`to` moves them. It default-constructs, as the JAX package's
+    does: the family must be known when the model predicts."""
     in_types = (ft.RealNN, ft.OPVector)
     out_type = ft.Prediction
     operation_name = "pred"
@@ -163,17 +185,18 @@ class PredictionModel(BinaryTransformer):
                  n_classes: int = 2,
                  model_params: Optional[Dict[str, Any]] = None,
                  uid: Optional[str] = None, **kw):
-        if family not in MODEL_FAMILIES:
-            raise ValueError(
-                f"model family {family!r} is not ported (have "
-                f"{sorted(MODEL_FAMILIES)})")
         super().__init__(input_names, output_name, uid=uid, family=family,
                          problem=problem, n_classes=int(n_classes), **kw)
         self.model_params = dict(model_params or {})
 
     @property
     def family(self) -> ModelFamily:
-        return MODEL_FAMILIES[self.params["family"]]
+        family = self.params["family"]
+        if family not in MODEL_FAMILIES:
+            raise ValueError(
+                f"model family {family!r} is not ported (have "
+                f"{sorted(MODEL_FAMILIES)})")
+        return MODEL_FAMILIES[family]
 
     @property
     def device(self) -> torch.device:
@@ -193,9 +216,13 @@ class PredictionModel(BinaryTransformer):
                                               "cpu")
 
     def portable_spec(self):
-        return {"op": "predict", "family": self.family.name,
+        fam = self.family
+        spec = {"op": "predict", "family": fam.name,
                 "nClasses": int(self.params["n_classes"]),
                 "arrays": {"params": params_to_numpy(self.model_params)}}
+        if hasattr(fam, "n_heads"):          # FT-Transformer forward shape
+            spec["nHeads"] = int(fam.n_heads)
+        return spec
 
     def make_device_fn(self) -> Callable:
         params = self.model_params

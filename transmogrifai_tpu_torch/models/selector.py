@@ -18,8 +18,11 @@ candidate's result is written as it is collected, and a fit that
 stopped resumes after the last one (a drifted configuration or data
 raises). The winner's refit passes its value-branching hypers as Python
 floats in fused mode (nothing is traced: the float picks the branch).
-The summary adds ``wallSeconds``: each family batch's wall and the
-refit's, host clock, each ending in a copy to the host.
+The fitted model carries ``wall_seconds`` beside its summary: each
+family batch's wall and the refit's, host clock, each ending in a copy
+to the host. It is transient (neither persisted nor in the summary), so
+two identical trains, or a resumed train and its uninterrupted twin,
+give equal summaries and bytes.
 """
 from __future__ import annotations
 
@@ -40,7 +43,8 @@ from ..profiling import check_finite
 from ..resilience.atomic import atomic_write_json
 from ..resilience.faults import fault_point
 from ..stages.base import BinaryEstimator
-from .base import MODEL_FAMILIES, PredictionModel, params_to_numpy
+from .base import (MODEL_FAMILIES, PredictionModel, params_to_numpy,
+                   tree_map)
 from .tuning import (OpCrossValidation, OpTrainValidationSplit, OpValidator,
                      RANDOM_SEED, ValidationResult, make_splitter,
                      require_ported, resolve_sweep_mode, sweep_exact)
@@ -56,14 +60,13 @@ class SelectedModel(PredictionModel):
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
         self.summary: Dict[str, Any] = {}
+        #: host-clock walls of the fit that made this model (transient:
+        #: a loaded model has none)
+        self.wall_seconds: Dict[str, Any] = {}
 
     def extra_state_json(self):
         d = super().extra_state_json()
-        # the host-clock walls stay on the fitted object: persisted, a
-        # model would differ from an identical train (or a resumed one)
-        # in its bytes, and the JAX package's layout holds no walls
-        d["summary"] = {k: v for k, v in self.summary.items()
-                        if k != "wallSeconds"}
+        d["summary"] = self.summary
         return d
 
     def load_extra_state(self, d):
@@ -219,11 +222,11 @@ class ModelSelector(BinaryEstimator):
             order.append((name, key, True))
         if sweep_mode == "fused":
             pending = (validator.dispatch_many(live, X_tr, y_tr, base_w,
-                                               n_classes, dev)
+                                               n_classes, device=dev)
                        if live else {})
         else:
             pending = {key: validator.dispatch(fam, grid, X_tr, y_tr, base_w,
-                                               n_classes, dev)
+                                               n_classes, device=dev)
                        for key, fam, grid in live}
         results: List[ValidationResult] = []
         family_wall: Dict[str, float] = {}
@@ -288,7 +291,7 @@ class ModelSelector(BinaryEstimator):
                     problem, fam.predict_kernel(params, Xh, n_classes), yh)
         refit_wall = time.perf_counter() - t0
         # leave inference mode: the fitted tensors serve later calls
-        params = {k: v.clone() for k, v in params.items()}
+        params = tree_map(torch.Tensor.clone, params)
 
         summary = {
             "problem": problem,
@@ -302,18 +305,21 @@ class ModelSelector(BinaryEstimator):
             "holdoutEvaluation": holdout_eval,
             "dataCounts": {"train": int(len(train_idx)),
                            "holdout": int(len(hold_idx))},
-            "wallSeconds": {"families": family_wall, "refit": refit_wall},
         }
         return {"family": best.family, "problem": problem,
                 "n_classes": n_classes, "model_params": params,
-                "summary": summary}
+                "summary": summary,
+                "wall_seconds": {"families": family_wall,
+                                 "refit": refit_wall}}
 
     def _make_model(self, model_args):
         mp = model_args.pop("model_params")
         summary = model_args.pop("summary")
+        walls = model_args.pop("wall_seconds")
         model = super()._make_model(model_args)
         model.model_params = mp
         model.summary = summary
+        model.wall_seconds = walls
         return model
 
 

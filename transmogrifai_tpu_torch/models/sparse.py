@@ -876,10 +876,12 @@ class SparseLogisticModel(TernaryTransformer):
                                                self._problem)[0])
 
 
-class _SparseEstimator(TernaryEstimator):
-    """Fits on ``device`` (a transient attribute, never persisted; None:
-    CUDA, raising without a card); ``Workflow.train(device=...)`` sets
-    it."""
+class _SparseInputs:
+    """Mixin of the sparse estimators: (label, SparseIndices, OPVector)
+    inputs, fitted on ``device`` (a transient attribute, never
+    persisted; None: CUDA, raising without a card;
+    ``Workflow.train(device=...)`` sets it). Not a stage itself, so the
+    stage registry holds only the estimators, as the JAX one does."""
     in_types = (ft.RealNN, ft.SparseIndices, ft.OPVector)
     out_type = ft.Prediction
 
@@ -891,7 +893,7 @@ class _SparseEstimator(TernaryEstimator):
 
     def _make_model(self, model_args):
         mp = model_args.pop("model_params")
-        extra = {k: model_args.pop(k) for k in ("summary",)
+        extra = {k: model_args.pop(k) for k in ("summary", "wall_seconds")
                  if k in model_args}
         model = super()._make_model(model_args)
         model.model_params = params_from_numpy(
@@ -901,7 +903,7 @@ class _SparseEstimator(TernaryEstimator):
         return model
 
 
-class SparseLogisticRegression(_SparseEstimator):
+class SparseLogisticRegression(_SparseInputs, TernaryEstimator):
     """Hashed-feature LR estimator for the selector-free CTR flow (one
     configuration; sweeps run through validate_sparse_grid)."""
     operation_name = "sparseLR"
@@ -939,7 +941,7 @@ class SparseSoftmaxModel(SparseLogisticModel):
                 "arrays": {"params": params_to_numpy(self.model_params)}}
 
 
-class SparseSoftmaxRegression(_SparseEstimator):
+class SparseSoftmaxRegression(_SparseInputs, TernaryEstimator):
     """Multiclass softmax estimator over hashed features; n_classes=0
     infers the class count from the labels at fit time."""
     operation_name = "sparseSoftmax"
@@ -974,14 +976,13 @@ class SparseSelectedModel(SparseLogisticModel):
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
         self.summary: Dict[str, Any] = {}
+        #: host-clock walls of the fit that made this model (transient:
+        #: a loaded model has none)
+        self.wall_seconds: Dict[str, Any] = {}
 
     def extra_state_json(self):
         d = super().extra_state_json()
-        # the host-clock walls stay on the fitted object: persisted, a
-        # model would differ from an identical train (or a resumed one)
-        # in its bytes, and the JAX package's layout holds no walls
-        d["summary"] = {k: v for k, v in self.summary.items()
-                        if k != "wallSeconds"}
+        d["summary"] = self.summary
         return d
 
     def load_extra_state(self, d):
@@ -989,7 +990,7 @@ class SparseSelectedModel(SparseLogisticModel):
         self.summary = d.get("summary", {})
 
 
-class SparseModelSelector(_SparseEstimator):
+class SparseModelSelector(_SparseInputs, TernaryEstimator):
     """Criteo-scale AutoML front door: (label, SparseIndices, OPVector)
     -> Prediction with model selection over the hashed-family grid.
 
@@ -1001,8 +1002,9 @@ class SparseModelSelector(_SparseEstimator):
     FTRL-Proximal and a second-order hashed FM (fm_dim embedding width);
     the summary has the JAX package's shape (validationResults /
     bestModel / trainEvaluation / holdoutEvaluation /
-    fieldContributions), plus ``wallSeconds`` (each family's sweep and
-    the refit, host clock) as the dense selector's summary has."""
+    fieldContributions); the fitted model carries ``wall_seconds`` (each
+    family's sweep and the refit, host clock) beside it, transient, as
+    the dense selector's does."""
 
     operation_name = "sparseModelSelected"
     model_cls = SparseSelectedModel
@@ -1147,10 +1149,10 @@ class SparseModelSelector(_SparseEstimator):
             "dataCounts": {"train": int(len(train_i)),
                            "holdout": int(len(hold_i)),
                            "buckets": int(p["num_buckets"])},
-            "wallSeconds": {"families": report["wall_seconds"],
-                            "refit": refit_s},
         }
-        return {"model_params": params, "summary": summary}
+        return {"model_params": params, "summary": summary,
+                "wall_seconds": {"families": report["wall_seconds"],
+                                 "refit": refit_s}}
 
 
 # ---------------------------------------------------------------------------

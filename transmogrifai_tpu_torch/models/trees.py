@@ -844,14 +844,18 @@ class XGBoostRegressorFamily(XGBoostClassifierFamily):
 # Op* estimator stages (reference wrapper-class parity)
 # ---------------------------------------------------------------------------
 
-class _ClassifierStage(ModelStage):
+class _ProblemArg:
+    """Mixin of the classifier stages that take ``problem`` (binary or
+    multiclass), as the JAX package's do; not a stage itself, so the
+    stage registry holds only the Op* classes, as the JAX one does."""
+
     def __init__(self, uid=None, problem: str = "binary", device=None,
                  **hyper):
         super().__init__(uid=uid, device=device, **hyper)
         self.problem = problem
 
 
-class OpDecisionTreeClassifier(_ClassifierStage):
+class OpDecisionTreeClassifier(_ProblemArg, ModelStage):
     family_name = "DecisionTreeClassifier"
 
 
@@ -860,7 +864,7 @@ class OpDecisionTreeRegressor(ModelStage):
     problem = "regression"
 
 
-class OpRandomForestClassifier(_ClassifierStage):
+class OpRandomForestClassifier(_ProblemArg, ModelStage):
     family_name = "RandomForestClassifier"
 
 
@@ -878,7 +882,7 @@ class OpGBTRegressor(ModelStage):
     problem = "regression"
 
 
-class OpXGBoostClassifier(_ClassifierStage):
+class OpXGBoostClassifier(_ProblemArg, ModelStage):
     family_name = "XGBoostClassifier"
 
 

@@ -62,10 +62,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..evaluators import functional as F
 from ..profiling import SWEEP_STATS
 from ..resilience.faults import fault_point
-from .base import ModelFamily
+from .base import ModelFamily, tree_map
 
 RANDOM_SEED = 42
 
@@ -121,6 +122,18 @@ def fold_sliced() -> bool:
     TM_SWEEP_FOLD_SLICE=0."""
     return (os.environ.get("TM_SWEEP_FOLD_SLICE", "1") != "0"
             and not sweep_exact())
+
+
+def _validation_device(mesh, device) -> torch.device:
+    """The device a validation batch runs on. The JAX signatures'
+    ``mesh`` (grid sharding over a device mesh) is accepted as None
+    only; ``device`` resolves as every entry point's does (None: CUDA,
+    raising without a card)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "OpValidator(mesh=...) (grid sharding over a device mesh) is "
+            "not ported: the port validates on one device (device=)")
+    return resolve_device(device)
 
 
 def require_ported(family: ModelFamily) -> None:
@@ -664,7 +677,7 @@ def _sweep_runner(family: ModelFamily, metric_fn, n_classes: int, repl,
             # in the chunk must not change how it is reduced
             for j in range(real):
                 probs = family.predict_kernel(
-                    {k: v[j] for k, v in params.items()}, Xv[j].clone(),
+                    tree_map(lambda v: v[j], params), Xv[j].clone(),
                     n_classes)
                 mets.append(metric_fn(probs, yv[j].clone(), wv[j].clone()))
         return torch.stack(mets)
@@ -773,13 +786,15 @@ class OpValidator:
 
     def dispatch(self, family: ModelFamily, grid: List[Dict[str, float]],
                  X: np.ndarray, y: np.ndarray, base_w: np.ndarray,
-                 n_classes: int, device) -> PendingValidation:
+                 n_classes: int, mesh=None, *, device=None
+                 ) -> PendingValidation:
         """One candidate's (fold x grid) batch on ``device`` — the
         serial mode (TM_SWEEP_FUSION=0): the folded runner, or the
         masked traced sweep."""
+        dev = _validation_device(mesh, device)
         require_ported(family)
         train_m, val_m = self._masks(len(y))
-        repl = self._device_data(X, y, base_w, device)
+        repl = self._device_data(X, y, base_w, dev)
         metric_fn, _ = _METRIC_FNS[self.metric]
         if hasattr(family, "fit_eval_grid"):
             batch = self._folded_batch(family, grid, train_m, val_m, repl,
@@ -792,7 +807,7 @@ class OpValidator:
     def dispatch_many(self, entries: Sequence[Tuple[str, ModelFamily,
                                                     List[Dict[str, float]]]],
                       X: np.ndarray, y: np.ndarray, base_w: np.ndarray,
-                      n_classes: int, device
+                      n_classes: int, mesh=None, *, device=None
                       ) -> Dict[str, PendingValidation]:
         """The fused sweep: the candidates of one family stack into ONE
         batch (folds x concatenated grids). ``entries`` is [(key,
@@ -804,10 +819,11 @@ class OpValidator:
         results do not depend on the batch (module docstring), so a
         resumed fit that re-dispatches only its unvalidated candidates
         reproduces the uninterrupted sweep."""
+        dev = _validation_device(mesh, device)
         for _key, fam, _grid in entries:
             require_ported(fam)
         train_m, val_m = self._masks(len(y))
-        repl = self._device_data(X, y, base_w, device)
+        repl = self._device_data(X, y, base_w, dev)
         metric_fn, _ = _METRIC_FNS[self.metric]
 
         groups: "OrderedDict[Tuple, List[int]]" = OrderedDict()
@@ -854,9 +870,10 @@ class OpValidator:
 
     def validate(self, family: ModelFamily, grid: List[Dict[str, float]],
                  X: np.ndarray, y: np.ndarray, base_w: np.ndarray,
-                 n_classes: int, device) -> ValidationResult:
+                 n_classes: int, mesh=None, *, device=None
+                 ) -> ValidationResult:
         return self.collect(self.dispatch(family, grid, X, y, base_w,
-                                          n_classes, device))
+                                          n_classes, mesh, device=device))
 
 
 class OpCrossValidation(OpValidator):

@@ -19,10 +19,11 @@ the device chain) is metadata, and the caller supplies those stages'
 outputs. Integer boundary columns (hashed bucket ids) stay integer:
 the scorer sends them to the card as int32 for the gathers, never
 through f32. Ops: impute, concat, keep_cols, predict and the hashed
-``sparse_predict`` / ``sparse_softmax`` (``models/sparse.py``); a
-predict family the port has not registered in ``MODEL_FAMILIES`` (it
-has every linear family and the eight tree families, not the
-FT-Transformer) raises naming what is missing.
+``sparse_predict`` / ``sparse_softmax`` (``models/sparse.py``). A
+predict stage may name any family of ``MODEL_FAMILIES`` (every linear
+and tree family and the FT-Transformer, whose recorded ``nHeads`` must
+be the family's); a family the port does not know raises naming it. Parameter pytrees keep their lists (the FT-Transformer's
+``layers``) through ``params.npz``'s integer path parts.
 """
 from __future__ import annotations
 
@@ -143,6 +144,11 @@ def _build_stage(i: int, st: Dict[str, Any], arrs: Dict[str, Any],
             raise ValueError(
                 f"portable stage {i} ({out!r}): model family {family!r} "
                 f"is not ported (have {sorted(MODEL_FAMILIES)})")
+        heads = getattr(MODEL_FAMILIES[family], "n_heads", None)
+        if "nHeads" in st and int(st["nHeads"]) != heads:
+            raise ValueError(
+                f"portable stage {i} ({out!r}): {family} artifact with "
+                f"nHeads={st['nHeads']}, the port's family runs {heads}")
         params = params_from_numpy(arrs.get("params", {}), device)
         return PredictionModel(ins, out, family=family,
                                n_classes=int(st["nClasses"]),

@@ -8,6 +8,8 @@ from .base import (
 )
 from .generator import FeatureGeneratorStage, materialize_raw, raw_dataset_for
 from .persistence import stage_to_json, stage_from_json
+from .wrappers import (EstimatorWrapper, PredictorWrapper,
+                       TransformerWrapper, WrappedModel)
 
 __all__ = [
     "PipelineStage", "Transformer", "Estimator",
@@ -18,4 +20,6 @@ __all__ = [
     "LambdaTransformer", "transformer", "STAGE_REGISTRY",
     "FeatureGeneratorStage", "materialize_raw", "raw_dataset_for",
     "stage_to_json", "stage_from_json",
+    "EstimatorWrapper", "PredictorWrapper", "TransformerWrapper",
+    "WrappedModel",
 ]

@@ -26,9 +26,8 @@ Class keys (:func:`stage_class_key`) are the JAX package's: a class of
 ``transmogrifai_tpu_torch.<module>`` persists as
 ``transmogrifai_tpu.<module>.<Class>``, so a model saved by either
 package loads in the other. :func:`resolve_stage_class` maps such a key
-back to the port's module and never imports the JAX package; a key
-whose module the port has not ported raises ``ValueError`` naming the
-class and the ROADMAP queue-1 item that brings it.
+back to the port's module and never imports the JAX package (every
+module of the JAX package that defines a stage class has its port).
 
 Local-scoring parity: `make_row_fn()` mirrors the reference's OpTransformer
 row function (transformKeyValue) — a Map->value function requiring no
@@ -52,12 +51,6 @@ _AMBIGUOUS = object()  # sentinel: bare class name clashes; qualified key requir
 #: the JAX package's name, which every persisted class key carries
 REFERENCE_PACKAGE = "transmogrifai_tpu"
 PORT_PACKAGE = "transmogrifai_tpu_torch"
-
-#: JAX-package modules holding stage classes that the port has not
-#: ported yet -> the ROADMAP queue-1 item that brings them
-NOT_PORTED_MODULES = {
-    "models.ft_transformer": "item 8 (the FT-Transformer)",
-}
 
 
 def stage_class_key(cls: type) -> str:
@@ -92,12 +85,6 @@ def resolve_stage_class(name: str) -> Type["PipelineStage"]:
         port_mod = _port_module(module)
         rel = port_mod[len(PORT_PACKAGE) + 1:] \
             if port_mod.startswith(PORT_PACKAGE + ".") else None
-        if rel in NOT_PORTED_MODULES:
-            raise ValueError(
-                f"stage class {qual!r} ({name}) is not ported to "
-                f"transmogrifai_tpu_torch yet: ROADMAP queue 1, "
-                f"{NOT_PORTED_MODULES[rel]} brings "
-                f"transmogrifai_tpu.{rel}")
         try:
             importlib.import_module(port_mod)
         except ImportError:
