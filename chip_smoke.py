@@ -98,7 +98,21 @@ PyTorch version:
    round (12 instances, depth 5, B = 32): every rank's trees bitwise
    the single-device grow's, the ring launched ranks x (levels + 1)
    times, ``parallel.sharded_histograms`` at the capture shape bitwise
-   ``histogram_grid``; wall time and the device's busy share.
+   ``histogram_grid``; wall time and the device's busy share;
+   mesh: multi-device on 4 ranks sharing the card.
+   ``parallel.sharded_statistics`` on the training rows against the
+   one-rank ``compute_statistics`` and numpy f64, the ring bitwise the
+   plain version (TM_MESH_RDMA_RING=0), its launches those the code
+   derives; ``SanityChecker(mesh=)`` with a planted leak and a constant
+   column dropping what the checker without a mesh drops; the sharded
+   LR, FM (k = 8) and 3-class softmax fits at the CTR phase's widths on
+   one 1M-row chunk at batch 65,536, each within 1e-4 of the one-device
+   fit and ring bitwise plain, the ring launched once a rank a step,
+   wall and ms a step beside the one-device step; the binary default
+   list through ``set_mesh`` on grid meshes of 1, 2 and 4 ranks: grid
+   metrics and winner bitwise, rank items summing to the real items,
+   histogram launches of k ranks each growing every level of its shard,
+   the wall at each size.
 
 8. workflow: the front door. The Titanic helloworld
    (``examples/op_titanic_simple.py``'s schema and candidates, rebuilt
@@ -2078,6 +2092,346 @@ def data_parallel_phase(seed: int, rows: int = TRAIN_ROWS, device="cuda"):
                         "ring_device_s": _kernel_span_ms(
                             prof, "ring_kernel", 1) / 1e3})
     return out_row
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: multi-device on ranks that share one card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+#: the grid meshes the binary default list is fitted on
+MESH_GRID_SIZES = (1, 2, 4)
+#: the CPU tests' tolerances: sharded statistics against one rank
+#: (Spearman's own), the sharded sparse fits against the one-device fit
+MESH_STATS_TOL = (1e-4, 1e-5)
+MESH_SPEARMAN_TOL = (1e-3, 1e-4)
+MESH_SPARSE_TOL = (1e-4, 1e-6)
+#: the sharded sparse fits: the CTR phase's widths (2^20 buckets; 26
+#: hashed fields and 13 numerics from ctr_chunk), one 1M-row chunk, one
+#: epoch at the stream's batch, lazy L2 on (the touched union runs)
+MESH_CTR_ROWS = 1_000_000
+MESH_CTR_BATCH = 65_536
+MESH_CTR_BUCKETS = 1 << 20
+MESH_FM_K = 8
+MESH_SOFTMAX_CLASSES = 3
+MESH_L2 = 1e-6
+
+
+def _ring_counts(tk):
+    return tk.ring_allreduce.launches, tk.ring_allgather.launches
+
+
+def mesh_stats_part(X, y, device, ranks=MESH_RANKS):
+    """``parallel.sharded_statistics`` over ``ranks`` ranks of one device
+    against the one-rank ``compute_statistics`` (the CPU tests'
+    tolerances) and numpy f64 (``checker_oracle``); the ring's result
+    bitwise the plain version's (TM_MESH_RDMA_RING=0); its launches
+    those the code derives (2 sums and 2 gathers, one a rank each)."""
+    from transmogrifai_tpu_torch import parallel as par
+    from transmogrifai_tpu_torch.models import kernels as tk
+    from transmogrifai_tpu_torch.ops.sanity_checker import compute_statistics
+    dev = torch.device(device)
+    sync = _sync_of(dev)
+    mesh = par.data_mesh([dev] * ranks)
+    compute_statistics(X, y, dev)               # warm: both timed warm
+    par.sharded_statistics(X, y, mesh)
+    sync()
+    t0 = time.perf_counter()
+    one = compute_statistics(X, y, dev)
+    one_wall = time.perf_counter() - t0
+    sync()
+    tk.ring_allreduce.launches = tk.ring_allgather.launches = 0
+    t0 = time.perf_counter()
+    ring = par.sharded_statistics(X, y, mesh)
+    sync()
+    wall = time.perf_counter() - t0
+    reduce_n, gather_n = _ring_counts(tk)
+    expected = 2 * ranks if dev.type == "cuda" else 0
+    if (reduce_n, gather_n) != (expected, expected):
+        raise AssertionError(f"sharded_statistics launched the ring "
+                             f"{reduce_n} (sum) / {gather_n} (gather) "
+                             f"times, the code derives {expected} each")
+    with env(TM_MESH_RDMA_RING="0"):
+        plain = par.sharded_statistics(X, y, mesh)
+    errs = {}
+    for k in one:
+        if not np.array_equal(ring[k], plain[k], equal_nan=True):
+            raise AssertionError(f"sharded statistic {k}: the ring differs "
+                                 f"from the plain version")
+        rtol, atol = MESH_SPEARMAN_TOL if k == "spearman" else MESH_STATS_TOL
+        np.testing.assert_allclose(ring[k], one[k], rtol=rtol, atol=atol,
+                                   equal_nan=True, err_msg=k)
+        both = np.isfinite(ring[k]) & np.isfinite(one[k])
+        errs[k] = float(np.abs(ring[k] - one[k])[both].max()) \
+            if both.any() else 0.0
+    return {"rows": int(X.shape[0]), "features": int(X.shape[1]),
+            "ranks": ranks, "ring_equals_plain": True,
+            "max_abs_err_vs_one_rank": errs,
+            "oracle": checker_oracle(X, y, ring, dev),
+            "ring_allreduce_launches": reduce_n,
+            "ring_allgather_launches": gather_n,
+            "expected_launches_each": expected,
+            "wall_s": wall, "one_rank_wall_s": one_wall}
+
+
+def mesh_checker_part(X, y, device, seed, ranks=MESH_RANKS):
+    """``SanityChecker(mesh=)`` over ``ranks`` ranks on the statistics'
+    matrix with a planted leak (the label plus 1% noise) and a constant
+    column: the same drops and kept slots as with no mesh, both planted
+    columns dropped."""
+    from transmogrifai_tpu_torch import parallel as par
+    from transmogrifai_tpu_torch.dataset import Dataset
+    from transmogrifai_tpu_torch.features import FeatureBuilder
+    from transmogrifai_tpu_torch.features import types as ft
+    from transmogrifai_tpu_torch.ops.sanity_checker import SanityChecker
+    rng = np.random.default_rng(seed + 7)
+    d = X.shape[1]
+    leak = (y + 0.01 * rng.normal(size=len(y))).astype(np.float32)
+    Xc = np.concatenate([X, np.full((len(y), 1), 2.5, np.float32),
+                         leak[:, None]], axis=1)
+    ds = Dataset({"y": y.astype(np.float64), "x": Xc},
+                 {"y": ft.RealNN, "x": ft.OPVector})
+    lbl = FeatureBuilder.of(ft.RealNN, "y").from_column().as_response()
+    vec = FeatureBuilder.OPVector("x").from_column().as_predictor()
+    sync = _sync_of(device)
+    walls, models = {}, {}
+    for name, kw in (("no_mesh", {"device": device}),
+                     ("mesh", {"mesh": par.data_mesh([device] * ranks)})):
+        sync()
+        t0 = time.perf_counter()
+        models[name] = SanityChecker(**kw).set_input(lbl, vec).fit(ds)
+        sync()
+        walls[name] = time.perf_counter() - t0
+    a, b = models["no_mesh"], models["mesh"]
+    if (a.summary["dropped"] != b.summary["dropped"]
+            or a.params["keep_indices"] != b.params["keep_indices"]):
+        raise AssertionError(f"SanityChecker(mesh=) drops "
+                             f"{b.summary['dropped']}, no mesh "
+                             f"{a.summary['dropped']}")
+    keep = b.params["keep_indices"]
+    if d in keep or d + 1 in keep:
+        raise AssertionError(f"the planted constant ({d}) or leak "
+                             f"({d + 1}) column was kept")
+    return {"features_in": d + 2, "dropped": b.summary["dropped"],
+            "kept": len(keep), "drops_equal": True,
+            "wall_s": walls["mesh"], "no_mesh_wall_s": walls["no_mesh"]}
+
+
+def _event_ms(fit, device):
+    """(result, host wall s, CUDA-event ms) of one fit; ms None off the
+    card."""
+    sync = _sync_of(device)
+    cuda = torch.device(device).type == "cuda"
+    sync()
+    if cuda:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    out = fit()
+    sync()
+    wall = time.perf_counter() - t0
+    if not cuda:
+        return out, wall, None
+    end.record()
+    end.synchronize()
+    return out, wall, start.elapsed_time(end)
+
+
+def _step_ms(fit1, fit3, device, steps, repeats=2):
+    """Device ms a step of a fit: its 3-epoch fit's CUDA-event time less
+    its 1-epoch fit's, over the 2 x ``steps`` steps between them (the
+    chunk's upload and the setup drop out), each the least of
+    ``repeats`` warm runs."""
+    one = min(_event_ms(fit1, device)[2] for _ in range(repeats))
+    three = min(_event_ms(fit3, device)[2] for _ in range(repeats))
+    return (three - one) / (2 * steps)
+
+
+def mesh_sparse_part(seed, device, ranks=MESH_RANKS, rows=MESH_CTR_ROWS,
+                     batch=MESH_CTR_BATCH, buckets=MESH_CTR_BUCKETS):
+    """The sharded LR, FM (k = 8) and 3-class softmax fits over ``ranks``
+    ranks at the CTR widths on one chunk, one epoch: each held to the
+    one-device fit (MESH_SPARSE_TOL) and the ring's bitwise the plain
+    version's; the ring launched once a rank a step (steps x epochs x
+    ranks x 1 call); the fit's wall beside the one-device fit's; on the
+    card the ms a step of each (``_step_ms``) and the ring's device ms a
+    step (torch.profiler, the union of the ranks'
+    kernels) beside its bound (``ring_cost`` at the step's buffer)."""
+    from transmogrifai_tpu_torch import parallel as par
+    from transmogrifai_tpu_torch.models import kernels as tk
+    from transmogrifai_tpu_torch.models import sparse as TS
+    dev = torch.device(device)
+    c = ctr_chunk(seed, rows, buckets)
+    idx, num, y, w = c["idx"], c["num"], c["y"], c["w"]
+    y3 = ((idx[:, 0] % 7 < 3).astype(np.int64)
+          + (num[:, 0] > 0.5)).astype(np.float32)
+    mesh = par.data_mesh([dev] * ranks)
+    steps = -(-rows // batch)
+
+    def fits(fam, epochs=1):
+        kw = dict(lr=0.05, l2=MESH_L2, epochs=epochs, batch_size=batch)
+        if fam == "lr":
+            return (lambda: TS.fit_sparse_lr(idx, num, y, w, buckets,
+                                             device=dev, **kw),
+                    lambda: TS.fit_sparse_lr_sharded(idx, num, y, w,
+                                                     buckets, mesh=mesh,
+                                                     **kw))
+        if fam == "fm":
+            return (lambda: TS.fit_sparse_fm(idx, num, y, w, buckets,
+                                             k=MESH_FM_K, seed=seed,
+                                             device=dev, **kw),
+                    lambda: TS.fit_sparse_fm_sharded(
+                        idx, num, y, w, buckets, mesh=mesh, k=MESH_FM_K,
+                        seed=seed, **kw))
+        return (lambda: TS.fit_sparse_softmax(
+                    idx, num, y3, w, buckets, MESH_SOFTMAX_CLASSES,
+                    device=dev, **kw),
+                lambda: TS.fit_sparse_softmax_sharded(
+                    idx, num, y3, w, buckets, MESH_SOFTMAX_CLASSES,
+                    mesh=mesh, **kw))
+
+    d = num.shape[1]
+    numel = {"lr": 1 + buckets + d + 1,
+             "fm": 1 + buckets * (1 + MESH_FM_K) + d + 1,
+             "softmax": 1 + MESH_SOFTMAX_CLASSES * (buckets + d + 1)}
+    out = {"rows": rows, "batch": batch, "steps": steps, "epochs": 1,
+           "ranks": ranks, "buckets": buckets, "fields": int(idx.shape[1]),
+           "numerics": d, "families": {}}
+    cuda = dev.type == "cuda"
+    for fam in ("lr", "fm", "softmax"):
+        single_fit, sharded_fit = fits(fam)
+        single, s_wall, s_ms = _event_ms(single_fit, dev)
+        tk.ring_allreduce.launches = 0
+        ring, r_wall, r_ms = _event_ms(sharded_fit, dev)
+        launches = tk.ring_allreduce.launches
+        expected = steps * 1 * ranks * 1 if cuda else 0
+        if launches != expected:
+            raise AssertionError(f"sharded {fam}: {launches} ring "
+                                 f"launches, the code derives {expected} "
+                                 f"({steps} steps x 1 epoch x {ranks} "
+                                 f"ranks x 1 call)")
+        with env(TM_MESH_RDMA_RING="0"):
+            plain = sharded_fit()
+        err = 0.0
+        for k in single:
+            if not np.array_equal(ring[k], plain[k]):
+                raise AssertionError(f"sharded {fam} {k}: the ring differs "
+                                     f"from the plain version")
+            np.testing.assert_allclose(
+                ring[k], single[k], rtol=MESH_SPARSE_TOL[0],
+                atol=MESH_SPARSE_TOL[1],
+                err_msg=f"sharded {fam} {k} against the one-device fit")
+            err = max(err, float(np.abs(ring[k] - single[k]).max()))
+        n_el = numel[fam] + (buckets if MESH_L2 else 0)
+        cost = tk.ring_cost(ranks, n_el, same_card=True)
+        row = {"max_abs_err": err, "ring_equals_plain": True,
+               "ring_launches": launches, "expected_ring_launches": expected,
+               "wall_s": r_wall, "single_wall_s": s_wall,
+               "step_buffer_floats": n_el,
+               "ring_bound_ms": cost["bound_ms"],
+               "ring_bound_by": cost["bound_by"]}
+        if cuda:
+            row["step_ms"] = _step_ms(fits(fam, 1)[1], fits(fam, 3)[1],
+                                      dev, steps)
+            row["single_step_ms"] = _step_ms(fits(fam, 1)[0],
+                                             fits(fam, 3)[0], dev, steps)
+            prof, _ = profiled(sharded_fit, host=False)
+            row["ring_step_ms"] = _kernel_span_ms(prof, "ring_kernel", steps)
+        out["families"][fam] = row
+    return out
+
+
+def mesh_grid_part(seed, device, rows=TRAIN_ROWS, sizes=MESH_GRID_SIZES,
+                   candidates=None):
+    """The binary default list (``candidates`` None) at ``rows`` rows of
+    the training phase's data through ``set_mesh(get_mesh([device] *
+    k))`` for each k in ``sizes``: grid metrics and winner bitwise the
+    first size's; per-rank items (``SWEEP_STATS``) summing to the real
+    items; histogram launches those the code derives: each rank grows
+    every level of its shard (padded shards are never empty), so k x the
+    folded levels, plus the winner's refit; the wall at each size."""
+    from transmogrifai_tpu_torch import models as TM
+    from transmogrifai_tpu_torch import parallel as par
+    from transmogrifai_tpu_torch.models import kernels as tk
+    from transmogrifai_tpu_torch.profiling import SWEEP_STATS, SweepStats
+    dev = torch.device(device)
+    sync = _sync_of(dev)
+    X, y = training_data(seed, rows)
+    cuda = dev.type == "cuda"
+    runs = {}
+    for k in sizes:
+        ds, sel = _selector(X, y, candidates, dev)
+        sel.set_mesh(par.get_mesh([dev] * k))
+        sync()
+        tk.histogram_grid.launches = 0
+        before = SWEEP_STATS.snapshot()
+        t0 = time.perf_counter()
+        model = sel.fit(ds)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = tk.histogram_grid.launches
+        delta = SweepStats.delta(before, SWEEP_STATS.snapshot())
+        summ = model.summary
+        families = [name for name, _ in sel.params["candidates"]]
+        tree = [f for f in families
+                if hasattr(TM.MODEL_FAMILIES[f], "levels_per_fit")]
+        winner = summ["bestModel"]["family"]
+        refit = (TM.MODEL_FAMILIES[winner].levels_per_fit()
+                 if winner in tree else 0)
+        folded = sum(TM.MODEL_FAMILIES[f].levels_per_fit() for f in tree)
+        expected = k * folded + refit if cuda else 0
+        if launches != expected:
+            raise AssertionError(f"{k} ranks: {launches} histogram "
+                                 f"launches, the code derives {expected} "
+                                 f"({k} x {folded} folded levels + "
+                                 f"{refit} refit)")
+        items = {lab: c["items"] for lab, c in delta["devices"].items()}
+        real = sum(3 * len(r["grid"]) for r in summ["validationResults"])
+        if sum(items.values()) != real:
+            raise AssertionError(f"{k} ranks: rank items {items} do not "
+                                 f"sum to the {real} real items")
+        runs[k] = {"wall_s": wall, "histogram_launches": launches,
+                   "expected_launches": expected,
+                   "one_rank_levels": folded + refit, "items": items,
+                   "winner": winner, "grid": _grid_metrics(summ)}
+    base = runs[sizes[0]]
+    for k in sizes[1:]:
+        if runs[k]["grid"] != base["grid"] or \
+                runs[k]["winner"] != base["winner"]:
+            raise AssertionError(f"grid metrics or winner on {k} ranks "
+                                 f"differ from {sizes[0]} rank(s)")
+    return {"rows": rows, "sizes": list(sizes), "winner": base["winner"],
+            "grid_bitwise": True,
+            "runs": {str(k): {key: v for key, v in r.items()
+                              if key != "grid"} for k, r in runs.items()}}
+
+
+def mesh_phase(seed: int, device="cuda", rows: int = TRAIN_ROWS,
+               ranks: int = MESH_RANKS, ctr_rows: int = MESH_CTR_ROWS,
+               ctr_batch: int = MESH_CTR_BATCH,
+               buckets: int = MESH_CTR_BUCKETS,
+               sizes=MESH_GRID_SIZES, list_rows: int = TRAIN_ROWS,
+               candidates=None):
+    """Multi-device on ranks that share ``device``: the sharded
+    statistics and SanityChecker(mesh=), the sharded sparse fits and the
+    selector's grid sharding (the smaller sizes exist for a CPU
+    rehearsal)."""
+    t0 = time.perf_counter()
+    X, y = training_data(seed, rows)
+    out = {"stats": mesh_stats_part(X, y, device, ranks)}
+    out["checker"] = mesh_checker_part(X, y, device, seed, ranks)
+    out["sparse"] = mesh_sparse_part(seed, device, ranks, ctr_rows,
+                                     ctr_batch, buckets)
+    out["grid"] = mesh_grid_part(seed, device, list_rows, sizes, candidates)
+    out["ring_allreduce_launches"] = (
+        out["stats"]["ring_allreduce_launches"]
+        + sum(f["ring_launches"] for f in out["sparse"]["families"].values()))
+    out["ring_allgather_launches"] = out["stats"]["ring_allgather_launches"]
+    out["histogram_launches"] = sum(
+        r["histogram_launches"] for r in out["grid"]["runs"].values())
+    out["wall_s"] = time.perf_counter() - t0
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5839,7 +6193,7 @@ def ft_lines(fr) -> list:
 
 
 def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
-                 wf=None, ctr=None, fe=None, fl=None):
+                 wf=None, ctr=None, fe=None, fl=None, mesh=None):
     """The ``kernels`` line from this run's phase results: every time
     and error is one this run measured, every bound one it computed
     from its own inputs, every launch count its main path's (the
@@ -5850,8 +6204,12 @@ def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
     whose histogram launches add to the histogram's count;
     ``fleet_launches``: the fleet phase's, the inproc fleet's by the
     wrapper's count and by the profiler's, every socket worker's from
-    its own status; the histogram's error also covers the features
-    phase's checks at its trains' own levels)."""
+    its own status; ``mesh_launches``: the mesh phase's, which add to
+    the histogram's and the ring's counts; the histogram's error also
+    covers the features phase's checks at its trains' own levels)."""
+    mesh_ring = None if mesh is None else {
+        "allreduce": mesh["ring_allreduce_launches"],
+        "allgather": mesh["ring_allgather_launches"]}
     ctr_launches = (ctr or {}).get("launches", {})
     fe_launches = (fe or {}).get("launches", {})
     # the serving pass's shape in its operand mode: the prefix form,
@@ -5892,11 +6250,13 @@ def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
                     "transmogrifai_tpu/models/kernels.py:649",
         "launches": train["histogram_launches"] + (
             0 if wf is None else wf["histogram_launches"]) + (
-            0 if fe is None else fe["histogram_launches"]),
+            0 if fe is None else fe["histogram_launches"]) + (
+            0 if mesh is None else mesh["histogram_launches"]),
         "training_launches": train["histogram_launches"],
         "workflow_launches": None if wf is None else wf["histogram_launches"],
         "ctr_launches": ctr_launches.get("tree_histogram"),
         "features_launches": fe_launches.get("tree_histogram"),
+        "mesh_launches": None if mesh is None else mesh["histogram_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in hrows + (
             fe or {}).get("hist_checks", [])),
         "ms": hmain["ms"], "plain_ms": hmain["plain_ms"],
@@ -5910,7 +6270,10 @@ def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
         "name": "ring_allreduce", "route": "cuda",
         "source": "transmogrifai_tpu_torch/csrc/ring_allreduce.cu",
         "replaces": "transmogrifai_tpu/models/kernels.py:770",
-        "launches": dp["ring_launches"],
+        "launches": dp["ring_launches"] + (
+            0 if mesh_ring is None else sum(mesh_ring.values())),
+        "data_parallel_launches": dp["ring_launches"],
+        "mesh_launches": mesh_ring,
         "ctr_launches": ctr_launches.get("ring_allreduce"),
         "features_launches": fe_launches.get("ring_allreduce"),
         "max_abs_err": max(r["max_abs_err"] for r in rrows),
@@ -5997,6 +6360,8 @@ def main(argv=None) -> int:
     dp = data_parallel_phase(args.seed)
     print("phase data_parallel: " + json.dumps(dict(dp, card=card)),
           flush=True)
+    ms = mesh_phase(args.seed)
+    print("phase mesh: " + json.dumps(dict(ms, card=card)), flush=True)
 
     wf = workflow_phase(args.seed)
     print("phase workflow: " + json.dumps(dict(wf, card=card)), flush=True)
@@ -6027,7 +6392,8 @@ def main(argv=None) -> int:
         print(line, flush=True)
 
     print(json.dumps(kernels_line(rows, serve, empty_ms, hrows, train, hmma,
-                                  rrows, dp, wf, ctr, fe, fl)), flush=True)
+                                  rrows, dp, wf, ctr, fe, fl, ms)),
+          flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

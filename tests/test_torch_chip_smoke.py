@@ -838,3 +838,106 @@ def test_ft_served_gate_flags_a_row_mix_up(monkeypatch, tmp_path):
         with pytest.raises(AssertionError, match="FT served rows differ"):
             chip_smoke.ft_front_part("cpu", str(tmp_path), requests=16,
                                      local_rows=10)
+
+
+# -- phase 7b: multi-device on ranks that share one card ----------------------
+
+MESH_CANDIDATES = [["LogisticRegression", {"regParam": [0.01, 0.1]}],
+                   ["DecisionTreeClassifier", None], ["NaiveBayes", None]]
+MESH_SMALL = dict(ctr_rows=5000, ctr_batch=1024, buckets=1 << 13)
+
+
+@pytest.fixture()
+def one_thread():
+    """One torch thread: the CPU's index_put_ accumulation over several
+    threads adds in an order that varies from run to run, which the
+    phase's ring-against-plain check would see."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_mesh_phase_runs_on_the_cpu(one_thread):
+    """The mesh phase on 4 CPU ranks at small sizes (3,001 rows of
+    statistics, a 5,000-row CTR chunk at 2^13 buckets and batch 1,024, a
+    3-candidate list with a tree at 2,000 rows): every gate, the CPU
+    path launching no kernel."""
+    out = chip_smoke.mesh_phase(0, device="cpu", rows=3001,
+                                list_rows=2000,
+                                candidates=MESH_CANDIDATES, **MESH_SMALL)
+    st = out["stats"]
+    assert st["ring_equals_plain"] and st["oracle"]["ranks_exact"]
+    assert st["ring_allreduce_launches"] == st["expected_launches_each"] == 0
+    ck = out["checker"]
+    assert ck["drops_equal"] and set(ck["dropped"]) == {"x_col_28",
+                                                         "x_col_29"}
+    fams = out["sparse"]["families"]
+    assert set(fams) == {"lr", "fm", "softmax"}
+    for f in fams.values():
+        assert f["ring_equals_plain"]
+        assert f["max_abs_err"] <= 1e-4
+        assert f["ring_launches"] == f["expected_ring_launches"] == 0
+        assert f["ring_bound_by"] == "bytes" and "step_ms" not in f
+    grid = out["grid"]
+    assert grid["grid_bitwise"] and grid["sizes"] == [1, 2, 4]
+    items = [sum(r["items"].values()) for r in grid["runs"].values()]
+    # 3 folds x (LR's 2 x 2 elastic-net grid + DT's 2 + NB's 1)
+    assert len(set(items)) == 1 and items[0] == 3 * (4 + 2 + 1)
+    assert len(grid["runs"]["4"]["items"]) == 4
+    assert out["histogram_launches"] == 0
+
+
+def test_mesh_phase_flags_a_local_sum_of_weights(monkeypatch, one_thread):
+    """A planted fault: each rank's sparse step normalised by its own Σw
+    (the reduced Σw a share of one). The phase must fail its one-device
+    comparison."""
+    from transmogrifai_tpu_torch.models import sparse as TS
+    real = TS._rank_parts
+
+    def local_mean(grad_fn, *a, **k):
+        buf = real(lambda *ga, mean=False: grad_fn(*ga, mean=True), *a,
+                   **k)
+        buf[0] = 1.0 / chip_smoke.MESH_RANKS
+        return buf
+
+    monkeypatch.setattr(TS, "_rank_parts", local_mean)
+    with pytest.raises(AssertionError, match="one-device fit"):
+        chip_smoke.mesh_sparse_part(0, "cpu", rows=5000, batch=1024,
+                                    buckets=1 << 13)
+
+
+def test_mesh_phase_flags_shards_put_back_out_of_order(monkeypatch,
+                                                       one_thread):
+    """A planted fault: a grid shard's items put back in the wrong order
+    (the ranks' results concatenated last rank first). The grid metrics
+    then differ across mesh sizes and the phase must fail."""
+    from transmogrifai_tpu_torch.parallel import mesh as tmesh
+    real = tmesh._concat
+    monkeypatch.setattr(tmesh, "_concat", lambda *parts: real(*parts[::-1]))
+    with pytest.raises(AssertionError, match="differ from 1 rank"):
+        chip_smoke.mesh_grid_part(0, "cpu", rows=2000,
+                                  candidates=MESH_CANDIDATES)
+
+
+def test_kernels_line_adds_the_mesh_launches():
+    row = {k: 1.5 for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                            "max_abs_err", "call_ms", "plain_call_ms",
+                            "library_call_ms", "span_ms",
+                            "library_device_ms")}
+    row["bound_by"] = "bytes"
+    rows = [dict(row, form="identity", shape=[1], dtype="f"),
+            dict(row, form="prefix", shape=[2], act="a", dtype="f")]
+    hrows = [dict(row, dtype="f", **{k: 1 for k in "GndSmB"})]
+    rrows = [dict(row, layout="one card", shape="gbt_level",
+                  ndev=chip_smoke.DP_RANKS, dims=[1])]
+    mesh = {"ring_allreduce_launches": 200, "ring_allgather_launches": 8,
+            "histogram_launches": 1000}
+    line = chip_smoke.kernels_line(
+        rows, {"kernel_launches": 7}, 0.5, hrows,
+        {"histogram_launches": 418}, 3, rrows, {"ring_launches": 24},
+        mesh=mesh)
+    hist, ring = line["kernels"][1], line["kernels"][2]
+    assert hist["launches"] == 1418 and hist["mesh_launches"] == 1000
+    assert ring["launches"] == 232 and ring["data_parallel_launches"] == 24
+    assert ring["mesh_launches"] == {"allreduce": 200, "allgather": 8}

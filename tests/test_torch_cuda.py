@@ -635,6 +635,104 @@ def test_grow_over_a_data_mesh_equals_the_single_grow(card, ring,
             assert torch.equal(a, b)
 
 
+@pytest.mark.cuda
+def test_sharded_statistics_on_ranks_sharing_the_card(card, monkeypatch):
+    """sharded_statistics over 4 ranks of one card: two sums and two
+    gathers, one launch a rank each; the ring bitwise the plain version
+    (TM_MESH_RDMA_RING=0); every key within the CPU tests' tolerance of
+    the one-rank statistics."""
+    from transmogrifai_tpu_torch.ops.sanity_checker import compute_statistics
+    rng = np.random.default_rng(8)
+    X = rng.normal(size=(20_003, 9)).astype(np.float32)
+    X[:, 4] = 1.0
+    y = (rng.random(20_003) > 0.4).astype(np.float32)
+    mesh = par.data_mesh([card] * 4)
+    before = (tk.ring_allreduce.launches, tk.ring_allgather.launches)
+    ring = par.sharded_statistics(X, y, mesh)
+    assert (tk.ring_allreduce.launches - before[0],
+            tk.ring_allgather.launches - before[1]) == (8, 8)
+    monkeypatch.setenv("TM_MESH_RDMA_RING", "0")
+    plain = par.sharded_statistics(X, y, mesh)
+    one = compute_statistics(X, y, card)
+    for k in one:
+        assert np.array_equal(ring[k], plain[k], equal_nan=True), k
+        rtol, atol = (1e-3, 1e-4) if k == "spearman" else (1e-4, 1e-5)
+        np.testing.assert_allclose(ring[k], one[k], rtol=rtol, atol=atol,
+                                   equal_nan=True, err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["lr", "fm", "softmax"])
+def test_sharded_sparse_fits_on_ranks_sharing_the_card(card, family,
+                                                       monkeypatch):
+    """The sharded fits over 3 ranks of one card (uneven shards of a
+    4,096-row batch, a padded last batch, lazy L2): within 1e-4 of the
+    one-device fit, the ring bitwise the plain version, one ring launch
+    a rank a step."""
+    from transmogrifai_tpu_torch.models import sparse as TS
+    rng = np.random.default_rng(9)
+    n, B = 20_000, 1 << 14
+    idx = rng.integers(0, B, (n, 6)).astype(np.int32)
+    X = rng.normal(size=(n, 4)).astype(np.float32)
+    w = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    kw = dict(lr=0.05, l2=1e-4, epochs=2, batch_size=4096)
+    mesh = par.data_mesh([card] * 3)
+    if family == "softmax":
+        y = rng.integers(0, 3, n).astype(np.float32)
+        args = (idx, X, y, w, B, 3)
+        single_fn, sharded_fn = TS.fit_sparse_softmax, \
+            TS.fit_sparse_softmax_sharded
+    else:
+        y = (rng.random(n) < 0.3).astype(np.float32)
+        args = (idx, X, y, w, B)
+        single_fn, sharded_fn = {
+            "lr": (TS.fit_sparse_lr, TS.fit_sparse_lr_sharded),
+            "fm": (TS.fit_sparse_fm, TS.fit_sparse_fm_sharded)}[family]
+    single = single_fn(*args, device=card, **kw)
+    before = tk.ring_allreduce.launches
+    ring = sharded_fn(*args, mesh=mesh, **kw)
+    assert tk.ring_allreduce.launches - before == 5 * 2 * 3
+    monkeypatch.setenv("TM_MESH_RDMA_RING", "0")
+    plain = sharded_fn(*args, mesh=mesh, **kw)
+    for k in single:
+        assert np.array_equal(ring[k], plain[k]), k
+        np.testing.assert_allclose(ring[k], single[k], rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_grid_sharded_sweep_is_bitwise_on_ranks_sharing_the_card(card):
+    """The fused sweep of LR, NB and a folded GBT over grid meshes of 1,
+    2 and 4 ranks of one card (each rank its own stream): the metrics
+    bitwise the one-device sweep's, and the histogram launched by every
+    rank for every level of its shard."""
+    from transmogrifai_tpu_torch.models import MODEL_FAMILIES as MF
+    from transmogrifai_tpu_torch.models.tuning import OpCrossValidation
+    rng = np.random.default_rng(10)
+    n = 6000
+    X = rng.normal(size=(n, 8)).astype(np.float32)
+    y = (X[:, 0] * X[:, 1] + X[:, 2] > 0).astype(np.float32)
+    w = np.ones(n, np.float32)
+    entries = [(name, MF[name], MF[name].make_grid())
+               for name in ("LogisticRegression", "NaiveBayes",
+                            "GBTClassifier")]
+    cv = OpCrossValidation(n_folds=3, metric="auroc")
+
+    def run(mesh):
+        before = tk.histogram_grid.launches
+        pend = cv.dispatch_many(entries, X, y, w, 2, mesh, device=card)
+        out = {k: cv.collect(p).grid_metrics for k, p in pend.items()}
+        return out, tk.histogram_grid.launches - before
+
+    one, one_launches = run(None)
+    assert one_launches == MF["GBTClassifier"].levels_per_fit()
+    for k in (1, 2, 4):
+        got, launches = run(par.get_mesh([card] * k))
+        assert launches == k * one_launches
+        for key in one:
+            assert np.array_equal(one[key], got[key]), (key, k)
+
+
 # ---------------------------------------------------------------------------
 # The linear sweep on the card (no kernel of its own: torch products and
 # solves), against the port's CPU path and against itself

@@ -106,6 +106,11 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
                  lambda: build_registry(path),
                  lambda: ServingEngine(path),
                  lambda: parallel.data_mesh(),
+                 lambda: parallel.get_mesh(),
+                 lambda: parallel.default_mesh(),
+                 lambda: parallel.grid_map(lambda s: s, np.zeros(4)),
+                 lambda: parallel.sharded_statistics(
+                     np.zeros((4, 2), np.float32), np.zeros(4)),
                  lambda: parallel.sharded_histograms(
                      np.zeros((4, 2), np.int32), np.zeros((1, 4, 3)),
                      np.zeros((1, 4), np.int32), 1, 2)):

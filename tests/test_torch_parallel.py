@@ -117,7 +117,7 @@ def test_no_card_means_no_default_mesh(clean_mesh_env):
     mesh = TP.data_mesh(["cpu"] * 3)
     assert mesh.size == 3 and mesh.labels() == ["cpu:0", "cpu:1", "cpu:2"]
     with pytest.raises(ValueError, match="all CUDA or all CPU"):
-        TP.DataMesh(["cpu", "meta"])
+        TP.Mesh(["cpu", "meta"])
 
 
 def test_grid_data_axis_is_not_ported_in_the_selector(clean_mesh_env):
@@ -149,6 +149,13 @@ def test_device_labels():
     assert TP.device_labels(["cpu", "cpu"]) == ["cpu:0", "cpu:1"]
     assert TP.device_labels([torch.device("cuda", 1), "cuda:0"]) == [
         "cuda:1", "cuda:0"]
+    # ranks that share a card: one label each, the card's and the rank's
+    assert TP.device_labels(["cuda:0"] * 4) == [
+        "cuda:0#0", "cuda:0#1", "cuda:0#2", "cuda:0#3"]
+    assert TP.device_labels(["cuda:0", "cuda:1", "cuda:0"]) == [
+        "cuda:0#0", "cuda:1", "cuda:0#2"]
+    labels = TP.device_labels(["cuda:0"] * 8)
+    assert len(set(labels)) == 8
 
 
 def test_shard_rows_pads_with_zero_rows():

@@ -184,18 +184,35 @@ def test_keep_cols_device_fn_and_row_path():
 
 
 def test_unported_mesh_paths_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 3"):
-        sc.SanityChecker(mesh=object())
-    monkeypatch.setenv("TM_MESH_AXIS", "grid,data")
+    """A mesh of ranks now takes the row-sharded statistics (the same
+    drops as no mesh); what stays unported is the 2-D sweep, so under
+    TM_MESH_AXIS=grid,data the checker fits while the default mesh and
+    the selector raise, naming it."""
+    from transmogrifai_tpu_torch import parallel
+    from transmogrifai_tpu_torch.models import MODEL_FAMILIES
+    from transmogrifai_tpu_torch.models.tuning import require_ported
     X, y = _matrix(6, n=30, d=6)
     ds = Dataset({"label": y.astype(np.float64), "vec": X},
                  {"label": ft.RealNN, "vec": ft.OPVector})
-    with pytest.raises(NotImplementedError, match="grid,data"):
-        sc.SanityChecker(device="cpu").set_input(
+
+    def fit(**kw):
+        return sc.SanityChecker(**kw).set_input(
             FeatureBuilder.of(ft.RealNN, "label").from_column()
             .as_response(),
             FeatureBuilder.of(ft.OPVector, "vec").from_column()
             .as_predictor()).fit(ds)
+    local = fit(device="cpu")
+    meshed = fit(mesh=parallel.data_mesh(["cpu"] * 4))
+    assert meshed.params["keep_indices"] == local.params["keep_indices"]
+    monkeypatch.setattr(parallel.mesh, "visible_devices",
+                        lambda: [torch.device("cpu")] * 2)
+    monkeypatch.setenv("TM_MESH_AXIS", "grid,data")
+    assert fit(device="cpu").params["keep_indices"] == \
+        local.params["keep_indices"]
+    with pytest.raises(NotImplementedError, match="2-D grid x data"):
+        parallel.default_mesh()
+    with pytest.raises(NotImplementedError, match="grid,data"):
+        require_ported(MODEL_FAMILIES["LogisticRegression"])
 
 
 # -- mirrors of test_feature_ops.py's checker cases -------------------------

@@ -391,11 +391,28 @@ def test_softmax_class_ids_are_checked():
 @pytest.mark.parametrize("fn", ["fit_sparse_lr_sharded",
                                 "fit_sparse_fm_sharded",
                                 "fit_sparse_softmax_sharded"])
-def test_sharded_fits_raise_not_ported(fn):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        getattr(TS, fn)(np.zeros((4, 2), np.int32),
-                        np.zeros((4, 1), np.float32),
-                        np.zeros(4, np.float32), np.ones(4, np.float32), 16)
+def test_sharded_fits_raise_not_ported(fn, monkeypatch):
+    """The sharded fits are ported: with no mesh they take the default
+    data mesh, which raises without a card (never the CPU); over CPU
+    ranks they match the one-device fit (rtol 1e-4, atol 1e-6)."""
+    from transmogrifai_tpu_torch import parallel
+    rng = np.random.default_rng(4)
+    idx = rng.integers(0, 16, (40, 2)).astype(np.int32)
+    X = rng.normal(size=(40, 1)).astype(np.float32)
+    y = rng.integers(0, 2, 40).astype(np.float32)
+    w = np.ones(40, np.float32)
+    extra = (3,) if "softmax" in fn else ()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        getattr(TS, fn)(idx, X, y, w, 16, *extra)
+    got = getattr(TS, fn)(idx, X, y, w, 16, *extra,
+                          mesh=parallel.data_mesh(["cpu"] * 2),
+                          batch_size=16)
+    single = getattr(TS, fn[:-len("_sharded")])(
+        idx, X, y, w, 16, *extra, batch_size=16, device=CPU)
+    for k in single:
+        np.testing.assert_allclose(got[k], single[k], rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
 
 
 # ---------------------------------------------------------------------------

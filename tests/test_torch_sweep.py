@@ -39,6 +39,7 @@ from transmogrifai_tpu import models as JM
 from transmogrifai_tpu.models import tuning as JTU
 from transmogrifai_tpu_torch import models as TM
 from transmogrifai_tpu_torch.models import tuning as TTU
+from transmogrifai_tpu_torch.parallel import get_mesh
 from transmogrifai_tpu_torch.resilience import faults
 
 LINEAR_TOL = 1e-5
@@ -384,10 +385,14 @@ def test_unported_sweep_knobs_raise(lr_data, clean_knobs):
         _fused(cv, _entries()[2:], X, y, w)
     clean_knobs.delenv("TM_MESH_AXIS")
     # the JAX signatures: mesh=None positional or keyword, the device a
-    # keyword resolved as every entry point's (None: CUDA, or raise)
+    # keyword resolved as every entry point's (None: CUDA, or raise); a
+    # grid mesh shards the batch and leaves its metrics bitwise
     key, fam, grid = _entries()[2]
-    cv.validate(fam, grid, X, y, w, 2, None, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    one = cv.validate(fam, grid, X, y, w, 2, None, device="cpu")
+    two = cv.validate(fam, grid, X, y, w, 2,
+                      mesh=get_mesh(["cpu"] * 2))
+    assert np.array_equal(one.grid_metrics, two.grid_metrics)
+    with pytest.raises(TypeError, match="mesh"):
         cv.validate(fam, grid, X, y, w, 2, mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

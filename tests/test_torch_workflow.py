@@ -439,9 +439,9 @@ def test_runner_streaming_score_matches_batch(tmp_path):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("compilation_cache_location", "cache", "item 9"),
-    ("debug_nans", True, "item 9"),
-    ("distributed", {"numProcesses": 2}, "item 10")])
+    ("compilation_cache_location", "cache", "compilation cache"),
+    ("debug_nans", True, "NaN debugging"),
+    ("distributed", {"numProcesses": 2}, "multi-host")])
 def test_runner_unported_params_raise(field, value, item):
     wf, _ = PORT.titanic()
     runner = PORT.runner.WorkflowRunner(wf, train_reader=PORT.reader(),

@@ -346,7 +346,7 @@ def histogram_cost(G: int, n: int, d: int, S: int, m: int,
 # Counterpart of the JAX package's ring_reduce_enabled / ring_allgather
 # (the Pallas RDMA ring, _ring_gather_kernel) / ring_allreduce /
 # allreduce_data. ``parts`` is one tensor per rank of a
-# ``parallel.DataMesh`` (parts[r] on mesh.devices[r], all the same shape,
+# ``parallel.Mesh`` (parts[r] on mesh.devices[r], all the same shape,
 # f32, contiguous); the result is one tensor per rank again.
 
 #: the CUDA source of the ring kernel
@@ -660,15 +660,34 @@ def allreduce_data(parts: List[torch.Tensor], mesh,
     and passes it, so one computation never mixes the two."""
     if mesh.size <= 1:
         return list(parts)
+    return _policy_call(parts, mesh, use_ring, ring_allreduce,
+                        ring_allreduce_torch)
+
+
+def allgather_data(parts: List[torch.Tensor], mesh,
+                   use_ring: Optional[bool] = None) -> List[torch.Tensor]:
+    """The cross-rank all-gather of row-partitioned work (the sharded
+    statistics' extrema and columns), the same policy as
+    :func:`allreduce_data`: :func:`ring_allgather` (the CUDA kernel in
+    gather mode) when ``use_ring``, else :func:`ring_allgather_torch`.
+    Per rank the (ndev, ...) stack in origin order; at one rank each
+    part with a leading axis of one."""
+    if mesh.size <= 1:
+        return [p[None] for p in parts]
+    return _policy_call(parts, mesh, use_ring, ring_allgather,
+                        ring_allgather_torch)
+
+
+def _policy_call(parts, mesh, use_ring, kernel_fn, plain_fn):
     if use_ring is None:
         use_ring = ring_reduce_enabled(parts[0].device)
     if use_ring or not mesh.is_cuda:
-        return ring_allreduce(parts, mesh)
-    # the plain sum reads every rank's part: it runs on the cards'
+        return kernel_fn(parts, mesh)
+    # the plain version reads every rank's part: it runs on the cards'
     # current streams, after the rank streams, and hands back to them
     _check_parts(parts, mesh)
     mesh.join(*parts)
-    outs = ring_allreduce_torch(parts)
+    outs = plain_fn(parts)
     mesh.fork()
     for o, s in zip(outs, mesh.streams):
         o.record_stream(s)

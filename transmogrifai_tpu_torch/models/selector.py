@@ -8,9 +8,10 @@ best (family, hyper) refits on the full training split; train and
 holdout metrics and the whole validation grid go into the summary
 carried by the fitted SelectedModel.
 
-The JAX selector's ``mesh`` is a ``device`` here, resolved by
-``_device.resolve_device`` at fit time (CUDA unless the caller asks for
-the CPU). Every candidate family validates: the tree families on the
+The fit runs on ``device``, resolved by ``_device.resolve_device`` at
+fit time (CUDA unless the caller asks for the CPU); its validation
+batches shard over a grid mesh as in the JAX package (``set_mesh``, else
+``parallel.default_mesh()`` on CUDA: every configured card). Every candidate family validates: the tree families on the
 folded path, the others through the sweep (``tuning``), fused per
 family by default or one candidate at a time under
 ``TM_SWEEP_FUSION=0``. With ``fit_checkpoint_dir`` set, each validated
@@ -124,6 +125,26 @@ class ModelSelector(BinaryEstimator):
         #: where the fit runs (transient, not persisted): None resolves
         #: to CUDA at fit time, raising without a card
         self.device = device
+        #: the grid mesh the validation sweep shards over (transient,
+        #: not persisted: a fitted model carries results, never the mesh
+        #: it was fit on, so a resume may land on another mesh)
+        self.mesh = None
+
+    def set_mesh(self, mesh) -> "ModelSelector":
+        self.mesh = mesh
+        return self
+
+    def _effective_mesh(self, dev: torch.device):
+        """The mesh this fit's sweep dispatches on: an explicit set_mesh
+        wins; on CUDA the TM_MESH_* default (``parallel.default_mesh``),
+        resolved once per fit, so a typo'd knob fails the train before
+        any dispatch; on the CPU none (the one device)."""
+        if self.mesh is not None:
+            return self.mesh
+        if dev.type != "cuda":
+            return None
+        from ..parallel.mesh import default_mesh
+        return default_mesh()
 
     @staticmethod
     def default_candidates(problem: str) -> List[str]:
@@ -187,6 +208,7 @@ class ModelSelector(BinaryEstimator):
         label_name, vec_name = self.input_names
         problem = self.params["problem"]
         dev = resolve_device(self.device)
+        mesh = self._effective_mesh(dev)
         X = ds.column(vec_name).astype(np.float32)
         y = ds.column(label_name).astype(np.float32)
         n = len(y)
@@ -222,11 +244,11 @@ class ModelSelector(BinaryEstimator):
             order.append((name, key, True))
         if sweep_mode == "fused":
             pending = (validator.dispatch_many(live, X_tr, y_tr, base_w,
-                                               n_classes, device=dev)
+                                               n_classes, mesh, device=dev)
                        if live else {})
         else:
             pending = {key: validator.dispatch(fam, grid, X_tr, y_tr, base_w,
-                                               n_classes, device=dev)
+                                               n_classes, mesh, device=dev)
                        for key, fam, grid in live}
         results: List[ValidationResult] = []
         family_wall: Dict[str, float] = {}

@@ -50,8 +50,9 @@ The port runs the same update rules, step for step, in eager torch:
   (``linear.sigmoid_pair``), so a row scores the same alone, in a batch,
   in a stream or behind the serving engine.
 
-The mesh-sharded fits (``fit_sparse_*_sharded``) are multi-device work
-and raise "not ported" (ROADMAP queue 1, item 10).
+The mesh-sharded fits (``fit_sparse_*_sharded``) split each
+minibatch's rows over the ranks of a data mesh and keep every rank's
+parameters a replica: one cross-rank sum a step (``_fit_sharded``).
 """
 from __future__ import annotations
 
@@ -180,13 +181,15 @@ def _any_positive(h: Hyper) -> bool:
     return isinstance(h, torch.Tensor) or h != 0.0
 
 
-def _adagrad_apply(P, A, g, plan, flat, w, lr: Hyper, l2: Hyper) -> None:
+def _adagrad_apply(P, A, g, touched: Callable[[], torch.Tensor],
+                   lr: Hyper, l2: Hyper) -> None:
     """The shared Adagrad update, in place (``_adagrad_scan``'s step):
-    lazy L2 on the hashed tables, decoupled L2 on ``dense``, none on
+    lazy L2 on the hashed tables (``touched()``: the (I, B) bool mask of
+    the buckets this batch hit), decoupled L2 on ``dense``, none on
     ``bias``; acc += g², p -= lr·g/√acc. With l2 a float 0.0 the L2
     terms add exactly zero, so they are skipped."""
     if _any_positive(l2):
-        touched = _touched(plan, flat, w)
+        touched = touched()
         for k in g:
             if k in _LAZY_L2_KEYS:
                 mask = touched.reshape(touched.shape
@@ -201,26 +204,38 @@ def _adagrad_apply(P, A, g, plan, flat, w, lr: Hyper, l2: Hyper) -> None:
         P[k].sub_(_per_instance(lr, P[k]) * gk / torch.sqrt(A[k]))
 
 
-def _lr_grads(P, idx, X, y, w, plan, flat):
+def _row_share(w: torch.Tensor, mean: bool) -> torch.Tensor:
+    """Each row's share of the batch loss: w/Σw (the weighted mean), or
+    the raw w when ``mean`` is False (a sharded step divides the reduced
+    sum by the global batch Σw instead)."""
+    if not mean:
+        return w
+    return w / torch.clamp_min(w.sum(dim=1, keepdim=True), 1e-9)
+
+
+def _lr_grads(P, idx, X, y, w, plan, flat, mean: bool = True):
     """Per-minibatch gradient of the weighted mean logloss (the
     reference's ``_batch_grads``): dz = w·(p - y)/Σw, scattered into the
-    table."""
+    table (``mean=False``: dz = w·(p - y))."""
     z = _linear_logits(P, idx, X)
     p = torch.sigmoid(z)
-    sw = torch.clamp_min(w.sum(dim=1, keepdim=True), 1e-9)
-    dz = w * (p - y) / sw                                         # (I, b)
+    if mean:
+        sw = torch.clamp_min(w.sum(dim=1, keepdim=True), 1e-9)
+        dz = w * (p - y) / sw                                     # (I, b)
+    else:
+        dz = w * (p - y)
     return {"table": _scatter(plan, flat, dz), "dense": dz @ X,
             "bias": dz.sum(dim=1)}
 
 
-def _fm_grads(P, idx, X, y, w, plan, flat):
+def _fm_grads(P, idx, X, y, w, plan, flat, mean: bool = True):
     """The gradient ``jax.grad`` takes of the FM's weighted mean clipped
     logloss, by hand: through log, the clip (zero where the probability
     is clipped) and the logistic, then ∂z/∂e_k = s - e_k per field."""
     z, s, e = _fm_parts(P, idx, X)
     p = torch.sigmoid(z)
     p1 = torch.clamp(p, 1e-7, 1 - 1e-7)
-    ct = w / torch.clamp_min(w.sum(dim=1, keepdim=True), 1e-9)
+    ct = _row_share(w, mean)
     ct_p1 = (-ct * y) / p1 - (-ct * (1 - y)) / (1 - p1)
     inside = (p > 1e-7) & (p < 1 - 1e-7)
     dz = torch.where(inside, ct_p1, torch.zeros((), device=p.device)) \
@@ -230,13 +245,13 @@ def _fm_grads(P, idx, X, y, w, plan, flat):
             "bias": dz.sum(dim=1), "emb": _scatter(plan, flat, de)}
 
 
-def _softmax_grads(P, idx, X, y, w, plan, flat):
+def _softmax_grads(P, idx, X, y, w, plan, flat, mean: bool = True):
     """The gradient of the weighted mean softmax cross-entropy (y holds
     class ids), as ``log_softmax``'s backward gives it:
     g - softmax·Σg with g = -w/Σw at the label's class."""
     C = P["table"].shape[2]
     z = _linear_logits(P, idx, X)                                 # (I,b,C)
-    ct = w / torch.clamp_min(w.sum(dim=1, keepdim=True), 1e-9)
+    ct = _row_share(w, mean)
     onehot = torch.nn.functional.one_hot(y.to(torch.int64), C).to(z.dtype)
     g = -ct[:, :, None] * onehot[None]
     dz = g - torch.softmax(z, dim=-1) * g.sum(dim=-1, keepdim=True)
@@ -310,7 +325,8 @@ def _adagrad_epoch_b(grad_fn, P, A, idx, X, y, w, lr, l2,
             bidx, bw = idx[sl], w[:, sl]
             flat = plan.flat(bidx, bw)
             g = grad_fn(P, bidx, X[sl], y[sl], bw, plan, flat)
-            _adagrad_apply(P, A, g, plan, flat, bw, lr, l2)
+            _adagrad_apply(P, A, g,
+                           lambda: _touched(plan, flat, bw), lr, l2)
 
 
 def _ftrl_epoch_b(S, idx, X, y, w, alpha, beta, l1, l2,
@@ -498,27 +514,148 @@ def fit_sparse_lr_streaming(chunk_factory, n_buckets: int, d_num: int,
     return _numpy(params)
 
 
-def _not_ported_sharded(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name} needs a multi-device data mesh (rows sharded, the table "
-        f"gradient reduced across cards), which is not ported to "
-        f"transmogrifai_tpu_torch yet (ROADMAP queue 1, item 10 "
-        f"(multi-device))")
+def _rank_parts(grad_fn, P, idx, X, y, w, plan, lazy_l2: bool
+                ) -> torch.Tensor:
+    """One rank's share of a sharded step, packed into one f32 buffer
+    for one cross-rank sum: [Σw, the raw (unnormalised) gradient of
+    each param in key order, the (B,) count of its rows of positive
+    weight at each bucket (only under L2)]. Σw rides with the raw
+    gradient so the reduced sum divides by the global batch Σw, and the
+    counts reduce before they are compared with 0, so the lazy-L2 mask
+    is the union over ranks."""
+    flat = plan.flat(idx, w)
+    g = grad_fn(P, idx, X, y, w, plan, flat, mean=False)
+    parts = [w.sum().reshape(1)] + [g[k].reshape(-1) for k in sorted(g)]
+    if lazy_l2:
+        parts.append(_scatter(plan, flat, (w > 0).to(torch.float32))
+                     .reshape(-1))
+    return torch.cat(parts)
 
 
-def fit_sparse_lr_sharded(*args, **kw):
-    """Mesh-data-parallel sparse LR: not ported (multi-device)."""
-    raise _not_ported_sharded("fit_sparse_lr_sharded")
+def _unpack_step(buf: torch.Tensor, P, lazy_l2: bool):
+    """The reduced buffer of :func:`_rank_parts` -> (gradients divided by
+    the global Σw, the touched mask)."""
+    sw = torch.clamp_min(buf[0], 1e-9)
+    g, off = {}, 1
+    for k in sorted(P):
+        n = P[k].numel()
+        g[k] = buf[off:off + n].reshape(P[k].shape) / sw
+        off += n
+    touched = None
+    if lazy_l2:
+        touched = buf[off:off + P["table"].shape[1]].reshape(
+            1, P["table"].shape[1]) > 0
+    return g, touched
 
 
-def fit_sparse_fm_sharded(*args, **kw):
-    """Mesh-data-parallel hashed FM: not ported (multi-device)."""
-    raise _not_ported_sharded("fit_sparse_fm_sharded")
+def _fit_sharded(init_params: Callable, grad_fn, idx, Xnum, y, w, mesh,
+                 lr: float, l2: float, epochs: int, batch_size: int
+                 ) -> Dict[str, np.ndarray]:
+    """Mesh-data-parallel Adagrad fit shared by every sparse family (the
+    JAX package's ``_fit_sharded``): each minibatch's rows split over
+    the data mesh's ranks (contiguous, ``torch.tensor_split`` sizes), the
+    parameters and Adagrad accumulators replicated on every rank
+    (``init_params(device)``). Each step every rank scatters its rows'
+    raw gradient into a full-size table (:func:`_rank_parts`), the parts
+    reduce in ONE ``allreduce_data`` call (the CUDA ring, or its plain
+    version under TM_MESH_RDMA_RING=0, resolved once), and every rank
+    divides by the global Σw and applies ``_adagrad_apply`` to its own
+    replica, so the replicas stay bitwise equal. Padding (``_pad_chunk``'s
+    w = 0 rows, ``_ScatterPlan``'s spread) is the single-device fit's.
+    Nothing is read on the host between two steps. Returns rank 0's
+    parameters."""
+    from ..parallel.data_parallel import data_mesh
+    from .kernels import allreduce_data, ring_reduce_enabled
+    mesh = mesh or data_mesh()
+    c = _pad_chunk({"idx": idx, "num": Xnum, "y": y, "w": w}, batch_size)
+    steps = len(c["y"]) // batch_size
+    ndev = mesh.size
+    sizes = [len(a) for a in np.array_split(np.arange(batch_size), ndev)]
+    bounds = np.concatenate([[0], np.cumsum(sizes)])
+    use_ring = ring_reduce_enabled(mesh.devices[0])
+    lazy_l2 = float(l2) != 0.0
+    ranks = []
+    for r, dev in enumerate(mesh.devices):
+        def rows(a, r=r):
+            a = np.asarray(a)
+            a = a.reshape((steps, batch_size) + a.shape[1:])
+            return np.ascontiguousarray(
+                a[:, bounds[r]:bounds[r + 1]]).reshape(
+                (steps * sizes[r],) + a.shape[2:])
+        it, Xt, yt = _chunk_tensors(rows(c["idx"]), rows(c["num"]),
+                                    rows(c["y"]), dev)
+        params = init_params(dev)
+        ranks.append({
+            "idx": it, "X": Xt, "y": yt,
+            "w": torch.as_tensor(rows(c["w"]), device=dev).to(
+                torch.float32),
+            "params": params, "acc": _zero_like_acc(params),
+            "plan": _ScatterPlan(1, params["table"].shape[0], sizes[r],
+                                 it.shape[1], dev)})
+    mesh.fork()
+    with torch.no_grad():
+        for _ in range(epochs):
+            for t in range(steps):
+                parts = []
+                for r, rk in enumerate(ranks):
+                    with mesh.rank(r):
+                        sl = slice(t * sizes[r], (t + 1) * sizes[r])
+                        parts.append(_rank_parts(
+                            grad_fn, _one(rk["params"]), rk["idx"][sl],
+                            rk["X"][sl], rk["y"][sl], rk["w"][None, sl],
+                            rk["plan"], lazy_l2))
+                red = allreduce_data(parts, mesh, use_ring)
+                for r, rk in enumerate(ranks):
+                    with mesh.rank(r):
+                        P, A = _one(rk["params"]), _one(rk["acc"])
+                        g, touched = _unpack_step(red[r], P, lazy_l2)
+                        _adagrad_apply(P, A, g, lambda t=touched: t,
+                                       float(lr), float(l2))
+    mesh.join(*(v for rk in ranks for v in rk["params"].values()))
+    return _numpy(ranks[0]["params"])
 
 
-def fit_sparse_softmax_sharded(*args, **kw):
-    """Mesh-data-parallel softmax: not ported (multi-device)."""
-    raise _not_ported_sharded("fit_sparse_softmax_sharded")
+def fit_sparse_lr_sharded(idx: np.ndarray, Xnum: np.ndarray, y: np.ndarray,
+                          w: np.ndarray, n_buckets: int, mesh=None,
+                          lr: float = 0.05, l2: float = 0.0,
+                          epochs: int = 2, batch_size: int = 8192
+                          ) -> Dict[str, np.ndarray]:
+    """Mesh-data-parallel sparse LR (see :func:`_fit_sharded`); ``mesh``
+    a data mesh (None: ``parallel.data_mesh()``, every configured card)."""
+    d = np.shape(Xnum)[1]
+    return _fit_sharded(lambda dev: init_sparse_lr(n_buckets, d, dev),
+                        _lr_grads, idx, Xnum, y, w, mesh, lr, l2, epochs,
+                        batch_size)
+
+
+def fit_sparse_fm_sharded(idx: np.ndarray, Xnum: np.ndarray, y: np.ndarray,
+                          w: np.ndarray, n_buckets: int, mesh=None,
+                          k: int = 8, lr: float = 0.05, l2: float = 0.0,
+                          epochs: int = 2, batch_size: int = 8192,
+                          seed: int = 0, emb=None) -> Dict[str, np.ndarray]:
+    """Mesh-data-parallel hashed FM (see :func:`_fit_sharded`); ``emb``
+    drawn as :func:`fit_sparse_fm` draws it (or the caller's), the same
+    on every rank."""
+    d = np.shape(Xnum)[1]
+    return _fit_sharded(
+        lambda dev: init_sparse_fm(n_buckets, d, k, seed, emb=emb,
+                                   device=dev),
+        _fm_grads, idx, Xnum, y, w, mesh, lr, l2, epochs, batch_size)
+
+
+def fit_sparse_softmax_sharded(idx: np.ndarray, Xnum: np.ndarray,
+                               y: np.ndarray, w: np.ndarray,
+                               n_buckets: int, n_classes: int, mesh=None,
+                               lr: float = 0.05, l2: float = 0.0,
+                               epochs: int = 2, batch_size: int = 8192
+                               ) -> Dict[str, np.ndarray]:
+    """Mesh-data-parallel multiclass softmax (see :func:`_fit_sharded`;
+    y = class ids)."""
+    _check_class_ids(y, n_classes)
+    d = np.shape(Xnum)[1]
+    return _fit_sharded(
+        lambda dev: init_sparse_softmax(n_buckets, d, n_classes, dev),
+        _softmax_grads, idx, Xnum, y, w, mesh, lr, l2, epochs, batch_size)
 
 
 # ---------------------------------------------------------------------------

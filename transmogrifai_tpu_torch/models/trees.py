@@ -135,7 +135,7 @@ def grow_tree_grid(bins,                         # (n, d) int32, SHARED
     Returns (feat (Gb, I) int64, thr (Gb, I), leaf (Gb, L, C),
     gains (Gb, I), pos (Gb, n)) with I = 2^D - 1, L = 2^D.
 
-    ``mesh`` (a ``parallel.DataMesh``) is the row-partitioned mode, the
+    ``mesh`` (a ``parallel.data_mesh``) is the row-partitioned mode, the
     JAX package's ``data_axis``: ``bins``, ``gw``, ``hw`` and ``w`` are
     lists of per-rank row shards (``parallel.shard_rows``; zero-padded
     rows carry zero stats), the other arguments are replicated. Each

@@ -6,7 +6,10 @@ DataSplitter, DataBalancer, DataCutter). Folds and class balance are
 sample-weight vectors, never row resampling, so every (fold x hyper)
 instance of a family shares one shape and the whole grid is one batch.
 
-Two runners validate a family's (fold x grid) batch, on one device:
+Two runners validate a family's (fold x grid) batch, on one device or
+sharded over a grid mesh (``parallel.get_mesh``: rank r runs a
+contiguous shard of the items on its own stream, through
+``parallel.grid_map``):
 
 * the FOLDED path — a family with ``fit_eval_grid`` (the tree families)
   fits its whole batch in one call whose tree levels are one histogram
@@ -45,10 +48,16 @@ an eighth of ``SWEEP_CHUNK`` items (the JAX package's halving on XLA's
 RESOURCE_EXHAUSTED; a re-run sweep item may differ from an un-retried
 one in its last bits).
 
+Items are independent, so a batch's metrics are bitwise the same at
+every mesh size; ``SWEEP_STATS`` credits each rank with its real items
+(edge-pad copies excluded) under ``parallel.device_labels``, and the
+``models.sweep.chip_dispatch`` fault point fires once per mesh shard
+when the host blocks on a batch.
+
 Not carried over: ``TM_TREE_GRID_FOLD=0`` (the vmapped per-instance
-tree path raises), grid sharding over a device mesh
-(``TM_MESH_AXIS=grid,data``, the 2-D sweep, raises) and the program
-caches (nothing is traced, so ``SWEEP_STATS`` records no compiles).
+tree path raises), the 2-D grid x data sweep (``TM_MESH_AXIS=grid,data``
+raises) and the program caches (nothing is traced, so ``SWEEP_STATS``
+records no compiles).
 """
 from __future__ import annotations
 
@@ -124,16 +133,52 @@ def fold_sliced() -> bool:
             and not sweep_exact())
 
 
-def _validation_device(mesh, device) -> torch.device:
-    """The device a validation batch runs on. The JAX signatures'
-    ``mesh`` (grid sharding over a device mesh) is accepted as None
-    only; ``device`` resolves as every entry point's does (None: CUDA,
-    raising without a card)."""
-    if mesh is not None:
+def _validation_mesh(mesh, device):
+    """(the mesh a validation batch is sharded over, or None, and the
+    device its replicated data goes to). ``mesh=None`` runs on the one
+    device the caller names (None: CUDA, raising without a card), as
+    does a mesh of one rank (on its device, on the current stream); a
+    mesh of several ranks shards the batch over its one axis."""
+    if mesh is None:
+        return None, resolve_device(device)
+    from ..parallel.mesh import Mesh
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.Mesh (get_mesh), got "
+                        f"{type(mesh).__name__}")
+    if len(mesh.axis_names) != 1:
         raise NotImplementedError(
-            "OpValidator(mesh=...) (grid sharding over a device mesh) is "
-            "not ported: the port validates on one device (device=)")
-    return resolve_device(device)
+            "the 2-D grid x data sweep is not ported: the validator "
+            "takes a 1-D mesh (parallel.get_mesh)")
+    return (mesh if mesh.size > 1 else None), mesh.devices[0]
+
+
+def _labels(mesh, repl) -> List[str]:
+    """Attribution labels of a batch's shards: the mesh's rank labels,
+    or the one device's name."""
+    if mesh is None:
+        return [str(repl[0].device)]
+    from ..parallel.mesh import device_labels
+    return device_labels(mesh.devices)
+
+
+def _launcher(make_run: Callable, repl, labels: List[str], label: str,
+              mesh) -> Callable:
+    """``launch(tr, va, hy, *extra)`` for one batch: the runner
+    ``make_run(repl)(tr, va, hy, *extra)`` on the one device, or over
+    the mesh's ranks through ``grid_map``, rank r running its shard with
+    a runner of its own over its replicated (X, y, w). Each call books
+    its per-rank real items in ``SWEEP_STATS`` under ``labels``."""
+    single = make_run(repl) if mesh is None else None
+
+    def launch(tr, va, hy, *extra):
+        from ..parallel.mesh import grid_map, rank_items
+        SWEEP_STATS.note_device_dispatch(
+            label, labels, rank_items(_n_items(tr), len(labels)))
+        if mesh is None:
+            return single(tr, va, hy, *extra)
+        return grid_map(lambda shard, *rp: make_run(rp)(*shard, *extra),
+                        (tr, va, hy), repl, mesh)
+    return launch
 
 
 def require_ported(family: ModelFamily) -> None:
@@ -512,12 +557,13 @@ class _SweepBatch:
 
     def __init__(self, family: str, n_folds: int, grid_total: int,
                  run: Callable[[], Any], retry: Callable[[int], Any],
-                 label: str, device: str):
+                 label: str, devices: Sequence[str]):
         self.family = family
         self.n_folds = int(n_folds)
         self.grid_total = int(grid_total)
         self.label = label
-        self.device = device
+        #: the labels of the devices its shards ran on, in shard order
+        self.devices = tuple(devices)
         self._retry_fn = retry
         self.seconds: Optional[float] = None
         self._device_metrics = None
@@ -537,10 +583,13 @@ class _SweepBatch:
         with self._lock:
             if self._metrics_np is not None:
                 return self._metrics_np
-            # one arrival per device shard when the host blocks on the
-            # batch (one shard: the port validates on one device)
-            fault_point("models.sweep.chip_dispatch", family=self.family,
-                        device=self.device, shard=0)
+            # one arrival per mesh shard when the host blocks on the
+            # batch, where a failed device's work surfaces; a raise
+            # fails the family's whole batch, a cached collect never
+            # arrives again
+            for i, dev in enumerate(self.devices):
+                fault_point("models.sweep.chip_dispatch",
+                            family=self.family, device=dev, shard=i)
             t0 = time.perf_counter()
             try:
                 if self._error is not None:
@@ -710,17 +759,18 @@ class OpValidator:
         """Runner of the folded path: the batch folds into the tree
         kernels' own instance axis (one histogram launch per level for
         the whole batch). Host mask/hyper batches go to the device of
-        the replicated (X, y, w); returns (b,) host metrics."""
+        the replicated (X, y, w); returns the (b,) metrics there. The
+        shared quantile sketch comes from (X, w) alone, so a shard's
+        trees are those of the whole batch."""
         Xt, yt, wt = repl
 
         def run(tr, va, hy):
             dev = Xt.device
             with torch.inference_mode():
-                out = family.fit_eval_grid(
+                return family.fit_eval_grid(
                     Xt, yt, wt, _put(tr, dev), _put(va, dev),
                     {k: _put(v, dev) for k, v in hy.items()}, n_classes,
                     metric_fn)
-                return out.cpu().numpy()
 
         return run
 
@@ -732,25 +782,23 @@ class OpValidator:
                 _put(np.asarray(base_w, np.float32), device))
 
     def _folded_batch(self, family, combined, train_m, val_m, repl,
-                      n_classes, metric_fn) -> _SweepBatch:
-        run = self._folded_runner(family, metric_fn, n_classes, repl)
+                      n_classes, metric_fn, mesh) -> _SweepBatch:
         train_b, val_b, hyper_b = build_fold_grid_batch(combined, train_m,
                                                         val_m)
         label = f"folded/{family.name}/k{n_classes}"
-        dev = str(repl[0].device)
-
-        def launch(tb=train_b, vb=val_b, hb=hyper_b):
-            SWEEP_STATS.note_device_dispatch(label, [dev], [_n_items(tb)])
-            return run(tb, vb, hb)
-
+        labels = _labels(mesh, repl)
+        launch = _launcher(
+            lambda rp: self._folded_runner(family, metric_fn, n_classes,
+                                           rp),
+            repl, labels, label, mesh)
         return _SweepBatch(family.name, train_m.shape[0], len(combined),
-                           launch,
+                           lambda: launch(train_b, val_b, hyper_b),
                            lambda k: _chunked_retry(launch, train_b, val_b,
                                                     hyper_b, k),
-                           label, dev)
+                           label, labels)
 
     def _sweep_batch(self, family, combined, train_m, val_m, repl,
-                     n_classes, metric_fn, mode: str) -> _SweepBatch:
+                     n_classes, metric_fn, mode: str, mesh) -> _SweepBatch:
         """The sweep over one group: fused (static specialization and
         fold slicing as the knobs allow) or serial (the masked traced
         program, one candidate)."""
@@ -769,39 +817,39 @@ class OpValidator:
                  f"/{self.metric}/k{n_classes}"
                  + (f"/static{dict(static)}" if static else "")
                  + ("/sliced" if sliced else ""))
-        run = _sweep_runner(family, metric_fn, n_classes, repl, static,
-                            sliced)
-        dev = repl[0].device
-        chunk = SWEEP_CHUNK.get(dev.type, 1)
+        chunk = SWEEP_CHUNK.get(repl[0].device.type, 1)
+        labels = _labels(mesh, repl)
+        launch = _launcher(
+            lambda rp: _sweep_runner(family, metric_fn, n_classes, rp,
+                                     static, sliced),
+            repl, labels, label, mesh)
 
-        def launch(c=chunk):
-            SWEEP_STATS.note_device_dispatch(label, [str(dev)],
-                                             [_n_items(train_b)])
+        def run(c=chunk):
             with torch.inference_mode():
-                return run(train_b, val_b, traced, c)
+                return launch(train_b, val_b, traced, c)
 
-        return _SweepBatch(family.name, n_folds, G, launch,
-                           lambda k: launch(max(1, chunk // k)), label,
-                           str(dev))
+        return _SweepBatch(family.name, n_folds, G, run,
+                           lambda k: run(max(1, chunk // k)), label,
+                           labels)
 
     def dispatch(self, family: ModelFamily, grid: List[Dict[str, float]],
                  X: np.ndarray, y: np.ndarray, base_w: np.ndarray,
                  n_classes: int, mesh=None, *, device=None
                  ) -> PendingValidation:
-        """One candidate's (fold x grid) batch on ``device`` — the
-        serial mode (TM_SWEEP_FUSION=0): the folded runner, or the
-        masked traced sweep."""
-        dev = _validation_device(mesh, device)
+        """One candidate's (fold x grid) batch on ``device``, or sharded
+        over the grid ``mesh`` — the serial mode (TM_SWEEP_FUSION=0):
+        the folded runner, or the masked traced sweep."""
+        mesh, dev = _validation_mesh(mesh, device)
         require_ported(family)
         train_m, val_m = self._masks(len(y))
         repl = self._device_data(X, y, base_w, dev)
         metric_fn, _ = _METRIC_FNS[self.metric]
         if hasattr(family, "fit_eval_grid"):
             batch = self._folded_batch(family, grid, train_m, val_m, repl,
-                                       n_classes, metric_fn)
+                                       n_classes, metric_fn, mesh)
         else:
             batch = self._sweep_batch(family, grid, train_m, val_m, repl,
-                                      n_classes, metric_fn, "serial")
+                                      n_classes, metric_fn, "serial", mesh)
         return PendingValidation(family.name, grid, batch)
 
     def dispatch_many(self, entries: Sequence[Tuple[str, ModelFamily,
@@ -818,8 +866,8 @@ class OpValidator:
         program a candidate runs a function of its own grid. Per-item
         results do not depend on the batch (module docstring), so a
         resumed fit that re-dispatches only its unvalidated candidates
-        reproduces the uninterrupted sweep."""
-        dev = _validation_device(mesh, device)
+        reproduces the uninterrupted sweep, on a mesh of any size."""
+        mesh, dev = _validation_mesh(mesh, device)
         for _key, fam, _grid in entries:
             require_ported(fam)
         train_m, val_m = self._masks(len(y))
@@ -843,11 +891,11 @@ class OpValidator:
                 combined.extend(entries[i][2])
             if hasattr(fam, "fit_eval_grid"):
                 batch = self._folded_batch(fam, combined, train_m, val_m,
-                                           repl, n_classes, metric_fn)
+                                           repl, n_classes, metric_fn, mesh)
             else:
                 batch = self._sweep_batch(fam, combined, train_m, val_m,
                                           repl, n_classes, metric_fn,
-                                          "fused")
+                                          "fused", mesh)
             for i, off in zip(idxs, offsets):
                 key, _, grid = entries[i]
                 out[key] = PendingValidation(fam.name, grid, batch,

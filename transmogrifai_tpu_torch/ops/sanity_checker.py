@@ -12,14 +12,15 @@ and drops offending columns.
 In the port all statistics are one function of tensors on the
 checker's device (:func:`statistics`): moments, Pearson against the
 label, Spearman as Pearson over column ranks, and the d x d
-feature-feature product. The ranks follow the JAX package's switch
-(:func:`host_ranks_enabled`): host ranks on the CPU
-(:func:`host_rank_columns`), and on the card :func:`rank_columns`, an
-average rank on the device with the same tie semantics (one stable sort
+feature-feature product; with a mesh of several ranks they run
+row-sharded over it (``parallel.sharded_statistics``). The ranks follow
+the JAX package's switch (:func:`host_ranks_enabled`): host ranks on
+the CPU (:func:`host_rank_columns`), and on the card
+:func:`rank_columns`, an average rank on the device with the same tie semantics (one stable sort
 per column, first and last ordinal rank per run of equal values). The
 contingency rows for Cramér's V are one ``cols.T @ y_onehot`` product
-on the device; Cramér's V, PMI and the drop rules run on the host on
-the tiny per-column vectors.
+on one device (with a mesh too, as in the JAX package); Cramér's V, PMI
+and the drop rules run on the host on the tiny per-column vectors.
 """
 from __future__ import annotations
 
@@ -307,15 +308,14 @@ class SanityChecker(BinaryEstimator):
             correlation_type=correlation_type,
             correlation_exclusion=correlation_exclusion,
             remove_bad_features=remove_bad_features, **kw)
-        # the JAX package's row-sharded statistics over a data mesh are
-        # not ported (ROADMAP queue 1, item 3: sharded_statistics)
-        if mesh is not None:
-            raise NotImplementedError(
-                "SanityChecker(mesh=...): row-sharded statistics "
-                "(parallel.sharded_statistics) are not ported to "
-                "transmogrifai_tpu_torch yet (ROADMAP queue 1, item 3)")
+        #: optional mesh (``parallel.data_mesh``): with more than one
+        #: rank the statistics run row-sharded over it. Transient, like
+        #: ``device``: a fitted model carries results, never the mesh it
+        #: was fit on
+        self.mesh = mesh
         #: where the statistics run (transient, not persisted): None
-        #: resolves to CUDA at fit time, raising without a card
+        #: resolves to CUDA at fit time, raising without a card, or to
+        #: the mesh's first device when there is a mesh
         self.device = device
 
     def fit_fn(self, ds: Dataset) -> Dict[str, Any]:
@@ -330,15 +330,24 @@ class SanityChecker(BinaryEstimator):
                   "descriptorValue": f"col_{i}", "grouping": None,
                   "indicatorValue": None, "index": i} for i in range(d)])
 
-        from ..parallel.mesh import resolve_mesh_config
-        if resolve_mesh_config().axis == "grid,data":
-            raise NotImplementedError(
-                "TM_MESH_AXIS=grid,data: the SanityChecker's row-sharded "
-                "statistics are not ported to transmogrifai_tpu_torch yet "
-                "(ROADMAP queue 1, item 3)")
-        dev = resolve_device(self.device)
+        mesh = self.mesh
+        if mesh is None:
+            # TM_MESH_AXIS=grid,data opts the statistics into row
+            # sharding over the configured devices, as in the JAX
+            # package; an explicit mesh wins
+            from ..parallel.mesh import configured_devices, \
+                resolve_mesh_config
+            if resolve_mesh_config().axis == "grid,data":
+                from ..parallel.data_parallel import data_mesh
+                mesh = data_mesh(configured_devices())
+        dev = (mesh.devices[0] if mesh is not None and self.device is None
+               else resolve_device(self.device))
         x = torch.as_tensor(x_np, device=dev)
-        stats = compute_statistics(x, y_np, dev)
+        if mesh is not None and mesh.size > 1:
+            from ..parallel.data_parallel import sharded_statistics
+            stats = sharded_statistics(x_np, y_np, mesh)
+        else:
+            stats = compute_statistics(x, y_np, dev)
 
         p = self.params
         reasons: Dict[int, str] = {}

@@ -63,13 +63,13 @@ class OpParams:
     #: (trace.json; Perfetto / chrome://tracing)
     profile_location: Optional[str] = None
     #: the JAX package's NaN debugging of a run: not ported (raises
-    #: when set; ROADMAP queue 1, item 9)
+    #: when set)
     debug_nans: bool = False
     #: the JAX package's persistent compilation cache: not ported
-    #: (raises when set; ROADMAP queue 1, item 9)
+    #: (raises when set)
     compilation_cache_location: Optional[str] = None
     #: the JAX package's multi-host launch contract: not ported (raises
-    #: when set; ROADMAP queue 1, item 10)
+    #: when set)
     distributed: Dict[str, Any] = dataclasses.field(default_factory=dict)
     stage_params: Dict[str, Dict[str, Any]] = dataclasses.field(
         default_factory=dict)
@@ -258,18 +258,20 @@ class WorkflowRunner:
             RunType.STREAMING_SCORE: self._run_streaming_score,
         }[run_type]
         from .profiling import trace
-        not_ported = [(name, item) for name, set_, item in (
+        not_ported = [(name, work) for name, set_, work in (
             ("compilation_cache_location",
-             params.compilation_cache_location, "item 9"),
-            ("debug_nans", params.debug_nans, "item 9"),
+             params.compilation_cache_location,
+             "the persistent compilation cache"),
+            ("debug_nans", params.debug_nans, "NaN debugging of a run"),
             ("distributed", params.distributed
-             or os.environ.get("COORDINATOR_ADDRESS"), "item 10"))
+             or os.environ.get("COORDINATOR_ADDRESS"),
+             "the multi-host launch (parallel.multihost)"))
             if set_]
         if not_ported:
-            name, item = not_ported[0]
+            name, work = not_ported[0]
             raise NotImplementedError(
-                f"OpParams.{name} is not ported to transmogrifai_tpu_torch "
-                f"yet (ROADMAP queue 1, {item})")
+                f"OpParams.{name} ({work}) is not ported to "
+                f"transmogrifai_tpu_torch yet")
         self._device = resolve_device(self.device)
         with trace(params.profile_location):
             result = handler(params)
