@@ -113,6 +113,24 @@ PyTorch version:
    metrics and winner bitwise, rank items summing to the real items,
    histogram launches of k ranks each growing every level of its shard,
    the wall at each size.
+   mesh2d: the 2-D grid x data mesh, 2 x 2 ranks sharing the card.
+   ``trees.quantile_bin_edges`` with its rows sharded over 2 ranks
+   (zero weights, NaNs) bitwise the unsharded edges; the two grid rows'
+   exchanges in flight together at one GBT level's shape with
+   integer-valued parts, bitwise the plain sums; the binary default
+   list through ``TM_MESH_AXIS=grid,data`` over a pool of 4 ranks on
+   the card (the selector's own default mesh) against the one-rank fit: LR, LinearSVC and NaiveBayes CV metrics
+   within 1e-4 / 1e-6, DT and RF bitwise, GBT and XGBoost within 1e-2,
+   the same winner; histogram launches 2 x 2 x the folded levels + the
+   refit; the ring's sums and gathers; every rank attributed, the 2-D
+   runners' labels; the wall beside the one-rank fit's.
+   multihost: two processes on the card (``gloo``, a localhost
+   coordinator), each with 2 data ranks, fit LogisticRegression and
+   GBTClassifier at 200k x 28 through ``WorkflowRunner`` TRAIN with
+   ``OpParams.distributed`` over the hybrid mesh (2 processes x 2
+   ranks): both exit 0 within 300 s, report the same CV metrics and
+   winner, within the mesh2d tolerances of the one-process fit; each
+   process's histogram launches 2 x GBT's folded levels + its refit.
 
 8. workflow: the front door. The Titanic helloworld
    (``examples/op_titanic_simple.py``'s schema and candidates, rebuilt
@@ -135,6 +153,14 @@ PyTorch version:
    ``ServingEngine``: every row within 1e-4 of its own WorkflowModel
    under its plane's operand policy, no fused fallback, the fused
    kernel launched once a bucket slice.
+   services: the runner's process-level services. ``debugNans``: the
+   Titanic TRAIN raises ``FloatingPointError`` in the SanityChecker
+   (``full_like``), where the JAX package raises on the CPU for the
+   same data; without the checker (LR and GBT) it completes, as the JAX
+   package's does; a 0/0 planted on the card raises naming ``div``.
+   ``compilationCacheLocation``: a fresh process's GBT TRAIN builds the
+   histogram kernel into the run's directory and the build directory
+   is the default again afterwards.
 9. ctr: the Criteo path at Criteo's published widths (26 hashed
    categoricals, 13 numerics, 2^20 buckets, FM width 8; rows from a
    copy of ``bench.py::_ctr_chunk``). ``fit_sparse_lr_streaming`` over
@@ -2435,6 +2461,443 @@ def mesh_phase(seed: int, device="cuda", rows: int = TRAIN_ROWS,
 
 
 # ---------------------------------------------------------------------------
+# phase 7c: the 2-D grid x data mesh and the multi-process launch
+# ---------------------------------------------------------------------------
+
+#: the 2-D mesh: grid rows x data ranks, every rank on the card
+MESH2D_GRID = 2
+MESH2D_DATA = 2
+#: the 2-D CV metrics against the one-rank fit (the CPU tests'
+#: tolerances): row sharding moves the linear fits' row sums, and the
+#: boosted trees' non-integer gradient sums may part a split
+MESH2D_LINEAR_TOL = (1e-4, 1e-6)
+MESH2D_TREE_ATOL = 1e-2
+#: tree families whose stats are integer-valued at unit weights (class
+#: one-hots, bootstrap counts): their histograms and so their trees and
+#: metrics are bitwise at any sharding
+MESH2D_BITWISE = ("DecisionTreeClassifier", "RandomForestClassifier")
+#: the sketch at the tree families' bin count
+MESH2D_BINS = 32
+#: one GBT level's histogram (G = 12 instances, m = 16 nodes, S = 3,
+#: d = 28, B = 32) exchanged by each grid row with integer-valued parts
+MESH2D_RING_SHAPE = (12, 16 * 3, 28 * 32)
+#: the multi-process phase: processes x data ranks on the card, the LR +
+#: GBT list through WorkflowRunner TRAIN with OpParams.distributed
+MULTIHOST_PROCS = 2
+MULTIHOST_RANKS = 2
+MULTIHOST_CANDIDATES = [["LogisticRegression", None],
+                        ["GBTClassifier", None]]
+MULTIHOST_TIMEOUT_S = 300.0
+
+
+def _indexed(dev) -> torch.device:
+    """``dev`` with its card's index (``cuda`` -> ``cuda:<current>``), as
+    ``parallel.mesh.visible_devices`` names cards: the ranks' labels then
+    read ``cuda:0#r``."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+@contextlib.contextmanager
+def _ranks_on(dev, k: int):
+    """For the block, ``TM_MESH_AXIS=grid,data`` and a device pool of k
+    ranks that share ``dev`` (``parallel.mesh.visible_devices``, which
+    every default mesh draws from), so the default mesh is a grid x data
+    mesh on one card."""
+    from transmogrifai_tpu_torch.parallel import mesh as tmesh
+    real = tmesh.visible_devices
+    tmesh.visible_devices = lambda: [_indexed(dev)] * k
+    try:
+        with env(TM_MESH_AXIS="grid,data"):
+            yield
+    finally:
+        tmesh.visible_devices = real
+
+
+def mesh2d_sketch_part(X, device, data=MESH2D_DATA, bins=MESH2D_BINS):
+    """``trees.quantile_bin_edges`` with the rows sharded over ``data``
+    ranks of the card (``parallel.spmd.run_ranks``; every fifth row at
+    weight 0, a column with NaNs) against the unsharded call: bitwise on
+    every rank, and the ring's gather launched once a rank."""
+    from transmogrifai_tpu_torch import parallel as par
+    from transmogrifai_tpu_torch.models import kernels as tk
+    from transmogrifai_tpu_torch.models import trees as TT
+    from transmogrifai_tpu_torch.parallel import spmd
+    dev = torch.device(device)
+    sync = _sync_of(dev)
+    X = X.copy()
+    X[::7, 3] = np.nan
+    n = X.shape[0]
+    w = (np.arange(n) % 5 != 0).astype(np.float32)
+    one = TT.quantile_bin_edges(torch.from_numpy(X).to(dev), bins,
+                                torch.from_numpy(w).to(dev)).cpu()
+    mesh = par.data_mesh([dev] * data)
+    xs, ws = par.shard_rows(X, mesh), par.shard_rows(w, mesh)
+    sync()
+    tk.ring_allreduce.launches = tk.ring_allgather.launches = 0
+    t0 = time.perf_counter()
+    edges = spmd.run_ranks(
+        mesh, lambda r: TT.quantile_bin_edges(xs[r], bins, ws[r]), n)
+    sync()
+    wall = time.perf_counter() - t0
+    gathers = tk.ring_allgather.launches
+    for r, e in enumerate(edges):
+        if not torch.equal(e.cpu(), one):
+            raise AssertionError(f"sketch on rank {r} of {data}: edges "
+                                 f"differ from the unsharded call's")
+    expected = data if dev.type == "cuda" else 0
+    if gathers != expected:
+        raise AssertionError(f"sharded sketch: {gathers} gather launches, "
+                             f"the code derives {expected}")
+    return {"rows": n, "ranks": data, "bins": bins, "bitwise": True,
+            "ring_allgather_launches": gathers, "wall_s": wall}
+
+
+def mesh2d_ring_part(device, seed, grid=MESH2D_GRID, data=MESH2D_DATA,
+                     shape=MESH2D_RING_SHAPE):
+    """The exchange of each grid row of a grid x data mesh on the card,
+    both launched before either is read (two in flight: the ring chains
+    them on the card), integer-valued parts at one GBT level's shape:
+    every rank's sum bitwise the plain version's, no trap."""
+    from transmogrifai_tpu_torch import parallel as par
+    from transmogrifai_tpu_torch.models import kernels as tk
+    dev = torch.device(device)
+    sync = _sync_of(dev)
+    mesh = par.get_mesh_2d([dev] * (grid * data), grid_size=grid)
+    rng = np.random.default_rng(seed)
+    parts = [[torch.from_numpy(rng.integers(-64, 64, size=shape)
+                               .astype(np.float32)).to(dev)
+              for _ in range(data)] for _ in range(grid)]
+    sync()
+    before = tk.ring_allreduce.launches
+    t0 = time.perf_counter()
+    outs = [tk.ring_allreduce(p, row) for p, row in zip(parts, mesh.rows)]
+    for row in mesh.rows:
+        row.join(*(o for out in outs for o in out))
+    sync()
+    wall = time.perf_counter() - t0
+    launches = tk.ring_allreduce.launches - before
+    for i, (p, out) in enumerate(zip(parts, outs)):
+        for r, (o, want) in enumerate(zip(out, tk.ring_allreduce_torch(p))):
+            if not torch.equal(o, want):
+                raise AssertionError(f"grid row {i} rank {r}: the ring's "
+                                     f"sum differs from the plain one")
+    expected = grid * data if dev.type == "cuda" else 0
+    if launches != expected:
+        raise AssertionError(f"two rows' exchanges launched the ring "
+                             f"{launches} times, not {expected}")
+    return {"shape": list(shape), "grid": grid, "data": data,
+            "ring_equals_plain": True, "launches": launches,
+            "wall_s": wall}
+
+
+def _family_gaps(summ, base):
+    """Per family the largest |gap| of the CV metrics between two
+    selector summaries."""
+    a, b = _grid_metrics(summ), _grid_metrics(base)
+    return {f: float(np.max(np.abs(np.asarray(a[f]) - np.asarray(b[f]))))
+            for f in b}
+
+
+def _hold_cv(label, summ, base):
+    """A sharded fit's CV metrics against the one-rank fit's: linear
+    families within MESH2D_LINEAR_TOL, DT and RF bitwise, the boosted
+    trees within MESH2D_TREE_ATOL, the same winner."""
+    from transmogrifai_tpu_torch import models as TM
+    a, b = _grid_metrics(summ), _grid_metrics(base)
+    for fam, want in b.items():
+        got = np.asarray(a[fam])
+        want = np.asarray(want)
+        if fam in MESH2D_BITWISE:
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{label}: {fam}'s CV metrics are not "
+                                     f"bitwise the one-rank fit's")
+        elif hasattr(TM.MODEL_FAMILIES[fam], "levels_per_fit"):
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=MESH2D_TREE_ATOL,
+                                       err_msg=f"{label}: {fam}")
+        else:
+            rtol, atol = MESH2D_LINEAR_TOL
+            np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
+                                       err_msg=f"{label}: {fam}")
+    if summ["bestModel"]["family"] != base["bestModel"]["family"]:
+        raise AssertionError(f"{label}: winner {summ['bestModel']['family']}"
+                             f", the one-rank fit's "
+                             f"{base['bestModel']['family']}")
+
+
+def _one_rank_fit(X, y, candidates, dev):
+    """The selector on one rank (``get_mesh([dev])``): (summary, wall)."""
+    from transmogrifai_tpu_torch import parallel as par
+    sync = _sync_of(dev)
+    ds, sel = _selector(X, y, candidates, dev)
+    sel.set_mesh(par.get_mesh([dev]))
+    sync()
+    t0 = time.perf_counter()
+    model = sel.fit(ds)
+    sync()
+    return model.summary, time.perf_counter() - t0
+
+
+def mesh2d_list_part(seed, device, rows=TRAIN_ROWS, candidates=None,
+                     grid=MESH2D_GRID, data=MESH2D_DATA):
+    """The binary default list (``candidates`` None) at ``rows`` rows on
+    a grid x data mesh of the card's ranks (``TM_MESH_AXIS=grid,data``
+    over a pool of grid x data ranks on the card, :func:`_ranks_on`; the
+    selector takes ``default_mesh()`` on its own on the card) against the one-rank fit (:func:`_hold_cv`);
+    histogram launches those the code derives (every rank of every grid
+    row grows every level of its row's shard: grid x data x the folded
+    levels, plus the winner's refit on one device); the ring's launches;
+    every rank attributed, the labels the 2-D runners'; the wall."""
+    from transmogrifai_tpu_torch import models as TM
+    from transmogrifai_tpu_torch import parallel as par
+    from transmogrifai_tpu_torch.models import kernels as tk
+    from transmogrifai_tpu_torch.profiling import SWEEP_STATS, SweepStats
+    dev = torch.device(device)
+    sync = _sync_of(dev)
+    cuda = dev.type == "cuda"
+    X, y = training_data(seed, rows)
+    base, one_wall = _one_rank_fit(X, y, candidates, dev)
+    with _ranks_on(dev, grid * data):
+        mesh = par.default_mesh()
+        if mesh.shape != {"grid": grid, "data": data}:
+            raise AssertionError(f"the default mesh is {mesh.shape}")
+        ds, sel = _selector(X, y, candidates, dev)
+        if not cuda:                # the CPU resolves no default mesh
+            sel.set_mesh(mesh)
+        sync()
+        tk.histogram_grid.launches = 0
+        tk.ring_allreduce.launches = tk.ring_allgather.launches = 0
+        before = SWEEP_STATS.snapshot()
+        t0 = time.perf_counter()
+        model = sel.fit(ds)
+        sync()
+        wall = time.perf_counter() - t0
+    hist = tk.histogram_grid.launches
+    reduce_n, gather_n = _ring_counts(tk)
+    delta = SweepStats.delta(before, SWEEP_STATS.snapshot())
+    summ = model.summary
+    _hold_cv("grid x data", summ, base)
+    families = [name for name, _ in sel.params["candidates"]]
+    tree = [f for f in families
+            if hasattr(TM.MODEL_FAMILIES[f], "levels_per_fit")]
+    winner = summ["bestModel"]["family"]
+    refit = (TM.MODEL_FAMILIES[winner].levels_per_fit()
+             if winner in tree else 0)
+    folded = sum(TM.MODEL_FAMILIES[f].levels_per_fit() for f in tree)
+    expected = grid * data * folded + refit if cuda else 0
+    if hist != expected:
+        raise AssertionError(f"grid x data: {hist} histogram launches, the "
+                             f"code derives {expected} ({grid} x {data} x "
+                             f"{folded} folded levels + {refit} refit)")
+    if cuda and not (reduce_n and gather_n):
+        raise AssertionError(f"grid x data: the ring launched {reduce_n} "
+                             f"sums and {gather_n} gathers")
+    labels = mesh.labels()
+    if cuda and not all("#" in lab for lab in labels):
+        raise AssertionError(f"ranks sharing the card are labelled "
+                             f"{labels}, not cuda:N#r")
+    if sorted(delta["devices"]) != sorted(labels):
+        raise AssertionError(f"attributed ranks {sorted(delta['devices'])} "
+                             f"are not the mesh's {labels}")
+    progs = sorted(delta["programs"])
+    if not all(p.endswith("/2d") or p.startswith("folded2d/")
+               for p in progs):
+        raise AssertionError(f"grid x data dispatched {progs}, not the "
+                             f"2-D runners")
+    items = {lab: c["items"] for lab, c in delta["devices"].items()}
+    real = sum(3 * len(r["grid"]) for r in summ["validationResults"])
+    if sum(items.values()) != data * real:
+        raise AssertionError(f"rank items {items} do not sum to {data} x "
+                             f"the {real} real items")
+    return {"rows": rows, "grid": grid, "data": data, "labels": labels,
+            "winner": winner, "one_rank_wall_s": one_wall, "wall_s": wall,
+            "histogram_launches": hist, "expected_histogram": expected,
+            "ring_allreduce_launches": reduce_n,
+            "ring_allgather_launches": gather_n, "items": items,
+            "programs": progs, "max_gap": _family_gaps(summ, base)}
+
+
+def mesh2d_phase(seed: int, device="cuda", rows: int = TRAIN_ROWS,
+                 candidates=None, grid=MESH2D_GRID, data=MESH2D_DATA):
+    """The 2-D grid x data mesh on ranks that share ``device``."""
+    t0 = time.perf_counter()
+    X, _ = training_data(seed, rows)
+    out = {"sketch": mesh2d_sketch_part(X, device, data),
+           "ring": mesh2d_ring_part(device, seed, grid, data),
+           "list": mesh2d_list_part(seed, device, rows, candidates, grid,
+                                    data)}
+    # the main path's counts: the selector's fit alone (the sketch's and
+    # the ring's own checks keep theirs in their parts)
+    for k in ("histogram_launches", "ring_allreduce_launches",
+              "ring_allgather_launches"):
+        out[k] = out["list"][k]
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def multihost_worker(argv=None) -> int:
+    """One process of the multi-process phase (``python -c "import
+    chip_smoke; chip_smoke.multihost_worker()" ADDR PID PROCS ROWS SEED
+    DEVICE RANKS``): the selector over MULTIHOST_CANDIDATES through
+    ``WorkflowRunner`` TRAIN with ``OpParams.distributed``, this
+    process's device pool RANKS ranks on DEVICE; on the card the
+    selector takes the default mesh, which in a multi-process world
+    under ``TM_MESH_AXIS=grid,data`` (the parent sets it) is the hybrid
+    mesh, processes x this process's data ranks. Prints one
+    ``multihost-result:`` JSON line."""
+    from transmogrifai_tpu_torch import parallel as par
+    from transmogrifai_tpu_torch.models import kernels as tk
+    from transmogrifai_tpu_torch.parallel import multihost
+    from transmogrifai_tpu_torch.runner import (OpParams, RunType,
+                                                WorkflowRunner)
+    from transmogrifai_tpu_torch.workflow import Workflow
+    addr, pid, procs, rows, seed, device, ranks = (argv or sys.argv[1:])[:7]
+    pid, procs, rows, seed = int(pid), int(procs), int(rows), int(seed)
+    dev = torch.device(device)
+    par.mesh.visible_devices = lambda: [_indexed(dev)] * int(ranks)
+    sync = _sync_of(dev)
+    dist = {"coordinatorAddress": addr, "numProcesses": procs,
+            "processId": pid}
+    X, y = training_data(seed, rows)
+    ds, sel = _selector(X, y, MULTIHOST_CANDIDATES, dev)
+    if dev.type != "cuda":
+        # the CPU resolves no default mesh: join first and set it (the
+        # runner's own join is then the idempotent second call)
+        multihost.initialize_distributed(addr, procs, pid)
+        sel.set_mesh(par.default_mesh())
+    runner = WorkflowRunner(Workflow([sel.output]), train_reader=ds,
+                            device=dev)
+    tk.histogram_grid.launches = 0
+    tk.ring_allreduce.launches = tk.ring_allgather.launches = 0
+    t0 = time.perf_counter()
+    res = runner.run(RunType.TRAIN, OpParams(distributed=dist))
+    sync()
+    wall = time.perf_counter() - t0
+    mesh = par.default_mesh()
+    summ = runner._model.selected_model().summary
+    print("multihost-result: " + json.dumps({
+        "pid": pid, "info": multihost.process_info(),
+        "mesh": {"axes": list(mesh.axis_names), "shape": mesh.shape,
+                 "labels": mesh.labels(), "local_rows": mesh.local_rows},
+        "winner": res["bestModel"]["family"], "summary": {
+            "bestModel": summ["bestModel"],
+            "validationResults": summ["validationResults"]},
+        "histogram_launches": tk.histogram_grid.launches,
+        "ring_allreduce_launches": tk.ring_allreduce.launches,
+        "ring_allgather_launches": tk.ring_allgather.launches,
+        "wall_s": wall}), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multihost_phase(seed: int, device="cuda", rows: int = TRAIN_ROWS,
+                    procs=MULTIHOST_PROCS, ranks=MULTIHOST_RANKS,
+                    timeout_s=MULTIHOST_TIMEOUT_S, worker_env=None):
+    """Two processes on the card joined by a localhost coordinator
+    (``gloo``), each with a pool of ``ranks`` data ranks on the card,
+    fit the LR + GBT list at ``rows`` rows through ``WorkflowRunner`` TRAIN with
+    ``OpParams.distributed``: every process exits 0 within ``timeout_s``
+    (a failure or a timeout in either fails the phase), the processes
+    report the same CV metrics and winner, within the 2-D tolerances
+    (:func:`_hold_cv`) of the one-process, one-rank fit; each process's
+    histogram launches those the code derives (its grid row's ranks
+    each grow every GBT level of the row's shard, plus its own refit of
+    a tree winner)."""
+    from transmogrifai_tpu_torch import models as TM
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    X, y = training_data(seed, rows)
+    base, one_wall = _one_rank_fit(X, y, MULTIHOST_CANDIDATES, dev)
+    addr = f"127.0.0.1:{_free_port()}"
+    root = _repo_file()
+    wenv = {k: v for k, v in os.environ.items() if k != "TM_MESH_DEVICES"}
+    wenv["TM_MESH_AXIS"] = "grid,data"
+    wenv.update(worker_env or {})
+    wenv["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in wenv.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    code = ("import sys, chip_smoke; "
+            "sys.exit(chip_smoke.multihost_worker(sys.argv[1:]))")
+    workers = [subprocess.Popen(
+        [sys.executable, "-c", code, addr, str(p), str(procs), str(rows),
+         str(seed), str(dev), str(ranks)], cwd=root, env=wenv, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for p in range(procs)]
+    outs = []
+    try:
+        deadline = time.monotonic() + timeout_s
+        for w in workers:
+            out, _ = w.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            outs.append(out)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"a multihost worker ran past {timeout_s} s")
+    finally:
+        for w in workers:
+            if w.poll() is None:
+                w.kill()
+                w.wait()
+    results = []
+    for p, (w, out) in enumerate(zip(workers, outs)):
+        if w.returncode != 0:
+            raise AssertionError(f"multihost worker {p} exited "
+                                 f"{w.returncode}:\n{out[-3000:]}")
+        line = [ln for ln in out.splitlines()
+                if ln.startswith("multihost-result: ")]
+        if not line:
+            raise AssertionError(f"worker {p} printed no result:\n"
+                                 f"{out[-3000:]}")
+        results.append(json.loads(line[-1].split(": ", 1)[1]))
+    first = results[0]
+    for r in results:
+        if r["mesh"]["shape"] != {"dcn_grid": procs, "data": ranks}:
+            raise AssertionError(f"process {r['pid']}'s mesh is "
+                                 f"{r['mesh']}")
+        if r["info"]["num_processes"] != procs:
+            raise AssertionError(f"process {r['pid']}: {r['info']}")
+        if (_grid_metrics(r["summary"]) != _grid_metrics(first["summary"])
+                or r["winner"] != first["winner"]):
+            raise AssertionError("the processes report different CV "
+                                 "metrics or winners")
+        _hold_cv(f"process {r['pid']}", r["summary"], base)
+    tree = [f for f, _ in MULTIHOST_CANDIDATES
+            if hasattr(TM.MODEL_FAMILIES[f], "levels_per_fit")]
+    folded = sum(TM.MODEL_FAMILIES[f].levels_per_fit() for f in tree)
+    refit = (TM.MODEL_FAMILIES[first["winner"]].levels_per_fit()
+             if first["winner"] in tree else 0)
+    expected = ranks * folded + refit if dev.type == "cuda" else 0
+    for r in results:
+        if r["histogram_launches"] != expected:
+            raise AssertionError(
+                f"process {r['pid']}: {r['histogram_launches']} histogram "
+                f"launches, the code derives {expected} ({ranks} x "
+                f"{folded} folded levels + {refit} refit)")
+    return {"rows": rows, "processes": procs, "ranks": ranks,
+            "winner": first["winner"], "one_process_wall_s": one_wall,
+            "max_gap": _family_gaps(first["summary"], base),
+            "workers": [{k: r[k] for k in (
+                "pid", "mesh", "info", "histogram_launches",
+                "ring_allreduce_launches", "ring_allgather_launches",
+                "wall_s")} for r in results],
+            "histogram_launches": sum(r["histogram_launches"]
+                                      for r in results),
+            "ring_allreduce_launches": sum(r["ring_allreduce_launches"]
+                                           for r in results),
+            "ring_allgather_launches": sum(r["ring_allgather_launches"]
+                                           for r in results),
+            "wall_s": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the workflow front door
 # ---------------------------------------------------------------------------
 
@@ -2492,10 +2955,11 @@ def _types(schema):
     return {k: getattr(ft, v) for k, v in schema.items()}
 
 
-def _titanic_workflow(candidates=None):
+def _titanic_workflow(candidates=None, checker=True):
     """examples/op_titanic_simple.py's workflow from the port's classes:
-    typed columns, transmogrify, SanityChecker, the binary selector with
-    3-fold CV over its candidates (or ``candidates``)."""
+    typed columns, transmogrify, SanityChecker (unless ``checker`` is
+    False), the binary selector with 3-fold CV over its candidates (or
+    ``candidates``)."""
     from transmogrifai_tpu_torch import models as TM
     from transmogrifai_tpu_torch.features import FeatureBuilder, reset_uids
     from transmogrifai_tpu_torch.ops import SanityChecker, transmogrify
@@ -2506,8 +2970,9 @@ def _titanic_workflow(candidates=None):
         .from_column().as_response()
     preds = [FeatureBuilder.of(t, n).from_column().as_predictor()
              for n, t in types.items() if n not in ("id", "survived")]
-    checked = SanityChecker().set_input(survived,
-                                        transmogrify(preds)).output
+    checked = transmogrify(preds)
+    if checker:
+        checked = SanityChecker().set_input(survived, checked).output
     pred = TM.BinaryClassificationModelSelector.with_cross_validation(
         n_folds=3, candidates=candidates or TITANIC_CANDIDATES).set_input(
             survived, checked).output
@@ -3090,6 +3555,160 @@ def workflow_phase(seed: int, device="cuda", rows: int = SCALE_ROWS,
             "histogram_launches": (titanic["histogram_launches"]
                                    + scale["histogram_launches"]),
             "fused_launches": export["kernel_launches"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: the runner's process-level services (debugNans, the build cache)
+# ---------------------------------------------------------------------------
+
+#: the candidates of the Titanic TRAIN that runs under debugNans without
+#: the checker (it completes in both packages)
+NANS_CANDIDATES = [["LogisticRegression", None], ["GBTClassifier", None]]
+
+
+def debug_nans_part(device):
+    """``OpParams.debugNans`` on ``device``. The Titanic TRAIN raises
+    ``FloatingPointError`` in the SanityChecker, naming ``full_like``
+    (its deliberate NaN correlation for a constant column), where the
+    JAX package raises on the CPU for the same data; without the checker
+    (LR and GBT) it completes, as the JAX package's does
+    (``tests/test_torch_debug_nans.py`` holds the two packages to each
+    other on these inputs); a 0/0 planted on the card under
+    ``debug_nans`` raises naming ``div``. The completing TRAIN's wall
+    with and without the checks."""
+    from transmogrifai_tpu_torch.profiling import debug_nans
+    from transmogrifai_tpu_torch.readers import DataReaders
+    from transmogrifai_tpu_torch.runner import (OpParams, RunType,
+                                                WorkflowRunner)
+    dev = torch.device(device)
+    reader = DataReaders.csv(_repo_file("examples", "data", "titanic.csv"),
+                             _types(TITANIC_SCHEMA), key="id")
+    with_checker = WorkflowRunner(_titanic_workflow(), train_reader=reader,
+                                  device=dev)
+    try:
+        with_checker.run(RunType.TRAIN, OpParams(debug_nans=True))
+    except FloatingPointError as e:
+        checker_error = str(e)
+    else:
+        raise AssertionError("debugNans: the Titanic TRAIN completed; the "
+                             "JAX package raises in its checker")
+    if "full_like" not in checker_error:
+        raise AssertionError(f"debugNans raised {checker_error!r}, not at "
+                             f"the checker's full_like")
+    walls = {}
+    for on in (False, True):
+        runner = WorkflowRunner(
+            _titanic_workflow(NANS_CANDIDATES, checker=False),
+            train_reader=reader, device=dev)
+        t0 = time.perf_counter()
+        runner.run(RunType.TRAIN, OpParams(debug_nans=on))
+        walls["on" if on else "off"] = time.perf_counter() - t0
+    zero = torch.zeros(4, device=dev)
+    try:
+        with debug_nans():
+            zero / zero
+    except FloatingPointError as e:
+        planted = str(e)
+    else:
+        raise AssertionError("debugNans: a planted 0/0 did not raise")
+    if "div" not in planted:
+        raise AssertionError(f"the planted 0/0 raised {planted!r}")
+    return {"titanic_with_checker": checker_error,
+            "titanic_without_checker": "completed",
+            "planted": planted, "train_wall_s": walls}
+
+
+def cache_worker(argv=None) -> int:
+    """A fresh process (``python -c "import chip_smoke;
+    chip_smoke.cache_worker()" DIR DEVICE``): a GBT TRAIN on 2,000
+    training-phase rows through ``WorkflowRunner`` with
+    ``compilationCacheLocation`` DIR. Prints one ``cache-result:`` JSON
+    line: the build directory during the run, the one after it, and the
+    caller's choice after it (None)."""
+    from transmogrifai_tpu_torch import _compile_cache
+    from transmogrifai_tpu_torch.models import kernels as tk
+    from transmogrifai_tpu_torch.runner import (OpParams, RunType,
+                                                WorkflowRunner)
+    from transmogrifai_tpu_torch.workflow import Workflow
+    where, device = (argv or sys.argv[1:])[:2]
+    seen = {}
+    load = tk._cuda_build.load_library
+
+    def spy(name):
+        seen[name] = _compile_cache.build_dir()
+        return load(name)
+    tk._cuda_build.load_library = spy
+    X, y = training_data(0, 2_000)
+    ds, sel = _selector(X, y, [["GBTClassifier", None]], torch.device(device))
+    WorkflowRunner(Workflow([sel.output]), train_reader=ds,
+                   device=device).run(
+        RunType.TRAIN, OpParams(compilation_cache_location=where))
+    print("cache-result: " + json.dumps({
+        "during": seen, "after": _compile_cache.build_dir(),
+        "chosen_after": _compile_cache.chosen_build_dir(),
+        "launches": tk.histogram_grid.launches}), flush=True)
+    return 0
+
+
+def build_cache_part(device, workdir, timeout_s=300.0):
+    """``OpParams.compilationCacheLocation``: a fresh process's TRAIN on
+    ``device`` builds the one kernel it launches (the histogram) into
+    the run's directory, and the build directory is the default again
+    after the run; the default directory gains no file."""
+    from transmogrifai_tpu_torch import _compile_cache
+    dev = torch.device(device)
+    where = os.path.join(workdir, "kernel_cache")
+    default = _compile_cache.build_dir()
+    before = sorted(os.listdir(default)) if os.path.isdir(default) else []
+    root = _repo_file()
+    wenv = dict(os.environ)
+    wenv["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in wenv.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.cache_worker(sys.argv[1:]))", where,
+         str(dev)], cwd=root, env=wenv, capture_output=True, text=True,
+        timeout=timeout_s)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"the cache worker exited {res.returncode}:\n"
+                             f"{(res.stdout + res.stderr)[-3000:]}")
+    line = [ln for ln in res.stdout.splitlines()
+            if ln.startswith("cache-result: ")]
+    if not line:
+        raise AssertionError(f"the cache worker printed no result:\n"
+                             f"{res.stdout[-3000:]}")
+    out = json.loads(line[-1].split(": ", 1)[1])
+    built = sorted(os.listdir(where)) if os.path.isdir(where) else []
+    cuda = dev.type == "cuda"
+    want = ["tree_histogram"] if cuda else []
+    if sorted(out["during"]) != want or any(
+            d != os.path.abspath(where) for d in out["during"].values()):
+        raise AssertionError(f"the run built {out['during']}, not {want} "
+                             f"into {where}")
+    if [b.split("-")[0][3:] for b in built] != want:
+        raise AssertionError(f"the run's directory holds {built}")
+    if out["chosen_after"] is not None or out["after"] != default:
+        raise AssertionError(f"the build directory after the run is "
+                             f"{out['after']}, not {default}")
+    after = sorted(os.listdir(default)) if os.path.isdir(default) else []
+    if after != before:
+        raise AssertionError("the run built into the default directory")
+    return {"built": built, "restored_to": out["after"],
+            "histogram_launches": out["launches"], "wall_s": wall}
+
+
+def services_phase(device="cuda", workdir=None):
+    """The runner's debugNans and compilationCacheLocation."""
+    import tempfile
+    t0 = time.perf_counter()
+    workdir = workdir or tempfile.mkdtemp(prefix="tm_services_phase_")
+    out = {"debug_nans": debug_nans_part(device),
+           "build_cache": build_cache_part(device, workdir)}
+    out["wall_s"] = time.perf_counter() - t0
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -6193,7 +6812,8 @@ def ft_lines(fr) -> list:
 
 
 def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
-                 wf=None, ctr=None, fe=None, fl=None, mesh=None):
+                 wf=None, ctr=None, fe=None, fl=None, mesh=None,
+                 mesh2d=None, multihost=None):
     """The ``kernels`` line from this run's phase results: every time
     and error is one this run measured, every bound one it computed
     from its own inputs, every launch count its main path's (the
@@ -6205,11 +6825,16 @@ def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
     ``fleet_launches``: the fleet phase's, the inproc fleet's by the
     wrapper's count and by the profiler's, every socket worker's from
     its own status; ``mesh_launches``: the mesh phase's, which add to
-    the histogram's and the ring's counts; the histogram's error also
-    covers the features phase's checks at its trains' own levels)."""
-    mesh_ring = None if mesh is None else {
-        "allreduce": mesh["ring_allreduce_launches"],
-        "allgather": mesh["ring_allgather_launches"]}
+    the histogram's and the ring's counts, as do ``mesh2d_launches`` and
+    ``multihost_launches``, the 2-D mesh's and the two processes'
+    together; the histogram's error also covers the features phase's
+    checks at its trains' own levels)."""
+    def ring_of(ph):
+        return None if ph is None else {
+            "allreduce": ph["ring_allreduce_launches"],
+            "allgather": ph["ring_allgather_launches"]}
+    mesh_ring = ring_of(mesh)
+    extra = [ph for ph in (mesh, mesh2d, multihost) if ph is not None]
     ctr_launches = (ctr or {}).get("launches", {})
     fe_launches = (fe or {}).get("launches", {})
     # the serving pass's shape in its operand mode: the prefix form,
@@ -6250,13 +6875,17 @@ def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
                     "transmogrifai_tpu/models/kernels.py:649",
         "launches": train["histogram_launches"] + (
             0 if wf is None else wf["histogram_launches"]) + (
-            0 if fe is None else fe["histogram_launches"]) + (
-            0 if mesh is None else mesh["histogram_launches"]),
+            0 if fe is None else fe["histogram_launches"]) + sum(
+            ph["histogram_launches"] for ph in extra),
         "training_launches": train["histogram_launches"],
         "workflow_launches": None if wf is None else wf["histogram_launches"],
         "ctr_launches": ctr_launches.get("tree_histogram"),
         "features_launches": fe_launches.get("tree_histogram"),
         "mesh_launches": None if mesh is None else mesh["histogram_launches"],
+        "mesh2d_launches": (None if mesh2d is None
+                            else mesh2d["histogram_launches"]),
+        "multihost_launches": (None if multihost is None
+                               else multihost["histogram_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in hrows + (
             fe or {}).get("hist_checks", [])),
         "ms": hmain["ms"], "plain_ms": hmain["plain_ms"],
@@ -6270,10 +6899,12 @@ def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
         "name": "ring_allreduce", "route": "cuda",
         "source": "transmogrifai_tpu_torch/csrc/ring_allreduce.cu",
         "replaces": "transmogrifai_tpu/models/kernels.py:770",
-        "launches": dp["ring_launches"] + (
-            0 if mesh_ring is None else sum(mesh_ring.values())),
+        "launches": dp["ring_launches"] + sum(
+            sum(ring_of(ph).values()) for ph in extra),
         "data_parallel_launches": dp["ring_launches"],
         "mesh_launches": mesh_ring,
+        "mesh2d_launches": ring_of(mesh2d),
+        "multihost_launches": ring_of(multihost),
         "ctr_launches": ctr_launches.get("ring_allreduce"),
         "features_launches": fe_launches.get("ring_allreduce"),
         "max_abs_err": max(r["max_abs_err"] for r in rrows),
@@ -6362,11 +6993,18 @@ def main(argv=None) -> int:
           flush=True)
     ms = mesh_phase(args.seed)
     print("phase mesh: " + json.dumps(dict(ms, card=card)), flush=True)
+    m2 = mesh2d_phase(args.seed)
+    print("phase mesh2d: " + json.dumps(dict(m2, card=card)), flush=True)
+    mh = multihost_phase(args.seed)
+    print("phase multihost: " + json.dumps(dict(mh, card=card)),
+          flush=True)
 
     wf = workflow_phase(args.seed)
     print("phase workflow: " + json.dumps(dict(wf, card=card)), flush=True)
     for line in workflow_lines(wf):
         print(line, flush=True)
+    sv = services_phase()
+    print("phase services: " + json.dumps(dict(sv, card=card)), flush=True)
 
     ctr = ctr_phase(args.seed)
     print("phase ctr: " + json.dumps(dict(ctr, card=card)), flush=True)
@@ -6392,7 +7030,7 @@ def main(argv=None) -> int:
         print(line, flush=True)
 
     print(json.dumps(kernels_line(rows, serve, empty_ms, hrows, train, hmma,
-                                  rrows, dp, wf, ctr, fe, fl, ms)),
+                                  rrows, dp, wf, ctr, fe, fl, ms, m2, mh)),
           flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -941,3 +941,142 @@ def test_kernels_line_adds_the_mesh_launches():
     assert hist["launches"] == 1418 and hist["mesh_launches"] == 1000
     assert ring["launches"] == 232 and ring["data_parallel_launches"] == 24
     assert ring["mesh_launches"] == {"allreduce": 200, "allgather": 8}
+
+
+# -- the 2-D grid x data mesh, the multi-process launch, the services ------
+
+MESH2D_CANDIDATES = [["LogisticRegression", {"regParam": [0.01, 0.1]}],
+                     ["DecisionTreeClassifier", None],
+                     ["RandomForestClassifier", None], ["NaiveBayes", None]]
+
+
+@pytest.fixture()
+def cpu_pool(monkeypatch, one_thread):
+    """The default meshes draw from the CPU (the phases make their own
+    pools of ranks on it)."""
+    from transmogrifai_tpu_torch.parallel import mesh as tmesh
+    monkeypatch.setattr(tmesh, "visible_devices",
+                        lambda: [torch.device("cpu")])
+    return monkeypatch
+
+
+def test_mesh2d_phase_runs_on_the_cpu(cpu_pool):
+    """The mesh2d phase on 2 x 2 CPU ranks at small sizes (2,000 rows, a
+    4-candidate list with DT and RF): the sketch bitwise, the two grid
+    rows' sums bitwise plain, the list within the tolerances of the
+    one-rank fit (DT and RF bitwise) with the same winner, every rank
+    attributed through the 2-D runners, the CPU launching no kernel."""
+    out = chip_smoke.mesh2d_phase(0, device="cpu", rows=2000,
+                                  candidates=MESH2D_CANDIDATES)
+    assert out["sketch"]["bitwise"] and out["ring"]["ring_equals_plain"]
+    lst = out["list"]
+    assert lst["labels"] == ["cpu:0", "cpu:1", "cpu:2", "cpu:3"]
+    assert lst["max_gap"]["DecisionTreeClassifier"] == 0.0
+    assert lst["max_gap"]["RandomForestClassifier"] == 0.0
+    # 3 folds x (LR 2 x 2 + DT 2 + RF 2 + NB 1), on both ranks of a row
+    assert sum(lst["items"].values()) == 2 * 3 * (4 + 2 + 2 + 1)
+    assert any(p.startswith("folded2d/") for p in lst["programs"])
+    assert out["histogram_launches"] == 0
+    assert out["ring_allreduce_launches"] == 0
+
+
+def test_mesh2d_phase_flags_a_per_shard_sketch(cpu_pool, monkeypatch):
+    """A planted fault: each rank's quantile sketch from its own rows (no
+    gather). The sketch's edges then differ from the unsharded ones and
+    the phase must fail."""
+    from transmogrifai_tpu_torch.parallel import spmd
+    monkeypatch.setattr(spmd, "gather_rows",
+                        lambda *parts: tuple(t for t, _ in parts))
+    X, _ = chip_smoke.training_data(0, 2000)
+    with pytest.raises(AssertionError, match="differ from the unsharded"):
+        chip_smoke.mesh2d_sketch_part(X, "cpu")
+
+
+def test_mesh2d_phase_counts_only_the_selector_fit(monkeypatch):
+    """The phase's launch counts (those the kernels line reports) are
+    the selector fit's alone: the sketch's and the ring's own checks
+    launch the ring too, and keep their counts in their parts."""
+    monkeypatch.setattr(chip_smoke, "training_data",
+                        lambda seed, rows: (np.zeros((4, 2)), None))
+    monkeypatch.setattr(chip_smoke, "mesh2d_sketch_part",
+                        lambda *a: {"ring_allgather_launches": 2})
+    monkeypatch.setattr(chip_smoke, "mesh2d_ring_part",
+                        lambda *a: {"launches": 4})
+    monkeypatch.setattr(chip_smoke, "mesh2d_list_part", lambda *a: {
+        "histogram_launches": 1240, "ring_allreduce_launches": 3084,
+        "ring_allgather_launches": 44})
+    out = chip_smoke.mesh2d_phase(0, device="cpu")
+    assert (out["histogram_launches"], out["ring_allreduce_launches"],
+            out["ring_allgather_launches"]) == (1240, 3084, 44)
+    assert out["sketch"]["ring_allgather_launches"] == 2
+    assert out["ring"]["launches"] == 4
+
+
+def test_multihost_phase_runs_on_the_cpu(cpu_pool):
+    """Two worker processes on CPU ranks (2 each) joined by a localhost
+    gloo group, the LR + GBT list at 1,500 rows through WorkflowRunner
+    with OpParams.distributed: both exit 0 with the same metrics and
+    winner, within the tolerances of one process; every rank of both
+    processes on the hybrid mesh."""
+    out = chip_smoke.multihost_phase(0, device="cpu", rows=1500,
+                                     timeout_s=240,
+                                     worker_env={"OMP_NUM_THREADS": "1"})
+    assert [w["mesh"]["local_rows"] for w in out["workers"]] == [[0], [1]]
+    for w in out["workers"]:
+        assert w["mesh"]["labels"] == ["p0/cpu:0", "p0/cpu:1", "p1/cpu:0",
+                                       "p1/cpu:1"]
+        assert w["info"]["device_count"] == 4
+    assert out["max_gap"]["LogisticRegression"] <= 1e-4
+    assert out["histogram_launches"] == 0
+
+
+def test_multihost_phase_fails_with_a_failed_worker(cpu_pool):
+    """A planted fault: the workers cannot build their mesh (an unknown
+    mesh axis). Their failure fails the phase; nothing is caught."""
+    with pytest.raises(AssertionError, match="multihost worker 0 exited"):
+        chip_smoke.multihost_phase(0, device="cpu", rows=600, timeout_s=120,
+                                   worker_env={"TM_MESH_AXIS": "bogus"})
+
+
+def test_services_phase_runs_on_the_cpu(tmp_path):
+    """debugNans on the CPU (the checker's raise at full_like, the train
+    without it completing, a planted 0/0 naming div) and the build cache
+    (a fresh process's run: nothing built on the CPU, the default
+    directory in effect again afterwards)."""
+    out = chip_smoke.services_phase("cpu", str(tmp_path))
+    dn = out["debug_nans"]
+    assert "full_like" in dn["titanic_with_checker"]
+    assert "div" in dn["planted"]
+    bc = out["build_cache"]
+    assert bc["built"] == [] and bc["histogram_launches"] == 0
+
+
+def test_kernels_line_adds_the_mesh2d_and_multihost_launches():
+    row = {k: 1.5 for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                            "max_abs_err", "call_ms", "plain_call_ms",
+                            "library_call_ms", "span_ms",
+                            "library_device_ms")}
+    row["bound_by"] = "bytes"
+    rows = [dict(row, form="identity", shape=[1], dtype="f"),
+            dict(row, form="prefix", shape=[2], act="a", dtype="f")]
+    hrows = [dict(row, dtype="f", **{k: 1 for k in "GndSmB"})]
+    rrows = [dict(row, layout="one card", shape="gbt_level",
+                  ndev=chip_smoke.DP_RANKS, dims=[1])]
+    mesh = {"ring_allreduce_launches": 200, "ring_allgather_launches": 8,
+            "histogram_launches": 1000}
+    m2 = {"ring_allreduce_launches": 3084, "ring_allgather_launches": 44,
+          "histogram_launches": 1240}
+    mh = {"ring_allreduce_launches": 900, "ring_allgather_launches": 12,
+          "histogram_launches": 720}
+    line = chip_smoke.kernels_line(
+        rows, {"kernel_launches": 7}, 0.5, hrows,
+        {"histogram_launches": 418}, 3, rrows, {"ring_launches": 24},
+        mesh=mesh, mesh2d=m2, multihost=mh)
+    hist, ring = line["kernels"][1], line["kernels"][2]
+    assert hist["launches"] == 418 + 1000 + 1240 + 720
+    assert hist["mesh2d_launches"] == 1240
+    assert hist["multihost_launches"] == 720
+    assert ring["launches"] == 24 + 208 + 3128 + 912
+    assert ring["mesh2d_launches"] == {"allreduce": 3084, "allgather": 44}
+    assert ring["multihost_launches"] == {"allreduce": 900,
+                                          "allgather": 12}

@@ -108,6 +108,8 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
                  lambda: parallel.data_mesh(),
                  lambda: parallel.get_mesh(),
                  lambda: parallel.default_mesh(),
+                 lambda: parallel.get_mesh_2d(),
+                 lambda: parallel.hybrid_mesh(),
                  lambda: parallel.grid_map(lambda s: s, np.zeros(4)),
                  lambda: parallel.sharded_statistics(
                      np.zeros((4, 2), np.float32), np.zeros(4)),
@@ -213,7 +215,7 @@ def test_failed_kernel_build_raises(monkeypatch, tmp_path):
     fake = tmp_path / "nvcc"
     fake.write_text("#!/bin/sh\necho 'error: no card here' >&2\nexit 3\n")
     fake.chmod(0o755)
-    monkeypatch.setattr(_cuda_build, "BUILD_DIR", str(tmp_path / "b"))
+    monkeypatch.setenv("TM_COMPILE_CACHE_DIR", str(tmp_path / "b"))
     monkeypatch.setattr(_cuda_build, "nvcc_path", lambda: str(fake))
     monkeypatch.setattr(_cuda_build, "_LIBS", {})
     with pytest.raises(RuntimeError, match="nvcc failed .*exit 3"):

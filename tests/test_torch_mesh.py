@@ -99,8 +99,11 @@ def test_default_mesh_spans_the_configured_pool(eight_cpu_ranks):
     eight_cpu_ranks.delenv("TM_MESH_DEVICES")
     assert TP.data_mesh().axis_names == ("data",)
     eight_cpu_ranks.setenv("TM_MESH_AXIS", "grid,data")
-    with pytest.raises(NotImplementedError, match="2-D grid x data sweep"):
-        TP.default_mesh()
+    m2, j2 = TP.default_mesh(), JMESH.default_mesh()
+    assert m2.axis_names == tuple(j2.axis_names) == ("grid", "data")
+    assert m2.shape == dict(j2.shape) == {"grid": 2, "data": 4}
+    assert [s.labels() for s in m2.rows] == [
+        [f"cpu:{i}" for i in range(4)], [f"cpu:{i}" for i in range(4, 8)]]
     with pytest.raises(ValueError, match="unknown mesh axis"):
         TP.Mesh([CPU], axis="rows")
 

@@ -126,9 +126,14 @@ def test_grid_data_axis_is_not_ported_in_the_selector(clean_mesh_env):
     for name in ("GBTClassifier", "LogisticRegression"):
         require_ported(MODEL_FAMILIES[name])
     clean_mesh_env.setenv("TM_MESH_AXIS", "grid,data")
+    # the 2-D sweep is ported: the axis routes every family
     for name in ("GBTClassifier", "LogisticRegression"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            require_ported(MODEL_FAMILIES[name])
+        require_ported(MODEL_FAMILIES[name])
+    # the per-instance tree path stays the one refusal
+    clean_mesh_env.setenv("TM_TREE_GRID_FOLD", "0")
+    require_ported(MODEL_FAMILIES["LogisticRegression"])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        require_ported(MODEL_FAMILIES["GBTClassifier"])
 
 
 @pytest.mark.parametrize("mode", ["edge", "zero"])

@@ -184,10 +184,10 @@ def test_keep_cols_device_fn_and_row_path():
 
 
 def test_unported_mesh_paths_raise(monkeypatch):
-    """A mesh of ranks now takes the row-sharded statistics (the same
-    drops as no mesh); what stays unported is the 2-D sweep, so under
-    TM_MESH_AXIS=grid,data the checker fits while the default mesh and
-    the selector raise, naming it."""
+    """A mesh of ranks takes the row-sharded statistics (the same drops
+    as no mesh); under TM_MESH_AXIS=grid,data the checker fits, the
+    default mesh is the 2-D one and the selector's families validate on
+    it (the 2-D sweep is ported)."""
     from transmogrifai_tpu_torch import parallel
     from transmogrifai_tpu_torch.models import MODEL_FAMILIES
     from transmogrifai_tpu_torch.models.tuning import require_ported
@@ -209,10 +209,10 @@ def test_unported_mesh_paths_raise(monkeypatch):
     monkeypatch.setenv("TM_MESH_AXIS", "grid,data")
     assert fit(device="cpu").params["keep_indices"] == \
         local.params["keep_indices"]
-    with pytest.raises(NotImplementedError, match="2-D grid x data"):
-        parallel.default_mesh()
-    with pytest.raises(NotImplementedError, match="grid,data"):
-        require_ported(MODEL_FAMILIES["LogisticRegression"])
+    m2 = parallel.default_mesh()
+    assert m2.axis_names == ("grid", "data")
+    assert m2.shape == {"grid": 1, "data": 2}
+    require_ported(MODEL_FAMILIES["LogisticRegression"])
 
 
 # -- mirrors of test_feature_ops.py's checker cases -------------------------

@@ -38,6 +38,7 @@ import torch
 from transmogrifai_tpu import models as JM
 from transmogrifai_tpu.models import tuning as JTU
 from transmogrifai_tpu_torch import models as TM
+from transmogrifai_tpu_torch import parallel as TP
 from transmogrifai_tpu_torch.models import tuning as TTU
 from transmogrifai_tpu_torch.parallel import get_mesh
 from transmogrifai_tpu_torch.resilience import faults
@@ -381,8 +382,15 @@ def test_unported_sweep_knobs_raise(lr_data, clean_knobs):
                             .default_hyper])], X, y, w, 2, device="cpu")
     clean_knobs.delenv("TM_TREE_GRID_FOLD")
     clean_knobs.setenv("TM_MESH_AXIS", "grid,data")
-    with pytest.raises(NotImplementedError, match="grid,data"):
-        _fused(cv, _entries()[2:], X, y, w)
+    # the 2-D sweep is ported: the knob no longer refuses a dispatch on
+    # one device, and a 2 x 2 grid x data mesh gives the same winner
+    on_one = _fused(cv, _entries()[2:], X, y, w)
+    grid_data = {key: cv.collect(p) for key, p in cv.dispatch_many(
+        _entries()[2:], X, y, w, 2, TP.get_mesh_2d(["cpu"] * 4)).items()}
+    for key, res in on_one.items():
+        assert grid_data[key].best_index == res.best_index
+        np.testing.assert_allclose(grid_data[key].grid_metrics,
+                                   res.grid_metrics, rtol=1e-4, atol=1e-6)
     clean_knobs.delenv("TM_MESH_AXIS")
     # the JAX signatures: mesh=None positional or keyword, the device a
     # keyword resolved as every entry point's (None: CUDA, or raise); a

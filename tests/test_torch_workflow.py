@@ -441,14 +441,47 @@ def test_runner_streaming_score_matches_batch(tmp_path):
 @pytest.mark.parametrize("field,value,item", [
     ("compilation_cache_location", "cache", "compilation cache"),
     ("debug_nans", True, "NaN debugging"),
-    ("distributed", {"numProcesses": 2}, "multi-host")])
-def test_runner_unported_params_raise(field, value, item):
+    ("distributed", {"numProcesses": 1}, "multi-host")])
+def test_runner_unported_params_raise(field, value, item, tmp_path):
+    """The three fields that used to raise "not ported" now act as the
+    JAX package's do: the build directory is the run's and the prior one
+    returns; NaN debugging stops the Titanic TRAIN where the JAX
+    package's does (the checker's deliberate NaN for a constant column,
+    made by ``full_like``); the launch contract joins a process group
+    (here of one process) and the run trains."""
+    from transmogrifai_tpu_torch import _compile_cache
+    import torch.distributed as dist
     wf, _ = PORT.titanic()
     runner = PORT.runner.WorkflowRunner(wf, train_reader=PORT.reader(),
                                         device="cpu")
+    if field == "compilation_cache_location":
+        value = str(tmp_path / value)
+    elif field == "distributed":
+        import socket
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            value = dict(value, coordinatorAddress=f"127.0.0.1:"
+                         f"{s.getsockname()[1]}", processId=0)
     params = PORT.runner.OpParams(**{field: value})
-    with pytest.raises(NotImplementedError, match=item):
-        runner.run("train", params)
+    before = _compile_cache.chosen_build_dir()
+    if field == "debug_nans":
+        with pytest.raises(FloatingPointError, match="full_like"):
+            runner.run("train", params)
+        wj, _ = JAX.titanic()
+        from transmogrifai_tpu.runner import OpParams, WorkflowRunner
+        with pytest.raises(FloatingPointError):
+            WorkflowRunner(wj, train_reader=JAX.reader()).run(
+                "train", OpParams(debug_nans=True))
+        return
+    try:
+        res = runner.run("train", params)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert res["bestModel"]["family"], item
+    assert _compile_cache.chosen_build_dir() == before
+    if field == "compilation_cache_location":
+        assert os.path.isdir(value)
 
 
 def test_runner_params_from_json_and_stage_overrides(tmp_path):

@@ -2,9 +2,11 @@
 
 Each kernel is one ``csrc/<name>.cu`` with a plain C interface. At first
 use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-under ``_build/`` (listed in ``.gitignore``; the file name carries a
-hash of the source and flags, so an edited source rebuilds) and loaded
-with ``ctypes``. Nothing here includes PyTorch's headers, which keeps a
+in the build directory (``_compile_cache.build_dir``: ``_build/`` by
+default, listed in ``.gitignore``; the file name carries a hash of the
+source and flags, so an edited source rebuilds) and loaded with
+``ctypes``. Processes may share the directory: a build lands under a
+name of its own and is renamed into place atomically. Nothing here includes PyTorch's headers, which keeps a
 build at seconds rather than minutes.
 
 Nothing is compiled at import time: a wrapper calls :func:`load_library`
@@ -23,9 +25,10 @@ import subprocess
 import threading
 from typing import Dict, List
 
+from ._compile_cache import build_dir
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
-BUILD_DIR = os.path.join(_HERE, "_build")
 
 #: ``-Xptxas -v`` makes nvcc report each kernel's registers, shared
 #: memory and spills; :data:`BUILD_LOG` keeps that report per kernel
@@ -67,12 +70,13 @@ def _source(name: str) -> str:
 
 
 def library_path(name: str) -> str:
-    """Where ``name``'s shared library lives once built."""
+    """Where ``name``'s shared library lives once built, in the build
+    directory in effect now."""
     h = hashlib.sha256()
     with open(_source(name), "rb") as f:
         h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+    return os.path.join(build_dir(), f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start(name: str):
@@ -81,7 +85,7 @@ def _start(name: str):
     so = library_path(name)
     if os.path.exists(so):
         return None, None, so
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(so), exist_ok=True)
     tmp = f"{so}.tmp.{os.getpid()}.{threading.get_ident()}"
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, _source(name)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -105,7 +109,8 @@ def _finish(name: str, proc, tmp: str, so: str) -> None:
 
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per
-    process. Raises on a failed build."""
+    process (a library once loaded stays loaded whatever the build
+    directory becomes). Raises on a failed build."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:

@@ -51,6 +51,7 @@ import torch
 
 from ._device import resolve_device
 from .dataset import Dataset
+from .profiling import nan_checks
 from .resilience.faults import fault_point
 from .resilience.policy import NO_RETRY, RetryPolicy
 from .stages.base import Estimator, PipelineStage, Transformer
@@ -587,6 +588,10 @@ def _execute_parallel(ds, layers, workers, stats, policy=NO_RETRY,
             _submit_ready_locked()
 
     def _job(st, snapshot, lj, premodels):
+        with nan_checks():          # a debug_nans run checks its workers
+            return _job_body(st, snapshot, lj, premodels)
+
+    def _job_body(st, snapshot, lj, premodels):
         fault_point("executor.pool_worker", stage=st.uid)
         # jobs also report their absolute [start, end) so the layer
         # aggregation can clip pipelined (early-submitted) work to the

@@ -48,6 +48,11 @@ class ModelFamily:
     default_grid: Dict[str, List[float]] = {}
     #: include in ModelSelector's default candidate list
     in_default_candidates: bool = True
+    #: the fit makes every reduction over rows through ``parallel.spmd``
+    #: (``row_sum`` / ``gather_rows``), so it may run with its rows
+    #: sharded over a data mesh (a 2-D grid x data sweep); a family
+    #: that does not is refused there, never fitted on a shard alone
+    rows_sharded: bool = False
 
     def __init_subclass__(cls, **kw):
         super().__init_subclass__(**kw)

@@ -15,9 +15,14 @@ parameters are disjoint, so each instance gets its own gradient), and
 the optimizer is written out on one flat (G, P) parameter buffer, so a
 step's update is a handful of launches whatever the number of parameter
 tensors. The steps are a Python loop that reads nothing back to the
-host. The fit opens ``torch.inference_mode(False)`` and
-``torch.enable_grad()`` itself, so it runs inside the validator's
-inference-mode sweep, and returns detached parameters.
+host. Inside ``parallel.spmd.run_ranks`` (a 2-D grid x data sweep)
+each rank holds its own rows: the standardisation's weighted sums and
+each step's gradient are summed over the ranks (``spmd.row_sum``), so
+every rank takes the full-batch step; outside it the sums are the
+partials themselves and the fit is unchanged to the bit. The fit opens
+``torch.inference_mode(False)`` and ``torch.enable_grad()`` itself, so
+it runs inside the validator's inference-mode sweep, and returns
+detached parameters.
 
 Numerics as the reference's: GELU is the tanh approximation
 (``jax.nn.gelu``'s default), layer norms use the population variance in
@@ -48,6 +53,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.spmd import row_sum
 from .base import ModelFamily, ModelStage, tree_leaves, tree_map
 from .kernels import env_dtype, kernel_exact
 
@@ -227,6 +233,7 @@ def _loss(net: Dict[str, Any], Xs: torch.Tensor, target: torch.Tensor,
 
 class FTTransformerFamily(ModelFamily):
     """Shared kernels; classifier/regressor subclasses register names."""
+    rows_sharded = True
 
     in_default_candidates = False   # explicit opt-in selector candidate
     d_model: int = 32
@@ -266,11 +273,14 @@ class FTTransformerFamily(ModelFamily):
             lr = _per_item(hyper["learningRate"], G, dev)[:, None]
             wd = _per_item(hyper["weightDecay"], G, dev)[:, None]
             # standardise under the fold weights (zero-weight rows add
-            # nothing to the statistics)
-            sw = torch.clamp(w.sum(dim=1), min=1e-6)[:, None]      # (G, 1)
-            mu = (w[..., None] * X).sum(dim=1) / sw
-            sd = torch.sqrt((w[..., None] * (X - mu[:, None]) ** 2)
-                            .sum(dim=1) / sw + 1e-6)
+            # nothing to the statistics); the sums run over every rank's
+            # rows inside spmd.run_ranks
+            sw, swx = row_sum(w.sum(dim=1), (w[..., None] * X).sum(dim=1))
+            sw = torch.clamp(sw, min=1e-6)[:, None]                # (G, 1)
+            mu = swx / sw
+            ssq, = row_sum((w[..., None] * (X - mu[:, None]) ** 2)
+                           .sum(dim=1))
+            sd = torch.sqrt(ssq / sw + 1e-6)
             Xs = (X - mu[:, None]) / sd[:, None]
             wn = w / sw
             target = (y.to(torch.float32).clone() if k_out == 1
@@ -294,6 +304,7 @@ class FTTransformerFamily(ModelFamily):
             for t in range(n_steps):
                 loss = _loss(unflat(flat), Xs, target, wn, n_heads)
                 (g,) = torch.autograd.grad(loss, flat)
+                g, = row_sum(g)
                 # the bias corrections in f32 at step t + 1, on the host
                 tt = np.float32(t + 1)
                 c1 = float(np.float32(1.0) - b1 ** tt)

@@ -48,6 +48,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from .. import _cuda_build
+from ..profiling import check_nan_outputs, nan_checking
 
 #: the CUDA source this module's kernel builds from (under the package)
 KERNEL_NAME = "tree_histogram"
@@ -315,6 +316,8 @@ def histogram_grid(bins: torch.Tensor, stats_g: torch.Tensor,
             f"{lib.tm_tree_histogram_error_string(err).decode()}")
     with _LAUNCH_LOCK:
         histogram_grid.launches += 1
+    if nan_checking():          # launched outside torch's dispatcher
+        check_nan_outputs("tree_histogram", out, stats_g)
     return out
 
 
@@ -363,6 +366,14 @@ RING_MIN_CHUNK = 4096
 RING_FLAG_WORDS = 2 * RING_MAX_RANKS * RING_WAVE_BLOCKS
 #: a wait on another rank longer than this traps (a protocol fault)
 RING_TIMEOUT_S = 5.0
+
+#: card index -> events recorded on every rank stream just after the
+#: last exchange launched on that card. The next exchange touching the
+#: card waits for them, so one exchange at a time is in flight on a card
+#: (RING_WAVE_BLOCKS sizes one call's blocks to be resident together;
+#: two calls of two meshes' grid rows could not all be)
+_RING_TAIL: Dict[int, list] = {}
+_RING_ORDER = threading.Lock()
 
 
 def ring_reduce_enabled(device=None) -> bool:
@@ -557,7 +568,9 @@ def _ring(parts, mesh, gather: bool) -> List[torch.Tensor]:
     output, yet each part is recorded on its own rank stream only: rank
     r's kernel ends only after every rank has posted "done" at the exit
     barrier, so after every other rank's reads of part r and writes to
-    output r."""
+    output r. Calls on one card are chained (``_RING_TAIL``): each rank
+    stream first waits for the previous call on any of the mesh's cards
+    to end, whichever mesh made it."""
     ndev = mesh.size
     shape = tuple(parts[0].shape)
     numel = parts[0].numel()
@@ -578,7 +591,6 @@ def _ring(parts, mesh, gather: bool) -> List[torch.Tensor]:
         return outs
     for p, s in zip(parts, mesh.streams):
         p.record_stream(s)          # read until this rank's kernel ends
-    comm.epoch = (comm.epoch + 1) & 0xFFFFFFFF
     lib = _ring_library()
 
     def ptrs(vals):
@@ -586,15 +598,30 @@ def _ring(parts, mesh, gather: bool) -> List[torch.Tensor]:
     vec = int(all(_aligned(t) for t in parts + outs)
               and (not gather or numel % 4 == 0))
     failed = ctypes.c_int(-1)
-    err = lib.tm_ring_launch_all(
-        ndev, (ctypes.c_int * ndev)(*[d.index for d in mesh.devices]),
-        ptrs([p.data_ptr() for p in parts]),
-        ptrs([o.data_ptr() for o in outs]),
-        ptrs([f.data_ptr() for f in comm.flags]),
-        ptrs([s.cuda_stream for s in mesh.streams]), vec, numel,
-        plan["part"], plan["chunk"], plan["blocks"], comm.epoch,
-        int(gather), int(len(set(mesh.devices)) > 1),
-        int(RING_TIMEOUT_S * 1e9), ctypes.byref(failed))
+    cards = sorted({d.index for d in mesh.devices})
+    with _RING_ORDER:
+        for ev in {id(e): e for c in cards
+                   for e in _RING_TAIL.get(c, ())}.values():
+            for s in mesh.streams:
+                s.wait_event(ev)
+        comm.epoch = (comm.epoch + 1) & 0xFFFFFFFF
+        err = lib.tm_ring_launch_all(
+            ndev, (ctypes.c_int * ndev)(*[d.index for d in mesh.devices]),
+            ptrs([p.data_ptr() for p in parts]),
+            ptrs([o.data_ptr() for o in outs]),
+            ptrs([f.data_ptr() for f in comm.flags]),
+            ptrs([s.cuda_stream for s in mesh.streams]), vec, numel,
+            plan["part"], plan["chunk"], plan["blocks"], comm.epoch,
+            int(gather), int(len(set(mesh.devices)) > 1),
+            int(RING_TIMEOUT_S * 1e9), ctypes.byref(failed))
+        if not err:
+            tail = []
+            for s in mesh.streams:
+                ev = torch.cuda.Event()
+                ev.record(s)
+                tail.append(ev)
+            for c in cards:
+                _RING_TAIL[c] = tail
     if err:
         raise RuntimeError(
             f"ring_allreduce launch failed on rank {failed.value} of "
@@ -620,6 +647,8 @@ def ring_allgather(parts: List[torch.Tensor], mesh) -> List[torch.Tensor]:
     outs = _ring(parts, mesh, gather=True)
     with _LAUNCH_LOCK:
         ring_allgather.launches += mesh.size if parts[0].numel() else 0
+    if nan_checking():          # launched outside torch's dispatcher
+        check_nan_outputs("ring_allgather", outs, parts)
     return outs
 
 
@@ -638,6 +667,8 @@ def ring_allreduce(parts: List[torch.Tensor], mesh) -> List[torch.Tensor]:
     outs = _ring(parts, mesh, gather=False)
     with _LAUNCH_LOCK:
         ring_allreduce.launches += mesh.size if parts[0].numel() else 0
+    if nan_checking():          # launched outside torch's dispatcher
+        check_nan_outputs("ring_allreduce", outs, parts)
     return outs
 
 

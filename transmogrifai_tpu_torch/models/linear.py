@@ -24,6 +24,16 @@ never waits for it (a Python branch on a tensor, ``.item()`` or
 ``torch.linalg.solve``'s error check would). The products are meant in
 f32: TF32 matmuls (off by default in torch) would move the fits.
 
+**Rows sharded over a data mesh.** Inside ``parallel.spmd.run_ranks``
+(a 2-D grid x data sweep) each rank fits on its own rows, and every
+reduction over rows is a per-rank partial summed over the ranks by
+``spmd.row_sum`` (the CUDA ring on the card): ``_mtv``, ``_gram``,
+``_sum_w`` and so ``_power_lipschitz``; a Newton or IRLS step packs its
+gradient's and its Hessian's partials into one exchange. ``_mv`` is
+row-local. Outside ``run_ranks`` the sums are the partials themselves,
+so the one-device fits are unchanged to the bit. The JAX package gets
+these sums from GSPMD.
+
 **Predicts.** ``predict_kernel`` (one fitted model: the selector's
 refit, the ModelStage wrappers, the serving chain) is row-independent
 to the bit: a row scores the same alone or inside any padded, coalesced
@@ -44,6 +54,7 @@ from typing import Dict, Union
 import numpy as np
 import torch
 
+from ..parallel.spmd import row_sum
 from .base import ModelFamily
 
 _JITTER = 1e-5
@@ -66,9 +77,14 @@ def _mv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.bmm(A, v.unsqueeze(-1)).squeeze(-1)
 
 
-def _mtv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """A^T @ v per item: (G, n, d), (G, n) -> (G, d)."""
+def _mtv_part(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """This rank's A^T @ v per item: (G, n, d), (G, n) -> (G, d)."""
     return torch.bmm(A.transpose(1, 2), v.unsqueeze(-1)).squeeze(-1)
+
+
+def _mtv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A^T @ v per item over every row: (G, n, d), (G, n) -> (G, d)."""
+    return row_sum(_mtv_part(A, v))[0]
 
 
 def _col(h: Hyper, ndim: int) -> Hyper:
@@ -80,8 +96,8 @@ def _col(h: Hyper, ndim: int) -> Hyper:
 
 
 def _sum_w(w: torch.Tensor) -> torch.Tensor:
-    """max(sum w, 1) per item -> (G,)."""
-    return torch.clamp(w.sum(1), min=1.0)
+    """max(sum w, 1) per item over every row -> (G,)."""
+    return torch.clamp(row_sum(w.sum(1))[0], min=1.0)
 
 
 def _penalty_mask(d: int, device) -> torch.Tensor:
@@ -91,17 +107,22 @@ def _penalty_mask(d: int, device) -> torch.Tensor:
     return (torch.arange(d, device=device) < d - 1).to(torch.float32)
 
 
-#: rows of one partial Gram (see :func:`_gram`)
+#: rows of one partial Gram (see :func:`_gram_part`)
 GRAM_BLOCK = 1024
 
 
 def _gram(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """A^T B per item: (G, n, d), (G, n, e) -> (G, d, e). Over many rows
-    the product is a sum of partial Grams of GRAM_BLOCK rows each (zero
-    rows pad the last block): one (G, d, e) product over n rows leaves
-    one tile a item for the card's 132 SMs, each walking all n rows. The
-    split depends only on n, so an item's result does not depend on its
-    batch."""
+    """A^T B per item over every row (see :func:`_gram_part`)."""
+    return row_sum(_gram_part(A, B))[0]
+
+
+def _gram_part(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """This rank's A^T B per item: (G, n, d), (G, n, e) -> (G, d, e).
+    Over many rows the product is a sum of partial Grams of GRAM_BLOCK
+    rows each (zero rows pad the last block): one (G, d, e) product over
+    n rows leaves one tile a item for the card's 132 SMs, each walking
+    all n rows. The split depends only on n, so an item's result does
+    not depend on its batch."""
     G, n, d = A.shape
     if n < 8 * GRAM_BLOCK:
         return torch.bmm(A.transpose(1, 2), B)
@@ -218,9 +239,11 @@ def _newton_logistic(Xb, y, w, l2: Hyper, iters: int) -> torch.Tensor:
     beta = torch.zeros((G, d), dtype=Xb.dtype, device=dev)
     for _ in range(iters):
         p = torch.sigmoid(_mv(Xb, beta))
-        g = _mtv(Xb, w * (p - y)) / sw[:, None] + l2c * mask * beta
         s = w * torch.clamp(p * (1.0 - p), min=1e-6) / sw[:, None]
-        H = _gram(Xb, Xb * s[..., None]) + ridge
+        gp, Hp = row_sum(_mtv_part(Xb, w * (p - y)),
+                         _gram_part(Xb, Xb * s[..., None]))
+        g = gp / sw[:, None] + l2c * mask * beta
+        H = Hp + ridge
         beta = beta - _damp(_solve_pos(H, g))
     return beta
 
@@ -298,10 +321,13 @@ def _softmax_grad(Xb, y_oh, w, sw, l2c, mask):
     return grad
 
 
-def _softmax_hessian(Xb: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+def _softmax_hessian(Xb: torch.Tensor, A: torch.Tensor,
+                     gram=_gram) -> torch.Tensor:
     """H[i,c,j,e] = sum_r Xb[r,i] A[r,c,e] Xb[r,j], flattened (i*k+c,
     j*k+e), from one batched Gram over the k(k+1)/2 distinct weightings
-    (A is symmetric in c, e) — never an (n, d, k, k, d) temporary."""
+    (A is symmetric in c, e) — never an (n, d, k, k, d) temporary.
+    ``gram``: :func:`_gram`, or :func:`_gram_part` for this rank's
+    partial (its sum is then the caller's)."""
     G, n, d = Xb.shape
     k = A.shape[-1]
     pairs = [(c, e) for c in range(k) for e in range(c, k)]
@@ -309,7 +335,7 @@ def _softmax_hessian(Xb: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     for p_i, (c, e) in enumerate(pairs):
         index[(c, e)] = index[(e, c)] = p_i
     Wt = torch.cat([Xb * A[:, :, c, e, None] for c, e in pairs], dim=2)
-    gram = _gram(Xb, Wt).reshape(G, d, len(pairs), d)
+    gram = gram(Xb, Wt).reshape(G, d, len(pairs), d)
     H = torch.stack([gram[:, :, index[(c, e)]] for c in range(k)
                      for e in range(k)], dim=2).reshape(G, d, k, k, d)
     # [i, c, e, j] -> [i, c, j, e]
@@ -341,11 +367,13 @@ def fit_softmax(X, y, w, l2: Hyper, n_classes: int, iters=None
         ws = (w / sw[:, None])[..., None, None]
         for _ in range(20 if iters is None else iters):
             p = torch.softmax(torch.bmm(Xb, theta), dim=-1)    # (G, n, k)
-            g = (_gram(Xb, (p - y_oh) * w[..., None]) / sw[:, None, None]
-                 + l2c * mask * theta).reshape(G, dk)
             A = ws * (p[..., :, None] * eye_k
                       - p[..., :, None] * p[..., None, :])
-            H = _softmax_hessian(Xb, A) + ridge
+            gp, Hp = row_sum(_gram_part(Xb, (p - y_oh) * w[..., None]),
+                             _softmax_hessian(Xb, A, _gram_part))
+            g = (gp / sw[:, None, None]
+                 + l2c * mask * theta).reshape(G, dk)
+            H = Hp + ridge
             delta = _damp(_solve_pos(H, g))
             theta = theta - delta.reshape(G, d, k)
         return theta
@@ -393,6 +421,7 @@ class _LinearFamily(ModelFamily):
     """A linear family: ``fit_batch`` fits a grid (leading G axis on
     every tensor, each hyper a (G,) tensor or a static float);
     ``fit_kernel`` is one fit, the grid at G = 1."""
+    rows_sharded = True
 
     def fit_batch(self, X, y, w, hyper, n_classes):
         raise NotImplementedError
@@ -439,9 +468,11 @@ def _ridge(Xb, y, w, l2: Hyper) -> torch.Tensor:
     dev = Xb.device
     mask = _penalty_mask(d, dev)
     sw = _sum_w(w)
-    A = (_gram(Xb, Xb * w[..., None]) / sw[:, None, None]
+    Ap, bp = row_sum(_gram_part(Xb, Xb * w[..., None]),
+                     _mtv_part(Xb, w * y))
+    A = (Ap / sw[:, None, None]
          + (_col(l2, 3) * mask + _JITTER) * _eye(d, dev))
-    b = _mtv(Xb, w * y) / sw[:, None]
+    b = bp / sw[:, None]
     return _solve_pos(A, b)
 
 
@@ -552,9 +583,11 @@ def fit_gnb(X, y, w, smoothing: Hyper, n_classes: int
             ) -> Dict[str, torch.Tensor]:
     """X (G, n, d) -> per item mean and var (G, k, d), logprior (G, k)."""
     y_oh = _one_hot(y, n_classes) * w[..., None]           # (G, n, k)
-    cnt = torch.clamp(y_oh.sum(1), min=1e-6)                # (G, k)
-    mean = _gram(y_oh, X) / cnt[..., None]
-    sq = _gram(y_oh, X * X) / cnt[..., None]
+    cp, mp, sp = row_sum(y_oh.sum(1), _gram_part(y_oh, X),
+                         _gram_part(y_oh, X * X))
+    cnt = torch.clamp(cp, min=1e-6)                         # (G, k)
+    mean = mp / cnt[..., None]
+    sq = sp / cnt[..., None]
     var = torch.clamp(sq - mean ** 2, min=1e-6) + _col(smoothing, 3)
     prior = cnt / cnt.sum(1, keepdim=True)
     return {"mean": mean, "var": var, "logprior": torch.log(prior)}
@@ -606,14 +639,19 @@ def _irls(Xb, w, l2: Hyper, beta0, iters, score_and_weight):
     for _ in range(iters):
         mu = torch.exp(torch.clamp(_mv(Xb, beta), -30.0, 30.0))
         score, fisher = score_and_weight(mu)
-        g = _mtv(Xb, w * score) / sw[:, None] + l2c * mask * beta
+        gp = _mtv_part(Xb, w * score)
         if fisher is None:
             if H_const is None:
-                H_const = _gram(Xb, Xb * (w / sw[:, None])[..., None])
+                gp, H_const = row_sum(
+                    gp, _gram_part(Xb, Xb * (w / sw[:, None])[..., None]))
+            else:
+                gp, = row_sum(gp)
             H = H_const + ridge
         else:
             s = w * fisher / sw[:, None]
-            H = _gram(Xb, Xb * s[..., None]) + ridge
+            gp, Hp = row_sum(gp, _gram_part(Xb, Xb * s[..., None]))
+            H = Hp + ridge
+        g = gp / sw[:, None] + l2c * mask * beta
         beta = beta - _damp(_solve_pos(H, g))
     return beta
 
@@ -622,7 +660,7 @@ def _log_mean_start(Xb, w, yp) -> torch.Tensor:
     """Zeros with the intercept at the log weighted mean of y."""
     G, _, d = Xb.shape
     sw = _sum_w(w)
-    b0 = torch.log(torch.clamp((w * yp).sum(1) / sw, min=1e-6))
+    b0 = torch.log(torch.clamp(row_sum((w * yp).sum(1))[0] / sw, min=1e-6))
     return torch.cat([torch.zeros((G, d - 1), dtype=Xb.dtype,
                                   device=Xb.device), b0[:, None]], dim=1)
 

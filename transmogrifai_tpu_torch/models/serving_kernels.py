@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from .. import _cuda_build
+from ..profiling import check_nan_outputs, nan_checking
 from .linear import sigmoid_pair
 # TM_KERNEL_EXACT=1: the engine's fused path on the CPU runs each
 # model's own tail (serving/fusion.py); the card's kernel takes f32
@@ -277,6 +278,8 @@ def _launch(V, mid, tables, W, n, C, p, K, L, act, dt) -> torch.Tensor:
             f"{lib.tm_cuda_error_string(err).decode()}")
     with _LAUNCH_LOCK:
         fused_linear_scores.launches += 1
+    if nan_checking():          # launched outside torch's dispatcher
+        check_nan_outputs("fused_linear_scores", out, (V, W))
     return out
 
 

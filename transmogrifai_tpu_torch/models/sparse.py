@@ -563,10 +563,15 @@ def _fit_sharded(init_params: Callable, grad_fn, idx, Xnum, y, w, mesh,
     replica, so the replicas stay bitwise equal. Padding (``_pad_chunk``'s
     w = 0 rows, ``_ScatterPlan``'s spread) is the single-device fit's.
     Nothing is read on the host between two steps. Returns rank 0's
-    parameters."""
+    parameters. On a 2-D or hybrid mesh the rows ride its ``"data"``
+    axis (``Mesh2D.data_mesh``: this process's first row; the other rows
+    replicate it), as in the JAX package."""
     from ..parallel.data_parallel import data_mesh
+    from ..parallel.mesh import Mesh2D
     from .kernels import allreduce_data, ring_reduce_enabled
     mesh = mesh or data_mesh()
+    if isinstance(mesh, Mesh2D):
+        mesh = mesh.data_mesh()
     c = _pad_chunk({"idx": idx, "num": Xnum, "y": y, "w": w}, batch_size)
     steps = len(c["y"]) // batch_size
     ndev = mesh.size

@@ -35,6 +35,15 @@ matters (``uniform < 1.0`` always holds); only RF depends on its draws.
 Deterministic reductions: the leaf sums (``segment_sum`` in the JAX
 package) are one-hot matrix products per instance — ``index_add_`` on
 CUDA floats is atomic and its order varies run to run.
+
+Rows sharded over a data mesh (a 2-D grid x data sweep: the fitters run
+inside ``parallel.spmd.run_ranks``, each rank on its own rows): the
+quantile sketch gathers every rank's rows first, so its edges are the
+unsharded call's bit for bit; each level's histograms and the leaf sums
+are summed over the ranks (``spmd.row_sum``, the CUDA ring on the card);
+draws over rows are made over every row and cut to the rank's own; the
+validation scores are gathered in origin order before the metric. The
+JAX package gets the same from GSPMD.
 """
 from __future__ import annotations
 
@@ -43,6 +52,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..parallel import spmd
 from .base import ModelFamily, ModelStage
 from .kernels import allreduce_data, histogram_grid, ring_reduce_enabled
 
@@ -70,8 +80,16 @@ def quantile_bin_edges(X: torch.Tensor, n_bins: int,
     stable sort per feature, NaNs last, then the first sorted value
     whose cumulative weight reaches q*total); NaN values carry zero
     weight and never become edges. Without ``w``: ``torch.nanquantile``
-    (linear interpolation, as ``jnp.nanquantile``)."""
+    (linear interpolation, as ``jnp.nanquantile``). Inside
+    ``spmd.run_ranks`` the rows of X (and w) are this rank's: every
+    rank's are gathered in origin order first, so the edges are those of
+    the unsharded call."""
     Xf = X.to(torch.float32)
+    if spmd.current() is not None:
+        if w is None:
+            Xf, = spmd.gather_rows((Xf, 0))
+        else:
+            Xf, w = spmd.gather_rows((Xf, 0), (w.to(torch.float32), 0))
     qs = _quantile_levels(n_bins, Xf.device)
     if w is None:
         edges = torch.nanquantile(Xf, qs, dim=0).T
@@ -124,13 +142,14 @@ def grow_tree_grid(bins,                         # (n, d) int32, SHARED
     """Grow one tree for each of Gb instances over SHARED bins.
 
     Each level's histograms are ONE ``histogram_grid`` launch over all
-    instances. ``subset_draws`` (with ``subset_rate`` (Gb,)) is the
-    per-node column-subset path (mllib's featureSubsetStrategy, XGBoost's
-    colsample_bynode): level l's entry is a (Gb, 2^l, d) tensor of
-    uniform [0, 1) draws; a node keeps column j when its draw is below
-    the rate, ANDed with ``feat_mask``, falling back to the full
-    feat_mask when that leaves no column. Rate 1.0 is the unsubsetted
-    tree exactly.
+    instances (inside ``spmd.run_ranks``: over this rank's rows, summed
+    over the ranks with the leaf sums). ``subset_draws`` (with
+    ``subset_rate`` (Gb,)) is the per-node column-subset path (mllib's
+    featureSubsetStrategy, XGBoost's colsample_bynode): level l's entry
+    is a (Gb, 2^l, d) tensor of uniform [0, 1) draws; a node keeps
+    column j when its draw is below the rate, ANDed with ``feat_mask``,
+    falling back to the full feat_mask when that leaves no column. Rate
+    1.0 is the unsubsetted tree exactly.
 
     Returns (feat (Gb, I) int64, thr (Gb, I), leaf (Gb, L, C),
     gains (Gb, I), pos (Gb, n)) with I = 2^D - 1, L = 2^D.
@@ -172,6 +191,11 @@ def _grow_ranks(bins, gw, hw, w, edges, feat_mask, lam, gamma,
 
     def on(r):      # rank r's stream
         return contextlib.nullcontext() if mesh is None else mesh.rank(r)
+
+    def reduce(parts):
+        if mesh is not None:
+            return allreduce_data(parts, mesh, use_ring=data_ring)
+        return list(spmd.row_sum(*parts))
     Gb, _, C = gw[0].shape
     d = bins[0].shape[1]
     B = edges.shape[1] + 1
@@ -202,8 +226,7 @@ def _grow_ranks(bins, gw, hw, w, edges, feat_mask, lam, gamma,
             with on(r):
                 hists.append(histogram_grid(rk["bins"], rk["stats"],
                                             rk["pos"], m, B))
-        if mesh is not None:
-            hists = allreduce_data(hists, mesh, use_ring=data_ring)
+        hists = reduce(hists)
         for r, rk in enumerate(ranks):
             with on(r):
                 _split_level(rk, hists[r].reshape(Gb, m, S, d, B), level,
@@ -213,8 +236,7 @@ def _grow_ranks(bins, gw, hw, w, edges, feat_mask, lam, gamma,
     for r, rk in enumerate(ranks):
         with on(r):
             sums.append(_leaf_sums(rk["pos"], gw[r], hw[r], L))
-    if mesh is not None:
-        sums = allreduce_data(sums, mesh, use_ring=data_ring)
+    sums = reduce(sums)
     out = []
     for r, rk in enumerate(ranks):
         with on(r):
@@ -429,8 +451,8 @@ def fit_forest_grid(X, y, w_base, train_b, hyper_b, n_classes, *,
     subset = _hget(hyper_b, "featureSubsetRate", 1.0, Gb, dev)
     if boot is None or subset_draws is None:
         seed = _hget(hyper_b, "seed", 0.0, Gb, dev).to(torch.int32)
-        b0, s0 = forest_draws(seed, T, n, d, max_depth)
-        boot = b0 if boot is None else boot
+        b0, s0 = forest_draws(seed, T, spmd.total_rows(n), d, max_depth)
+        boot = spmd.own_rows(b0, 2) if boot is None else boot
         subset_draws = s0 if subset_draws is None else subset_draws
     wt = (w[:, None, :] * boot).reshape(Gb * T, n)
     gw = tgt[None] * wt[..., None]
@@ -516,12 +538,14 @@ def fit_boosted_grid(X, y, w_base, train_b, hyper_b, n_classes, *,
     colsample_node = _hget(hyper_b, "colsampleByNode", 1.0, Gb, dev)
     if draws is None:
         seed = _hget(hyper_b, "seed", 0.0, Gb, dev).to(torch.int32)
-        draws = boost_draws(seed, n_rounds, n, d, max_depth)
+        draws = boost_draws(seed, n_rounds, spmd.total_rows(n), d, max_depth)
+        draws["row"] = spmd.own_rows(draws["row"], 2)
 
     # per-instance sums (one (n,) reduction each): the same reduction
     # whatever the batch, so an instance's base does not depend on it
-    sw = torch.stack([torch.clamp(w[g].sum(), min=1e-6) for g in range(Gb)])
-    wy = torch.stack([(w[g] * yf).sum() for g in range(Gb)])
+    sw, wy = spmd.row_sum(torch.stack([w[g].sum() for g in range(Gb)]),
+                          torch.stack([(w[g] * yf).sum() for g in range(Gb)]))
+    sw = torch.clamp(sw, min=1e-6)
     if objective == "logistic":
         p0 = torch.clamp(wy / sw, 1e-5, 1 - 1e-5)
         base = torch.log(p0 / (1 - p0))[:, None]                 # (Gb, 1)
@@ -670,6 +694,7 @@ def _probs_from_mean(mean: torch.Tensor, n_classes: int) -> torch.Tensor:
 class _TreeFamily(ModelFamily):
     """Shared static caps. Instances are registered singletons, so tests
     can shrink caps by mutating attributes."""
+    rows_sharded = True
     n_bins = 32
     max_depth_cap = 5
 
@@ -688,10 +713,15 @@ class _TreeFamily(ModelFamily):
         """The whole (fold x hyper) batch as ONE folded fit: each level
         of every instance's tree is one histogram launch. Returns (Gb,)
         validation metrics (each instance scored on its own, so its
-        metric does not depend on the batch)."""
+        metric does not depend on the batch). Inside ``spmd.run_ranks``
+        each rank scores its own rows and the scores, labels and
+        validation weights are gathered in origin order first, so the
+        metric sees every row."""
         params = self._fit_grid(X, y, w_base, train_b, hyper_b, n_classes)
         probs = self.predict_kernel(params, X, n_classes)   # (Gb, n, k)
         wv = w_base[None, :] * val_b
+        probs, y, wv = spmd.gather_rows((probs, 1), (y.to(torch.float32), 0),
+                                        (wv, 1))
         return torch.stack([metric_fn(probs[g], y, wv[g])
                             for g in range(probs.shape[0])])
 

@@ -50,14 +50,31 @@ one in its last bits).
 
 Items are independent, so a batch's metrics are bitwise the same at
 every mesh size; ``SWEEP_STATS`` credits each rank with its real items
-(edge-pad copies excluded) under ``parallel.device_labels``, and the
-``models.sweep.chip_dispatch`` fault point fires once per mesh shard
+(edge-pad copies excluded) under the mesh's labels, and the
+``models.sweep.chip_dispatch`` fault point fires once per mesh rank
 when the host blocks on a batch.
 
+On a 2-D (grid x data) mesh (``parallel.get_mesh_2d``,
+``TM_MESH_AXIS=grid,data``, or ``multihost.hybrid_mesh``) the items
+shard over the grid rows and each row's rows over its data ranks
+(``grid_map``'s 2-D branch, the ranks in lockstep through
+``parallel.spmd``): the folded runner (``folded2d/...``) as it is, its
+tree levels and leaf sums summed over the row's ranks; the sweep
+(``sweep/.../2d``) with the full-width 0/1 mask batch, not fold-sliced,
+as the JAX package runs it under 2-D (rows are sharded, so per-fold
+gathers would fight the row partitioning), the linear fits' row
+contractions summed over the ranks, the scores gathered before the
+metric. A family whose fit does not make its row reductions through
+``parallel.spmd`` (``ModelFamily.rows_sharded``) is refused there.
+Every rank of every grid row is credited with the row's items;
+an out-of-memory retry re-runs the batch in chunks, each booking its own
+attribution. Row sums move with the sharding, so linear metrics match
+the one-device ones to a tolerance, and trees bitwise where the
+gradient stats are integer-valued.
+
 Not carried over: ``TM_TREE_GRID_FOLD=0`` (the vmapped per-instance
-tree path raises), the 2-D grid x data sweep (``TM_MESH_AXIS=grid,data``
-raises) and the program caches (nothing is traced, so ``SWEEP_STATS``
-records no compiles).
+tree path raises) and the program caches (nothing is traced, so
+``SWEEP_STATS`` records no compiles).
 """
 from __future__ import annotations
 
@@ -73,6 +90,7 @@ import torch
 
 from .._device import resolve_device
 from ..evaluators import functional as F
+from ..parallel import spmd
 from ..profiling import SWEEP_STATS
 from ..resilience.faults import fault_point
 from .base import ModelFamily, tree_map
@@ -138,64 +156,76 @@ def _validation_mesh(mesh, device):
     device its replicated data goes to). ``mesh=None`` runs on the one
     device the caller names (None: CUDA, raising without a card), as
     does a mesh of one rank (on its device, on the current stream); a
-    mesh of several ranks shards the batch over its one axis."""
+    mesh of several ranks shards the batch: a 1-D mesh over its one
+    axis, a ``Mesh2D`` over its grid rows and each row's data ranks."""
     if mesh is None:
         return None, resolve_device(device)
-    from ..parallel.mesh import Mesh
+    from ..parallel.mesh import Mesh, Mesh2D
+    if isinstance(mesh, Mesh2D):
+        return (mesh if mesh.size > 1 else None), mesh.first_device()
     if not isinstance(mesh, Mesh):
-        raise TypeError(f"mesh must be a parallel.Mesh (get_mesh), got "
+        raise TypeError(f"mesh must be a parallel.Mesh (get_mesh) or "
+                        f"Mesh2D (get_mesh_2d, hybrid_mesh), got "
                         f"{type(mesh).__name__}")
-    if len(mesh.axis_names) != 1:
-        raise NotImplementedError(
-            "the 2-D grid x data sweep is not ported: the validator "
-            "takes a 1-D mesh (parallel.get_mesh)")
     return (mesh if mesh.size > 1 else None), mesh.devices[0]
 
 
+def _is_2d(mesh) -> bool:
+    """Rows sharded over a data axis (a grid x data mesh)."""
+    return getattr(mesh, "is_2d_data", False)
+
+
+def _require_rows_sharded(family: ModelFamily, mesh) -> None:
+    """Refuse a family whose fit does not sum its row reductions over a
+    data mesh (``ModelFamily.rows_sharded``): on a 2-D mesh each rank
+    would fit its shard of the rows alone."""
+    if _is_2d(mesh) and not family.rows_sharded:
+        raise NotImplementedError(
+            f"{family.name} does not make its row reductions through "
+            f"parallel.spmd, so it cannot fit with its rows sharded over "
+            f"a grid x data mesh; use a 1-D mesh (TM_MESH_AXIS=grid)")
+
+
 def _labels(mesh, repl) -> List[str]:
-    """Attribution labels of a batch's shards: the mesh's rank labels,
-    or the one device's name."""
+    """Attribution labels of a batch's ranks: the mesh's, or the one
+    device's name."""
     if mesh is None:
         return [str(repl[0].device)]
-    from ..parallel.mesh import device_labels
-    return device_labels(mesh.devices)
+    return mesh.labels()
 
 
 def _launcher(make_run: Callable, repl, labels: List[str], label: str,
               mesh) -> Callable:
     """``launch(tr, va, hy, *extra)`` for one batch: the runner
     ``make_run(repl)(tr, va, hy, *extra)`` on the one device, or over
-    the mesh's ranks through ``grid_map``, rank r running its shard with
-    a runner of its own over its replicated (X, y, w). Each call books
-    its per-rank real items in ``SWEEP_STATS`` under ``labels``."""
+    the mesh's ranks through ``grid_map``, each rank (each grid row's
+    data ranks, in lockstep, on a 2-D mesh) running its shard with a
+    runner of its own over its (X, y, w). Each call books its per-rank
+    real items in ``SWEEP_STATS`` under ``labels``."""
     single = make_run(repl) if mesh is None else None
 
     def launch(tr, va, hy, *extra):
-        from ..parallel.mesh import grid_map, rank_items
+        from ..parallel.mesh import grid_map, mesh_rank_items
+        b = _n_items(tr)
         SWEEP_STATS.note_device_dispatch(
-            label, labels, rank_items(_n_items(tr), len(labels)))
+            label, labels, [b] if mesh is None
+            else mesh_rank_items(mesh, b))
         if mesh is None:
             return single(tr, va, hy, *extra)
         return grid_map(lambda shard, *rp: make_run(rp)(*shard, *extra),
-                        (tr, va, hy), repl, mesh)
+                        (tr, va, hy), repl, mesh, key=label)
     return launch
 
 
 def require_ported(family: ModelFamily) -> None:
-    """Raise for the validation paths the port does not carry: the
+    """Raise for the validation path the port does not carry: the
     per-instance tree path (``TM_TREE_GRID_FOLD=0`` for a family with a
-    folded fit) and the 2-D grid x data sweep (``TM_MESH_AXIS=grid,data``)."""
+    folded fit)."""
     if (hasattr(family, "fit_eval_grid")
             and os.environ.get("TM_TREE_GRID_FOLD", "1") == "0"):
         raise NotImplementedError(
             "TM_TREE_GRID_FOLD=0 (the vmapped per-instance tree path) is "
             "not ported: transmogrifai_tpu_torch has only the folded path")
-    from ..parallel.mesh import resolve_mesh_config
-    if resolve_mesh_config().axis == "grid,data":
-        raise NotImplementedError(
-            "TM_MESH_AXIS=grid,data (the 2-D grid x data sweep) is not "
-            "ported: the port's row-partitioned path is "
-            "trees.grow_tree_grid(mesh=...) and parallel.sharded_histograms")
 
 
 # ---------------------------------------------------------------------------
@@ -679,7 +709,11 @@ def _sweep_runner(family: ModelFamily, metric_fn, n_classes: int, repl,
     first item) and returns their (b,) metrics on the device. ``tr`` /
     ``va`` are 0/1 masks (b, n), or with ``sliced`` fold_slice_batch's
     (idx, ok) pairs; ``hy`` the traced hypers (b,); ``static`` the
-    constant ones, passed to the family as Python floats."""
+    constant ones, passed to the family as Python floats. Inside
+    ``spmd.run_ranks`` (a 2-D mesh; masks only) the rows are this rank's:
+    the fit sums its row contractions over the ranks, and each chunk's
+    scores, labels and validation weights are gathered in origin order
+    in one exchange before the metric."""
     Xt, yt, wt = repl
     dev = Xt.device
     static_d = dict(static)
@@ -724,11 +758,19 @@ def _sweep_runner(family: ModelFamily, metric_fn, n_classes: int, repl,
             params = family.fit_batch(Xc, yc, wc, hyper, n_classes)
             # each item scored on its own fresh copies: a view's offset
             # in the chunk must not change how it is reduced
-            for j in range(real):
-                probs = family.predict_kernel(
-                    tree_map(lambda v: v[j], params), Xv[j].clone(),
-                    n_classes)
-                mets.append(metric_fn(probs, yv[j].clone(), wv[j].clone()))
+            probs = [family.predict_kernel(tree_map(lambda v: v[j], params),
+                                           Xv[j].clone(), n_classes)
+                     for j in range(real)]
+            if spmd.current() is None:
+                mets.extend(metric_fn(probs[j], yv[j].clone(),
+                                      wv[j].clone()) for j in range(real))
+                continue
+            rows = tr.shape[1]          # this rank's rows, before align
+            P, Y, W = spmd.gather_rows(
+                (torch.stack([p[:rows] for p in probs]), 1),
+                (yv[0, :rows].contiguous(), 0),
+                (wv[:real, :rows].contiguous(), 1))
+            mets.extend(metric_fn(P[j], Y, W[j]) for j in range(real))
         return torch.stack(mets)
 
     return run
@@ -783,9 +825,11 @@ class OpValidator:
 
     def _folded_batch(self, family, combined, train_m, val_m, repl,
                       n_classes, metric_fn, mesh) -> _SweepBatch:
+        _require_rows_sharded(family, mesh)
         train_b, val_b, hyper_b = build_fold_grid_batch(combined, train_m,
                                                         val_m)
-        label = f"folded/{family.name}/k{n_classes}"
+        label = (f"{'folded2d' if _is_2d(mesh) else 'folded'}/"
+                 f"{family.name}/k{n_classes}")
         labels = _labels(mesh, repl)
         launch = _launcher(
             lambda rp: self._folded_runner(family, metric_fn, n_classes,
@@ -802,9 +846,11 @@ class OpValidator:
         """The sweep over one group: fused (static specialization and
         fold slicing as the knobs allow) or serial (the masked traced
         program, one candidate)."""
+        _require_rows_sharded(family, mesh)
         n_folds = train_m.shape[0]
         G = len(combined)
-        sliced = mode == "fused" and fold_sliced()
+        is_2d = _is_2d(mesh)
+        sliced = mode == "fused" and fold_sliced() and not is_2d
         hyper_b = stack_hyper_batch(combined, n_folds)
         if sliced:
             train_b, val_b = fold_slice_batch(train_m, val_m, G)
@@ -816,7 +862,7 @@ class OpValidator:
         label = (f"{'sweep' if mode == 'fused' else 'serial'}/{family.name}"
                  f"/{self.metric}/k{n_classes}"
                  + (f"/static{dict(static)}" if static else "")
-                 + ("/sliced" if sliced else ""))
+                 + ("/sliced" if sliced else "") + ("/2d" if is_2d else ""))
         chunk = SWEEP_CHUNK.get(repl[0].device.type, 1)
         labels = _labels(mesh, repl)
         launch = _launcher(
@@ -828,8 +874,17 @@ class OpValidator:
             with torch.inference_mode():
                 return launch(train_b, val_b, traced, c)
 
-        return _SweepBatch(family.name, n_folds, G, run,
-                           lambda k: run(max(1, chunk // k)), label,
+        def retry(k):
+            if not is_2d:
+                return run(max(1, chunk // k))
+            # the JAX package's 2-D retry: the batch in k sequential
+            # chunks, each booking its own attribution
+            with torch.inference_mode():
+                return _chunked_retry(
+                    lambda t, v, h: launch(t, v, h, chunk),
+                    train_b, val_b, traced, k)
+
+        return _SweepBatch(family.name, n_folds, G, run, retry, label,
                            labels)
 
     def dispatch(self, family: ModelFamily, grid: List[Dict[str, float]],

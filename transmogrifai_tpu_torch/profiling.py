@@ -1528,6 +1528,110 @@ def trace(log_dir: Optional[str]) -> Iterator[None]:
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+#: debug_nans blocks open anywhere in the process (the JAX package's
+#: jax_debug_nans is process-wide too)
+_NAN_DEPTH = 0
+_NAN_LOCK = threading.Lock()
+_NAN_TLS = threading.local()
+
+
+#: ops whose output is uninitialized memory (its bits may read as NaN
+#: before anything is written): no computation made it
+_UNINITIALIZED_OPS = frozenset({"empty", "empty_like", "empty_strided",
+                                "new_empty", "new_empty_strided", "resize_"})
+
+
+def _nan_mode():
+    """The dispatch mode that checks every op's float outputs (built on
+    first use: ``torch.utils._python_dispatch`` is imported lazily)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class _NanCheck(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            op = str(func.overloadpacket.__name__)
+            if op not in _UNINITIALIZED_OPS:
+                check_nan_outputs(op, out, (args, tuple(kwargs.values())))
+            return out
+
+    return _NanCheck()
+
+
+def nan_checking() -> bool:
+    """Whether a :func:`debug_nans` block is open in this process."""
+    return _NAN_DEPTH > 0
+
+
+def _has_nan(tree) -> bool:
+    import torch
+
+    stack = [tree]
+    while stack:
+        t = stack.pop()
+        if isinstance(t, (list, tuple)):
+            stack.extend(t)
+        elif (isinstance(t, torch.Tensor) and t.is_floating_point()
+              and t.numel() and bool(torch.isnan(t).any())):
+            return True
+    return False
+
+
+def check_nan_outputs(op: str, outs, ins=()) -> None:
+    """Raise ``FloatingPointError`` naming ``op`` when it made a NaN: a
+    float tensor among ``outs`` (tensors or nested lists / tuples of
+    them) holds one while no float tensor among its inputs ``ins`` did.
+    An op that only carries its inputs' NaNs on (a column's missing
+    values moved to the card, or masked out) is not where they arose, as
+    a transfer to the device is no checked operation for JAX. The
+    hand-written kernels, which launch through ``ctypes`` outside the
+    dispatcher, call it on their outputs while :func:`nan_checking`."""
+    if _has_nan(outs) and not _has_nan(ins):
+        raise FloatingPointError(f"invalid value (nan) encountered in {op}")
+
+
+@contextlib.contextmanager
+def nan_checks() -> Iterator[None]:
+    """NaN checking in this thread while a :func:`debug_nans` block is
+    open anywhere in the process: the worker threads a run fits on (the
+    executor's pool, the rank threads of ``parallel.spmd``, a stage's
+    watchdog) enter it so the whole run is checked, as JAX's
+    process-wide flag checks it. A no-op otherwise, or when this thread
+    already checks."""
+    if not nan_checking() or getattr(_NAN_TLS, "on", False):
+        yield
+        return
+    _NAN_TLS.on = True
+    try:
+        with _nan_mode():
+            yield
+    finally:
+        _NAN_TLS.on = False
+
+
+@contextlib.contextmanager
+def debug_nans(enabled: bool = True) -> Iterator[None]:
+    """NaN debugging for the enclosed block (the JAX package's
+    ``jax_debug_nans``; the prior state returns on exit): every torch op
+    run in it, in this thread and in the threads that enter
+    :func:`nan_checks`, has its float outputs checked, and the first op
+    whose output holds a NaN raises ``FloatingPointError`` naming it.
+    Each check reads the device, so a run under it is slow: for
+    debugging runs only."""
+    global _NAN_DEPTH
+    if not enabled:
+        yield
+        return
+    with _NAN_LOCK:
+        _NAN_DEPTH += 1
+    try:
+        with nan_checks():
+            yield
+    finally:
+        with _NAN_LOCK:
+            _NAN_DEPTH -= 1
+
+
 def check_finite(tree: Any, what: str = "parameters",
                  allow_inf: bool = False, _path: str = "") -> None:
     """Raise with a named path when any float array leaf of a (nested

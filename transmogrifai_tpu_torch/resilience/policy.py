@@ -92,8 +92,10 @@ def _run_with_watchdog(fn: Callable[[], Any], timeout_s: float,
     done = threading.Event()
 
     def run():
+        from ..profiling import nan_checks
         try:
-            box["value"] = fn()
+            with nan_checks():      # a debug_nans run checks its workers
+                box["value"] = fn()
         except BaseException as e:      # noqa: BLE001 — re-raised below
             box["error"] = e
         finally:

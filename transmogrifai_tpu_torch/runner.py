@@ -12,10 +12,13 @@ through the fused scorer with incremental writes.
 The runner is pure host orchestration — it binds readers, invokes
 Workflow.train (whose grid fitting runs on the runner's device: None
 resolves to CUDA, raising without a card), and writes JSON/CSV
-artifacts. The JAX package's compilation cache, NaN debugging and
-multi-host launch have no counterpart in the port yet: setting
-``compilation_cache_location``, ``debug_nans`` or ``distributed``
-raises naming the ROADMAP queue-1 item that brings it.
+artifacts. Three fields reach the process around a run, as in the JAX
+package: ``compilation_cache_location`` is the build directory of the
+port's CUDA kernels for the run (``_compile_cache``; the prior choice
+returns afterwards, also when a later step fails), ``distributed`` (or
+``COORDINATOR_ADDRESS`` in the environment) joins the process group
+(``parallel.multihost.initialize_distributed``), and ``debug_nans``
+checks every op of the run for NaN outputs (``profiling.debug_nans``).
 """
 from __future__ import annotations
 
@@ -62,14 +65,13 @@ class OpParams:
     #: write a torch.profiler Chrome trace of the run here
     #: (trace.json; Perfetto / chrome://tracing)
     profile_location: Optional[str] = None
-    #: the JAX package's NaN debugging of a run: not ported (raises
-    #: when set)
+    #: check every op of the run for NaN outputs (profiling.debug_nans)
     debug_nans: bool = False
-    #: the JAX package's persistent compilation cache: not ported
-    #: (raises when set)
+    #: the build directory of the CUDA kernels for this run
+    #: (_compile_cache.set_build_dir; restored afterwards)
     compilation_cache_location: Optional[str] = None
-    #: the JAX package's multi-host launch contract: not ported (raises
-    #: when set)
+    #: the multi-process launch contract: {"coordinatorAddress",
+    #: "numProcesses", "processId"} (parallel.multihost)
     distributed: Dict[str, Any] = dataclasses.field(default_factory=dict)
     stage_params: Dict[str, Dict[str, Any]] = dataclasses.field(
         default_factory=dict)
@@ -257,24 +259,31 @@ class WorkflowRunner:
             RunType.FEATURES: self._run_features,
             RunType.STREAMING_SCORE: self._run_streaming_score,
         }[run_type]
-        from .profiling import trace
-        not_ported = [(name, work) for name, set_, work in (
-            ("compilation_cache_location",
-             params.compilation_cache_location,
-             "the persistent compilation cache"),
-            ("debug_nans", params.debug_nans, "NaN debugging of a run"),
-            ("distributed", params.distributed
-             or os.environ.get("COORDINATOR_ADDRESS"),
-             "the multi-host launch (parallel.multihost)"))
-            if set_]
-        if not_ported:
-            name, work = not_ported[0]
-            raise NotImplementedError(
-                f"OpParams.{name} ({work}) is not ported to "
-                f"transmogrifai_tpu_torch yet")
-        self._device = resolve_device(self.device)
-        with trace(params.profile_location):
-            result = handler(params)
+        from . import _compile_cache
+        from .profiling import debug_nans, trace
+        chose_cache, prev_cache = False, None
+        try:
+            # inside the try so a failure anywhere below (the
+            # distributed init included) still restores the build dir
+            if params.compilation_cache_location:
+                os.makedirs(params.compilation_cache_location, exist_ok=True)
+                prev_cache = _compile_cache.set_build_dir(
+                    params.compilation_cache_location)
+                chose_cache = True
+            if params.distributed or os.environ.get("COORDINATOR_ADDRESS"):
+                # explicit params OR the documented env launch contract
+                from .parallel import multihost
+                multihost.initialize_distributed(
+                    params.distributed.get("coordinatorAddress"),
+                    params.distributed.get("numProcesses"),
+                    params.distributed.get("processId"))
+            self._device = resolve_device(self.device)
+            with trace(params.profile_location), \
+                    debug_nans(params.debug_nans):
+                result = handler(params)
+        finally:
+            if chose_cache:
+                _compile_cache.set_build_dir(prev_cache)
         result.update({"runType": run_type.value,
                        "wallSeconds": round(time.time() - t0, 3)})
         if params.profile_location:
