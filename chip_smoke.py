@@ -259,6 +259,26 @@ PyTorch version:
    request on the classic plane (no stack spec, the fallback counted),
    no kernel launched anywhere in the phase.
 
+13. autotune: the learned autotuner on the two kernels' own launch
+   choices (the histogram's sort chunk rows and reduce grid cap; the
+   fused scorer's rows a block). Every candidate the
+   screens admit, at HIST_SHAPES' first four in bf16 and the capture
+   shape in exact mode, and at the serving pass's prefix and identity
+   shapes and the prefix form at 1,024 and 8,192 rows, must give an
+   output ``torch.equal`` to the static launch's; each is timed: a
+   histogram candidate by the median of CUDA-event times, a scorer
+   candidate by the median device time of a launch in a torch.profiler
+   trace (its launch is shorter than the host's call). Both cost
+   models are fitted from these measurements alone and saved; with
+   ``TM_AUTOTUNE=1`` and the two model paths every case and the
+   Titanic helloworld's train run again through the hooks: outputs,
+   histograms and CV metrics bitwise the autotune-off run's, one
+   dispatch-log entry and one flight-recorder record per distinct
+   shape. A bucket ladder proposed from the serving
+   storm's observed batch mix is applied through the engine swap, the
+   rows rescored after it bitwise. Prints each shape's static, chosen,
+   measured-best and predicted ms and whether the choice was the best.
+
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, when CUDA is unavailable or any phase fails.
@@ -363,11 +383,18 @@ def call_ms(fn, rounds: int = 21, calls: int = 50) -> float:
 
 
 PROFILE_ATTEMPTS = 3
+#: seconds the host idles inside a profiler session before ``run()``
+#: and after its work has ended: the profiler drops a device event whose
+#: time, read on the card's clock, falls outside the session's window
+#: on the host's, so a session whose first launch came at its very
+#: start (or whose last kernel ended at its stop) could lose kernels
+PROFILE_PAD_S = 0.05
 
 
 def profiled(run, host: bool = True):
     """Run ``run()`` under torch.profiler (CUDA activity, and CPU
-    activity when ``host``) and return (the profile, run's result). A
+    activity when ``host``), PROFILE_PAD_S of host idling on each side
+    of it inside the session, and return (the profile, run's result). A
     session whose trace holds no device event at all (CUPTI now and
     then delivers an empty one) is repeated, up to PROFILE_ATTEMPTS
     sessions; then it raises."""
@@ -377,8 +404,10 @@ def profiled(run, host: bool = True):
     for _ in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
+            time.sleep(PROFILE_PAD_S)
             result = run()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
         if any(ev.device_type == DeviceType.CUDA
                for ev in prof.key_averages()):
             return prof, result
@@ -489,12 +518,12 @@ def launch_ms(sk) -> float:
     return call_ms(empty)
 
 
-def prefix_inputs(rng, n, C, p, K, L, inf_model=False):
-    """The prefix form's inputs on the card: boundary values with 5%
+def prefix_inputs(rng, n, C, p, K, L, inf_model=False, device="cuda"):
+    """The prefix form's inputs on ``device``: boundary values with 5%
     NaN and column 0 all NaN, the last column the label's zero
     placeholder (which no table reads), tables of filled values and
     null indicators, weights, and model ids with row 0 out of range."""
-    dev = torch.device("cuda")
+    dev = torch.device(device)
     V = rng.normal(size=(n, C)).astype(np.float32)
     V[rng.random((n, C)) < 0.05] = np.nan
     V[:, 0] = np.nan
@@ -822,6 +851,7 @@ def serving_phase(seed: int, device, requests: int = REQUESTS,
     share, and runs the fused-pass probe, which must show at most
     PROBE_MAX_OPS_PER_SLICE device operations a bucket slice. Returns
     the phase's measurements; raises on any failure."""
+    from transmogrifai_tpu_torch.autotune import observed_mix
     from transmogrifai_tpu_torch.models import kernels as tk
     from transmogrifai_tpu_torch.models import serving_kernels as sk
     from transmogrifai_tpu_torch.profiling import percentile_nearest_rank
@@ -912,7 +942,11 @@ def serving_phase(seed: int, device, requests: int = REQUESTS,
                                         / stats["fused_batches"]),
            "host_overhead_p50_us": {
                k: v["p50_us"] for k, v in
-               stats["requestOverhead"]["segments"].items()}}
+               stats["requestOverhead"]["segments"].items()},
+           # the storm's coalesced batch sizes, for the autotune phase's
+           # bucket retune ({batch rows: batches})
+           "batch_mix": {str(r): c for r, c in
+                         sorted(observed_mix(eng.stats).items())}}
     if profile:
         eng2 = ServingEngine(registry=reg, config=cfg).start()
         try:
@@ -6811,6 +6845,408 @@ def ft_lines(fr) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the learned autotuner on the kernels' own launch choices
+# ---------------------------------------------------------------------------
+
+#: the histogram shapes the autotuner measures, (label, G, n, d, S, m,
+#: B, exact): HIST_SHAPES' first four in bf16 (the training path's
+#: operand mode), then the capture shape in exact mode
+TUNE_HIST = ([(label, *shape, False) for label, *shape in HIST_SHAPES[:4]]
+             + [("capture_exact", *HIST_SHAPES[0][1:], True)])
+#: the fused scorer's shapes, (label, n, C, p, K, L, form): the serving
+#: pass's prefix form at the storm's top bucket, its identity form, and
+#: the prefix form at two larger bucket sizes
+TUNE_SERVE = [("prefix_64", 64, N_COLUMNS + 1, P_KEEP, N_BACKENDS, 1,
+               "prefix"),
+              ("identity_64", 64, P_KEEP, P_KEEP, N_BACKENDS, 1,
+               "identity"),
+              ("prefix_1024", 1024, N_COLUMNS + 1, P_KEEP, N_BACKENDS, 1,
+               "prefix"),
+              ("prefix_8192", 8192, N_COLUMNS + 1, P_KEEP, N_BACKENDS, 1,
+               "prefix")]
+#: timing: a histogram candidate's median over SAMPLES runs of CALLS
+#: back-to-back launches between CUDA events, per launch (a launch is
+#: 0.2-1.5 ms of device time, so the events see the device); a scorer
+#: candidate's median device time over CALLS launches in a
+#: torch.profiler trace (a launch is a few us of device time, less than
+#: the host takes to issue it, so CUDA events around back-to-back
+#: launches would time the host)
+TUNE_HIST_SAMPLES = 5
+TUNE_HIST_CALLS = 10
+TUNE_SERVE_SAMPLES = 5
+TUNE_SERVE_CALLS = 40
+#: the scorer's kernel in a trace (csrc fused_scores_kernel<...>)
+TUNE_SERVE_KERNEL = "fused_scores_kernel"
+#: rows the engine rescores after the bucket ladder's swap
+TUNE_RESCORE_ROWS = 64
+
+
+def tune_ms(fn, device, samples: int, calls: int = 1) -> float:
+    """Median over ``samples`` of the time of ``calls`` back-to-back
+    calls of ``fn``, per call, after one warm-up call: CUDA events on
+    the card; on the CPU (the tests' rehearsal) the host clock."""
+    fn()
+    cuda = torch.device(device).type == "cuda"
+    per = []
+    for _ in range(samples):
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                fn()
+            end.record()
+            end.synchronize()
+            per.append(start.elapsed_time(end) / calls)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            per.append((time.perf_counter() - t0) * 1e3 / calls)
+    return float(np.median(per))
+
+
+def kernel_median_ms(fn, pattern: str, calls: int) -> float:
+    """Median device time of one launch of the kernel named *pattern*
+    over ``calls`` calls of ``fn`` in a torch.profiler trace, after one
+    warm-up call. The median is taken only from a trace that holds
+    exactly one such kernel a call: a trace holding fewer (one that
+    lost device events) is taken again, up to PROFILE_ATTEMPTS
+    sessions; one holding more raises at once."""
+    from torch.autograd import DeviceType
+    fn()
+    traced = []
+    for _ in range(PROFILE_ATTEMPTS):
+        prof, _ = profiled(lambda: [fn() for _ in range(calls)], host=False)
+        spans = [ev.time_range.end - ev.time_range.start
+                 for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA and pattern in ev.name]
+        if len(spans) == calls:
+            return float(np.median(spans)) / 1e3
+        traced.append(len(spans))
+        if len(spans) > calls:
+            break
+        print(f"kernel_median_ms: a trace held {len(spans)} kernels named "
+              f"*{pattern}* for {calls} calls", file=sys.stderr)
+    raise AssertionError(f"{traced} device kernels named *{pattern}* "
+                         f"traced in {len(traced)} sessions of {calls} "
+                         f"calls each")
+
+
+def _hist_knobs(exact: bool) -> dict:
+    return ({"TM_KERNEL_EXACT": "1"} if exact
+            else {"TM_KERNEL_EXACT": "0", "TM_HIST_BF16": "1"})
+
+
+def tune_hist_part(cases, seed, device, samples=TUNE_HIST_SAMPLES,
+                   calls=TUNE_HIST_CALLS):
+    """Every histogram candidate the screen admits at each case, on
+    seeded inputs: its output ``torch.equal`` to the static launch's,
+    and its time. Returns (rows, each case's inputs and static output)."""
+    from transmogrifai_tpu_torch.autotune import candidate_configs
+    from transmogrifai_tpu_torch.models import kernels as tk
+    rows, kept = [], []
+    for i, (label, G, n, d, S, m, B, exact) in enumerate(cases):
+        shape = {"G": G, "n": n, "d": d, "B": B, "S": S, "m": m}
+        gen = torch.Generator(device=device).manual_seed(seed + i)
+        args = (torch.randint(0, B, (n, d), generator=gen, device=device,
+                              dtype=torch.int32),
+                torch.randn((G, n, S), generator=gen, device=device),
+                torch.randint(0, m, (G, n), generator=gen, device=device,
+                              dtype=torch.int32))
+        meas = []
+        with env(**_hist_knobs(exact)):
+            static = tk.histogram_grid(*args, m, B,
+                                       config=tk.STATIC_LAUNCH_CONFIG)
+            for cfg in candidate_configs(shape):
+                def run(cfg=cfg):
+                    return tk.histogram_grid(*args, m, B, config=cfg)
+                if not torch.equal(run(), static):
+                    raise AssertionError(
+                        f"autotune: histogram candidate {cfg} at {label} "
+                        f"differs from the static launch")
+                meas.append({"shape": shape, "config": cfg,
+                             "ms": tune_ms(run, device, samples, calls)})
+        rows.append({"label": label, "shape": shape, "exact": exact,
+                     "static": tk.STATIC_LAUNCH_CONFIG,
+                     "measurements": meas})
+        kept.append((args, static))
+    return rows, kept
+
+
+def _serve_inputs(rng, form, n, C, p, K, L, device):
+    """The prefix form's inputs (:func:`prefix_inputs`), or the identity
+    form's rows, weights and model ids, on ``device``."""
+    if form == "prefix":
+        return tuple(prefix_inputs(rng, n, C, p, K, L, device=device))
+    X = rng.normal(size=(n, p)).astype(np.float32)
+    W = (0.5 * rng.normal(size=(K, p + 1, L))).astype(np.float32)
+    mid = rng.integers(0, K, size=n).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(device) for a in (X, W, mid))
+
+
+def _serve_call(sk, form, args, config=None):
+    if form == "prefix":
+        return sk.fused_prefix_scores(*args, act="sigmoid_pair",
+                                      config=config)
+    return sk.fused_linear_scores(*args, config=config)
+
+
+def tune_serve_part(cases, seed, device, samples=TUNE_SERVE_SAMPLES,
+                    calls=TUNE_SERVE_CALLS):
+    """Every scorer candidate the screen admits at each case (the grid
+    each executes from the card's own launch rule,
+    ``launch_blocks_on_card``): its output ``torch.equal`` to the static
+    launch's, and its time: the median device time of a launch
+    (:func:`kernel_median_ms`) on the card, the host clock on the CPU
+    (the tests' rehearsal)."""
+    from transmogrifai_tpu_torch.autotune import serve_candidate_configs
+    from transmogrifai_tpu_torch.models import serving_kernels as sk
+    rng = np.random.default_rng(seed)
+    cuda = torch.device(device).type == "cuda"
+    rows, kept = [], []
+    for label, n, C, p, K, L, form in cases:
+        shape = {"K": K, "n": n, "p": p, "L": L}
+        args = _serve_inputs(rng, form, n, C, p, K, L, device)
+
+        def grid(br, n=n, p=p, K=K, L=L, form=form):
+            return sk.launch_blocks_on_card(device, n, p, K, L,
+                                            tables=form == "prefix",
+                                            block_rows=br)
+
+        static = _serve_call(sk, form, args, sk.STATIC_LAUNCH_CONFIG)
+        meas = []
+        for cfg in serve_candidate_configs(shape,
+                                           grid=grid if cuda else None):
+            def run(cfg=cfg):
+                return _serve_call(sk, form, args, cfg)
+            if not torch.equal(run(), static):
+                raise AssertionError(
+                    f"autotune: scorer candidate {cfg} at {label} differs "
+                    f"from the static launch")
+            ms = (kernel_median_ms(run, TUNE_SERVE_KERNEL, calls) if cuda
+                  else tune_ms(run, device, samples, calls))
+            meas.append({"shape": shape, "config": cfg, "ms": ms})
+        rows.append({"label": label, "shape": shape, "form": form,
+                     "static": sk.STATIC_LAUNCH_CONFIG,
+                     "measurements": meas})
+        kept.append((form, args, static))
+    return rows, kept
+
+
+def tune_choices(rows, model, key, executed=lambda shape, cfg: cfg):
+    """Each row's static, chosen, measured-best and predicted times: the
+    model ranks the row's measured candidates (the set its hook ranks);
+    ``executed`` maps the static config to its candidate's label."""
+    for r in rows:
+        meas = r["measurements"]
+        by = {key(m["config"]): m["ms"] for m in meas}
+        choice, predicted = model.choose_config(
+            r["shape"], [m["config"] for m in meas])
+        best = min(meas, key=lambda m: (m["ms"], key(m["config"])))
+        r.update(candidates=len(meas),
+                 static_ms=by[key(executed(r["shape"], r["static"]))],
+                 chosen=choice, chosen_ms=by[key(choice)],
+                 best=best["config"], best_ms=best["ms"],
+                 predicted_ms=predicted,
+                 chosen_is_best=key(choice) == key(best["config"]))
+    return rows
+
+
+def _titanic_tuned(reader, device, candidates):
+    """The Titanic helloworld's train (``Workflow.train``) with every
+    histogram level and its shape recorded: (model, CV grid metrics,
+    histograms, shapes)."""
+    record, shapes = [], []
+    with hist_hook(record=record, shapes=shapes):
+        model = _titanic_workflow(candidates).train(reader, device=device)
+    return (model, _grid_metrics(model.selected_model().summary), record,
+            shapes)
+
+
+def tune_buckets_part(model, reader, device, mix, buckets=BUCKETS,
+                      rows=TUNE_RESCORE_ROWS):
+    """A ladder proposed from the serving storm's observed ``mix`` and
+    applied through the engine's warmed swap (``retune_buckets``) on an
+    engine serving ``model`` on ``buckets``: the expected padded rows
+    under both ladders, and the same rows scored before and after the
+    swap, which must be bitwise equal."""
+    from transmogrifai_tpu_torch.autotune import retune_buckets
+    from transmogrifai_tpu_torch.serving import ServingEngine
+    from transmogrifai_tpu_torch.workflow import raw_dataset_for
+    ds = raw_dataset_for(reader, model.raw_features)
+    sample, warm = _ds_slice(ds, 0, rows), _ds_slice(ds, 0, 1)
+    with ServingEngine(model, buckets=buckets, warm_sample=warm,
+                       device=device) as eng:
+        before = eng.score(sample, timeout=120)
+        report = retune_buckets(eng, model, version="retuned", mix=mix,
+                                current=buckets, warm_sample=warm)
+        if not report["applied"]:
+            raise AssertionError(f"autotune: the proposed ladder was not "
+                                 f"applied: {report}")
+        if eng.registry.default_version != "retuned":
+            raise AssertionError("autotune: the engine does not serve the "
+                                 "retuned ladder after the swap")
+        after = eng.score(sample, timeout=120)
+    if sorted(before) != sorted(after) or not all(
+            np.array_equal(before[k], after[k]) for k in before):
+        raise AssertionError("autotune: rows rescored after the ladder's "
+                             "swap differ from before it")
+    return {"current": report["current"], "proposed": report["proposed"],
+            "expected_padded_rows_current":
+                report["expected_padded_rows_current"],
+            "expected_padded_rows_proposed":
+                report["expected_padded_rows_proposed"],
+            "batches": sum(mix.values()), "rescored_rows": rows,
+            "rescored_bitwise": True}
+
+
+def autotune_phase(seed: int, device="cuda", mix=None, hist=TUNE_HIST,
+                   serve=TUNE_SERVE, candidates=None):
+    """Measure every launch candidate of the histogram (``hist``) and the
+    fused scorer (``serve``), each bitwise the static launch; fit both
+    cost models from these measurements alone (the histogram's bf16
+    rows, the scorer's prefix-form rows: the forms the main path runs)
+    and save them; then, with ``TM_AUTOTUNE=1`` and the two model paths,
+    re-run every case and the Titanic helloworld's train (``candidates``,
+    default its own) through the hooks: outputs, histograms and CV
+    metrics bitwise the autotune-off run's, one dispatch-log entry and
+    one flight-recorder record per distinct shape on the card (none on
+    the CPU, where the hooks are not consulted). Last, a bucket ladder
+    from the serving storm's batch ``mix`` ({rows: batches}) applied
+    through the engine swap. Raises on any failed gate."""
+    import tempfile
+    from transmogrifai_tpu_torch import autotune as at
+    from transmogrifai_tpu_torch.autotune import costmodel as acm
+    from transmogrifai_tpu_torch.models import kernels as tk
+    from transmogrifai_tpu_torch.readers import DataReaders
+    from transmogrifai_tpu_torch.telemetry.recorder import RECORDER
+    t0 = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    hrows, hkept = tune_hist_part(hist, seed, device)
+    srows, skept = tune_serve_part(serve, seed, device)
+    kmodel = at.KernelCostModel.fit(
+        [m for r in hrows if not r["exact"] for m in r["measurements"]])
+    smodel = at.ServingCostModel.fit(
+        [m for r in srows if r["form"] == "prefix"
+         for m in r["measurements"]])
+    tune_choices(hrows, kmodel, acm.config_key, acm.executed_config)
+    tune_choices(srows, smodel, acm.serve_config_key)
+    t_measure = time.perf_counter() - t0
+
+    reader = DataReaders.csv(_repo_file("examples", "data", "titanic.csv"),
+                             _types(TITANIC_SCHEMA), key="id")
+    at.reset_autotuner()
+    off = _titanic_tuned(reader, device, candidates)
+    with tempfile.TemporaryDirectory() as tmp:
+        kpath = os.path.join(tmp, "kernel_model.json")
+        spath = os.path.join(tmp, "serving_model.json")
+        kmodel.save(kpath)
+        smodel.save(spath)
+        with env(TM_AUTOTUNE="1", TM_AUTOTUNE_MODEL=kpath,
+                 TM_AUTOTUNE_SERVING_MODEL=spath):
+            at.reset_autotuner()
+            seq0 = RECORDER.total
+            for (label, G, n, d, S, m, B, exact), (args, static) in zip(
+                    hist, hkept):
+                with env(**_hist_knobs(exact)):
+                    if not torch.equal(tk.histogram_grid(*args, m, B),
+                                       static):
+                        raise AssertionError(f"autotune: the tuned launch "
+                                             f"differs at {label}")
+            from transmogrifai_tpu_torch.models import serving_kernels as sk
+            for (label, *_), (form, args, static) in zip(serve, skept):
+                if not torch.equal(_serve_call(sk, form, args), static):
+                    raise AssertionError(f"autotune: the tuned scorer "
+                                         f"launch differs at {label}")
+            on = _titanic_tuned(reader, device, candidates)
+            hist_log = at.kernel_dispatch_log()
+            serve_log = at.serving_dispatch_log()
+            events = [e for e in RECORDER.events(subsystem="autotune")
+                      if e["seq"] > seq0]
+    at.reset_autotuner()
+    if off[1] != on[1]:
+        raise AssertionError(f"autotune: Titanic CV metrics moved under the "
+                             f"autotuner: {off[1]} vs {on[1]}")
+    if len(off[2]) != len(on[2]) or not all(
+            torch.equal(a, b) for a, b in zip(off[2], on[2])):
+        raise AssertionError("autotune: Titanic's histograms moved under "
+                             "the autotuner")
+    # (G, n, d, S, m, B) records -> the hook's (G, n, d, B, S, m) keys
+    shapes = {acm.shape_key(r["shape"]) for r in hrows} | {
+        (G, n, d, B, S, m) for G, n, d, S, m, B in on[3]}
+    serve_shapes = {acm.serve_shape_key(r["shape"]) for r in srows}
+    want_h, want_s = (len(shapes), len(serve_shapes)) if cuda else (0, 0)
+    logged = [acm.shape_key(e["shape"]) for e in hist_log]
+    if len(logged) != want_h or (cuda and set(logged) != shapes):
+        raise AssertionError(f"autotune: {len(logged)} histogram decisions "
+                             f"for {want_h} distinct shapes")
+    if len(serve_log) != want_s:
+        raise AssertionError(f"autotune: {len(serve_log)} scorer decisions "
+                             f"for {want_s} distinct shapes")
+    kinds = [e["event"] for e in events]
+    if (kinds.count("kernel_config"), kinds.count("serving_config")) != (
+            want_h, want_s):
+        raise AssertionError(f"autotune: the flight recorder holds "
+                             f"{kinds.count('kernel_config')} / "
+                             f"{kinds.count('serving_config')} decisions "
+                             f"for {want_h} / {want_s} shapes")
+    by_shape = {acm.shape_key(e["shape"]): e["config"] for e in hist_log}
+    for r in hrows:
+        got = by_shape.get(acm.shape_key(r["shape"]))
+        if cuda and not r["exact"] and got != r["chosen"]:
+            raise AssertionError(f"autotune: the hook ran {got} at "
+                                 f"{r['label']}, the model chose "
+                                 f"{r['chosen']}")
+    mix = {int(k): int(v) for k, v in (mix or {}).items()}
+    buckets = (tune_buckets_part(on[0], reader, device, mix) if mix
+               else None)
+    for r in hrows + srows:
+        r["measurements"] = [{"config": m["config"], "ms": m["ms"]}
+                             for m in r["measurements"]]
+    return {"hist": hrows, "serve": srows, "buckets": buckets,
+            "kernel_model": kmodel.to_json(),
+            "serving_model": smodel.to_json(),
+            "titanic_cv_bitwise": True, "titanic_levels": len(on[2]),
+            "titanic_winner": on[0].selected_model().summary[
+                "bestModel"]["family"],
+            "hist_decisions": len(hist_log),
+            "serve_decisions": len(serve_log),
+            "measure_s": t_measure, "wall_s": time.perf_counter() - t0}
+
+
+def autotune_lines(at_) -> list:
+    """One line a tuned shape (static, chosen, measured-best and
+    predicted ms; whether the choice was the measured best; every
+    candidate's config values and ms) and one for the bucket ladder,
+    from this run's phase result."""
+    out = []
+    for r in at_["hist"] + at_["serve"]:
+        table = [list(m["config"].values()) + [m["ms"]]
+                 for m in r["measurements"]]
+        out.append(
+            f"autotune {r['label']}: static {r['static_ms']} ms, chosen "
+            f"{r['chosen_ms']} ms {r['chosen']}, measured best "
+            f"{r['best_ms']} ms {r['best']}, predicted {r['predicted_ms']} "
+            f"ms, chosen is the measured best: {r['chosen_is_best']} "
+            f"({r['candidates']} candidates, each bitwise the static "
+            f"launch; {list(r['static'])} and ms: {json.dumps(table)})")
+    b = at_["buckets"]
+    if b is not None:
+        out.append(
+            f"autotune buckets: {b['batches']} observed batches; current "
+            f"ladder {b['current']} expects "
+            f"{b['expected_padded_rows_current']} padded rows, proposed "
+            f"{b['proposed']} {b['expected_padded_rows_proposed']}; "
+            f"{b['rescored_rows']} rows rescored bitwise after the swap")
+    out.append(f"autotune: phase {at_['wall_s']} s (measuring "
+               f"{at_['measure_s']} s); Titanic CV metrics bitwise over "
+               f"{at_['titanic_levels']} levels; {at_['hist_decisions']} / "
+               f"{at_['serve_decisions']} decisions")
+    return out
+
+
 def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
                  wf=None, ctr=None, fe=None, fl=None, mesh=None,
                  mesh2d=None, multihost=None):
@@ -7028,6 +7464,15 @@ def main(argv=None) -> int:
           flush=True)
     for line in fleet_lines(fl):
         print(line, flush=True)
+
+    tuned = autotune_phase(args.seed, mix=serve["batch_mix"])
+    brief = {k: v for k, v in tuned.items() if k not in ("hist", "serve")}
+    brief["shapes"] = [{k: v for k, v in r.items() if k != "measurements"}
+                       for r in tuned["hist"] + tuned["serve"]]
+    print("phase autotune: " + json.dumps(dict(brief, card=card)),
+          flush=True)
+    for line in autotune_lines(tuned):
+        print(line + f" [{card}]", flush=True)
 
     print(json.dumps(kernels_line(rows, serve, empty_ms, hrows, train, hmma,
                                   rrows, dp, wf, ctr, fe, fl, ms, m2, mh)),

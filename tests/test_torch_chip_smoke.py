@@ -12,6 +12,8 @@ decision tree. Then the linear phase (the
 oracle, card-vs-CPU here CPU against CPU, the invariance) and the
 multiclass and regression default lists at small sizes.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1080,3 +1082,125 @@ def test_kernels_line_adds_the_mesh2d_and_multihost_launches():
     assert ring["mesh2d_launches"] == {"allreduce": 3084, "allgather": 44}
     assert ring["multihost_launches"] == {"allreduce": 900,
                                           "allgather": 12}
+
+
+# ---------------------------------------------------------------------------
+# the autotune phase, rehearsed on CPU tensors at small sizes
+# ---------------------------------------------------------------------------
+
+#: (label, G, n, d, S, m, B, exact) and (label, n, C, p, K, L, form)
+TUNE_HIST_SMALL = [("small", 2, 300, 5, 3, 4, 8, False),
+                   ("small_exact", 2, 300, 5, 3, 4, 8, True)]
+TUNE_SERVE_SMALL = [("prefix", 20, 6, 5, 3, 1, "prefix"),
+                    ("identity", 20, 5, 5, 3, 1, "identity")]
+
+
+@pytest.fixture(scope="module")
+def autotune_run():
+    return chip_smoke.autotune_phase(
+        0, device="cpu", mix={5: 3, 9: 2, 40: 1}, hist=TUNE_HIST_SMALL,
+        serve=TUNE_SERVE_SMALL,
+        candidates=[["DecisionTreeClassifier", None]])
+
+
+def test_autotune_phase_runs_on_the_cpu(autotune_run):
+    """Every candidate measured and bitwise the static launch (the
+    plain version on the CPU), both models fitted and saved, Titanic's
+    CV metrics and histograms bitwise with the hooks on, no decision on
+    the CPU (the hooks are consulted on CUDA only), the ladder applied
+    through the engine swap with the rows rescored bitwise."""
+    from transmogrifai_tpu_torch import autotune as at
+    out = autotune_run
+    assert [r["label"] for r in out["hist"]] == ["small", "small_exact"]
+    assert all(r["candidates"] == len(r["measurements"]) > 1
+               for r in out["hist"] + out["serve"])
+    for r in out["hist"] + out["serve"]:
+        assert r["best_ms"] == min(m["ms"] for m in r["measurements"])
+        assert r["chosen_ms"] in [m["ms"] for m in r["measurements"]]
+        assert r["chosen_is_best"] == (r["chosen_ms"] == r["best_ms"]
+                                       and r["chosen"] == r["best"])
+    at.KernelCostModel.from_json(out["kernel_model"])
+    at.ServingCostModel.from_json(out["serving_model"])
+    assert out["titanic_cv_bitwise"] and out["titanic_levels"] > 0
+    assert (out["hist_decisions"], out["serve_decisions"]) == (0, 0)
+    b = out["buckets"]
+    assert b["current"] == list(chip_smoke.BUCKETS)
+    assert b["expected_padded_rows_proposed"] < b[
+        "expected_padded_rows_current"]
+    assert b["rescored_bitwise"] and b["batches"] == 6
+    json.dumps(out)
+
+
+def test_autotune_lines_take_every_number_from_the_run(autotune_run):
+    lines = chip_smoke.autotune_lines(autotune_run)
+    assert len(lines) == 4 + 1 + 1
+    for r in autotune_run["hist"] + autotune_run["serve"]:
+        line = next(ln for ln in lines if ln.startswith(
+            f"autotune {r['label']}:"))
+        for key in ("static_ms", "chosen_ms", "best_ms", "predicted_ms"):
+            assert str(r[key]) in line
+
+
+def test_autotune_phase_flags_a_candidate_that_changes_the_output(
+        monkeypatch):
+    """A launch config that moved a bit of the histogram fails the
+    phase's gate (planted: the wrapper perturbs the output under one
+    candidate)."""
+    real = tk.histogram_grid
+
+    def planted(bins, stats, pos, m, B, *, config=None):
+        out = real(bins, stats, pos, m, B, config=config)
+        if config is not None and config.get("sort_chunk_rows") == 256:
+            out = out.clone()
+            out.view(-1)[0] += 1.0
+        return out
+
+    monkeypatch.setattr(tk, "histogram_grid", planted)
+    with pytest.raises(AssertionError, match="differs from the static"):
+        chip_smoke.tune_hist_part(TUNE_HIST_SMALL[:1], 0, "cpu")
+
+
+class _FakeTrace:
+    """A stand-in for a torch.profiler trace: ``kernels`` device kernels
+    named like the scorer's, each 2 us long."""
+
+    def __init__(self, kernels):
+        from types import SimpleNamespace
+        from torch.autograd import DeviceType
+        self._events = [SimpleNamespace(
+            device_type=DeviceType.CUDA,
+            name="void fused_scores_kernel<8>(...)",
+            time_range=SimpleNamespace(start=10.0 * i, end=10.0 * i + 2.0))
+            for i in range(kernels)]
+
+    def events(self):
+        return self._events
+
+
+@pytest.mark.parametrize("traced, want", [
+    ([4], 0.002),                   # the first trace is whole
+    ([3, 4], 0.002),                # a trace that lost a kernel is retaken
+    ([3, 2, 1], "[3, 2, 1] device kernels"),    # never whole: raises
+    ([5, 4], "[5] device kernels"),  # a kernel too many raises at once
+])
+def test_kernel_median_ms_takes_only_a_whole_trace(monkeypatch, traced, want):
+    sessions = iter(traced)
+    calls = []
+
+    def fake_profiled(run, host=True):
+        run()
+        return _FakeTrace(next(sessions)), None
+
+    monkeypatch.setattr(chip_smoke, "profiled", fake_profiled)
+
+    def fn():
+        calls.append(1)
+
+    if isinstance(want, str):
+        with pytest.raises(AssertionError, match=want.replace("[", r"\[")
+                           .replace("]", r"\]")):
+            chip_smoke.kernel_median_ms(fn, "fused_scores_kernel", 4)
+    else:
+        assert chip_smoke.kernel_median_ms(
+            fn, "fused_scores_kernel", 4) == pytest.approx(want)
+        assert len(calls) == 1 + 4 * len(traced)

@@ -1229,3 +1229,122 @@ def test_worker_on_the_card_serves_a_saved_workflow(card, tmp_path):
     out = chip_smoke.cli_part(model, chip_smoke.wf_data(P.__name__, 200, 17),
                               card, str(tmp_path), requests=8, replicas=2)
     assert out["ok"] == 8 and out["max_abs_err"] <= chip_smoke.CLI_ATOL
+
+
+# ---------------------------------------------------------------------------
+# the learned autotuner's launch choices (every candidate bitwise)
+# ---------------------------------------------------------------------------
+
+#: (G, n, d, S, m, B): small shapes with a ragged chunk of features (d
+#: past a warp's 8), several sort chunks and a reduce grid the caps cut
+TUNE_HIST_SHAPES = [(3, 5_000, 28, 5, 8, 32), (2, 3_001, 37, 3, 5, 40),
+                    (1, 700, 3, 1, 1, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TUNE_HIST_SHAPES)
+@pytest.mark.parametrize("exact", ["0", "1"])
+def test_every_histogram_candidate_is_bitwise_the_static_launch(
+        card, shape, exact, monkeypatch):
+    """Every config the autotuner's screen admits (sort chunk rows,
+    reduce grid cap) gives bitwise the static launch's histogram, in
+    both operand modes."""
+    from transmogrifai_tpu_torch.autotune import candidate_configs
+    from transmogrifai_tpu_torch.models import kernels as tk
+    monkeypatch.setenv("TM_KERNEL_EXACT", exact)
+    G, n, d, S, m, B = shape
+    gen = torch.Generator(device=card).manual_seed(sum(shape))
+    bins = torch.randint(0, B, (n, d), generator=gen, device=card,
+                         dtype=torch.int32)
+    stats = torch.randn((G, n, S), generator=gen, device=card)
+    pos = torch.randint(0, m, (G, n), generator=gen, device=card,
+                        dtype=torch.int32)
+    static = tk.histogram_grid(bins, stats, pos, m, B,
+                               config=tk.STATIC_LAUNCH_CONFIG)
+    cands = candidate_configs({"G": G, "n": n, "d": d, "B": B, "S": S,
+                               "m": m}, max_block=1024)
+    assert len(cands) > 1
+    for cfg in cands:
+        got = tk.histogram_grid(bins, stats, pos, m, B, config=cfg)
+        assert torch.equal(got, static), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["prefix", "identity"])
+@pytest.mark.parametrize("n", [1, 64, 5_000])
+def test_every_scorer_candidate_is_bitwise_the_static_launch(card, form, n):
+    """Every rows-a-block the screen admits gives bitwise the static
+    launch's scores, and the screen's grid is the C entry's own."""
+    import chip_smoke
+    from transmogrifai_tpu_torch.autotune import serve_candidate_configs
+    rng = np.random.default_rng(n)
+    p, K, L = 22, 4, 1
+    args = chip_smoke._serve_inputs(rng, form, n, 13, p, K, L, card)
+    static = chip_smoke._serve_call(sk, form, args, sk.STATIC_LAUNCH_CONFIG)
+    shape = {"K": K, "n": n, "p": p, "L": L}
+
+    def grid(br):
+        return sk.launch_blocks_on_card(card, n, p, K, L,
+                                        tables=form == "prefix",
+                                        block_rows=br)
+
+    cands = serve_candidate_configs(shape, grid=grid)
+    assert cands[0] == sk.STATIC_LAUNCH_CONFIG
+    assert grid(0) == grid(8)               # 0 is the static rule
+    grids = [grid(c["block_rows"]) for c in cands]
+    assert len(set(grids)) == len(grids)
+    for cfg in cands:
+        assert torch.equal(chip_smoke._serve_call(sk, form, args, cfg),
+                           static), cfg
+
+
+@pytest.mark.cuda
+def test_autotune_hooks_fire_once_a_shape_on_the_card(card, tmp_path,
+                                                      monkeypatch):
+    """With TM_AUTOTUNE=1 and both models, the histogram and the scorer
+    consult their hooks on the card: one decision a distinct shape, the
+    result bitwise the static launch's; unset, no decision."""
+    import chip_smoke
+    from transmogrifai_tpu_torch import autotune as at
+    from transmogrifai_tpu_torch.models import kernels as tk
+    hshape = {"G": 2, "n": 3_000, "d": 28, "B": 32, "S": 3, "m": 4}
+    sshape = {"K": 4, "n": 64, "p": 22, "L": 1}
+    kpath, spath = str(tmp_path / "k.json"), str(tmp_path / "s.json")
+    at.KernelCostModel.fit(
+        [{"shape": hshape, "config": c,
+          "ms": 1.0 + 1e-4 * c["sort_chunk_rows"]}
+         for c in at.candidate_configs(hshape)]).save(kpath)
+    at.ServingCostModel.fit(
+        [{"shape": sshape, "config": c, "ms": 0.01 + 1e-4 * c["block_rows"]}
+         for c in at.serve_candidate_configs(sshape)]).save(spath)
+    gen = torch.Generator(device=card).manual_seed(0)
+    bins = torch.randint(0, 32, (3_000, 28), generator=gen, device=card,
+                         dtype=torch.int32)
+    stats = torch.randn((2, 3_000, 3), generator=gen, device=card)
+    pos = torch.randint(0, 4, (2, 3_000), generator=gen, device=card,
+                        dtype=torch.int32)
+    args = chip_smoke._serve_inputs(np.random.default_rng(0), "prefix", 64,
+                                    13, 22, 4, 1, card)
+    for name in list(__import__("os").environ):
+        if name.startswith("TM_AUTOTUNE"):
+            monkeypatch.delenv(name)
+    at.reset_autotuner()
+    h0 = tk.histogram_grid(bins, stats, pos, 4, 32)
+    s0 = chip_smoke._serve_call(sk, "prefix", args)
+    assert at.kernel_dispatch_log() == [] == at.serving_dispatch_log()
+    monkeypatch.setenv("TM_AUTOTUNE", "1")
+    monkeypatch.setenv("TM_AUTOTUNE_MODEL", kpath)
+    monkeypatch.setenv("TM_AUTOTUNE_SERVING_MODEL", spath)
+    at.reset_autotuner()          # the knobs resolve once until a reset
+    try:
+        for _ in range(3):
+            assert torch.equal(tk.histogram_grid(bins, stats, pos, 4, 32),
+                               h0)
+            assert torch.equal(chip_smoke._serve_call(sk, "prefix", args),
+                               s0)
+        hlog, slog = at.kernel_dispatch_log(), at.serving_dispatch_log()
+        assert len(hlog) == 1 and hlog[0]["shape"] == hshape
+        assert hlog[0]["config"]["sort_chunk_rows"] == 256
+        assert len(slog) == 1 and slog[0]["config"] == {"block_rows": 8}
+    finally:
+        at.reset_autotuner()

@@ -1,6 +1,6 @@
 """The PyTorch/CUDA port stands alone: ``transmogrifai_tpu_torch``,
-``chip_smoke.py``, ``gbt_parity_probe.py`` and ``fused_pass_probe.py``
-import neither JAX nor
+``chip_smoke.py``, ``gbt_parity_probe.py``, ``fused_pass_probe.py`` and
+``profiler_probe.py`` import neither JAX nor
 the JAX package, every entry point resolves its device to CUDA unless
 the caller asks for the CPU, and a missing card or a failed kernel
 build raises instead of falling back."""
@@ -21,7 +21,7 @@ _FORBIDDEN = ("jax", "jaxlib", "transmogrifai_tpu")
 def _port_sources():
     out = [os.path.join(_REPO, f)
            for f in ("chip_smoke.py", "gbt_parity_probe.py",
-                     "fused_pass_probe.py")]
+                     "fused_pass_probe.py", "profiler_probe.py")]
     for root, _dirs, files in os.walk(_PKG):
         out += [os.path.join(root, f) for f in sorted(files)
                 if f.endswith(".py")]
@@ -61,6 +61,7 @@ def test_importing_every_submodule_leaves_jax_out():
         "import importlib, pkgutil, sys\n"
         "import transmogrifai_tpu_torch as P\n"
         "import chip_smoke, gbt_parity_probe, fused_pass_probe\n"
+        "import profiler_probe\n"
         "mods = [m.name for m in pkgutil.walk_packages("
         "P.__path__, P.__name__ + '.')]\n"
         "for m in mods:\n"
@@ -407,3 +408,28 @@ def test_serving_tier_entry_points_default_to_cuda(monkeypatch, tmp_path):
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_autotune_and_analysis_modules_are_in_the_scan():
+    """The autotuner and the source auditor are scanned above (the scan
+    walks the package) and imported by the probe, and the auditor's
+    default roots never reach the JAX package."""
+    import pkgutil
+    import transmogrifai_tpu_torch as P
+    from transmogrifai_tpu_torch.analysis import core
+    mods = {m.name for m in pkgutil.walk_packages(P.__path__,
+                                                  P.__name__ + ".")}
+    autotune = ("__init__", "costmodel", "runtime", "buckets")
+    analysis = ("__init__", "__main__", "core", "trace_env", "knobs",
+                "surfaces", "locks", "concurrency", "clones", "hotpath",
+                "reqprofile")
+    for pkg, names in (("autotune", autotune), ("analysis", analysis)):
+        for name in names:
+            path = os.path.join(_PKG, pkg, name + ".py")
+            assert path in _port_sources()
+            assert _forbidden_imports(path) == []
+            mod = f"transmogrifai_tpu_torch.{pkg}" + (
+                "" if name == "__init__" else f".{name}")
+            assert mod in mods or name == "__init__"
+    assert not any(r.split("/")[0] in _FORBIDDEN
+                   for r in core.DEFAULT_ROOTS)

@@ -48,8 +48,10 @@ def build_dir() -> str:
     """The directory kernels are built into and loaded from now."""
     if _CHOSEN:
         return _CHOSEN
+    # opaudit: disable=trace-env -- where a build lands, read at every build; a library once loaded serves the process by design (load_library), and its bits do not depend on the directory
     if os.environ.get("TM_NO_COMPILE_CACHE") == "1":
         return _process_dir()
+    # opaudit: disable=trace-env -- where a build lands, read at every build; a library once loaded serves the process by design (load_library), and its bits do not depend on the directory
     return os.environ.get("TM_COMPILE_CACHE_DIR") or DEFAULT_BUILD_DIR
 
 

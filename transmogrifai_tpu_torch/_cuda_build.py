@@ -47,6 +47,7 @@ def nvcc_path() -> str:
     """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH, else the CUDA
     toolkit's default install location."""
     cands = []
+    # opaudit: disable=trace-env -- which compiler builds a library, read at every build; the library's name hashes its source and flags, and a loaded one serves the process by design
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     if home:
         cands.append(os.path.join(home, "bin", "nvcc"))

@@ -220,44 +220,88 @@ typedef void (*KernelFn)(const float*, const int32_t*, const int32_t*,
                          const uint8_t*, const float*, const float*, float*,
                          int, int, int, int, int, int, int);
 
+// How one launch is cut, the launch rule in one place (the launch and
+// tm_fused_launch_blocks both call it): W and the tables staged in shared
+// memory when they fit the opt-in limit, else read through L1; a block
+// of kWarps warps for each `block_rows` rows (a warp owns a row, so the
+// rows a block covers are a launch choice that changes no bit: 0 is
+// kWarps, one row a warp), and past one block an SM, at most the
+// blocks that are resident at once (each block then stages once and
+// walks the rest of the rows grid-stride).
+struct Plan {
+  KernelFn kern;
+  size_t dyn;
+  bool shared;
+  long long blocks;
+};
+
+int plan_launch(int n, int p, int K, int L, bool tables, int block_rows,
+                Plan* pl) {
+  if (block_rows == 0) block_rows = kWarps;
+  if (block_rows < 0 || block_rows % kWarps != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long smem = 4LL * K * (p + 1) * L + (tables ? 9LL * K * p : 0);
+  pl->shared = smem <= shared_optin_bytes();
+  pl->kern = pl->shared
+      ? (tables ? fused_scores_kernel<true, true> : fused_scores_kernel<true, false>)
+      : (tables ? fused_scores_kernel<false, true> : fused_scores_kernel<false, false>);
+  pl->dyn = pl->shared ? (size_t)smem : 0;
+  if (pl->dyn > (size_t)kDefaultSharedBytes) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        (const void*)pl->kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)pl->dyn);
+    if (e != cudaSuccess) return (int)e;
+  }
+  long long blocks = ((long long)n + block_rows - 1) / block_rows;
+  if (blocks > sm_count()) {
+    // grid-stride past what fits at once, so each block stages once
+    int per_sm = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pl->kern,
+                                                  kThreads, pl->dyn);
+    if (per_sm < 1) per_sm = 1;
+    if (per_sm > kBlocksPerSM) per_sm = kBlocksPerSM;
+    const long long cap = (long long)sm_count() * per_sm;
+    if (blocks > cap) blocks = cap;
+  }
+  pl->blocks = blocks > 0 ? blocks : 1;
+  return 0;
+}
+
 }  // namespace
 
 // Launches on `stream` (PyTorch's current stream, as a CUstream handle)
 // and returns the first CUDA error of the launch (0 on success): a
 // refused shared-memory request, or cudaGetLastError() right after the
 // launch. Allocates nothing and does not synchronise. src, op and fill
-// are all null (the identity table, C == p) or all set.
+// are all null (the identity table, C == p) or all set. `block_rows`:
+// the rows a block covers before the grid-stride cap, a multiple of
+// kWarps (0: kWarps, the static rule); every value gives the same bits.
 extern "C" int tm_fused_scores(const float* V, const int32_t* mid,
                                const int32_t* src, const uint8_t* op,
                                const float* fill, const float* W, float* out,
                                int n, int C, int p, int K, int L, int act,
-                               int bf16, void* stream) {
+                               int bf16, int block_rows, void* stream) {
   if (n <= 0) return 0;
-  const bool tables = src != nullptr;
-  const long long smem = 4LL * K * (p + 1) * L + (tables ? 9LL * K * p : 0);
-  const bool shared = smem <= shared_optin_bytes();
-  KernelFn kern = shared
-      ? (tables ? fused_scores_kernel<true, true> : fused_scores_kernel<true, false>)
-      : (tables ? fused_scores_kernel<false, true> : fused_scores_kernel<false, false>);
-  const size_t dyn = shared ? (size_t)smem : 0;
-  if (dyn > (size_t)kDefaultSharedBytes) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        (const void*)kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-    if (e != cudaSuccess) return (int)e;
-  }
-  long long blocks = ((long long)n + kWarps - 1) / kWarps;
-  if (blocks > sm_count()) {
-    // grid-stride past what fits at once, so each block stages once
-    int per_sm = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, dyn);
-    if (per_sm < 1) per_sm = 1;
-    if (per_sm > kBlocksPerSM) per_sm = kBlocksPerSM;
-    const long long cap = (long long)sm_count() * per_sm;
-    if (blocks > cap) blocks = cap;
-  }
-  kern<<<(unsigned)blocks, kThreads, dyn, static_cast<cudaStream_t>(stream)>>>(
+  Plan pl;
+  const int err = plan_launch(n, p, K, L, src != nullptr, block_rows, &pl);
+  if (err != 0) return err;
+  pl.kern<<<(unsigned)pl.blocks, kThreads, pl.dyn,
+            static_cast<cudaStream_t>(stream)>>>(
       V, mid, src, op, fill, W, out, n, C, p, K, L, act, bf16);
   return (int)cudaGetLastError();
+}
+
+// The launch rule's grid for one shape without launching, in *blocks.
+// The autotuner's candidate screen reads it, so a candidate is labelled
+// with the grid that executes. Returns a CUDA error as tm_fused_scores
+// does.
+extern "C" int tm_fused_launch_blocks(int n, int p, int K, int L, int tables,
+                                      int block_rows, long long* blocks) {
+  Plan pl;
+  const int err = plan_launch(n, p, K, L, tables != 0, block_rows, &pl);
+  if (err != 0) return err;
+  *blocks = pl.blocks;
+  return 0;
 }
 
 namespace {

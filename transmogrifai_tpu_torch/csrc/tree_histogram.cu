@@ -679,9 +679,14 @@ __global__ void tree_hist_reduce(const float* __restrict__ partial,
   }
 }
 
-unsigned grid_for(long long count) {
+// blocks of 256 threads for a grid-stride pass over `count` items, at
+// most `cap` (each item is one thread's alone, so any cap gives the
+// same bits)
+constexpr long long kGridCap = 132LL * 16;
+
+unsigned grid_for(long long count, long long cap = kGridCap) {
   long long blocks = (count + 255) / 256;
-  if (blocks > 132LL * 16) blocks = 132LL * 16;
+  if (blocks > cap) blocks = cap;
   return (unsigned)(blocks > 0 ? blocks : 1);
 }
 
@@ -694,16 +699,21 @@ unsigned grid_for(long long count) {
 // runs_cap * S*d*B, runs_cap >= ceil(n/R) + m: the most runs an
 // instance can need); too little of either is an invalid value. `bf16`:
 // bf16 operands (the stats rounded once); else f32 operands, each stat
-// split into three bf16 terms. Allocates nothing and does not
-// synchronise.
+// split into three bf16 terms. The launch choices, none changing a bit
+// of the result: `chunk_rows`, the rows a sort block ranks (the sort
+// is stable, so the chunks cannot reorder a node's rows), and
+// `reduce_blocks`, the cap on the last pass's grid (0 is 132 x 16).
+// Allocates nothing and does not synchronise.
 extern "C" int tm_tree_histogram(const int32_t* bins, const float* stats,
                                  const int32_t* pos, float* out,
                                  int32_t* work, long long work_words,
                                  float* partial, long long partial_floats,
                                  int n, int d, int G, int S, int m, int B,
                                  int bf16, int R, int chunk_rows,
-                                 int runs_cap, void* stream) {
+                                 int runs_cap, int reduce_blocks,
+                                 void* stream) {
   if (G <= 0 || d <= 0) return 0;
+  const long long reduce_cap = reduce_blocks > 0 ? reduce_blocks : kGridCap;
   if (R <= 0 || chunk_rows <= 0 || S <= 0 || m <= 0 || B <= 0 || n < 0 ||
       runs_cap < (n + R - 1) / R + m || (long long)m * 4 > 48 * 1024)
     return (int)cudaErrorInvalidValue;
@@ -744,7 +754,8 @@ extern "C" int tm_tree_histogram(const int32_t* bins, const float* stats,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long SDB = (long long)S * d * B;
-  tree_hist_reduce<<<grid_for((long long)G * m * SDB), 256, 0, st>>>(
+  tree_hist_reduce<<<grid_for((long long)G * m * SDB, reduce_cap), 256, 0,
+                     st>>>(
       partial, w.items, out, G, m, SDB, runs_cap);
   return (int)cudaGetLastError();
 }

@@ -77,9 +77,10 @@ CATALOG: Dict[str, tuple] = {
 
 
 def register_codes(codes: Dict[str, tuple]) -> None:
-    """Append a code block to the catalog (the repo-audit suite in
-    ``transmogrifai_tpu.analysis`` registers its ``TM-AUDIT-3xx`` block
-    here so findings ride the same Diagnostic/LintReport machinery).
+    """Append a code block to the catalog (the port's repo-audit suite,
+    ``transmogrifai_tpu_torch.analysis``, registers its ``TM-AUDIT-3xx``
+    block here so findings ride the same Diagnostic/LintReport
+    machinery).
     Same append-only contract as the static catalog: re-registering an
     existing code with a DIFFERENT definition is a programming error."""
     for code, spec in codes.items():

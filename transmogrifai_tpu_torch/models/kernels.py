@@ -34,8 +34,14 @@ the second kernel here: ``csrc/ring_allreduce.cu`` behind
 below).
 
 The TPU-only knobs ``TM_PALLAS``, ``TM_HIST_DOUBLE_BUFFER``,
-``TM_HIST_MXU_ALIGN``, ``TM_HIST_ROWS_PER_STEP`` and the autotuner hook
-size VMEM blocks and MXU tiles; the port reads none of them.
+``TM_HIST_MXU_ALIGN`` and ``TM_HIST_ROWS_PER_STEP`` size VMEM blocks and
+MXU tiles; the port reads none of them. The kernel's own launch
+choices (:data:`STATIC_LAUNCH_CONFIG`: the sort's chunk rows and the
+reduce pass's grid cap) change no bit of the
+result; on CUDA :func:`histogram_grid` takes them from the caller's
+``config=``, else from the learned autotuner's hook
+(``autotune.kernel_launch_config``, off unless ``TM_AUTOTUNE=1`` and a
+model is set), else the static rule.
 """
 from __future__ import annotations
 
@@ -90,6 +96,16 @@ HIST_IDX_SLOTS = 8
 PACKED_ROW_ALIGN = 16
 #: a launch's blocks must fit CUDA's one-dimensional grid
 MAX_GRID_BLOCKS = 2 ** 31 - 1
+#: the reduce pass's grid cap (csrc kGridCap: 16 blocks of 256 threads
+#: for each of an H100's 132 SMs)
+REDUCE_BLOCKS = 132 * 16
+#: the launch choices that leave the histogram bitwise equal (the
+#: autotuner's config keys), at their static values. The sort is stable,
+#: so its chunks cannot reorder a node's rows; every reduce thread sums
+#: its own cells. RUN_ROWS, TILE_ROWS and HIST_STAGES are no launch
+#: choice: they set the f32 grouping of the sums
+STATIC_LAUNCH_CONFIG = {"sort_chunk_rows": SORT_CHUNK_ROWS,
+                        "reduce_blocks": REDUCE_BLOCKS}
 
 
 def kernel_exact() -> bool:
@@ -195,9 +211,29 @@ def histogram_torch(bins: torch.Tensor, stats_g: torch.Tensor,
     return out
 
 
-def launch_plan(G: int, n: int, d: int, S: int, m: int,
-                B: int) -> Dict[str, int]:
-    """How the kernel cuts one launch: the sort's row chunks; the rows
+def launch_config(config: Optional[Dict[str, int]] = None
+                  ) -> Dict[str, int]:
+    """``config`` over :data:`STATIC_LAUNCH_CONFIG` (None: the static
+    rule); raises on an unknown key or a value the kernel does not
+    take."""
+    cfg = dict(STATIC_LAUNCH_CONFIG)
+    if config:
+        unknown = sorted(set(config) - set(cfg))
+        if unknown:
+            raise ValueError(
+                f"tree_histogram: unknown launch config key(s) {unknown} "
+                f"(have {sorted(cfg)})")
+        cfg.update({k: int(v) for k, v in config.items()})
+    if cfg["sort_chunk_rows"] < 1 or cfg["reduce_blocks"] < 1:
+        raise ValueError(f"tree_histogram: sort_chunk_rows and "
+                         f"reduce_blocks must be >= 1, got {cfg}")
+    return cfg
+
+
+def launch_plan(G: int, n: int, d: int, S: int, m: int, B: int,
+                config: Optional[Dict[str, int]] = None) -> Dict[str, int]:
+    """How the kernel cuts one launch under the launch ``config``
+    (:func:`launch_config`; None: the static rule): the sort's row chunks; the rows
     of a run and the most runs an instance can need (``ceil(n /
     run_rows) + m``: one partial run per node at most); the blocks of
     the histogram pass, one per (instance, run slot, chunk of
@@ -208,30 +244,35 @@ def launch_plan(G: int, n: int, d: int, S: int, m: int,
     16-byte boundary the packed bins) and f32 partials the wrapper
     allocates. Raises when the sort cannot hold its node counters or
     the grid its blocks."""
+    cfg = launch_config(config)
     if m > MAX_NODES:
         raise ValueError(f"tree_histogram: m={m} nodes exceeds the "
                          f"{MAX_NODES} the sort's counters hold")
-    sort_chunks = max(1, -(-n // SORT_CHUNK_ROWS))
+    sort_chunks = max(1, -(-n // cfg["sort_chunk_rows"]))
     run_rows = max(RUN_ROWS, -(-n // MAX_RUNS))
     runs_cap = -(-n // run_rows) + m
     n_chunks = max(1, -(-d // FEATURES_PER_BLOCK))
     bin_groups = -(-B // BIN_GROUP)
     stat_groups = -(-S // STAT_GROUP)
     blocks = G * runs_cap * n_chunks * bin_groups * stat_groups
-    if blocks > MAX_GRID_BLOCKS:
-        raise ValueError(f"tree_histogram: {blocks} histogram blocks "
-                         f"exceed the {MAX_GRID_BLOCKS}-block grid")
+    if blocks > MAX_GRID_BLOCKS or G * sort_chunks > MAX_GRID_BLOCKS:
+        raise ValueError(f"tree_histogram: {blocks} histogram blocks or "
+                         f"{G * sort_chunks} sort blocks exceed the "
+                         f"{MAX_GRID_BLOCKS}-block grid")
     # a staged row: 48 bytes of bins and 12 stat words; an index word
     smem = 4 * TILE_ROWS * (HIST_STAGES * (12 + 12) + HIST_IDX_SLOTS)
     assert smem <= SMEM_MAX_BYTES
     dpad = -(-d // PACKED_ROW_ALIGN) * PACKED_ROW_ALIGN
     sort_words = G * (m * sort_chunks + 2 * m + m + 1 + n)
-    return {"run_rows": run_rows, "sort_chunk_rows": SORT_CHUNK_ROWS,
+    return {"run_rows": run_rows, "sort_chunk_rows": cfg["sort_chunk_rows"],
             "sort_chunks": sort_chunks, "runs_cap": runs_cap,
             "n_chunks": n_chunks, "bin_groups": bin_groups,
             "stat_groups": stat_groups, "blocks": blocks,
             "warps": max(2, -(-min(d, FEATURES_PER_BLOCK)
                               // FEATURES_PER_WARP)),
+            "reduce_blocks": cfg["reduce_blocks"],
+            "reduce_grid": max(1, min(-(-G * m * S * d * B // 256),
+                                      cfg["reduce_blocks"])),
             "smem_bytes": smem, "dpad": dpad,
             "packed_bytes": bin_groups * n * dpad,
             "workspace_words": (-(-sort_words // 4) * 4
@@ -252,7 +293,7 @@ def _library():
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong,
                                                ctypes.c_void_p,
                                                ctypes.c_longlong] \
-            + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.tm_tree_histogram_error_string.argtypes = [ctypes.c_int]
         lib.tm_tree_histogram_error_string.restype = ctypes.c_char_p
@@ -261,7 +302,9 @@ def _library():
 
 
 def histogram_grid(bins: torch.Tensor, stats_g: torch.Tensor,
-                   pos_g: torch.Tensor, m: int, B: int) -> torch.Tensor:
+                   pos_g: torch.Tensor, m: int, B: int, *,
+                   config: Optional[Dict[str, int]] = None
+                   ) -> torch.Tensor:
     """Node x feature x bin histograms of per-row stats for G instances
     over SHARED bins, in ONE kernel launch.
 
@@ -277,10 +320,15 @@ def histogram_grid(bins: torch.Tensor, stats_g: torch.Tensor,
     launches ``csrc/tree_histogram.cu`` on the current stream (built at
     first use) and raises if the build or the launch fails; the result
     is deterministic and an instance's histogram does not depend on the
-    other instances of the launch. ``histogram_grid.launches`` counts
-    launches."""
+    other instances of the launch. ``config`` sets the launch choices
+    (:func:`launch_config`); unset, the autotuner's hook
+    ``kernel_launch_config`` decides, and without a decision the static
+    rule: every choice gives the same bits. ``histogram_grid.launches``
+    counts launches."""
     G, n, S, d = _check_args(bins, stats_g, pos_g, m, B)
     hist_accum_bf16()
+    if config is not None:
+        launch_config(config)   # the plain version has none; check it
     if bins.device.type == "cpu":
         return histogram_torch(bins, stats_g, pos_g, m, B)
     if bins.device.type != "cuda":
@@ -295,7 +343,10 @@ def histogram_grid(bins: torch.Tensor, stats_g: torch.Tensor,
                       device=bins.device)
     if G == 0 or d == 0:
         return out
-    plan = launch_plan(G, n, d, S, m, B)
+    if config is None:
+        from ..autotune.runtime import kernel_launch_config
+        config = kernel_launch_config(G=G, n=n, d=d, B=B, S=S, m=m)
+    plan = launch_plan(G, n, d, S, m, B, config)
     lib = _library()
     work = torch.empty(plan["workspace_words"], dtype=torch.int32,
                        device=bins.device)
@@ -308,7 +359,8 @@ def histogram_grid(bins: torch.Tensor, stats_g: torch.Tensor,
             out.data_ptr(), work.data_ptr(), work.numel(),
             partial.data_ptr(), partial.numel(), n, d, G, S, m, B,
             int(dt == torch.bfloat16), plan["run_rows"],
-            plan["sort_chunk_rows"], plan["runs_cap"], stream)
+            plan["sort_chunk_rows"], plan["runs_cap"],
+            plan["reduce_blocks"], stream)
     if err != 0:
         raise RuntimeError(
             f"tree_histogram launch failed (G={G}, n={n}, d={d}, S={S}, "

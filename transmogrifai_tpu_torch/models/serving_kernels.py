@@ -31,6 +31,15 @@ activation (:func:`apply_activation`) after it. The wrappers take the
 plain versions only for tensors on the CPU; on CUDA tensors they launch
 the kernel or raise — no fallback.
 
+Launch choice: the rows a block covers before the grid-stride cap
+(``block_rows``, :data:`STATIC_LAUNCH_CONFIG`) changes no bit, since a
+warp owns a row. On CUDA the wrappers take it from the caller's
+``config=``, else from the learned autotuner's hook
+(``autotune.serving_launch_config``, off unless ``TM_AUTOTUNE=1`` and a
+serving model is set), else the static rule. The rule itself lives in
+the C entry alone; :func:`launch_blocks_on_card` asks it for the grid
+a choice launches.
+
 Numerics policy (mirrors ``kernel_exact`` and ``serve_dtype`` of the
 JAX package): ``TM_KERNEL_EXACT=1`` pins f32 operands; otherwise
 operands round to bf16 on CUDA and stay f32 on the CPU. Accumulation is
@@ -43,7 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -65,6 +74,12 @@ OP_VALUE, OP_FILLED, OP_NULL = 0, 1, 2
 
 #: the stackable heads' activations, by the kernel's activation code
 ACTIVATIONS = {"identity": 0, "sigmoid_pair": 1, "softmax": 2}
+
+#: warps of a block (csrc kWarps): a warp owns a row
+WARPS_PER_BLOCK = 8
+#: the launch choice (the autotuner's config key) at its static value:
+#: one row a warp, so ceil(n / 8) blocks before the cap
+STATIC_LAUNCH_CONFIG = {"block_rows": WARPS_PER_BLOCK}
 
 
 def serve_dtype(device) -> torch.dtype:
@@ -236,9 +251,12 @@ def _library():
     if _LIB is None:
         lib = _cuda_build.load_library(KERNEL_NAME)
         fn = lib.tm_fused_scores
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        plan = lib.tm_fused_launch_blocks
+        plan.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        plan.restype = ctypes.c_int
         # an empty launch through the same path (timing floor only)
         lib.tm_empty_launch.argtypes = [ctypes.c_void_p]
         lib.tm_empty_launch.restype = ctypes.c_int
@@ -248,9 +266,12 @@ def _library():
     return _LIB
 
 
-def _launch(V, mid, tables, W, n, C, p, K, L, act, dt) -> torch.Tensor:
+def _launch(V, mid, tables, W, n, C, p, K, L, act, dt,
+            config) -> torch.Tensor:
     """One launch of the kernel on CUDA tensors (``tables`` None: the
-    identity table); counts on ``fused_linear_scores.launches``."""
+    identity table) under the launch ``config`` (None: the autotuner's
+    decision, else the static rule); counts on
+    ``fused_linear_scores.launches``."""
     if V.device.type != "cuda":
         raise ValueError(f"fused serving kernel: unsupported device "
                          f"{V.device}")
@@ -264,13 +285,20 @@ def _launch(V, mid, tables, W, n, C, p, K, L, act, dt) -> torch.Tensor:
     if n == 0:
         return out
     lib = _library()
+    if config is None:
+        from ..autotune.runtime import serving_launch_config
+        config = serving_launch_config(
+            grid=lambda br: launch_blocks_on_card(
+                V.device, n, p, K, L, tables=bool(tables), block_rows=br),
+            K=K, n=n, p=p, L=L)
+    block_rows = launch_config(config)["block_rows"]
     src, op, fill = (t.data_ptr() for t in tables) if tables else (None,) * 3
     stream = torch.cuda.current_stream(V.device).cuda_stream
     with torch.cuda.device(V.device):
         err = lib.tm_fused_scores(
             V.data_ptr(), mid.data_ptr(), src, op, fill, W.data_ptr(),
             out.data_ptr(), n, C, p, K, L, ACTIVATIONS[act],
-            int(dt == torch.bfloat16), stream)
+            int(dt == torch.bfloat16), block_rows, stream)
     if err != 0:
         raise RuntimeError(
             f"fused serving kernel launch failed (n={n}, C={C}, p={p}, "
@@ -285,7 +313,8 @@ def _launch(V, mid, tables, W, n, C, p, K, L, act, dt) -> torch.Tensor:
 
 def fused_linear_scores(X: torch.Tensor, W: torch.Tensor,
                         mid: torch.Tensor, *,
-                        dtype: Optional[torch.dtype] = None
+                        dtype: Optional[torch.dtype] = None,
+                        config: Optional[Dict[str, int]] = None
                         ) -> torch.Tensor:
     """Score ``X[i]`` under model ``mid[i]`` for K stacked linear models
     in ONE kernel launch.
@@ -299,14 +328,18 @@ def fused_linear_scores(X: torch.Tensor, W: torch.Tensor,
     On a CPU tensor this is :func:`fused_linear_scores_torch`. On a
     CUDA tensor it launches ``csrc/fused_linear_scores.cu`` with the
     identity table and activation, on the current stream (built at
-    first use), and raises if the build or the launch fails.
+    first use), and raises if the build or the launch fails. ``config``
+    is the launch choice (:func:`launch_config`; unset: the autotuner's
+    decision, else the static rule), which changes no bit.
     ``fused_linear_scores.launches`` counts the kernel's launches, from
     this entry and from :func:`fused_prefix_scores`."""
     n, p, K, L = _check_args(X, W, mid)
     dt = serve_dtype(X.device) if dtype is None else dtype
+    if config is not None:
+        launch_config(config)   # the plain version has none; check it
     if X.device.type == "cpu":
         return fused_linear_scores_torch(X, W, mid, dtype=dt)
-    return _launch(X, mid, None, W, n, p, p, K, L, "identity", dt)
+    return _launch(X, mid, None, W, n, p, p, K, L, "identity", dt, config)
 
 
 #: launches of the CUDA kernel from either entry (the CPU path counts
@@ -317,7 +350,8 @@ fused_linear_scores.launches = 0
 def fused_prefix_scores(V: torch.Tensor, mid: torch.Tensor,
                         src: torch.Tensor, op: torch.Tensor,
                         fill: torch.Tensor, W: torch.Tensor, *, act: str,
-                        dtype: Optional[torch.dtype] = None
+                        dtype: Optional[torch.dtype] = None,
+                        config: Optional[Dict[str, int]] = None
                         ) -> torch.Tensor:
     """One fused serving slice in ONE kernel launch: each row's
     features built from its boundary values by its own model's prefix
@@ -328,17 +362,58 @@ def fused_prefix_scores(V: torch.Tensor, mid: torch.Tensor,
     src / op / fill: (K, p) int32 / uint8 / f32 prefix tables (see the
     module docstring). W: (K, p+1, L) f32 stacked weights. ``act``: one
     of :data:`ACTIVATIONS`. Returns (n, n_out) f32 (n_out = 2 for a
-    sigmoid pair, else L). ``dtype`` as for :func:`fused_linear_scores`.
+    sigmoid pair, else L). ``dtype`` and ``config`` as for
+    :func:`fused_linear_scores`.
 
     On CPU tensors this is :func:`fused_prefix_scores_torch`; on CUDA
     tensors it launches the kernel or raises. Launches count on
     ``fused_linear_scores.launches``."""
     n, C, p, K, L = _check_prefix_args(V, mid, src, op, fill, W, act)
     dt = serve_dtype(V.device) if dtype is None else dtype
+    if config is not None:
+        launch_config(config)   # the plain version has none; check it
     if V.device.type == "cpu":
         return fused_prefix_scores_torch(V, mid, src, op, fill, W,
                                          act=act, dtype=dt)
-    return _launch(V, mid, (src, op, fill), W, n, C, p, K, L, act, dt)
+    return _launch(V, mid, (src, op, fill), W, n, C, p, K, L, act, dt,
+                   config)
+
+
+def launch_config(config: Optional[Dict[str, int]] = None
+                  ) -> Dict[str, int]:
+    """``config`` over :data:`STATIC_LAUNCH_CONFIG` (None: the static
+    rule); raises on an unknown key or a ``block_rows`` the kernel does
+    not take (a positive multiple of :data:`WARPS_PER_BLOCK`)."""
+    cfg = dict(STATIC_LAUNCH_CONFIG)
+    if config:
+        unknown = sorted(set(config) - set(cfg))
+        if unknown:
+            raise ValueError(
+                f"fused serving kernel: unknown launch config key(s) "
+                f"{unknown} (have {sorted(cfg)})")
+        cfg.update({k: int(v) for k, v in config.items()})
+    br = cfg["block_rows"]
+    if br < WARPS_PER_BLOCK or br % WARPS_PER_BLOCK:
+        raise ValueError(f"fused serving kernel: block_rows must be a "
+                         f"positive multiple of {WARPS_PER_BLOCK}, got {br}")
+    return cfg
+
+
+def launch_blocks_on_card(device, n: int, p: int, K: int, L: int, *,
+                          tables: bool, block_rows: int = 0) -> int:
+    """The blocks the C entry's own launch rule gives one shape on the
+    card (``tm_fused_launch_blocks``) under ``block_rows`` (0: the
+    static rule)."""
+    lib = _library()
+    blocks = ctypes.c_longlong(0)
+    with torch.cuda.device(torch.device(device)):
+        err = lib.tm_fused_launch_blocks(int(n), int(p), int(K), int(L),
+                                         int(bool(tables)), int(block_rows),
+                                         ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"fused serving kernel: launch plan failed: "
+                           f"{lib.tm_cuda_error_string(err).decode()}")
+    return blocks.value
 
 
 def fused_cost_floor(n: int, p: int, K: int, L: int) -> dict:

@@ -349,6 +349,7 @@ class _ArrayQueues:
         self._weights = dict(weights or {})
         self._default_weight = int(default_weight)
 
+    # opaudit: hotpath
     def enqueue(self, req: _Request) -> None:
         s = self._slots.get(req.tenant)
         if s is None:
@@ -378,6 +379,7 @@ class _ArrayQueues:
     def oldest(self) -> float:
         return min(s.queue[0].enqueued_at for s in self._rotation)
 
+    # opaudit: hotpath
     def drr_pop(self, max_rows: int, quantum: float) -> List[_Request]:
         """Deficit-round-robin drain: visit tenants in rotation, credit
         ``quantum x weight`` rows per visit, pop FIFO while the head
@@ -571,6 +573,7 @@ class ServingEngine:
         self.stop()
 
     # -- submission (any thread) ------------------------------------------
+    # opaudit: hotpath
     def submit(self, data, deadline_ms: Optional[float] = None,
                trace=_spans.UNSET, priority: str = "normal",
                model: Optional[str] = None,
@@ -608,9 +611,7 @@ class ServingEngine:
         inside _cond so the depth gauge never goes stale against the
         dispatcher's post-drain write); the dtype signature is computed
         here, not on the dispatcher."""
-        # advisory gate: a stale read costs one request an EngineClosed
-        # (or one extra enqueue that stop(drain) resolves); the
-        # authoritative _accepting check runs under _cond below
+        # opaudit: disable=concurrency -- advisory admission gate: a stale read costs one request an EngineClosed (or one extra enqueue that stop(drain) resolves); the authoritative _accepting check runs under _cond in the dispatcher/stop path
         if not self._accepting:
             raise EngineClosed("engine is not accepting requests")
         t_submit = _monotonic()
@@ -734,8 +735,7 @@ class ServingEngine:
         return bool(t is not None and t.is_alive())
 
     def ready(self) -> bool:
-        # a stale _accepting read flips the answer one poll late;
-        # taking _cond here would let probes contend with the dispatcher
+        # opaudit: disable=concurrency -- readiness probe: a stale _accepting read flips the answer one poll late, which is what every scraper already tolerates; taking _cond here would let probes contend with the dispatcher
         if not (self.live() and self._accepting):
             return False
         try:
@@ -877,6 +877,7 @@ class ServingEngine:
                 continue
             self._run_pass(running)
 
+    # opaudit: hotpath
     def _run_pass(self, batch: List[_Request]) -> None:
         """Dispatch one drain pass: resolve every distinct model key
         once (holding the version refcounts for the whole pass), group
@@ -1039,6 +1040,7 @@ class ServingEngine:
             self.stats.note_failed(len(batch))
             return None
 
+    # opaudit: hotpath
     def _plan_fused(self, groups: Dict[tuple, List[_Request]],
                     by_backend: Dict[int, tuple]):
         """Partition one drain pass's (backend, sig) groups into fused
@@ -1125,6 +1127,7 @@ class ServingEngine:
         _FUSED_SCORER_STATS.note_miss(len(self._fused_scorers))
         return sc, tuple(range(len(members)))
 
+    # opaudit: hotpath
     def _launch_fused(self, members):
         """Gather ALL member groups' rows plus the per-row model-id
         vector and launch ONE fused kernel per bucket slice for the
@@ -1166,6 +1169,7 @@ class ServingEngine:
             self.stats.note_failed(failed)
             return None
 
+    # opaudit: hotpath
     def _finalize_fused(self, batch: List[_Request], meta, scorer,
                         models: int, n: int, t0: float, t_built: float,
                         payload, t_dispatch: float) -> None:
@@ -1216,6 +1220,7 @@ class ServingEngine:
                             else vname, r.tenant, rn))
         self.stats.note_group_complete(len(batch), n, traffic, overhead)
 
+    # opaudit: hotpath
     def _finalize_group(self, batch: List[_Request], backend, vname: str,
                         n: int, t0: float, t_built: float, payload,
                         done: bool, t_dispatch: float) -> None:
