@@ -152,7 +152,19 @@ PyTorch version:
    ``export_portable``, loaded with ``portable.load`` and served by one
    ``ServingEngine``: every row within 1e-4 of its own WorkflowModel
    under its plane's operand policy, no fused fallback, the fused
-   kernel launched once a bucket slice.
+   kernel launched once a bucket slice. The fused plane's two forms,
+   with the same gates: five LR-only Titanic workflows (four regParams
+   on the same rows, one on a bootstrap) exported with a host prefix of
+   four OneHotModels, served on the table form (the pivots' vectors as
+   packed slots of the prefix tables), each request within SERVE_ATOL
+   of its own WorkflowModel; four model-stacking members (an inner
+   LinearRegression before the head, ``make_stacked_ir``) on the
+   generic form (each member's own prefix, then the kernel's identity
+   table through the activation), each request within SERVE_ATOL of
+   numpy. For each form the kernel against its plain version on a
+   served slice's own arguments, timed beside its bound, and a fused
+   pass of 60 rows beside the classic plane's passes over the same rows
+   (device operations, device and host us).
    services: the runner's process-level services. ``debugNans``: the
    Titanic TRAIN raises ``FloatingPointError`` in the SanityChecker
    (``full_like``), where the JAX package raises on the CPU for the
@@ -663,17 +675,71 @@ def make_model_ir(rng, name: str):
     return manifest, arrays, {"fills": fills, "keep": keep, "beta": beta}
 
 
-def oracle_probs(cols, par, bf16: bool) -> np.ndarray:
-    """The model's numpy score of one request: f32 features (impute,
-    null indicators, concat, keep), operands rounded to bf16 when the
-    fused kernel's policy does, f64 dot, sigmoid pair."""
+def make_stacked_ir(rng, name: str):
+    """A member whose prefix holds a predict stage (model stacking):
+    :func:`make_model_ir`'s kept features feed an inner
+    LinearRegression, whose score feeds the binary LogisticRegression
+    head. The prefix compiler does not know the inner predict, so the
+    fused plane serves it on the generic form. Returns (manifest,
+    arrays, numpy parameters for :func:`stacked_oracle`)."""
+    manifest, arrays, par = make_model_ir(rng, name)
+    head = manifest["stages"].pop()
+    manifest["stages"].append({
+        "out": "inner", "inputs": ["label", "checked"], "op": "predict",
+        "family": "LinearRegression", "nClasses": 1})
+    head["inputs"] = ["label", "inner"]
+    manifest["stages"].append(head)
+    k = len(manifest["stages"])
+    inner = rng.normal(size=P_KEEP + 1)
+    beta = rng.normal(size=2)
+    arrays[str(k - 2)] = {"params": {"beta": inner}}
+    arrays[str(k - 1)] = {"params": {"beta": beta}}
+    return manifest, arrays, dict(par, inner=inner, beta=beta)
+
+
+def oracle_features(cols, par) -> np.ndarray:
+    """The model's f32 head features of one request: impute, null
+    indicators, concat, keep."""
     feats = []
     for i in range(N_COLUMNS):
         c = np.asarray(cols[f"x{i}"], np.float32)
         isnull = np.isnan(c)
         feats += [np.where(isnull, np.float32(par["fills"][i]), c),
                   isnull.astype(np.float32)]
-    X = np.stack(feats, axis=1)[:, par["keep"]]
+    return np.stack(feats, axis=1)[:, par["keep"]]
+
+
+def _pair(z) -> np.ndarray:
+    p1 = 1.0 / (1.0 + np.exp(-z))
+    return np.stack([1.0 - p1, p1], axis=1)
+
+
+def stacked_oracle(cols, par, bf16: bool) -> list:
+    """A :func:`make_stacked_ir` member's numpy scores of one request:
+    the inner LinearRegression in f64 over the f32 features and f32
+    weights, then the head's sigmoid pair. Under the fused plane's bf16
+    operands the head's feature (the inner score, an f32 value the card
+    computes, which lies within 1e-6 of this one relative to its size
+    plus one) and weight round to bf16, the intercept not; where the
+    two ends of that interval round apart, either rounding is the
+    policy's. Returns the candidate (n, 2) scores (one when f32)."""
+    X = oracle_features(cols, par).astype(np.float64)
+    w_in = par["inner"].astype(np.float32).astype(np.float64)
+    inner = X @ w_in[:-1] + w_in[-1]
+    w = par["beta"].astype(np.float32)
+    if not bf16:
+        return [_pair(inner * float(w[0]) + float(w[1]))]
+    slack = 1e-6 * (np.abs(inner) + 1.0)
+    w0 = float(round_bf16(w[:1])[0])
+    return [_pair(round_bf16(v).astype(np.float64) * w0 + float(w[1]))
+            for v in (inner - slack, inner + slack)]
+
+
+def oracle_probs(cols, par, bf16: bool) -> np.ndarray:
+    """The model's numpy score of one request: f32 features
+    (:func:`oracle_features`), operands rounded to bf16 when the fused
+    kernel's policy does, f64 dot, sigmoid pair."""
+    X = oracle_features(cols, par)
     w = par["beta"].astype(np.float32)
     if bf16:
         X, w = round_bf16(X), np.concatenate([round_bf16(w[:-1]), w[-1:]])
@@ -822,6 +888,19 @@ def fused_pass_probe(reg, seed: int, passes: int = PROBE_PASSES,
     if out.shape != (n, 2) or not np.isfinite(out).all():
         raise AssertionError(f"fused pass gave {out.shape}, finite "
                              f"{bool(np.isfinite(out).all())}")
+    out = {"rows": n, "models": N_BACKENDS, "bucket_slices": slices,
+           "passes": passes}
+    out.update(pass_numbers(one, passes))
+    out["device_ops_per_slice"] = out["device_ops_per_pass"] / slices
+    return out
+
+
+def pass_numbers(one, passes: int = PROBE_PASSES) -> dict:
+    """Device operations (kernels and copies), device us and host us of
+    one serving pass ``one()`` (a zero-argument callable ending in the
+    copy out, so the device is done when it returns), on the card. Host
+    us is the median wall of one pass; the device numbers come from
+    torch.profiler over ``passes`` passes."""
     for _ in range(5):
         one()
     host = []
@@ -831,10 +910,7 @@ def fused_pass_probe(reg, seed: int, passes: int = PROBE_PASSES,
         host.append(time.perf_counter() - t0)
     prof, _ = profiled(lambda: [one() for _ in range(passes)], host=False)
     dev_us, events = _device_time_us(prof)
-    return {"rows": n, "models": N_BACKENDS, "bucket_slices": slices,
-            "passes": passes,
-            "device_ops_per_pass": events / passes,
-            "device_ops_per_slice": events / passes / slices,
+    return {"passes": passes, "device_ops_per_pass": events / passes,
             "device_us_per_pass": dev_us / passes,
             "host_us_per_pass": float(np.median(host)) * 1e6}
 
@@ -3419,6 +3495,52 @@ def scale_part(seed: int, device, workdir, rows: int = SCALE_ROWS):
             "checker_oracle": oracle}
 
 
+def fused_storm(reg, reqs, device) -> dict:
+    """Serve ``reqs`` ([(model id, request columns)]) from THREADS
+    client threads through one ServingEngine over ``reg`` with the fused
+    plane on, every request traced. Gates: no fused fallback, no failed
+    request, at least one fused batch, and on CUDA the kernel launched
+    once a fused bucket slice the spans show (launches counted over the
+    storm alone). Returns the results, each request's plane and the
+    engine's numbers."""
+    from transmogrifai_tpu_torch.models import serving_kernels as sk
+    from transmogrifai_tpu_torch.profiling import percentile_nearest_rank
+    from transmogrifai_tpu_torch.serving import EngineConfig, ServingEngine
+    from transmogrifai_tpu_torch.telemetry.spans import TRACER
+    TRACER.clear()
+    traces = [TRACER.mint("req") for _ in reqs]
+    eng = ServingEngine(registry=reg, config=EngineConfig(
+        max_batch_rows=MAX_BATCH_ROWS, fused_kernel=True)).start()
+    sk.fused_linear_scores.launches = 0
+    try:
+        results, lat, wall = _storm(eng, reqs, THREADS, traces)
+        moved = sk.fused_linear_scores.launches
+    finally:
+        eng.stop()
+    stats = eng.stats.as_dict()
+    plane, fused_spans = _served_planes(TRACER.spans(), traces)
+    if stats["fused_fallbacks"] != 0 or stats["failed"] != 0:
+        raise AssertionError(f"engine fallbacks {stats['fused_fallbacks']}"
+                             f", failed {stats['failed']}")
+    if stats["fused_batches"] <= 0:
+        raise AssertionError("the models never rode the fused plane")
+    slices = sum(max(1, -(-s["attrs"]["rows"] // BUCKETS[-1]))
+                 for s in fused_spans)
+    if torch.device(device).type == "cuda" and moved != slices:
+        raise AssertionError(f"the fused kernel launched {moved} times for "
+                             f"{slices} fused bucket slices")
+    lat_ms = sorted(x * 1e3 for x in lat)
+    return {"results": results, "planes": [plane[t] for t in traces],
+            "wall_s": wall,
+            "p50_ms": percentile_nearest_rank(lat_ms, 0.50),
+            "p99_ms": percentile_nearest_rank(lat_ms, 0.99),
+            "fused_batches": stats["fused_batches"],
+            "fused_requests": stats["fused_requests"],
+            "fused_fallbacks": stats["fused_fallbacks"],
+            "failed": stats["failed"],
+            "kernel_launches": moved, "fused_slices": slices}
+
+
 def export_part(seed: int, device, workdir, requests=EXPORT_REQUESTS):
     """EXPORT_MODELS Boston workflows (transmogrify and the
     LinearRegression candidate, each on its own seeded bootstrap)
@@ -3434,9 +3556,7 @@ def export_part(seed: int, device, workdir, requests=EXPORT_REQUESTS):
     from transmogrifai_tpu_torch.models import serving_kernels as sk
     from transmogrifai_tpu_torch.ops import transmogrify
     from transmogrifai_tpu_torch.readers import DataReaders
-    from transmogrifai_tpu_torch.serving import (EngineConfig, ModelRegistry,
-                                                 ServingEngine)
-    from transmogrifai_tpu_torch.telemetry.spans import TRACER
+    from transmogrifai_tpu_torch.serving import ModelRegistry
     from transmogrifai_tpu_torch.workflow import Workflow
     types = _types(BOSTON_SCHEMA)
     records = DataReaders.csv(_repo_file("examples", "data", "boston.csv"),
@@ -3481,22 +3601,11 @@ def export_part(seed: int, device, workdir, requests=EXPORT_REQUESTS):
             v[rng.random(n) < 0.05] = np.nan
             data[c] = v
         reqs.append((f"b{int(rng.integers(0, EXPORT_MODELS))}", data))
-    TRACER.clear()
-    traces = [TRACER.mint("req") for _ in reqs]
-    eng = ServingEngine(registry=reg, config=EngineConfig(
-        max_batch_rows=MAX_BATCH_ROWS, fused_kernel=True)).start()
-    sk.fused_linear_scores.launches = 0
-    try:
-        results, lat, wall = _storm(eng, reqs, THREADS, traces)
-        moved = sk.fused_linear_scores.launches
-    finally:
-        eng.stop()
-    stats = eng.stats.as_dict()
-    plane, fused_spans = _served_planes(TRACER.spans(), traces)
+    st = fused_storm(reg, reqs, device)
     bf16 = sk.serve_dtype(device) == torch.bfloat16
     matched = {"fused": 0, "classic": 0}
     worst = 0.0
-    for (mname, data), res, tid in zip(reqs, results, traces):
+    for (mname, data), res, how in zip(reqs, st["results"], st["planes"]):
         wm = models[mname]
         sel = wm.selected_model()
         recs = [{c: (None if np.isnan(data[c][i]) else
@@ -3504,7 +3613,7 @@ def export_part(seed: int, device, workdir, requests=EXPORT_REQUESTS):
                       else float(data[c][i]))) for c in cols}
                 for i in range(len(data[cols[0]]))]
         full = wm.transform(recs)
-        if plane[tid] == "fused" and bf16:
+        if how == "fused" and bf16:
             X = full.column(sel.input_names[1]).astype(np.float32)
             beta = sel.model_params["beta"].cpu().numpy()
             want = (round_bf16(X).astype(np.float64)
@@ -3517,30 +3626,312 @@ def export_part(seed: int, device, workdir, requests=EXPORT_REQUESTS):
         worst = max(worst, err)
         if not err <= SERVE_ATOL:
             raise AssertionError(f"Boston request for {mname} on the "
-                                 f"{plane[tid]} plane differs from its "
+                                 f"{how} plane differs from its "
                                  f"WorkflowModel by {err}")
-        matched[plane[tid]] += 1
-    if stats["fused_fallbacks"] != 0 or stats["failed"] != 0:
-        raise AssertionError(f"engine fallbacks {stats['fused_fallbacks']}"
-                             f", failed {stats['failed']}")
-    if stats["fused_batches"] <= 0:
-        raise AssertionError("the exported models never rode the fused "
-                             "plane")
-    slices = sum(max(1, -(-s["attrs"]["rows"] // BUCKETS[-1]))
-                 for s in fused_spans)
-    if torch.device(device).type == "cuda" and moved != slices:
-        raise AssertionError(f"the fused kernel launched {moved} times for "
-                             f"{slices} fused bucket slices")
-    from transmogrifai_tpu_torch.profiling import percentile_nearest_rank
-    lat_ms = sorted(x * 1e3 for x in lat)
+        matched[how] += 1
     return {"models": EXPORT_MODELS, "requests": requests,
-            "rows": sum(len(d["crim"]) for _, d in reqs), "wall_s": wall,
-            "p50_ms": percentile_nearest_rank(lat_ms, 0.50),
-            "p99_ms": percentile_nearest_rank(lat_ms, 0.99),
-            "matched": matched, "max_abs_err": worst,
-            "fused_batches": stats["fused_batches"],
-            "fused_fallbacks": stats["fused_fallbacks"],
-            "kernel_launches": moved, "fused_slices": slices}
+            "rows": sum(len(d["crim"]) for _, d in reqs),
+            "wall_s": st["wall_s"], "p50_ms": st["p50_ms"],
+            "p99_ms": st["p99_ms"], "matched": matched, "max_abs_err": worst,
+            "fused_batches": st["fused_batches"],
+            "fused_fallbacks": st["fused_fallbacks"],
+            "kernel_launches": st["kernel_launches"],
+            "fused_slices": st["fused_slices"]}
+
+
+#: the fused plane's two forms: LR-only Titanic workflows at these
+#: regParams (the same rows, so one pivot vocabulary) and one more on a
+#: bootstrap (its widths may differ), exported and served on the table
+#: form; N_BACKENDS model-stacking IR members on the generic form
+FORM_REG_PARAMS = (0.001, 0.01, 0.1, 1.0)
+#: rows of the pass each form is probed on, fused against classic
+FORM_PASS_ROWS = PROBE_ROWS
+
+
+def _titanic_reader():
+    from transmogrifai_tpu_torch.readers import DataReaders
+    return DataReaders.csv(_repo_file("examples", "data", "titanic.csv"),
+                           _types(TITANIC_SCHEMA), key="id")
+
+
+def _linear_cost(n, p, K, L, n_out) -> dict:
+    """Bytes and f32 operations of one identity-table launch: X, mid and
+    W read once, the output written once; a multiply and an add per
+    (row, feature, head column)."""
+    return {"bytes": 4.0 * (n * p + n + K * (p + 1) * L + n * n_out),
+            "flops": 2.0 * n * (p + 1) * L}
+
+
+def served_kernel_case(sk, scorer, args) -> dict:
+    """The fused kernel against its plain version on one served bucket
+    slice's own arguments (``FusedGroupScorer.kernel_inputs``), in the
+    scorer's form, activation and operand dtype, timed beside its bound.
+    No single PyTorch call computes either form with its activation, so
+    the row has no library time."""
+    act, dtype = scorer.act, scorer.dtype
+    if scorer.form == "table":
+        V, _mid, src, _op, _fill, W = args
+        (n, C), (K, p) = V.shape, src.shape
+        L = int(W.shape[2])
+        shape = [int(n), int(C), int(p), int(K), L]
+        kernel = lambda: sk.fused_prefix_scores(*args, act=act, dtype=dtype)  # noqa: E731
+        plain = lambda: sk.fused_prefix_scores_torch(  # noqa: E731
+            *args, act=act, dtype=dtype)
+    else:
+        X, W, mid = args
+        (n, p), (K, _p1, L) = X.shape, W.shape
+        shape = [int(n), int(p), int(K), int(L)]
+        kernel = lambda: sk.fused_linear_scores(  # noqa: E731
+            X, W, mid, act=act, dtype=dtype)
+        plain = lambda: sk.apply_activation(  # noqa: E731
+            act, sk.fused_linear_scores_torch(X, W, mid, dtype=dtype))
+    got = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    got_np, ref_np = got.cpu().numpy(), ref.cpu().numpy()
+    if not np.isfinite(got_np).all():
+        raise AssertionError(f"non-finite {scorer.form}-form output at "
+                             f"{shape}")
+    err = float(np.max(np.abs(got_np - ref_np)))
+    if not (np.abs(got_np - ref_np) <= KERNEL_RTOL * (1.0 + np.abs(ref_np))
+            ).all():
+        raise AssertionError(f"the {scorer.form} form disagrees with its "
+                             f"plain version at {shape}: max abs err {err}")
+    n_out = int(got.shape[1])
+    cost = (sk.fused_prefix_cost(*shape, n_out) if scorer.form == "table"
+            else _linear_cost(*shape, n_out))
+    bytes_ms = cost["bytes"] / HBM_BYTES_PER_S * 1e3
+    ops_ms = cost["flops"] / F32_FLOPS_PER_S * 1e3
+    row = {"form": scorer.form, "shape": shape, "act": act,
+           "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": None}
+    for prefix, fn in (("", kernel), ("plain_", plain)):
+        row[prefix + "ms"], row[prefix + "device_events"] = device_ms(fn)
+        row[prefix + "call_ms"] = call_ms(fn)
+    return row
+
+
+def _form_checks(sk, device, members, prepared, rng, rows=FORM_PASS_ROWS):
+    """One form's card checks after its storm: the kernel against its
+    plain version on the first bucket slice of a fused pass of ``rows``
+    rows over ``members`` [(backend, spec)] (each row prepared by its own
+    member: ``prepared[k]`` is member k's (n, boundary values)), and
+    the pass's device operations, device us and host us beside the
+    classic plane's pass over the same rows (each member's own device
+    tail). On the CPU: the pass's scores only."""
+    from transmogrifai_tpu_torch.serving.fusion import FusedGroupScorer
+    scorer = FusedGroupScorer(members)
+    K = len(members)
+    mid = np.sort(rng.integers(0, K, rows)).astype(np.int32)
+    own = [np.flatnonzero(mid == k) for k in range(K)]
+    parts = [[v[idx % prepared[k][0]] for v in prepared[k][1]]
+             for k, idx in enumerate(own)]
+    vals = [np.concatenate([p[i] for p in parts])
+            for i in range(len(parts[0]))]
+
+    def fused():
+        return scorer.finalize(scorer.launch(rows, vals, mid))
+
+    def classic():
+        return [b.finalize(b.launch(len(own[k]), parts[k]))
+                for k, (b, _spec) in enumerate(members)]
+
+    out = fused()
+    if out.shape != (rows, scorer.n_out) or not np.isfinite(out).all():
+        raise AssertionError(f"{scorer.form}-form pass gave {out.shape}, "
+                             f"finite {bool(np.isfinite(out).all())}")
+    res = {"form": scorer.form, "pass_models": K, "pass_rows": rows}
+    if torch.device(device).type != "cuda":
+        return res
+    bucket = next(b for _s, _e, b in scorer._slices(rows))
+    take = min(rows, bucket)
+    res["kernel"] = served_kernel_case(sk, scorer, scorer.kernel_inputs(
+        bucket, [v[:take] for v in vals], mid[:take]))
+    res["fused_pass"] = pass_numbers(fused)
+    res["classic_pass"] = pass_numbers(classic)
+    return res
+
+
+def table_form_part(seed: int, device, workdir, requests=EXPORT_REQUESTS):
+    """Titanic on the table form: LR-only Titanic workflows at
+    FORM_REG_PARAMS and one on a bootstrap, trained on ``device``,
+    exported (``hostPrefix`` four OneHotModels), loaded with
+    ``portable.load`` and served together by one ServingEngine with the
+    fused plane on. Each request's boundary columns come from its own
+    model's host prefix; every request within SERVE_ATOL of its own
+    WorkflowModel under its plane's operand policy; the fused_storm
+    gates; then the form's card checks (:func:`_form_checks`) over the
+    members that pool with the first one (its pivot widths and fuse
+    key: the bootstrap's checker may keep other columns)."""
+    from transmogrifai_tpu_torch import portable
+    from transmogrifai_tpu_torch.models import serving_kernels as sk
+    from transmogrifai_tpu_torch.serving import ModelRegistry
+    from transmogrifai_tpu_torch.serving.fusion import stack_spec_of
+    records = _titanic_reader().read()
+    rng = np.random.default_rng(seed + 29)
+    boot = [records[i] for i in rng.integers(0, len(records), len(records))]
+    reg = ModelRegistry()
+    models, cols, oracle = {}, {}, {}
+    bf16 = sk.serve_dtype(device) == torch.bfloat16
+    t0 = time.perf_counter()
+    for k, r in enumerate(FORM_REG_PARAMS + (FORM_REG_PARAMS[1],)):
+        wm = _titanic_workflow(
+            candidates=[["LogisticRegression", {"regParam": [r]}]]).train(
+                boot if k == len(FORM_REG_PARAMS) else records,
+                device=device)
+        art = os.path.join(workdir, f"titanic_{k}")
+        wm.export_portable(art, buckets=BUCKETS)
+        pm = portable.load(art, device=device)
+        if pm.manifest["hostPrefix"] != ["OneHotModel"] * 4:
+            raise AssertionError(f"Titanic export's host prefix "
+                                 f"{pm.manifest['hostPrefix']}")
+        name = f"t{k}"
+        ds = wm.compile_scoring(device=device)._host_ds(records)
+        cols[name] = {c: np.asarray(ds.column(c)) for c in pm.boundary
+                      if c in ds}
+        reg.register(name, pm, buckets=BUCKETS,
+                     warm_sample={c: v[:1] for c, v in cols[name].items()})
+        spec = stack_spec_of(reg.get(name).backend)
+        if spec is None or spec.form != "table":
+            raise AssertionError(f"Titanic export {name} is not served on "
+                                 f"the table form: {spec and spec.form}")
+        # the model's own scores of every row, on both planes' policies
+        sel = wm.selected_model()
+        full = wm.transform(records)
+        X = full.column(sel.input_names[1]).astype(np.float32)
+        beta = sel.model_params["beta"].cpu().numpy()
+        z = (round_bf16(X).astype(np.float64)
+             @ round_bf16(beta[:-1]).astype(np.float64) + float(beta[-1]))
+        p1 = _probs(wm, full)
+        oracle[name] = {"fused": _pair(z),
+                        "classic": np.stack([1.0 - p1, p1], axis=1)}
+        models[name] = wm
+    train_s = time.perf_counter() - t0
+    widths = {n: [np.shape(v)[1:] for v in c.values()]
+              for n, c in cols.items()}
+    reqs, picks = [], []
+    for _ in range(requests):
+        name = f"t{int(rng.integers(0, len(models)))}"
+        rows = rng.integers(0, len(records), int(rng.integers(1, 9)))
+        reqs.append((name, {c: v[rows] for c, v in cols[name].items()}))
+        picks.append(rows)
+    st = fused_storm(reg, reqs, device)
+    matched = {"fused": 0, "classic": 0}
+    worst = 0.0
+    for (name, _data), rows, res, how in zip(reqs, picks, st["results"],
+                                            st["planes"]):
+        policy = "fused" if how == "fused" and bf16 else "classic"
+        want = oracle[name][policy][rows]
+        got = np.asarray(res[reg.get(name).backend.result_names[0]],
+                         np.float64)
+        err = float(np.abs(got - want).max())
+        worst = max(worst, err)
+        if not err <= SERVE_ATOL:
+            raise AssertionError(f"Titanic request for {name} on the {how} "
+                                 f"plane differs from its WorkflowModel by "
+                                 f"{err}")
+        matched[how] += 1
+    specs = {n: stack_spec_of(reg.get(n).backend) for n in models}
+    same = [n for n in sorted(models) if widths[n] == widths["t0"]
+            and specs[n].fuse_key() == specs["t0"].fuse_key()]
+    members = [(reg.get(n).backend, specs[n]) for n in same]
+    prepared = [members[k][0].prepare(cols[n]) for k, n in enumerate(same)]
+    checks = _form_checks(sk, device, members, prepared, rng)
+    out = {k: v for k, v in st.items() if k not in ("results", "planes")}
+    out.update(models=len(models), requests=requests, train_s=train_s,
+               boundary_slots=int(sum(np.prod(w, dtype=np.int64)
+                                      for w in widths["t0"])),
+               bootstrap_pools=same[-1] == f"t{len(FORM_REG_PARAMS)}",
+               bootstrap_same_widths=(widths[f"t{len(FORM_REG_PARAMS)}"]
+                                      == widths["t0"]),
+               head_widths={n: specs[n].p for n in sorted(specs)},
+               matched=matched, max_abs_err=worst, **checks)
+    return out
+
+
+def generic_form_part(seed: int, device, requests=EXPORT_REQUESTS):
+    """Model-stacking members on the generic form: N_BACKENDS
+    :func:`make_stacked_ir` members loaded through
+    ``portable.from_portable`` on ``device`` and served together by one
+    ServingEngine with the fused plane on; every request within
+    SERVE_ATOL of :func:`stacked_oracle` under its plane's operand
+    policy; the fused_storm gates; then the form's card checks."""
+    from transmogrifai_tpu_torch import portable
+    from transmogrifai_tpu_torch.models import serving_kernels as sk
+    from transmogrifai_tpu_torch.serving import ModelRegistry
+    from transmogrifai_tpu_torch.serving.fusion import stack_spec_of
+    rng = np.random.default_rng(seed + 31)
+    reg = ModelRegistry()
+    pars, members = {}, []
+    warm = {f"x{i}": np.zeros(1) for i in range(N_COLUMNS)}
+    for k in range(N_BACKENDS):
+        name = f"g{k}"
+        manifest, arrays, pars[name] = make_stacked_ir(rng, f"pred_{name}")
+        reg.register(name, portable.from_portable(manifest, arrays, device),
+                     buckets=BUCKETS, warm_sample=warm)
+        backend = reg.get(name).backend
+        spec = stack_spec_of(backend)
+        if spec is None or spec.form != "generic":
+            raise AssertionError(f"stacking member {name} is not served on "
+                                 f"the generic form: {spec and spec.form}")
+        members.append((backend, spec))
+    reqs = []
+    for _ in range(requests):
+        n = int(rng.integers(1, 9))
+        reqs.append((f"g{int(rng.integers(0, N_BACKENDS))}",
+                     {f"x{i}": np.where(rng.random(n) < 0.05, np.nan,
+                                        rng.normal(size=n))
+                      for i in range(N_COLUMNS)}))
+    st = fused_storm(reg, reqs, device)
+    bf16 = sk.serve_dtype(device) == torch.bfloat16
+    matched = {"fused": 0, "classic": 0}
+    worst = 0.0
+    for (name, data), res, how in zip(reqs, st["results"], st["planes"]):
+        got = np.asarray(res[f"pred_{name}"], np.float64)
+        err = min(float(np.abs(got - want).max()) for want in
+                  stacked_oracle(data, pars[name], bf16 and how == "fused"))
+        worst = max(worst, err)
+        if not err <= SERVE_ATOL:
+            raise AssertionError(f"stacking request for {name} on the {how} "
+                                 f"plane differs from its numpy score by "
+                                 f"{err}")
+        matched[how] += 1
+    cols = {f"x{i}": np.where(rng.random(FORM_PASS_ROWS) < 0.05, np.nan,
+                              rng.normal(size=FORM_PASS_ROWS))
+            for i in range(N_COLUMNS)}
+    prepared = [b.prepare(cols) for b, _spec in members]
+    checks = _form_checks(sk, device, members, prepared, rng)
+    out = {k: v for k, v in st.items() if k not in ("results", "planes")}
+    out.update(models=N_BACKENDS, requests=requests, matched=matched,
+               max_abs_err=worst, **checks)
+    return out
+
+
+def form_lines(wf) -> list:
+    """One line per form of the fused plane: the kernel against its
+    plain version at the served shape, and a fused pass's device
+    operations, device us and host us beside the classic plane's pass
+    for the same requests."""
+    out = []
+    for key in ("table_form", "generic_form"):
+        f = wf[key]
+        k, fp, cp = f["kernel"], f["fused_pass"], f["classic_pass"]
+        out.append(
+            f"phase workflow: {f['form']} form: {f['pass_models']} models, "
+            f"{f['pass_rows']} rows: fused pass "
+            f"{fp['device_ops_per_pass']!r} "
+            f"device ops, {fp['device_us_per_pass']!r} device us, "
+            f"{fp['host_us_per_pass']!r} host us; classic pass "
+            f"{cp['device_ops_per_pass']!r} device ops, "
+            f"{cp['device_us_per_pass']!r} device us, "
+            f"{cp['host_us_per_pass']!r} host us; kernel {k['shape']} "
+            f"{k['dtype']} {k['ms']!r} ms (plain {k['plain_ms']!r}, bound "
+            f"{k['bound_ms']!r} by {k['bound_by']}), max abs err "
+            f"{k['max_abs_err']!r}; {f['kernel_launches']} launches for "
+            f"{f['fused_slices']} fused slices")
+    return out
 
 
 def workflow_lines(wf) -> list:
@@ -3569,9 +3960,11 @@ def workflow_lines(wf) -> list:
 def workflow_phase(seed: int, device="cuda", rows: int = SCALE_ROWS,
                    check=None):
     """The front door on ``device``: the Titanic helloworld through the
-    runner (held to the port's CPU run), the at-scale CSV workflow and
-    four exported Boston workflows served through the fused plane. The
-    histogram launches of the whole phase are returned for the kernels
+    runner (held to the port's CPU run), the at-scale CSV workflow, four
+    exported Boston workflows served through the fused plane, five
+    exported Titanic workflows on its table form and four
+    model-stacking members on its generic form. The histogram and fused
+    kernel launches of the whole phase are returned for the kernels
     line. ``rows`` and ``device`` exist for a CPU rehearsal."""
     import shutil
     import tempfile
@@ -3582,13 +3975,18 @@ def workflow_phase(seed: int, device="cuda", rows: int = SCALE_ROWS,
                                check=check)
         scale = scale_part(seed, device, workdir, rows)
         export = export_part(seed, device, workdir)
+        table = table_form_part(seed, device, workdir)
+        generic = generic_form_part(seed, device)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     return {"native_csv": native.available(), "titanic": titanic,
-            "scale": scale, "export": export,
+            "scale": scale, "export": export, "table_form": table,
+            "generic_form": generic,
             "histogram_launches": (titanic["histogram_launches"]
                                    + scale["histogram_launches"]),
-            "fused_launches": export["kernel_launches"]}
+            "fused_launches": (export["kernel_launches"]
+                               + table["kernel_launches"]
+                               + generic["kernel_launches"])}
 
 
 # ---------------------------------------------------------------------------
@@ -7255,9 +7653,11 @@ def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
     from its own inputs, every launch count its main path's (the
     histogram's: the training phase's and the workflow phase's ``wf``;
     the serving kernel's: the serving phase's, with the workflow
-    phase's exported models apart; ``ctr_launches``: the CTR phase's,
-    which launches none; ``features_launches``: the features phase's,
-    whose histogram launches add to the histogram's count;
+    phase's exported models apart, and its two forms' own launches and
+    served-shape checks under ``table_form`` and ``generic_form``;
+    ``ctr_launches``: the CTR phase's, which launches none;
+    ``features_launches``: the features phase's, whose histogram
+    launches add to the histogram's count;
     ``fleet_launches``: the fleet phase's, the inproc fleet's by the
     wrapper's count and by the profiler's, every socket worker's from
     its own status; ``mesh_launches``: the mesh phase's, which add to
@@ -7277,6 +7677,13 @@ def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
     # and the identity form (the JAX function) with its library call
     main_row = next(r for r in rows if r["form"] == "prefix")
     ident = rows[0]
+    keys = ("shape", "act", "dtype", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "call_ms", "plain_call_ms")
+    forms = {} if wf is None else {
+        f"{key}_form": dict({k: wf[f"{key}_form"]["kernel"][k] for k in keys},
+                            launches=wf[f"{key}_form"]["kernel_launches"],
+                            fused_slices=wf[f"{key}_form"]["fused_slices"])
+        for key in ("table", "generic") if f"{key}_form" in wf}
     hmain = hrows[0]          # the capture shape, bf16 (training's mode)
     # the data-parallel grow's deepest level, 4 ranks on one card
     rmain = next(r for r in rrows if r["layout"] == "one card"
@@ -7294,10 +7701,11 @@ def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
             "inproc": fl["inproc"]["kernel_launches"],
             "inproc_profiler": fl["inproc"]["profiler_kernel_launches"],
             "workers": fl["socket"]["worker_launches"]},
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "max_abs_err": max([r["max_abs_err"] for r in rows]
+                           + [f["max_abs_err"] for f in forms.values()]),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
+        "library_ms": main_row["library_ms"], **forms,
         "shape": main_row["shape"], "act": main_row["act"],
         "dtype": main_row["dtype"], "call_ms": main_row["call_ms"],
         "plain_call_ms": main_row["plain_call_ms"],
@@ -7439,6 +7847,8 @@ def main(argv=None) -> int:
     print("phase workflow: " + json.dumps(dict(wf, card=card)), flush=True)
     for line in workflow_lines(wf):
         print(line, flush=True)
+    for line in form_lines(wf):
+        print(line + f" [{card}]", flush=True)
     sv = services_phase()
     print("phase services: " + json.dumps(dict(sv, card=card)), flush=True)
 

@@ -281,6 +281,16 @@ def test_workflow_phase_runs_on_the_cpu(workflow_run):
     assert ex["fused_fallbacks"] == 0 and ex["fused_batches"] > 0
     assert sum(ex["matched"].values()) == ex["requests"]
     assert ex["max_abs_err"] <= chip_smoke.SERVE_ATOL
+    for key, form in (("table_form", "table"), ("generic_form", "generic")):
+        f = wf[key]
+        assert f["form"] == form and f["failed"] == 0
+        assert f["fused_fallbacks"] == 0 and f["fused_batches"] > 0
+        assert sum(f["matched"].values()) == f["requests"]
+        assert f["matched"]["fused"] > 0
+        assert f["max_abs_err"] <= chip_smoke.SERVE_ATOL
+    # Titanic's boundary: 4 numeric columns, the label, pivots 5/4/22/5
+    assert wf["table_form"]["boundary_slots"] == 41
+    assert wf["fused_launches"] == 0
 
 
 def test_workflow_lines_take_every_number_from_the_run(workflow_run):
@@ -396,6 +406,49 @@ def test_kernels_line_adds_the_workflow_launches():
         {"histogram_launches": 543, "fused_launches": 11}, ctr)
     assert [k["ctr_launches"] for k in line["kernels"]] == [0, 0, 0]
     assert line["kernels"][1]["launches"] == 418 + 543
+    forms = {f"{f}_form": {"kernel": dict(row, shape=[3], act="a",
+                                          dtype="f"),
+                           "kernel_launches": n, "fused_slices": n}
+             for f, n in (("table", 5), ("generic", 6))}
+    line = chip_smoke.kernels_line(
+        rows, {"kernel_launches": 7}, 0.5, hrows,
+        {"histogram_launches": 418}, 3, rrows, {"ring_launches": 24},
+        dict(forms, histogram_launches=543, fused_launches=11 + 5 + 6))
+    fused = line["kernels"][0]
+    assert fused["workflow_launches"] == 22
+    assert (fused["table_form"]["launches"],
+            fused["generic_form"]["fused_slices"]) == (5, 6)
+    assert fused["table_form"]["bound_by"] == "bytes"
+
+
+def test_form_lines_take_every_number_from_the_run():
+    """Each form's line carries its kernel row and both passes' numbers,
+    every one from the run's result."""
+    import re
+    wf, seen = {}, set()
+    for j, (key, form) in enumerate((("table_form", "table"),
+                                     ("generic_form", "generic"))):
+        vals = iter(100.0 * j + k + 0.25 for k in range(20))
+
+        def pass_():
+            return {k: next(vals) for k in ("device_ops_per_pass",
+                                            "device_us_per_pass",
+                                            "host_us_per_pass")}
+        wf[key] = {"form": form, "pass_models": 4, "pass_rows": 60,
+                   "kernel_launches": 9, "fused_slices": 9,
+                   "fused_pass": pass_(), "classic_pass": pass_(),
+                   "kernel": {"shape": [64, 41, 24, 4, 1], "dtype": "bf16",
+                              "ms": next(vals), "plain_ms": next(vals),
+                              "bound_ms": next(vals), "bound_by": "bytes",
+                              "max_abs_err": next(vals)}}
+        seen |= {v for d in (wf[key]["fused_pass"], wf[key]["classic_pass"],
+                             wf[key]["kernel"]) for v in d.values()
+                 if isinstance(v, float)}
+    lines = chip_smoke.form_lines(wf)
+    assert len(lines) == 2
+    for line in lines:
+        found = [float(x) for x in re.findall(r"\d+\.\d+", line)]
+        assert len(found) == 10 and set(found) <= seen, line
 
 
 @pytest.fixture(scope="module")

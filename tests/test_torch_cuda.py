@@ -50,6 +50,121 @@ def test_fused_linear_scores_kernel_matches_plain(card, n, p, K, L, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("act,L", [("sigmoid_pair", 1), ("softmax", 3),
+                                   ("identity", 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_identity_table_with_a_heads_activation_matches_plain(card, act, L,
+                                                             dtype):
+    """``fused_linear_scores(..., act=)``, the generic form's one
+    launch: the identity table through a head's activation against the
+    plain contraction and ``apply_activation``; a row outside [0, K)
+    gets z = 0 before the activation. rtol = atol = 1e-4."""
+    rng = np.random.default_rng(L)
+    n, p, K = 64, 1 if act == "sigmoid_pair" else 24, 4
+    X = rng.normal(size=(n, p)).astype(np.float32)
+    W = (0.5 * rng.normal(size=(K, p + 1, L))).astype(np.float32)
+    mid = rng.integers(0, K, size=n).astype(np.int32)
+    mid[0] = K
+    Xt, Wt, mt = (torch.from_numpy(a).to(card) for a in (X, W, mid))
+    before = sk.fused_linear_scores.launches
+    got = sk.fused_linear_scores(Xt, Wt, mt, act=act, dtype=dtype)
+    torch.cuda.synchronize()
+    assert sk.fused_linear_scores.launches == before + 1
+    ref = sk.apply_activation(
+        act, sk.fused_linear_scores_torch(Xt, Wt, mt, dtype=dtype))
+    assert got.shape == ref.shape == (n, 2 if act == "sigmoid_pair" else L)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_generic_form_pass_is_one_launch_per_bucket_slice(card,
+                                                          monkeypatch):
+    """Model-stacking members (an inner predict before the head) on the
+    card: the generic form, 150 rows over three bucket slices, one
+    launch each; every row within chip_smoke's SERVE_ATOL of its
+    model's numpy score under bf16 operands."""
+    import chip_smoke
+    from transmogrifai_tpu_torch import portable
+    from transmogrifai_tpu_torch.serving.fusion import (GENERIC,
+                                                        FusedGroupScorer,
+                                                        stack_spec_of)
+    monkeypatch.delenv("TM_KERNEL_EXACT", raising=False)
+    rng = np.random.default_rng(5)
+    members, pars = [], []
+    for k in range(3):
+        m, a, par = chip_smoke.make_stacked_ir(rng, f"out{k}")
+        sc = portable.from_portable(m, a, card).compile_scoring(
+            buckets=chip_smoke.BUCKETS)
+        backend = type("Backend", (), {"scorer": sc})()
+        members.append((backend, stack_spec_of(backend)))
+        pars.append(par)
+    assert all(spec.form == GENERIC for _b, spec in members)
+    n = 150
+    cols = {f"x{i}": np.where(rng.random(n) < 0.05, np.nan,
+                              rng.normal(size=n))
+            for i in range(chip_smoke.N_COLUMNS)}
+    mid = rng.integers(0, 3, size=n).astype(np.int32)
+    _n, vals = members[0][0].scorer._boundary_host(cols)
+    scorer = FusedGroupScorer(members)
+    assert scorer._tails is None and scorer.dtype == torch.bfloat16
+    before = sk.fused_linear_scores.launches
+    got = scorer.finalize(scorer.launch(n, vals, mid))
+    assert sk.fused_linear_scores.launches == before + 3
+    for k in range(3):
+        err = min(np.abs(got[mid == k] - want[mid == k]).max() for want in
+                  chip_smoke.stacked_oracle(cols, pars[k], bf16=True))
+        assert err <= chip_smoke.SERVE_ATOL
+
+
+@pytest.mark.cuda
+def test_table_form_reads_vector_boundary_columns_on_the_card(card):
+    """Vector boundary columns packed as consecutive slots (C = 41, as
+    Titanic's pivots give it): the kernel's features bit for bit the
+    members' eager prefixes (an identity head, f32 operands), a concat
+    of a scalar impute and two vectors under a keep subset."""
+    from transmogrifai_tpu_torch.ops import (RealVectorizerModel,
+                                             SanityCheckerModel,
+                                             VectorsCombiner)
+    from transmogrifai_tpu_torch.serving.fusion import (compile_prefix,
+                                                        pack_slice)
+    rng = np.random.default_rng(3)
+    n, bucket = 50, 64
+    stages = [RealVectorizerModel(fill_value=0.5, track_nulls=True
+                                  ).wire(["age"], "age_v"),
+              VectorsCombiner().wire(["age_v", "sex", "cabin"], "all"),
+              SanityCheckerModel(keep_indices=[0, 1, 3, 6, 20, 25, 26]
+                                 ).wire(["y", "all"], "kept")]
+    infos = [(st.input_names, st.make_device_fn(), st.output.name)
+             for st in stages] + [(["y", "kept"], None, "pred")]
+    sc = type("Scorer", (), {
+        "boundary": ["age", "sex", "cabin", "y"], "device_infos": infos,
+        "device_stage_by_output": {st.output.name: st for st in stages}})()
+    age = np.where(rng.random(n) < 0.2, np.nan, rng.normal(size=n))
+    sex = np.eye(5, dtype=np.float32)[rng.integers(0, 5, n)]
+    cabin = np.eye(22, dtype=np.float32)[rng.integers(0, 22, n)]
+    vals = [age.astype(np.float32), sex, cabin, np.zeros(n, np.float32)]
+    shapes = [v.shape[1:] for v in vals]
+    src, op, fill = compile_prefix(sc, "kept", shapes)
+    C, p = 1 + 5 + 22 + 1, len(src)
+    host = np.empty(bucket * (C + 1), np.float32)
+    pack_slice(host, bucket, vals, np.zeros(n, np.int32))
+    V = torch.from_numpy(host[:bucket * C].reshape(bucket, C)).to(card)
+    mid = torch.from_numpy(host[bucket * C:].view(np.int32)).to(card)
+    W = torch.zeros((1, p + 1, p), device=card)
+    W[0, :p, :] = torch.eye(p, device=card)
+    tables = [torch.from_numpy(t[None]).to(card) for t in (src, op, fill)]
+    got = sk.fused_prefix_scores(V, mid, *tables, W, act="identity",
+                                 dtype=torch.float32)[:n]
+    cols = dict(zip(sc.boundary, [torch.from_numpy(v).to(card)
+                                  for v in vals]))
+    for in_names, fn, out in infos[:-1]:
+        cols[out] = fn(*[cols[nm] for nm in in_names])
+    assert torch.equal(got.view(torch.int32),
+                       cols["kept"].view(torch.int32))
+
+
+@pytest.mark.cuda
 def test_exact_mode_fused_group_still_launches_the_kernel(card,
                                                           monkeypatch):
     """TM_KERNEL_EXACT=1 on the card keeps the fused plane on the CUDA

@@ -1,7 +1,8 @@
 """The fused serving pass's prefix form on the CPU: the prefix compiler,
 the plain version ``fused_prefix_scores_torch`` and the port's
 ``FusedGroupScorer`` on its stacked branch, against numpy and against
-the JAX package's ``FusedGroupScorer`` on the same members and inputs.
+the JAX package's ``FusedGroupScorer`` on the same members and inputs;
+the engine on a generic-form pair and on a tree head it refuses.
 
 Tolerances: against the numpy f64 oracle, f32 accumulation over at most
 p + 1 products of values of order one, so about 1e-5 relative (rtol =
@@ -266,9 +267,11 @@ def test_compiler_never_reads_the_label_and_keeps_the_fill_in_f32():
     rng = np.random.default_rng(4)
     manifest, arrays, par = chip_smoke.make_model_ir(rng, "out")
     manifest["stages"][0]["fill"] = 0.1     # not an f32 value
-    _backend, spec = _port_member(manifest, arrays)
+    backend, spec = _port_member(manifest, arrays)
+    assert spec.form == fusion.TABLE
     label = manifest["boundary"].index("label")
-    src, op, fill = (t.numpy() for t in (spec.src, spec.op, spec.fill))
+    src, op, fill = fusion.compile_prefix(
+        backend.scorer, spec.feature_name, [()] * len(manifest["boundary"]))
     assert label not in src and spec.p == chip_smoke.P_KEEP
     # feature 2c is column c filled, 2c + 1 its indicator, then keep
     col = np.repeat(np.arange(chip_smoke.N_COLUMNS), 2)[par["keep"]]
@@ -280,55 +283,83 @@ def test_compiler_never_reads_the_label_and_keeps_the_fill_in_f32():
     assert all(fill[first] == np.float32(0.1))
 
 
-def _stacked_prefix_ir(rng, name):
-    """A member whose prefix holds a predict stage (model stacking): an
-    inner LinearRegression over the kept features feeds the head."""
-    manifest, arrays, _par = chip_smoke.make_model_ir(rng, name)
-    head = manifest["stages"].pop()
-    manifest["stages"].append({
-        "out": "inner", "inputs": ["label", "checked"], "op": "predict",
-        "family": "LinearRegression", "nClasses": 1})
-    head["inputs"] = ["label", "inner"]
-    manifest["stages"].append(head)
-    k = len(manifest["stages"])
-    arrays[str(k - 2)] = {"params": {
-        "beta": rng.normal(size=chip_smoke.P_KEEP + 1)}}
-    arrays[str(k - 1)] = {"params": {"beta": rng.normal(size=2)}}
-    return manifest, arrays
-
-
-def test_member_with_another_prefix_stage_falls_back_loudly():
-    """No StackSpec for a prefix the compiler does not know: the engine
-    serves it on the classic plane, counts fused_fallbacks and records
-    it, with each model's own scores."""
+def _serve_pair(irs, rng):
+    """Two portable members behind one engine with the fused plane on,
+    four requests submitted together. Returns (registry, engine stats,
+    request columns, [(member, result)])."""
     from transmogrifai_tpu_torch.serving import (EngineConfig,
                                                  ModelRegistry,
                                                  ServingEngine)
-    from transmogrifai_tpu_torch.telemetry import RECORDER
-    rng = np.random.default_rng(6)
     reg = ModelRegistry()
-    for k in range(2):
-        m, a = _stacked_prefix_ir(rng, f"out{k}")
+    for k, (m, a) in enumerate(irs):
         reg.register(f"m{k}", portable.from_portable(m, a, "cpu"),
                      buckets=chip_smoke.BUCKETS)
-        backend = reg.get(f"m{k}").backend
-        assert fusion.compile_prefix(backend.scorer, "inner") is None
-        assert fusion.stack_spec_of(backend) is None
-    RECORDER.clear()
     eng = ServingEngine(registry=reg, config=EngineConfig(
         fused_kernel=True, max_wait_ms=50.0)).start()
     cols = _request(rng, 5)
     try:
-        res = [f.result(30) for f in [eng.submit(cols, model=f"m{k}")
-                                      for k in (0, 1, 0, 1)]]
+        res = [(k, f.result(30)) for k, f in
+               [(k, eng.submit(cols, model=f"m{k}")) for k in (0, 1, 0, 1)]]
     finally:
         eng.stop()
-    st = eng.stats.as_dict()
+    return reg, eng.stats.as_dict(), cols, res
+
+
+def test_member_with_another_prefix_stage_rides_the_generic_form(
+        monkeypatch):
+    """A prefix the compiler does not know (``chip_smoke.
+    make_stacked_ir``: an inner predict feeding the head) gets a
+    StackSpec of the generic form: the engine fuses
+    both members (each one's own prefix, then the kernel's identity
+    table through the activation), no fallback, each row within 1e-5
+    of its own model (the CPU's f32 in another order)."""
+    monkeypatch.delenv("TM_KERNEL_EXACT", raising=False)
+    rng = np.random.default_rng(6)
+    irs = [chip_smoke.make_stacked_ir(rng, f"out{k}")[:2]
+           for k in range(2)]
+    reg, st, cols, res = _serve_pair(irs, rng)
+    for k in range(2):
+        backend = reg.get(f"m{k}").backend
+        assert fusion.compile_prefix(backend.scorer, "inner") is None
+        assert fusion.stack_spec_of(backend).form == fusion.GENERIC
+    assert st["fused_batches"] > 0 and st["fused_fallbacks"] == 0
+    assert st["failed"] == 0
+    for k, r in res:
+        solo = reg.get(f"m{k}").backend.scorer.score_arrays(cols)
+        np.testing.assert_allclose(r[f"out{k}"], solo[f"out{k}"],
+                                   rtol=0, atol=1e-5)
+
+
+def _tree_head_ir(rng, name):
+    """chip_smoke's serving IR with a depth-2 decision tree head over
+    the kept features, a head neither package stacks."""
+    manifest, arrays, _par = chip_smoke.make_model_ir(rng, name)
+    manifest["stages"][-1].update(family="DecisionTreeClassifier",
+                                  nClasses=2)
+    arrays[str(len(manifest["stages"]) - 1)] = {"params": {
+        "feat": rng.integers(0, chip_smoke.P_KEEP, (1, 3)).astype(np.int32),
+        "thr": rng.normal(size=(1, 3)).astype(np.float32),
+        "leaf": rng.dirichlet((1.0, 1.0), (1, 4)).astype(np.float32),
+        "tree_w": np.ones(1, np.float32)}}
+    return manifest, arrays
+
+
+def test_tree_head_falls_back_loudly():
+    """No StackSpec for a tree head (the JAX package stacks only the
+    linear families): the engine serves it on the classic plane, counts
+    fused_fallbacks and records it, with each model's own scores."""
+    from transmogrifai_tpu_torch.telemetry import RECORDER
+    rng = np.random.default_rng(9)
+    irs = [_tree_head_ir(rng, f"out{k}") for k in range(2)]
+    RECORDER.clear()
+    reg, st, cols, res = _serve_pair(irs, rng)
+    for k in range(2):
+        assert fusion.stack_spec_of(reg.get(f"m{k}").backend) is None
     assert st["fused_batches"] == 0 and st["fused_fallbacks"] >= 2
     assert st["failed"] == 0
     assert any(e["event"] == "fused_fallback"
                for e in RECORDER.events(subsystem="serving"))
-    for k, r in zip((0, 1, 0, 1), res):
+    for k, r in res:
         solo = reg.get(f"m{k}").backend.scorer.score_arrays(cols)
         np.testing.assert_array_equal(r[f"out{k}"], solo[f"out{k}"])
 

@@ -393,7 +393,8 @@ def test_compiled_prefix_rebuilds_the_eager_features_bitwise(
     keep subsets, NaN in none, 5% or all of every column, and one
     column sent as integers (served as int32)."""
     from transmogrifai_tpu_torch.models import serving_kernels as sk
-    from transmogrifai_tpu_torch.serving.fusion import pack_slice
+    from transmogrifai_tpu_torch.serving.fusion import (compile_prefix,
+                                                        pack_slice)
     members = _prefix_members(source, request)
     rng = np.random.default_rng(int(nan_share * 100))
     n, bucket = 29, 32
@@ -407,8 +408,10 @@ def test_compiled_prefix_rebuilds_the_eager_features_bitwise(
     specs = [spec for _b, spec in members]
     assert all(s is not None and s.boundary == specs[0].boundary
                for s in specs)
-    src, op, fill = (torch.stack([getattr(s, t) for s in specs])
-                     for t in ("src", "op", "fill"))
+    shapes = [v.shape[1:] for v in vals]
+    src, op, fill = (torch.from_numpy(np.stack(t)) for t in zip(*[
+        compile_prefix(b.scorer, s.feature_name, shapes)
+        for b, s in members]))
     host = np.empty(bucket * (len(vals) + 1), np.float32)
     C = len(vals)
     for k, (backend, spec) in enumerate(members):

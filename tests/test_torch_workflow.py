@@ -572,7 +572,8 @@ def test_all_numeric_export_loads_in_both_packages(tmp_path):
     model = PORT.train(wf, reader)
     path = str(tmp_path / "boston")
     files = model.export_portable(path, buckets=(16, 64))
-    assert sorted(files) == ["manifest.json", "params.npz"]
+    assert sorted(files) == ["manifest.json", "params.npz",
+                             "portable_runtime.py"]
     manifest = json.load(open(os.path.join(path, "manifest.json")))
     assert manifest["hostPrefix"] == []
     assert [st["op"] for st in manifest["stages"]][-2:] == ["concat",
@@ -592,23 +593,24 @@ def test_all_numeric_export_loads_in_both_packages(tmp_path):
     np.testing.assert_allclose(jgot, want, rtol=1e-6, atol=1e-5)
 
 
-def test_host_prefix_export_records_the_prefix_and_the_port_refuses(
-        titanic, tmp_path):
-    """(The name predates the repair: the port used to refuse every
-    artifact with a host prefix.) The Titanic export records its four
-    OneHotModel pivots as ``hostPrefix``, and the port now scores it as
-    the JAX package's numpy runtime does, from the boundary columns
-    (the pivots' outputs and the numeric columns): every row within
-    1e-6 of the runtime (``transmogrifai_tpu.portable``, the module the
-    JAX exporter copies in as ``portable_runtime.py``). Behind a
-    ServingEngine with the fused plane on, the member is served on the
-    classic plane: its prefix holds the one-hot vector boundary columns,
-    which the prefix compiler does not take (no stack spec; beside
-    another model in a drain pass it counts as a fused fallback)."""
+def test_host_prefix_export_records_the_prefix_and_rides_the_fused_plane(
+        titanic, tmp_path, monkeypatch):
+    """The Titanic export records its four OneHotModel pivots as
+    ``hostPrefix``, and the port scores it as the JAX package's numpy
+    runtime does, from the boundary columns (the pivots' outputs and
+    the numeric columns): every row within 1e-6 of the runtime
+    (``transmogrifai_tpu.portable``, the module the JAX exporter copies
+    in as ``portable_runtime.py``). Behind a ServingEngine with the
+    fused plane on, it rides the table form beside the JAX package's
+    export of its own Titanic model (the same rows, so the same pivot
+    widths): the pivots' vectors are packed slots of the prefix tables,
+    no fallback, each request within 1e-6 of its own model."""
     from transmogrifai_tpu import portable as jportable
     from transmogrifai_tpu_torch import portable as tportable
     from transmogrifai_tpu_torch.serving import (EngineConfig, ModelRegistry,
                                                  ServingEngine)
+    from transmogrifai_tpu_torch.serving.fusion import TABLE, stack_spec_of
+    monkeypatch.delenv("TM_KERNEL_EXACT", raising=False)
     tm, _ = titanic["transmogrifai_tpu_torch"]
     path = str(tmp_path / "titanic")
     tm.export_portable(path)
@@ -623,21 +625,109 @@ def test_host_prefix_export_records_the_prefix_and_the_port_refuses(
     pm = tportable.load(path, device="cpu")
     got = pm.compile_scoring().score_arrays(cols)[name]
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    jpath = str(tmp_path / "titanic_jax")
+    titanic["transmogrifai_tpu"][0].export_portable(jpath)
+    jpm = tportable.load(jpath, device="cpu")
+    assert jpm.boundary == pm.boundary
+    jname = jpm.result_names[0]
+    jgot = jpm.compile_scoring().score_arrays(cols)[jname]
     reg = ModelRegistry()
-    reg.register("titanic", pm, buckets=(16, 64),
-                 warm_sample={c: v[:1] for c, v in cols.items()})
+    for vname, model in (("titanic", pm), ("titanic_jax", jpm)):
+        reg.register(vname, model, buckets=(16, 64),
+                     warm_sample={c: v[:1] for c, v in cols.items()})
+        spec = stack_spec_of(reg.get(vname).backend)
+        assert spec.form == TABLE and spec.act == "sigmoid_pair"
     eng = ServingEngine(registry=reg, config=EngineConfig(
-        max_batch_rows=64, fused_kernel=True)).start()
+        max_batch_rows=64, fused_kernel=True, max_wait_ms=50.0)).start()
     try:
-        served = eng.submit({c: v[:40] for c, v in cols.items()}).result(
-            timeout=30)[name]
+        futs = [(k, eng.submit({c: v[10 * k:10 * k + 10]
+                                for c, v in cols.items()},
+                               model=("titanic", "titanic_jax")[k % 2]))
+                for k in range(4)]
+        served = [(k, f.result(timeout=30)) for k, f in futs]
     finally:
         eng.stop()
-    np.testing.assert_allclose(served, got[:40], rtol=0, atol=1e-6)
-    assert eng.stats.as_dict()["fused_batches"] == 0
-    from transmogrifai_tpu_torch.serving.fusion import stack_spec_of
-    from transmogrifai_tpu_torch.serving.registry import _FusedBackend
-    assert stack_spec_of(_FusedBackend(pm.compile_scoring())) is None
+    for k, res in served:
+        ref, key = (got, name) if k % 2 == 0 else (jgot, jname)
+        np.testing.assert_allclose(res[key], ref[10 * k:10 * k + 10],
+                                   rtol=0, atol=1e-6)
+    st = eng.stats.as_dict()
+    assert st["fused_batches"] > 0 and st["fused_fallbacks"] == 0
+    assert st["failed"] == 0
+
+
+_RUNTIME_SCRIPT = """
+import importlib.abc, json, sys
+import numpy as np
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("torch", "jax", "jaxlib",
+                                  "transmogrifai_tpu",
+                                  "transmogrifai_tpu_torch"):
+            raise ImportError("refused: " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import importlib.util
+art, cols_path, out_path = sys.argv[1:4]
+spec = importlib.util.spec_from_file_location(
+    "portable_runtime", art + "/portable_runtime.py")
+rt = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(rt)
+cols = dict(np.load(cols_path, allow_pickle=False))
+scores = rt.load(art).score_columns(cols)
+np.savez(out_path, **scores)
+print(json.dumps(sorted(k for k in sys.modules if k.split(".")[0] in
+                        ("torch", "jax", "transmogrifai_tpu_torch"))))
+"""
+
+
+@pytest.mark.parametrize("case", ["boston", "titanic"])
+def test_exported_runtime_scores_like_the_port_with_numpy_alone(
+        case, titanic, tmp_path):
+    """Every port export carries ``portable_runtime.py``, the port's
+    numpy-only interpreter: loaded by path in a process that refuses
+    torch, jax and both packages, it scores the artifact's boundary
+    columns within 1e-6 of the port's own loader, relative to the score
+    (Boston's prices near 20 are f32 values 2e-6 apart) and absolute
+    (Titanic's probabilities)."""
+    from transmogrifai_tpu_torch import portable as tportable
+    from transmogrifai_tpu_torch import portable_runtime
+    if case == "boston":
+        wf, reader = _boston(PORT)
+        model = PORT.train(wf, reader)
+        recs = reader.read()
+    else:
+        model = titanic["transmogrifai_tpu_torch"][0]
+    art = str(tmp_path / case)
+    files = model.export_portable(art)
+    assert open(files["portable_runtime.py"], "rb").read() == \
+        open(portable_runtime.__file__, "rb").read()
+    pm = tportable.load(art, device="cpu")
+    if case == "boston":
+        cols = {c: np.asarray([np.nan if r[c] is None else float(r[c])
+                               for r in recs], np.float32)
+                for c in pm.boundary if c not in pm.response_boundary}
+    else:
+        ds = model.compile_scoring(device="cpu")._host_ds(PORT.reader())
+        cols = {c: np.asarray(ds.column(c), np.float32) for c in pm.boundary
+                if c in ds and c not in pm.response_boundary}
+    want = pm.compile_scoring().score_arrays(cols)
+    np.savez(tmp_path / "cols.npz", **cols)
+    out = subprocess.run(
+        [sys.executable, "-c", _RUNTIME_SCRIPT, art,
+         str(tmp_path / "cols.npz"), str(tmp_path / "scores.npz")],
+        capture_output=True, text=True, timeout=120, cwd=str(tmp_path),
+        env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    got = dict(np.load(tmp_path / "scores.npz"))
+    assert sorted(got) == sorted(want) == sorted(pm.result_names)
+    for name in want:
+        assert got[name].shape == want[name].shape
+        np.testing.assert_allclose(got[name], want[name], rtol=1e-6,
+                                   atol=1e-6)
 
 
 def test_prefix_compiler_reads_a_fitted_workflow_scorer():
@@ -646,7 +736,8 @@ def test_prefix_compiler_reads_a_fitted_workflow_scorer():
     imputes, the Binary vectorizer's (the same portable op) and the
     concat, so the model can ride the fused plane; the tables hold each
     column's filled value and null indicator."""
-    from transmogrifai_tpu_torch.serving.fusion import stack_spec_of
+    from transmogrifai_tpu_torch.serving.fusion import (compile_prefix,
+                                                        stack_spec_of)
     from transmogrifai_tpu_torch.serving.registry import _FusedBackend
     wf, reader = _boston(PORT)
     model = PORT.train(wf, reader)
@@ -656,6 +747,9 @@ def test_prefix_compiler_reads_a_fitted_workflow_scorer():
             "VectorsCombiner", "SelectedModel"} <= kinds
     spec = stack_spec_of(_FusedBackend(sc))
     assert spec is not None and spec.act == "identity"
+    assert spec.form == "table"
+    src, _op, _fill = compile_prefix(sc, spec.feature_name,
+                                     [()] * len(sc.boundary))
     # 10 Real + 1 Integral + 1 Binary columns, each value and null track
-    assert len(spec.src) == 2 * 12
-    assert sorted(set(np.asarray(spec.src).tolist())) == list(range(12))
+    assert len(src) == 2 * 12
+    assert sorted(set(src.tolist())) == list(range(12))

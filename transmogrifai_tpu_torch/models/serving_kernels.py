@@ -14,8 +14,10 @@ model's prefix tables (:func:`fused_prefix_scores`), is scored against
 its own ``(p+1, L)`` weight block, and leaves as probabilities (see
 the note in the source for why that is the same function, and what
 bounds it on an H100). :func:`fused_linear_scores` is the same kernel
-launched with the identity table and the identity activation: the JAX
-package's ``fused_linear_scores``.
+launched with the identity table: with the identity activation it is
+the JAX package's ``fused_linear_scores``, and with a head's activation
+it scores the serving pass's generic form (each member's own prefix
+run before it, ``serving/fusion.py``).
 
 The prefix tables (:data:`OP_VALUE`, :data:`OP_FILLED`,
 :data:`OP_NULL`): feature ``j`` of a row under model ``k`` reads
@@ -188,12 +190,16 @@ def _check_prefix_args(V, mid, src, op, fill, W, act):
         raise ValueError(f"V and the prefix tables on different devices: "
                          f"{V.device}, {src.device}, {op.device}, "
                          f"{fill.device}")
+    _check_act(act, L)
+    return n, C, p, K, L
+
+
+def _check_act(act, L):
     if act not in ACTIVATIONS:
         raise ValueError(f"unknown activation {act!r} (have "
                          f"{sorted(ACTIVATIONS)})")
     if act == "sigmoid_pair" and L != 1:
         raise ValueError(f"a sigmoid pair head has L = 1, got {L}")
-    return n, C, p, K, L
 
 
 def prefix_features_torch(V: torch.Tensor, mid: torch.Tensor,
@@ -312,7 +318,7 @@ def _launch(V, mid, tables, W, n, C, p, K, L, act, dt,
 
 
 def fused_linear_scores(X: torch.Tensor, W: torch.Tensor,
-                        mid: torch.Tensor, *,
+                        mid: torch.Tensor, *, act: str = "identity",
                         dtype: Optional[torch.dtype] = None,
                         config: Optional[Dict[str, int]] = None
                         ) -> torch.Tensor:
@@ -321,25 +327,31 @@ def fused_linear_scores(X: torch.Tensor, W: torch.Tensor,
 
     X: (n, p) f32 request rows. W: (K, p+1, L) f32 stacked weights,
     last row the intercept. mid: (n,) int32 model index per row (a row
-    outside [0, K) scores 0). Returns (n, L) f32 raw scores
-    (pre-activation). ``dtype`` is the operand dtype (None:
-    :func:`serve_dtype` of X's device; bf16 and f32 are supported).
+    outside [0, K) scores 0 before the activation). ``act``: one of
+    :data:`ACTIVATIONS`, the identity by default (raw scores, the JAX
+    package's ``fused_linear_scores``). Returns (n, n_out) f32 (n_out =
+    2 for a sigmoid pair, else L). ``dtype`` is the operand dtype
+    (None: :func:`serve_dtype` of X's device; bf16 and f32 are
+    supported).
 
-    On a CPU tensor this is :func:`fused_linear_scores_torch`. On a
-    CUDA tensor it launches ``csrc/fused_linear_scores.cu`` with the
-    identity table and activation, on the current stream (built at
-    first use), and raises if the build or the launch fails. ``config``
-    is the launch choice (:func:`launch_config`; unset: the autotuner's
-    decision, else the static rule), which changes no bit.
-    ``fused_linear_scores.launches`` counts the kernel's launches, from
-    this entry and from :func:`fused_prefix_scores`."""
+    On a CPU tensor this is :func:`fused_linear_scores_torch` and
+    :func:`apply_activation`. On a CUDA tensor it launches
+    ``csrc/fused_linear_scores.cu`` with the identity table and ``act``,
+    on the current stream (built at first use), and raises if the build
+    or the launch fails. ``config`` is the launch choice
+    (:func:`launch_config`; unset: the autotuner's decision, else the
+    static rule), which changes no bit. ``fused_linear_scores.launches``
+    counts the kernel's launches, from this entry and from
+    :func:`fused_prefix_scores`."""
     n, p, K, L = _check_args(X, W, mid)
+    _check_act(act, L)
     dt = serve_dtype(X.device) if dtype is None else dtype
     if config is not None:
         launch_config(config)   # the plain version has none; check it
     if X.device.type == "cpu":
-        return fused_linear_scores_torch(X, W, mid, dtype=dt)
-    return _launch(X, mid, None, W, n, p, p, K, L, "identity", dt, config)
+        return apply_activation(
+            act, fused_linear_scores_torch(X, W, mid, dtype=dt))
+    return _launch(X, mid, None, W, n, p, p, K, L, act, dt, config)
 
 
 #: launches of the CUDA kernel from either entry (the CPU path counts

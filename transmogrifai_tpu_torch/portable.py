@@ -12,8 +12,10 @@ That format needs no JAX, so it is how weights carry across:
 turns the manifest and its numpy arrays into the port's stages, with
 every parameter a tensor on the scoring device.
 
-Like the JAX package's numpy runtime (its ``score_columns``), the port
-scores an artifact from its manifest's ``boundary`` columns: a
+Like the numpy runtime every artifact carries (``portable_runtime.py``,
+whose format constant and ``params.npz`` pytree helpers this module
+shares; its ``score_columns``), the port scores an artifact from its
+manifest's ``boundary`` columns: a
 non-empty ``hostPrefix`` (text pivots, hashing run on the host before
 the device chain) is metadata, and the caller supplies those stages'
 outputs. Integer boundary columns (hashed bucket ids) stay integer:
@@ -39,53 +41,13 @@ from .models.base import MODEL_FAMILIES, PredictionModel, params_from_numpy
 from .models.sparse import SparseLogisticModel, SparseSoftmaxModel
 from .ops.sanity_checker import SanityCheckerModel
 from .ops.vectorizers import RealVectorizerModel, VectorsCombiner
+# flatten_tree is re-exported: the exporter and callers flatten here
+from .portable_runtime import FORMAT_VERSION, flatten_tree, unflatten_tree
 from .resilience import atomic
-
-FORMAT_VERSION = 1
 
 #: the portable ops the port runs on the device
 SUPPORTED_OPS = ("impute", "concat", "keep_cols", "predict",
                  "sparse_predict", "sparse_softmax")
-
-
-# ---------------------------------------------------------------------------
-# params.npz pytree flattening
-# ---------------------------------------------------------------------------
-
-def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
-    """Nested dict/list/scalar/array pytree -> {"a/b/0/c": array} leaves."""
-    out: Dict[str, np.ndarray] = {}
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            out.update(flatten_tree(tree[k], f"{prefix}{k}/"))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            out.update(flatten_tree(v, f"{prefix}{i}/"))
-    else:
-        out[prefix[:-1]] = np.asarray(tree)
-    return out
-
-
-def unflatten_tree(flat: Dict[str, np.ndarray]) -> Any:
-    """Inverse of flatten_tree. Integer path components become lists."""
-    if list(flat.keys()) == [""]:
-        return flat[""]
-    root: Dict[str, Any] = {}
-    for key, val in flat.items():
-        parts = key.split("/")
-        node = root
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = val
-
-    def fix(node):
-        if not isinstance(node, dict):
-            return node
-        if node and all(k.isdigit() for k in node):
-            return [fix(node[k]) for k in sorted(node, key=int)]
-        return {k: fix(v) for k, v in node.items()}
-
-    return fix(root)
 
 
 # ---------------------------------------------------------------------------

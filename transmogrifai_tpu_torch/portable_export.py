@@ -3,9 +3,13 @@ copy of ``transmogrifai_tpu/portable_export.py``).
 
 Reference parity: the reference ships fitted models to non-Spark services
 via MLeap (local/ module + MLeap runtime, SURVEY §2a Local scoring);
-the artifact here plays the same role for the fused device chain —
-manifest.json (the op IR) + params.npz (every fitted array), the JAX
-package's format, stamped complete by its ``_SUCCESS`` sentinel:
+the artifact here plays the same role for the fused device chain, in
+the JAX package's format, stamped complete by its ``_SUCCESS`` sentinel:
+
+    manifest.json        the op IR
+    params.npz           every fitted array
+    portable_runtime.py  the numpy-only interpreter, copied verbatim
+                         (``transmogrifai_tpu_torch/portable_runtime.py``)
 
     model.export_portable("serve_dir")
     scorer = portable.load("serve_dir").compile_scoring()
@@ -15,11 +19,9 @@ numeric pipelines). When host-only stages precede the device tail (text
 pivots, hashing over strings), the manifest records them under
 `hostPrefix` and the boundary columns are those stages' OUTPUTS, exactly
 as the JAX package writes it, and every loader scores the boundary
-columns (``portable.from_portable`` as the JAX runtime). The JAX package also
-copies its numpy-only interpreter into the artifact as
-``portable_runtime.py``; the port has no numpy-only runtime, so its
-artifacts carry the manifest and arrays only (every loader of either
-package reads those two files).
+columns: ``portable.from_portable`` on a device, the copied runtime
+with numpy alone, and either package's loader reads the other's
+artifacts.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from typing import Any, Dict
 
 import numpy as np
 
-from . import portable
+from . import portable, portable_runtime
 from .workflow import FusedScorer, WorkflowModel, _normalize_buckets
 
 
@@ -85,6 +87,10 @@ def export_portable(model: WorkflowModel, path: str,
     npath = os.path.join(path, "params.npz")
     atomic.atomic_write_npz(npath, flat_arrays)
     files["params.npz"] = npath
+    rpath = os.path.join(path, "portable_runtime.py")
+    with open(portable_runtime.__file__, "rb") as src:
+        atomic.atomic_write_bytes(rpath, src.read())
+    files["portable_runtime.py"] = rpath
     # every file is durably committed: stamp the artifact complete LAST
     # (loaders reject a sentinel-less dir — a crash anywhere above
     # leaves nothing that can serve)
@@ -102,7 +108,7 @@ def export_registry_version(model: WorkflowModel, root: str, version: str,
         root/
           registry.json       {"format": 1, "default": ..., "versions": ...}
           <version>/          one artifact dir per version
-            manifest.json + params.npz
+            manifest.json + params.npz + portable_runtime.py
             workflow.json + ... (unless portable_only)
 
     Each version dir carries BOTH artifact forms by default: the

@@ -91,6 +91,16 @@ _asarray = np.asarray
 _TRACER = _spans.TRACER
 
 
+def _signature(vals) -> tuple:
+    """A prepared request's signature: each boundary column's dtype and
+    trailing shape. Requests co-batch (and backends pool on the fused
+    plane) only under one signature: np.concatenate would silently
+    PROMOTE a mixed int/float column and cannot join columns of two
+    widths (two pivot vocabularies)."""
+    return tuple((a.dtype.str,) + a.shape[1:]
+                 for a in map(_asarray, vals))
+
+
 def _future_outcome(fut: Future) -> str:
     """'ok' / the exception type name / 'cancelled' — span attrs."""
     try:
@@ -281,8 +291,8 @@ class _Request:
     """Single-allocation slotted request record. ``t_submit`` is the
     host-overhead clock's origin stamp; ``enqueued_at`` is re-stamped
     at enqueue so admission time (prepare + admit) and queue time stay
-    distinct segments. ``sig`` caches the prepared dtype signature
-    computed on the SUBMITTING thread so the dispatcher
+    distinct segments. ``sig`` caches the prepared request signature
+    (:func:`_signature`) computed on the SUBMITTING thread so the dispatcher
     does not recompute it per request; re-prepare invalidates it."""
 
     __slots__ = ("data", "n", "vals", "prepared_by", "deadline",
@@ -609,7 +619,7 @@ class ServingEngine:
 
         One stats-lock acquisition per request (note_submit_depth,
         inside _cond so the depth gauge never goes stale against the
-        dispatcher's post-drain write); the dtype signature is computed
+        dispatcher's post-drain write); the request signature is computed
         here, not on the dispatcher."""
         # opaudit: disable=concurrency -- advisory admission gate: a stale read costs one request an EngineClosed (or one extra enqueue that stop(drain) resolves); the authoritative _accepting check runs under _cond in the dispatcher/stop path
         if not self._accepting:
@@ -645,7 +655,7 @@ class ServingEngine:
             _TRACER.record(trace, "engine.prepare", t_prepare,
                            _monotonic(), rows=n,
                            version=vname, tenant=tenant)
-        sig = tuple(_asarray(v).dtype.str for v in vals)
+        sig = _signature(vals)
         req = _Request(data, n, vals, backend, deadline, trace,
                        model=model, tenant=tenant, t_submit=t_submit,
                        sig=sig)
@@ -959,17 +969,18 @@ class ServingEngine:
                         self.stats.note_failed()
                         continue
                 ready.append((r, vname, backend, caps))
-            # group by (backend identity, prepared dtype signature):
+            # group by (backend identity, prepared signature):
             # np.concatenate would silently PROMOTE a mixed int/float
             # boundary column (corrupting hashed ids above 2^24 for
-            # every request in the sub-batch); an odd-typed request
-            # scores in its own group
+            # every request in the sub-batch) and cannot join two
+            # widths of a column; an odd request scores in its own
+            # group
             groups: Dict[tuple, List[_Request]] = {}
             by_backend: Dict[int, tuple] = {}
             for r, vname, backend, caps in ready:
                 sig = r.sig
                 if sig is None:
-                    sig = tuple(_asarray(v).dtype.str for v in r.vals)
+                    sig = _signature(r.vals)
                 groups.setdefault((id(backend), sig), []).append(r)
                 by_backend[id(backend)] = (vname, backend, caps)
             if self._fused and len(groups) > 1:
@@ -1046,7 +1057,8 @@ class ServingEngine:
         """Partition one drain pass's (backend, sig) groups into fused
         family launches and classic co-batch groups. Groups whose
         backends carry a stackable head AND share a fuse key (same
-        boundary layout, buckets, head shape/activation, dtype sig)
+        form, boundary layout, buckets, head shape/activation) and a
+        request signature (each boundary column's dtype and width)
         merge when at least ``fused_min_models`` distinct backends are
         present; everything else keeps the Python-layer co-batching.
         Stack-ineligible two-phase backends fall back LOUDLY: counted
@@ -1090,7 +1102,7 @@ class ServingEngine:
 
     def _fused_scorer(self, members):
         """Bounded cache of fused group scorers. Key: (member backend
-        ids, dtype signature, serve policy token) — the scorer holds
+        ids, request signature, serve policy token) — the scorer holds
         STRONG refs to its member backends, so the ids cannot be reused
         while the entry lives, and a flipped parity / dtype knob
         rebuilds instead of reusing a stale scorer.

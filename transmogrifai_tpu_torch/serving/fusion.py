@@ -17,28 +17,43 @@ Two formulations, switched by the kernel parity policy:
   (impute / combine / sanity / predict), so each row sees EXACTLY what
   its own backend computes — bitwise-identical to per-backend scoring
   by construction (the validation anchor).
-* otherwise — the stacked pass. At publish time :func:`compile_prefix`
-  turns each member's prefix (the device stages before its head:
-  impute with null indicators, concat, keep_cols) into three tables
-  over its head's features, stored on its :class:`StackSpec` beside the
-  head's (p+1, L) weights. A bucket slice then packs its boundary
-  values and model ids into one (pinned, on CUDA) host buffer, copies
-  it to the device once, and ``fused_prefix_scores`` builds every
-  row's features through its own model's tables, scores all K heads
-  and applies the activation, in the serving dtype (bf16 operands on
-  CUDA, f32 on the CPU and under ``TM_KERNEL_EXACT=1``; f32
-  accumulation): one copy in, one kernel launch, one copy out. The
-  kernel is chosen by the tensors' device: the CUDA kernel on the card,
-  its plain PyTorch version on the CPU. On the card exact mode only
-  pins f32 operands: the fused plane never leaves the kernel there.
+* otherwise — the stacked pass, in one of two forms, which each
+  member's :class:`StackSpec` records (``form``):
 
-Stackability is DETECTED, not declared: the terminal device stage must
-be a PredictionModel of a linear family (LogisticRegression /
-LinearRegression / LinearSVC — one affine map + a fixed activation),
-and every stage before it one the prefix compiler knows. Anything else
-falls back LOUDLY: the engine counts ``fused_fallbacks`` and
-flight-records the first occurrence per backend, and those groups keep
-the Python-layer co-batching path.
+  - ``"table"``: the prefix (the device stages before the head) is
+    made of the stages :func:`compile_prefix` knows (impute with null
+    indicators, concat, keep_cols over scalar and vector boundary
+    columns). For the boundary shapes a slice carries, the compiler
+    turns each member's prefix into three tables over its head's
+    features. A bucket slice packs its boundary values (a vector
+    column as that many consecutive columns) and model ids into one
+    (pinned, on CUDA) host buffer, copies it to the device once, and
+    ``fused_prefix_scores`` builds every row's features through its
+    own model's tables, scores all K heads and applies the activation:
+    one copy in, one kernel launch, one copy out.
+  - ``"generic"``: any other prefix (a user stage with its own
+    ``make_device_fn``, an inner predict feeding the head). The JAX
+    formulation: each member's own prefix runs on the gathered
+    boundary tensors, a per-row ``where`` selects each row's feature
+    block by model id, and ``fused_linear_scores`` (the kernel's
+    identity table) scores all K heads through the activation in one
+    launch.
+
+  Both run in the serving dtype (bf16 operands on CUDA, f32 on the CPU
+  and under ``TM_KERNEL_EXACT=1``; f32 accumulation). The kernel is
+  chosen by the tensors' device: the CUDA kernel on the card, its
+  plain PyTorch version on the CPU. On the card exact mode only pins
+  f32 operands: the fused plane never leaves the kernel there.
+
+Stackability is DETECTED, not declared, by the JAX package's checks:
+one result, a terminal device stage that is a PredictionModel of a
+linear family (LogisticRegression / LinearRegression / LinearSVC — one
+affine map + a fixed activation) with two inputs, nothing after it.
+Anything else falls back LOUDLY: the engine counts
+``fused_fallbacks`` and flight-records the first occurrence per
+backend, and those groups keep the Python-layer co-batching path. A
+member that passes detection is never moved to the classic plane: if
+its slice cannot be built or launched, its requests fail.
 """
 from __future__ import annotations
 
@@ -77,23 +92,25 @@ def fused_env_fields(environ=None, **overrides) -> Dict[str, object]:
                             environ=environ, overrides=overrides)
 
 
+#: the forms of a stacked pass (StackSpec.form): the prefix tables in
+#: the kernel, or each member's own prefix before the identity table
+TABLE, GENERIC = "table", "generic"
+
+
 class StackSpec:
     """Stackable-head metadata for one backend: everything the fused
     group scorer needs to put this model's rows in a shared launch."""
 
-    __slots__ = ("family", "act", "p", "L", "n_out", "W", "src", "op",
-                 "fill", "feature_name", "result_name", "boundary",
+    __slots__ = ("family", "act", "form", "p", "L", "n_out", "W",
+                 "feature_name", "result_name", "boundary",
                  "response_boundary", "buckets", "device")
 
-    def __init__(self, family, act, W, tables, feature_name, result_name,
+    def __init__(self, family, act, form, W, feature_name, result_name,
                  boundary, response_boundary, buckets, device):
         self.family = family
         self.act = act              # "sigmoid_pair" | "softmax" | "identity"
+        self.form = form            # TABLE | GENERIC
         self.W = W                  # (p+1, L) f32 tensor, last row = intercept
-        #: the prefix tables (compile_prefix): (p,) int32 boundary
-        #: column, uint8 op, f32 fill per head feature, on ``device``
-        self.src, self.op, self.fill = (
-            torch.from_numpy(t).to(device) for t in tables)
         self.p = int(W.shape[0]) - 1
         self.L = int(W.shape[1])
         self.n_out = 2 if act == "sigmoid_pair" else self.L
@@ -106,52 +123,94 @@ class StackSpec:
 
     def fuse_key(self) -> tuple:
         """Backends sharing this key can ride one fused launch: same
-        gathered-boundary layout, same bucket universe, same stacked
-        head shape and activation, same scattered result width, same
-        device. The key is MODE-INDEPENDENT (exact vs stacked) so a
-        flipped TM_KERNEL_EXACT regroups identically and only the
-        scorer cache (keyed on the serve policy token) rebuilds."""
-        return (self.act, self.p, self.L, self.n_out, self.boundary,
-                tuple(sorted(self.response_boundary)), self.buckets,
-                str(self.device))
+        form, same gathered-boundary layout, same bucket universe, same
+        stacked head shape and activation, same scattered result width,
+        same device. Each boundary column's width rides in the engine's
+        request signature beside this key (a portable artifact records
+        no widths, its requests do), so members whose pivot
+        vocabularies differ never pool. The key is MODE-INDEPENDENT
+        (exact vs stacked) so a flipped TM_KERNEL_EXACT regroups
+        identically and only the scorer cache (keyed on the serve
+        policy token) rebuilds."""
+        return (self.form, self.act, self.p, self.L, self.n_out,
+                self.boundary, tuple(sorted(self.response_boundary)),
+                self.buckets, str(self.device))
 
 
-def compile_prefix(sc, feature_name: str) -> Optional[tuple]:
+def slot_widths(shapes: Sequence[tuple]) -> List[int]:
+    """Slots each boundary column takes in a packed slice: one for a
+    scalar column (shape ()), w for a vector column (shape (w,))."""
+    return [int(np.prod(s, dtype=np.int64)) for s in shapes]
+
+
+def compile_prefix(sc, feature_name: str,
+                   shapes: Optional[Sequence[tuple]] = None
+                   ) -> Optional[tuple]:
     """A scorer's device prefix — every stage before its head — as
     three tables over the head's feature block ``feature_name``:
-    ``src`` (int32, the boundary column a feature reads), ``op`` (uint8,
-    ``OP_FILLED`` or ``OP_NULL``) and ``fill`` (f32, the fill value as
-    the eager impute rounds it). Recognises the fitted impute stages
-    (portable op ``impute``: :class:`RealVectorizerModel` and
-    :class:`BinaryVectorizer`, filled value, then the null indicator
-    when it tracks nulls), :class:`VectorsCombiner` (concat
-    in input order) and :class:`SanityCheckerModel` (keep_cols; its
-    label input is never read), and nothing else: any other stage, an
-    impute reading anything but a boundary column, or a block the head
-    cannot read gives None."""
-    column = {name: i for i, name in enumerate(sc.boundary)}
+    ``src`` (int32, the packed slot a feature reads), ``op`` (uint8,
+    ``OP_VALUE``, ``OP_FILLED`` or ``OP_NULL``) and ``fill`` (f32, the
+    fill value as the eager impute rounds it). ``shapes`` gives each
+    boundary column's trailing shape, as a slice's values carry it:
+    () a scalar column (one slot), (w,) a vector column (w consecutive
+    slots, :func:`pack_slice`'s layout). None checks the structure
+    alone, each column one slot: that is what :func:`stack_spec_of`
+    asks at publish time, before a request has shown the widths.
+
+    Recognises the fitted impute stages (portable op ``impute``:
+    :class:`RealVectorizerModel` and :class:`BinaryVectorizer`, filled
+    value, then the null indicator when it tracks nulls) over a scalar
+    boundary column, :class:`VectorsCombiner` (concat in input order)
+    and :class:`SanityCheckerModel` (keep_cols; its label input is never
+    read), each of the last two reading earlier blocks or boundary
+    columns (every slot as is), and nothing else: any other stage, an
+    impute reading anything but a scalar boundary column, or a keep
+    outside its block gives None."""
+    slot: Dict[str, tuple] = {}     # boundary name -> (first slot, shape)
+    at = 0
+    for i, name in enumerate(sc.boundary):
+        shape = () if shapes is None else tuple(shapes[i])
+        if len(shape) > 1:
+            return None
+        slot[name] = (at, shape)
+        at += slot_widths([shape])[0]
     blocks: Dict[str, list] = {}     # output name -> [(src, op, fill)]
+
+    def read(name):
+        if name in blocks:
+            return blocks[name]
+        if name not in slot:
+            return None
+        first, shape = slot[name]
+        return [(first + j, _sk.OP_VALUE, np.float32(0.0))
+                for j in range(slot_widths([shape])[0])]
+
     for in_names, _fn, out in sc.device_infos[:-1]:
         st = sc.device_stage_by_output[out]
         if isinstance(st, (RealVectorizerModel, BinaryVectorizer)):
-            if len(in_names) != 1 or in_names[0] not in column:
+            if len(in_names) != 1 or in_names[0] not in slot \
+                    or slot[in_names[0]][1] != ():
                 return None
-            c = column[in_names[0]]
+            c = slot[in_names[0]][0]
             feats = [(c, _sk.OP_FILLED, np.float32(st.params["fill_value"]))]
             if st.params["track_nulls"]:
                 feats.append((c, _sk.OP_NULL, np.float32(0.0)))
         elif isinstance(st, VectorsCombiner):
-            if not all(b in blocks for b in in_names):
+            parts = [read(b) for b in in_names]
+            if any(f is None for f in parts):
                 return None
-            feats = [f for b in in_names for f in blocks[b]]
+            feats = [f for part in parts for f in part]
         elif isinstance(st, SanityCheckerModel):
-            if len(in_names) != 2 or in_names[1] not in blocks:
+            base = read(in_names[1]) if len(in_names) == 2 else None
+            if base is None:
                 return None
-            base = blocks[in_names[1]]
-            keep = np.asarray(st.params["keep_indices"], np.int64)
-            if ((keep < 0) | (keep >= len(base))).any():
-                return None
-            feats = [base[i] for i in keep]
+            if shapes is None:
+                feats = base        # widths unknown: the keep waits
+            else:
+                keep = np.asarray(st.params["keep_indices"], np.int64)
+                if ((keep < 0) | (keep >= len(base))).any():
+                    return None
+                feats = [base[i] for i in keep]
         else:
             return None
         blocks[out] = feats
@@ -165,12 +224,16 @@ def compile_prefix(sc, feature_name: str) -> Optional[tuple]:
 
 def stack_spec_of(backend) -> Optional[StackSpec]:
     """Detect whether ``backend``'s device tail ends in a stackable
-    affine head behind a prefix :func:`compile_prefix` knows; None means
-    'serve it the classic way' (multi-result models, non-linear
-    families, post-predict device stages, other prefix stages). Never
-    raises: detection runs at registry publish time and a detector bug
-    must not take a version out of service — the engine counts every
-    fallback (``fused_fallbacks``), so a detection bug shows there."""
+    affine head — the JAX package's checks: one result, a terminal
+    PredictionModel of a stackable family with two inputs, no device
+    stage after it; None means 'serve it the classic way' (multi-result
+    models, non-linear families, post-predict device stages). The spec
+    records the form that serves the backend: ``TABLE`` when
+    :func:`compile_prefix` knows the prefix's structure, else
+    ``GENERIC``. Never raises: detection runs at registry publish time
+    and a detector bug must not take a version out of service — the
+    engine counts every fallback (``fused_fallbacks``), so a detection
+    bug shows there."""
     sc = getattr(backend, "scorer", None)
     if sc is None:
         return None
@@ -207,10 +270,9 @@ def stack_spec_of(backend) -> Optional[StackSpec]:
             W = beta.reshape(-1, 1)
             act = ("identity" if family == "LinearRegression"
                    else "sigmoid_pair")
-        tables = compile_prefix(sc, term_inputs[1])
-        if tables is None or len(tables[0]) != int(W.shape[0]) - 1:
-            return None
-        return StackSpec(family, act, W, tables, term_inputs[1],
+        form = (TABLE if compile_prefix(sc, term_inputs[1]) is not None
+                else GENERIC)
+        return StackSpec(family, act, form, W, term_inputs[1],
                          result_name, sc.boundary, sc._response_boundary,
                          sc.buckets, sc.device)
     except Exception:  # noqa: BLE001 — detection must never break serving
@@ -244,16 +306,22 @@ def backend_caps(backend) -> BackendCaps:
 def pack_slice(host: np.ndarray, bucket: int, vals: Sequence[np.ndarray],
                mid: np.ndarray) -> None:
     """Fill ``host``, a flat f32 array of bucket * (C + 1) words, with
-    one bucket slice: the (bucket, C) boundary values row-major, then
-    the model ids' int32 bits. Padded rows repeat the last real row, as
-    ``_pad_rows`` does (zeros for an empty slice). An int32 column
-    rounds to f32 to nearest, as the eager prefix's
-    ``.to(torch.float32)`` does."""
-    m, C = len(mid), len(vals)
+    one bucket slice: the (bucket, C) boundary values row-major — a
+    scalar column one column of it, a vector column of width w that
+    many consecutive columns, so C is the sum of the widths
+    (:func:`slot_widths`) — then the model ids' int32 bits. Padded rows
+    repeat the last real row, as ``_pad_rows`` does (zeros for an empty
+    slice). An int32 column rounds to f32 to nearest, as the eager
+    prefix's ``.to(torch.float32)`` does."""
+    m = len(mid)
+    widths = slot_widths([np.shape(v)[1:] for v in vals])
+    C = sum(widths)
     V = host[:bucket * C].reshape(bucket, C)
     ids = host[bucket * C:].view(np.int32)
-    for c, v in enumerate(vals):
-        V[:m, c] = v
+    at = 0
+    for v, w in zip(vals, widths):
+        V[:m, at:at + w] = np.reshape(v, (m, w))
+        at += w
     ids[:m] = mid
     if m == 0:
         host[:] = 0
@@ -269,10 +337,10 @@ class FusedGroupScorer:
     padded slices, device work queued without a sync — with the per-row
     model-id vector riding along; ``finalize(parts)`` materializes the
     (n, n_out) score matrix in submission row order (the one ``.cpu()``
-    per slice). The engine caches instances keyed on (member backend
-    ids, dtype signature, serve policy token): strong refs to the
-    member backends below make the id()s stable for the cache's
-    lifetime."""
+    per slice). The members share one form (it is in the fuse key).
+    The engine caches instances keyed on (member backend ids, request
+    signature, serve policy token): strong refs to the member backends
+    below make the id()s stable for the cache's lifetime."""
 
     def __init__(self, members: Sequence[tuple]):
         specs = [spec for _, spec in members]
@@ -284,33 +352,35 @@ class FusedGroupScorer:
         self.boundary = s0.boundary
         self.buckets = s0.buckets
         self.n_out = s0.n_out
+        self.form = s0.form
         #: result column name per model index (scatter uses each
         #: request's OWN backend's name)
         self.result_names = tuple(s.result_name for s in specs)
         self.exact = _sk.kernel_exact()
         self.policy_token = _sk.serve_policy_token(self.device)
         self._slices = self.backends[0].scorer._bucket_slices
+        #: exact mode on the CPU: each member's OWN full tail on the
+        #: shared boundary; the where-select keeps every row bitwise on
+        #: its own model's result (ops are row-independent) — K tails,
+        #: and the plain version is not called either (None otherwise)
         self._tails = None
-
         if self.exact and self.device.type == "cpu":
-            # each member's OWN full tail on the shared boundary; the
-            # where-select keeps every row bitwise on its own model's
-            # result (ops are row-independent) — K tails, and the plain
-            # version is not called either
-            self._tails = [b.scorer.device_infos for b, _ in members]
-            self._tail_names = [s.result_name for s in specs]
-        else:
-            # the stacked pass: the members' heads and prefix tables,
-            # stacked once in member order (the model index a row rides
-            # under indexes W and the three tables alike)
-            def stack(name):
-                return torch.stack([getattr(s, name) for s in specs]
-                                   ).contiguous()
-            self.W = stack("W").to(torch.float32)
-            self.src, self.op, self.fill = (stack("src"), stack("op"),
-                                            stack("fill"))
-            self.act = s0.act
-            self.dtype = _sk.serve_dtype(self.device)
+            self._tails = self._chains = [
+                (b.scorer.device_infos, s.result_name) for b, s in members]
+            return
+        # the stacked pass: the members' heads stacked once in member
+        # order (the model index a row rides under indexes W and the
+        # prefix tables alike)
+        self.W = torch.stack([s.W for s in specs]).to(
+            torch.float32).contiguous()
+        self.act = s0.act
+        self.dtype = _sk.serve_dtype(self.device)
+        self._p = s0.p
+        if self.form == TABLE:
+            #: boundary shapes -> the stacked (src, op, fill) tables on
+            #: the device, compiled at the first slice of those shapes
+            self._tables: Dict[tuple, tuple] = {}
+            self._feature_names = [s.feature_name for s in specs]
             # pinned staging: a non_blocking copy from pageable memory
             # would run synchronously. Each slice takes a fresh buffer
             # from PyTorch's caching host allocator, which holds a block
@@ -318,34 +388,77 @@ class FusedGroupScorer:
             # launches the next pass before it finalizes this one, so a
             # buffer reused by hand could be overwritten mid-copy.
             self._pin = self.device.type == "cuda"
+        else:
+            self._chains = [(b.scorer.device_infos[:-1], s.feature_name)
+                            for b, s in members]
 
-    def _exact_tails(self, mid_b, bvals):
-        """Exact mode on the CPU: every member's own tail, each row
-        taking its own member's result."""
+    def _selected(self, bucket: int, vals: Sequence[np.ndarray],
+                  mid: np.ndarray) -> tuple:
+        """One slice's boundary values and model ids on the device, each
+        member's own chain (its tail, or its prefix) run on them, and
+        each row's f32 output taken from its own member: (outputs, the
+        model ids on the device)."""
+        mid_b = to_device(_pad_rows(mid, bucket), self.device)
+        bvals = [to_device(_pad_rows(v, bucket), self.device) for v in vals]
         out = None
-        for k, infos in enumerate(self._tails):
+        for k, (infos, name) in enumerate(self._chains):
             cols = dict(zip(self.boundary, bvals))
             for in_names, fn, outname in infos:
                 cols[outname] = fn(*[cols[nm] for nm in in_names])
-            ok = cols[self._tail_names[k]]
+            ok = cols[name].to(torch.float32)
             out = ok if out is None else torch.where(
                 (mid_b == k)[:, None], ok, out)
-        return out
+        return out, mid_b
 
-    def _stacked(self, bucket: int, vals: Sequence[np.ndarray],
-                 mid: np.ndarray) -> torch.Tensor:
-        """One bucket slice of the stacked pass: one host buffer
-        (:func:`pack_slice`), one copy to the device, two views of it,
-        one launch."""
-        C = len(vals)
-        buf = torch.empty(bucket * (C + 1), dtype=torch.float32,
-                          pin_memory=self._pin)
-        pack_slice(buf.numpy(), bucket, vals, mid)
-        dev = buf.to(self.device, non_blocking=True)
-        return _sk.fused_prefix_scores(
-            dev[:bucket * C].view(bucket, C),
-            dev[bucket * C:].view(torch.int32), self.src, self.op,
-            self.fill, self.W, act=self.act, dtype=self.dtype)
+    def tables(self, shapes: tuple) -> tuple:
+        """The members' prefix tables for slices of boundary ``shapes``,
+        stacked (K, p) on the device; raises when a member's prefix does
+        not compile to its head's p features at those shapes."""
+        got = self._tables.get(shapes)
+        if got is None:
+            per = []
+            for b, name in zip(self.backends, self._feature_names):
+                t = compile_prefix(b.scorer, name, shapes)
+                if t is None or len(t[0]) != self._p:
+                    raise ValueError(
+                        f"fused serving: the prefix of {name!r} does not "
+                        f"give its head's {self._p} features over "
+                        f"boundary shapes {shapes}")
+                per.append(t)
+            got = self._tables[shapes] = tuple(
+                torch.from_numpy(np.stack([t[i] for t in per])).to(
+                    self.device) for i in range(3))
+        return got
+
+    def kernel_inputs(self, bucket: int, vals: Sequence[np.ndarray],
+                      mid: np.ndarray) -> tuple:
+        """One bucket slice's kernel arguments on the device (the stacked
+        pass). The table form: (V, mid, src, op, fill, W) for
+        ``fused_prefix_scores`` — one host buffer (:func:`pack_slice`),
+        one copy to the device, two views of it, and the tables for the
+        slice's boundary shapes. The generic form: (X, W, mid) for
+        ``fused_linear_scores`` — each member's own prefix on the
+        slice's boundary tensors, each row's feature block selected by
+        its model id."""
+        if self.form == TABLE:
+            shapes = tuple(np.shape(v)[1:] for v in vals)
+            C = sum(slot_widths(shapes))
+            buf = torch.empty(bucket * (C + 1), dtype=torch.float32,
+                              pin_memory=self._pin)
+            pack_slice(buf.numpy(), bucket, vals, mid)
+            dev = buf.to(self.device, non_blocking=True)
+            return ((dev[:bucket * C].view(bucket, C),
+                     dev[bucket * C:].view(torch.int32))
+                    + self.tables(shapes) + (self.W,))
+        feats, mid_b = self._selected(bucket, vals, mid)
+        return feats.contiguous(), self.W, mid_b
+
+    def score(self, args: tuple) -> torch.Tensor:
+        """One launch of the kernel on :meth:`kernel_inputs`' arguments,
+        through the head's activation, in the serving dtype."""
+        fn = (_sk.fused_prefix_scores if self.form == TABLE
+              else _sk.fused_linear_scores)
+        return fn(*args, act=self.act, dtype=self.dtype)
 
     def launch(self, n: int, vals: Sequence[np.ndarray],
                mid: np.ndarray) -> List[tuple]:
@@ -355,16 +468,10 @@ class FusedGroupScorer:
         parts = []
         with torch.inference_mode():
             for start, stop, bucket in self._slices(n):
-                if self._tails is None:
-                    out = self._stacked(bucket,
-                                        [v[start:stop] for v in vals],
-                                        mid[start:stop])
-                else:
-                    out = self._exact_tails(
-                        to_device(_pad_rows(mid[start:stop], bucket),
-                                  self.device),
-                        [to_device(_pad_rows(v[start:stop], bucket),
-                                   self.device) for v in vals])
+                sv, sm = [v[start:stop] for v in vals], mid[start:stop]
+                out = (self.score(self.kernel_inputs(bucket, sv, sm))
+                       if self._tails is None
+                       else self._selected(bucket, sv, sm)[0])
                 parts.append((stop - start, out))
         return parts
 
