@@ -78,6 +78,21 @@ PyTorch version:
    ``torch.cuda.set_sync_debug_mode("error")``;
    other_lists: the multiclass (k = 3) and regression default lists at
    20k rows of the same features: winner, walls, histogram launches;
+   per_instance: the binary default tree list under
+   ``TM_TREE_GRID_FOLD=0`` (each fold and grid point binned on its own
+   weighted sketch, every level of a sweep chunk one launch over
+   per-item bins) on the training rows: histogram launches equal to
+   ceil(items / 16) x each family's levels plus the winner's refit,
+   each family's wall beside its folded wall, its CV metrics within
+   PER_INSTANCE_GAP_TOL of the folded path's; the kernel over per-item
+   bins against its plain version at the deepest level the sweep gave
+   it and at the capture shape with a slot an instance, and under
+   ``TM_HIST_ACCUM_BF16=1`` (bf16 sums across each node's runs) at the
+   capture shape (bitwise on integer stats whose run partials pass 256,
+   so the rounding points are pinned; on real stats within
+   ACCUM_PLAIN_TOL of the plain version and within the rounding bound
+   of f32, ACCUM_ULP), each timed beside its bound, the plain version
+   and the one-hot GEMM;
 6. ring_kernel: ``ring_allreduce`` (all-gather and all-reduce) against
    ``ring_allgather_torch`` / ``ring_allreduce_torch`` on 2, 3 and 4
    ranks sharing one card (each rank its own stream), and over every
@@ -1100,6 +1115,16 @@ def kernel_split_ms(fn, calls: int = 10) -> dict:
     return split
 
 
+def _hist_bound(tk, G, n, d, S, m, B, gbins=1) -> dict:
+    """The histogram's bound at one shape: the larger of its bytes over
+    the HBM rate and its adds over the f32 rate (``histogram_cost``)."""
+    cost = tk.histogram_cost(G, n, d, S, m, B, gbins)
+    bytes_ms = cost["bytes"] / HBM_BYTES_PER_S * 1e3
+    ops_ms = cost["adds"] / F32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 def hist_case(tk, label, G, n, d, S, m, B, dtype, seed, timed=True):
     """Kernel vs plain version at one shape, with timings (``timed``
     False: without them and the library yardstick), under knobs that
@@ -1154,11 +1179,8 @@ def hist_case(tk, label, G, n, d, S, m, B, dtype, seed, timed=True):
         .reshape(n, G * m * S).to(dtype)
     del node
     cost = tk.histogram_cost(G, n, d, S, m, B)
-    bytes_ms = cost["bytes"] / HBM_BYTES_PER_S * 1e3
-    ops_ms = cost["adds"] / F32_FLOPS_PER_S * 1e3
     plan = tk.launch_plan(G, n, d, S, m, B)
-    row.update(bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+    row.update(_hist_bound(tk, G, n, d, S, m, B),
                onehot_gemm_gflop=2.0 * G * m * S * d * B * n / 1e9,
                kernel_mma_gflop=cost["mma_flop"] / 1e9, plan=plan)
     arms = [("", lambda: tk.histogram_grid(bins, stats, pos, m, B)),
@@ -1324,11 +1346,12 @@ def _exact_fit(X, y, candidates, device):
 
 
 @contextlib.contextmanager
-def hist_hook(record=None, fault=None, shapes=None):
+def hist_hook(record=None, fault=None, shapes=None, slots=None):
     """Pass the growers' histogram calls through a hook: where given,
     ``fault(stats, pos, m)`` replaces the stats the kernel sees (a
     planted fault), each level's histogram is appended, on the CPU, to
-    ``record``, and each call's shape (G, n, d, S, m, B) to ``shapes``."""
+    ``record``, each call's shape (G, n, d, S, m, B) to ``shapes`` and
+    its bins slots (1: shared bins) to ``slots``."""
     from transmogrifai_tpu_torch.models import trees
     real = trees.histogram_grid
 
@@ -1337,7 +1360,9 @@ def hist_hook(record=None, fault=None, shapes=None):
             stats = fault(stats, pos, m)
         if shapes is not None:
             G, n, S = stats.shape
-            shapes.append((G, n, bins.shape[1], S, m, B))
+            shapes.append((G, n, bins.shape[-1], S, m, B))
+        if slots is not None:
+            slots.append(bins.shape[0] if bins.dim() == 3 else 1)
         h = real(bins, stats, pos, m, B)
         if record is not None:
             record.append(h.cpu())
@@ -1869,6 +1894,268 @@ def other_lists_phase(seed: int, rows: int = OTHER_ROWS, device="cuda"):
             "holdout": summ["holdoutEvaluation"],
             "histogram_launches": launches, "expected_launches": expected}
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the per-instance tree path and bf16 accumulation
+# ---------------------------------------------------------------------------
+
+#: bf16 accumulation against the f32 histogram. Each of a node's runs
+#: (``node_runs``: the kernel's and the plain version's rounding points
+#: alike) rounds twice to bf16, its partial and the running sum, each by
+#: at most 2^-9 of a value no larger than the cell's sum of |terms|
+#: (``scale``): so a cell is within ACCUM_ULP x runs x scale of the f32
+#: sum, runs = the most runs a node has
+ACCUM_ULP = 2.0 ** -8
+#: the kernel against its plain version under bf16 accumulation: the
+#: same rounding points, so on real stats they differ only where a
+#: run's f32 partial, summed in another order, rounds to another bf16
+#: number; within two bf16 ulps (2^-6) of the cell's sum of |terms|,
+#: which bounds every running sum of the cell
+ACCUM_PLAIN_TOL = 2.0 ** -6
+#: the largest CV metric gap, per family, between the per-instance path
+#: and the folded one on the same rows: the JAX package's own bound for
+#: the two paths (tests/test_grid_fold.py, per-fold sketches against
+#: the shared one)
+PER_INSTANCE_GAP_TOL = 0.06
+
+
+def _item_inputs(G, n, d, S, m, B, gbins, seed):
+    """Seeded inputs on the card: bins of ``gbins`` slots (None: shared
+    (n, d) bins), float stats, positions, and the generator."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bins = torch.randint(0, B, (n, d) if gbins is None else (gbins, n, d),
+                         generator=gen, device=dev, dtype=torch.int32)
+    stats = torch.randn((G, n, S), generator=gen, device=dev)
+    pos = torch.randint(0, m, (G, n), generator=gen, device=dev,
+                        dtype=torch.int32)
+    return bins, stats, pos, gen
+
+
+def item_hist_case(tk, label, G, n, d, S, m, B, gbins, seed, timed=True):
+    """The kernel over ``gbins`` per-item bins slots against its plain
+    version at one shape: bf16 operands on float stats within HIST_RTOL
+    of each cell's sum of |terms|, two launches bitwise, exact mode on
+    integer stats bitwise. ``timed``: device ms of the kernel, the plain
+    version and the library yardstick (the per-item one-hot GEMM, one
+    ``torch.bmm`` over the instances, bf16 operands, f32 accumulation)
+    beside the bound (``histogram_cost`` with the slots' bins)."""
+    bins, stats, pos, gen = _item_inputs(G, n, d, S, m, B, gbins, seed)
+    with env(TM_KERNEL_EXACT="0", TM_HIST_BF16="1", TM_HIST_ACCUM_BF16="0"):
+        got = tk.histogram_grid(bins, stats, pos, m, B)
+        ref = tk.histogram_torch(bins, stats, pos, m, B)
+        scale = tk.histogram_torch(bins, stats.abs(), pos, m, B)
+        err = float((got - ref).abs().max())
+        if not (torch.isfinite(got).all()
+                and bool(((got - ref).abs()
+                          <= HIST_RTOL * scale + 1e-6).all())):
+            raise AssertionError(f"per-item tree_histogram disagrees with "
+                                 f"its plain version at {label}: {err}")
+        if not torch.equal(tk.histogram_grid(bins, stats, pos, m, B), got):
+            raise AssertionError(f"two per-item launches differ at {label}")
+    del ref, scale
+    with env(TM_KERNEL_EXACT="1", TM_HIST_ACCUM_BF16="0"):
+        istats = torch.randint(-3, 4, (G, n, S), generator=gen,
+                               device=stats.device).to(torch.float32)
+        if not torch.equal(tk.histogram_grid(bins, istats, pos, m, B),
+                           tk.histogram_torch(bins, istats, pos, m, B)):
+            raise AssertionError(f"per-item integer stats not bitwise at "
+                                 f"{label}")
+    del istats
+    row = {"shape": label, "G": G, "Gbins": gbins, "n": n, "d": d, "S": S,
+           "m": m, "B": B, "dtype": "bfloat16", "max_abs_err": err,
+           "integer_stats_bitwise": True, "deterministic": True}
+    if not timed:
+        return row
+    per = G // gbins
+    Z = torch.empty((gbins, n, d * B), dtype=torch.bfloat16,
+                    device=stats.device)
+    for s in range(gbins):
+        Z[s] = torch.nn.functional.one_hot(bins[s].long(), B).reshape(
+            n, d * B).to(torch.bfloat16)
+    node = torch.nn.functional.one_hot(pos.long(), m).to(torch.float32)
+    A = (node[:, :, :, None] * stats[:, :, None, :]).reshape(
+        G, n, m * S).transpose(1, 2).to(torch.bfloat16)
+    del node
+    Zg = Z.repeat_interleave(per, dim=0) if per > 1 else Z
+    row.update(_hist_bound(tk, G, n, d, S, m, B, gbins))
+    with env(TM_KERNEL_EXACT="0", TM_HIST_BF16="1", TM_HIST_ACCUM_BF16="0"):
+        arms = [("", lambda: tk.histogram_grid(bins, stats, pos, m, B)),
+                ("plain_", lambda: tk.histogram_torch(bins, stats, pos,
+                                                      m, B)),
+                ("library_", lambda: torch.bmm(A, Zg))]
+        for prefix, fn in arms:
+            row[prefix + "ms"], row[prefix + "call_ms"] = _timed(fn)
+    del Z, Zg, A
+    torch.cuda.empty_cache()
+    return row
+
+
+def accum_hist_case(tk, label, G, n, d, S, m, B, seed):
+    """bf16 accumulation (TM_HIST_ACCUM_BF16=1, bf16 operands, shared
+    bins) at one shape: on integer stats in [0, 15], whose run partials
+    pass 256 (exact in f32, not in bf16), the kernel equals its plain
+    version bitwise and differs from the f32 histogram, which pins the
+    rounding points; on float stats the kernel within ACCUM_PLAIN_TOL x
+    the cell's sum of |terms| of its plain version, and each within
+    ACCUM_ULP x runs x the cell's sum of |terms| of the f32 histogram;
+    timed beside the bound and the shared one-hot GEMM."""
+    bins, stats, pos, gen = _item_inputs(G, n, d, S, m, B, None, seed)
+    runs = int(tk.node_runs(pos, m, tk.run_rows_of(n)).max()) + 1
+    with env(TM_KERNEL_EXACT="0", TM_HIST_BF16="1", TM_HIST_ACCUM_BF16="0"):
+        f32 = tk.histogram_torch(bins, stats, pos, m, B)
+        scale = tk.histogram_torch(bins, stats.abs(), pos, m, B)
+        ints = torch.randint(0, 16, (G, n, S), generator=gen,
+                             device=stats.device).to(torch.float32)
+        ints_f32 = tk.histogram_torch(bins, ints, pos, m, B)
+    limit = (ACCUM_ULP * runs + HIST_RTOL) * scale + 1e-6
+    with env(TM_KERNEL_EXACT="0", TM_HIST_BF16="1", TM_HIST_ACCUM_BF16="1"):
+        got = tk.histogram_grid(bins, ints, pos, m, B)
+        if not torch.equal(got, tk.histogram_torch(bins, ints, pos, m, B)):
+            raise AssertionError(f"bf16 accumulation not bitwise its plain "
+                                 f"version on integer stats at {label}")
+        if torch.equal(got, ints_f32):
+            raise AssertionError(f"bf16 accumulation rounded nothing at "
+                                 f"{label}")
+        del ints, ints_f32
+        got = tk.histogram_grid(bins, stats, pos, m, B)
+        plain = tk.histogram_torch(bins, stats, pos, m, B)
+        err = float((got - plain).abs().max())
+        if not bool(((got - plain).abs()
+                     <= ACCUM_PLAIN_TOL * scale + 1e-6).all()):
+            raise AssertionError(f"bf16 accumulation kernel {err} from its "
+                                 f"plain version at {label}")
+        for what, h in (("kernel", got), ("plain", plain)):
+            if not bool(((h - f32).abs() <= limit).all()):
+                raise AssertionError(f"bf16 accumulation {what} past its "
+                                     f"rounding bound at {label}")
+        if not torch.equal(got, got.to(torch.bfloat16).float()):
+            raise AssertionError("bf16 accumulation wrote non-bf16 values")
+        row = {"shape": label, "G": G, "n": n, "d": d, "S": S, "m": m,
+               "B": B, "dtype": "bfloat16", "accumulation": "bfloat16",
+               "runs": runs, "max_abs_err": err,
+               "max_abs_err_vs_f32": float((got - f32).abs().max()),
+               "plain_max_abs_err_vs_f32": float((plain - f32).abs().max()),
+               "integer_stats_bitwise": True}
+        del plain, f32, limit, scale
+        Z = torch.nn.functional.one_hot(bins.long(), B).reshape(
+            n, d * B).to(torch.bfloat16)
+        node = torch.nn.functional.one_hot(pos.long(), m).to(torch.float32)
+        A = (node[:, :, :, None] * stats[:, :, None, :]).permute(
+            1, 0, 2, 3).reshape(n, G * m * S).to(torch.bfloat16)
+        del node
+        row.update(_hist_bound(tk, G, n, d, S, m, B))
+        arms = [("", lambda: tk.histogram_grid(bins, stats, pos, m, B)),
+                ("plain_", lambda: tk.histogram_torch(bins, stats, pos,
+                                                      m, B)),
+                ("library_", lambda: torch.matmul(A.T, Z))]
+        for prefix, fn in arms:
+            row[prefix + "ms"], row[prefix + "call_ms"] = _timed(fn)
+    del Z, A
+    torch.cuda.empty_cache()
+    return row
+
+
+def per_instance_phase(seed: int, train: dict, rows: int = TRAIN_ROWS,
+                       device="cuda"):
+    """The binary default tree list under TM_TREE_GRID_FOLD=0 on the
+    training phase's rows (``train``: that phase's result, the folded
+    path's walls and CV metrics on the same rows): the histogram
+    launches against the derived count (per family, ceil(items /
+    SWEEP_CHUNK) chunks x its levels, padded items included, plus the
+    winner's refit), each family's wall beside its folded wall and its
+    CV gap to the folded path; the kernel over per-item bins at the
+    deepest level the sweep gave it and at the capture shape, and bf16
+    accumulation at the capture shape, each against its plain version.
+    ``rows`` and ``device`` exist for a CPU rehearsal at a small size
+    (no kernel checks there)."""
+    from transmogrifai_tpu_torch import models as TM
+    from transmogrifai_tpu_torch.models import kernels as tk
+    from transmogrifai_tpu_torch.models.tuning import SWEEP_CHUNK
+    X, y = training_data(seed, rows)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    shapes, slots = [], []
+    with env(TM_TREE_GRID_FOLD="0"), hist_hook(shapes=shapes, slots=slots):
+        ds, sel = _selector(X, y, TREE_FAMILIES, device)
+        sync()
+        tk.histogram_grid.launches = 0
+        t0 = time.perf_counter()
+        model = sel.fit(ds)
+        sync()
+        wall = time.perf_counter() - t0
+    launches = tk.histogram_grid.launches
+    summ = model.summary
+    chunk = SWEEP_CHUNK[torch.device(device).type]
+    winner = summ["bestModel"]["family"]
+    items, expected = {}, TM.MODEL_FAMILIES[winner].levels_per_fit()
+    for r in summ["validationResults"]:
+        items[r["family"]] = 3 * len(r["grid"])
+        expected += (-(-items[r["family"]] // chunk)
+                     * TM.MODEL_FAMILIES[r["family"]].levels_per_fit())
+    if device == "cuda" and launches != expected:
+        raise AssertionError(f"{launches} histogram launches under "
+                             f"TM_TREE_GRID_FOLD=0, derived {expected}")
+    if device == "cuda" and not any(s > 1 for s in slots):
+        raise AssertionError("no launch over per-item bins")
+    folded = train["grid_metrics"]
+    gaps = {}
+    for r in summ["validationResults"]:
+        gaps[r["family"]] = float(np.max(np.abs(
+            np.asarray(r["gridMetrics"]) - np.asarray(folded[r["family"]]))))
+        if not gaps[r["family"]] <= PER_INSTANCE_GAP_TOL:
+            raise AssertionError(f"{r['family']} per-instance CV metrics "
+                                 f"{gaps[r['family']]} from the folded path")
+    out = {"rows": rows, "families": TREE_FAMILIES, "wall_s": wall,
+           "family_wall_s": model.wall_seconds["families"],
+           "refit_wall_s": model.wall_seconds["refit"],
+           "folded_family_wall_s": {f: train["family_wall_s"][f]
+                                    for f in TREE_FAMILIES},
+           "items": items, "chunk": chunk, "winner": winner,
+           "grid_metrics": {r["family"]: r["gridMetrics"]
+                            for r in summ["validationResults"]},
+           "folded_grid_metrics": {f: folded[f] for f in TREE_FAMILIES},
+           "cv_gap_to_folded": gaps, "histogram_launches": launches,
+           "expected_launches": expected,
+           "per_item_launches": sum(s > 1 for s in slots)}
+    if device != "cuda":
+        return out
+    # the deepest level a per-item launch had (RF's: Gb*T instances over
+    # one slot an item), then the capture shape with a slot an instance
+    deep = max((s + (g,) for s, g in zip(shapes, slots) if g > 1),
+               key=lambda t: (int(np.prod(t[:6])), t))
+    G, n, d, S, m, B, gbins = deep
+    torch.cuda.empty_cache()
+    out["path_check"] = item_hist_case(tk, "per_instance_deepest", G, n, d,
+                                       S, m, B, gbins, seed, timed=False)
+    cap = next(s for s in HIST_SHAPES if s[0] == "capture")[1:]
+    out["per_instance"] = item_hist_case(tk, "capture", *cap, gbins=cap[0],
+                                         seed=seed + 1)
+    out["accum_bf16"] = accum_hist_case(tk, "capture", *cap, seed=seed + 2)
+    return out
+
+
+def per_instance_lines(pi) -> list:
+    lines = [f"per_instance: the tree list under TM_TREE_GRID_FOLD=0 on "
+             f"{pi['rows']} rows in {pi['wall_s']:.3f} s; histogram "
+             f"launches {pi['histogram_launches']} (derived "
+             f"{pi['expected_launches']}), {pi['per_item_launches']} over "
+             f"per-item bins"]
+    for f in pi["families"]:
+        lines.append(
+            f"per_instance: {f} {pi['items'][f]} items, wall "
+            f"{pi['family_wall_s'][f]:.3f} s (folded "
+            f"{pi['folded_family_wall_s'][f]:.3f} s), CV gap to folded "
+            f"{pi['cv_gap_to_folded'][f]:.5f}")
+    for key in ("per_instance", "accum_bf16"):
+        if key in pi:
+            r = pi[key]
+            lines.append(
+                f"per_instance: {key} kernel at {r['shape']} "
+                f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+                f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+                f"{r['bound_by']}), max abs err {r['max_abs_err']:.3g}")
+    return lines
 
 
 # ---------------------------------------------------------------------------
@@ -7647,7 +7934,7 @@ def autotune_lines(at_) -> list:
 
 def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
                  wf=None, ctr=None, fe=None, fl=None, mesh=None,
-                 mesh2d=None, multihost=None):
+                 mesh2d=None, multihost=None, pi=None):
     """The ``kernels`` line from this run's phase results: every time
     and error is one this run measured, every bound one it computed
     from its own inputs, every launch count its main path's (the
@@ -7663,14 +7950,28 @@ def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
     its own status; ``mesh_launches``: the mesh phase's, which add to
     the histogram's and the ring's counts, as do ``mesh2d_launches`` and
     ``multihost_launches``, the 2-D mesh's and the two processes'
-    together; the histogram's error also covers the features phase's
-    checks at its trains' own levels)."""
+    together; ``per_instance_launches``: the per_instance phase's
+    (``pi``: the tree list under TM_TREE_GRID_FOLD=0), which add to the
+    histogram's count; the histogram's error also covers the features
+    phase's checks at its trains' own levels and the per_instance
+    phase's per-item launches; its ``per_instance`` and ``accum_bf16``
+    entries are that phase's capture-shape launches over per-item bins
+    and under bf16 accumulation, each with its own error against its
+    plain version)."""
     def ring_of(ph):
         return None if ph is None else {
             "allreduce": ph["ring_allreduce_launches"],
             "allgather": ph["ring_allgather_launches"]}
     mesh_ring = ring_of(mesh)
     extra = [ph for ph in (mesh, mesh2d, multihost) if ph is not None]
+    pi_rows = [] if pi is None else [
+        r for r in (pi.get("path_check"), pi.get("per_instance")) if r]
+    pi_keys = ("shape", "G", "Gbins", "n", "d", "S", "m", "B", "dtype",
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms", "call_ms")
+    pi_entries = {} if pi is None else {
+        key: {k: pi[key][k] for k in pi_keys if k in pi[key]}
+        for key in ("per_instance", "accum_bf16") if key in pi}
     ctr_launches = (ctr or {}).get("launches", {})
     fe_launches = (fe or {}).get("launches", {})
     # the serving pass's shape in its operand mode: the prefix form,
@@ -7720,7 +8021,7 @@ def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
         "launches": train["histogram_launches"] + (
             0 if wf is None else wf["histogram_launches"]) + (
             0 if fe is None else fe["histogram_launches"]) + sum(
-            ph["histogram_launches"] for ph in extra),
+            ph["histogram_launches"] for ph in extra + [pi] if ph),
         "training_launches": train["histogram_launches"],
         "workflow_launches": None if wf is None else wf["histogram_launches"],
         "ctr_launches": ctr_launches.get("tree_histogram"),
@@ -7730,8 +8031,11 @@ def kernels_line(rows, serve, empty_ms, hrows, train, hmma, rrows, dp,
                             else mesh2d["histogram_launches"]),
         "multihost_launches": (None if multihost is None
                                else multihost["histogram_launches"]),
+        "per_instance_launches": (None if pi is None
+                                  else pi["histogram_launches"]),
+        **pi_entries,
         "max_abs_err": max(r["max_abs_err"] for r in hrows + (
-            fe or {}).get("hist_checks", [])),
+            fe or {}).get("hist_checks", []) + pi_rows),
         "ms": hmain["ms"], "plain_ms": hmain["plain_ms"],
         "bound_ms": hmain["bound_ms"], "bound_by": hmain["bound_by"],
         "library_ms": hmain["library_ms"],
@@ -7819,6 +8123,11 @@ def main(argv=None) -> int:
     train = training_phase(args.seed)
     print("phase training: " + json.dumps(dict(train, card=card)),
           flush=True)
+    pi = per_instance_phase(args.seed, train)
+    print("phase per_instance: " + json.dumps(dict(pi, card=card)),
+          flush=True)
+    for line in per_instance_lines(pi):
+        print(line + f" [{card}]", flush=True)
     lin = linear_phase(args.seed)
     print("phase linear: " + json.dumps(dict(lin, card=card)), flush=True)
     other = other_lists_phase(args.seed)
@@ -7885,7 +8194,8 @@ def main(argv=None) -> int:
         print(line + f" [{card}]", flush=True)
 
     print(json.dumps(kernels_line(rows, serve, empty_ms, hrows, train, hmma,
-                                  rrows, dp, wf, ctr, fe, fl, ms, m2, mh)),
+                                  rrows, dp, wf, ctr, fe, fl, ms, m2, mh,
+                                  pi)),
           flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

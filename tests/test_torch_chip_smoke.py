@@ -1257,3 +1257,86 @@ def test_kernel_median_ms_takes_only_a_whole_trace(monkeypatch, traced, want):
         assert chip_smoke.kernel_median_ms(
             fn, "fused_scores_kernel", 4) == pytest.approx(want)
         assert len(calls) == 1 + 4 * len(traced)
+
+
+@pytest.fixture(scope="module")
+def per_instance_run():
+    """The per_instance phase on the CPU at 1,500 rows (RF at 8 trees,
+    the boosted families at 8 rounds), against the folded tree list on
+    the same rows as the training phase's result."""
+    fams = TM.MODEL_FAMILIES
+    saved = (fams["RandomForestClassifier"].n_trees_cap,
+             fams["GBTClassifier"].n_rounds_cap,
+             fams["XGBoostClassifier"].n_rounds_cap)
+    fams["RandomForestClassifier"].n_trees_cap = 8
+    fams["GBTClassifier"].n_rounds_cap = 8
+    fams["XGBoostClassifier"].n_rounds_cap = 8
+    try:
+        X, y = chip_smoke.training_data(0, 1500)
+        ds, sel = chip_smoke._selector(X, y, chip_smoke.TREE_FAMILIES, "cpu")
+        folded = sel.fit(ds)
+        train = {"grid_metrics": {r["family"]: r["gridMetrics"] for r in
+                                  folded.summary["validationResults"]},
+                 "family_wall_s": folded.wall_seconds["families"]}
+        levels = {f: fams[f].levels_per_fit()
+                  for f in chip_smoke.TREE_FAMILIES}
+        yield chip_smoke.per_instance_phase(0, train, rows=1500,
+                                            device="cpu"), train, levels
+    finally:
+        (fams["RandomForestClassifier"].n_trees_cap,
+         fams["GBTClassifier"].n_rounds_cap,
+         fams["XGBoostClassifier"].n_rounds_cap) = saved
+
+
+def test_per_instance_phase_runs_on_the_cpu(per_instance_run):
+    pi, train, levels = per_instance_run
+    assert pi["histogram_launches"] == 0       # the CPU path counts nothing
+    assert pi["per_item_launches"] == 0
+    assert pi["chunk"] == 1
+    # DT 6 items, RF 6, GBT 12, XGBoost 6; a chunk an item on the CPU
+    assert pi["items"] == {"DecisionTreeClassifier": 6,
+                           "RandomForestClassifier": 6,
+                           "GBTClassifier": 12, "XGBoostClassifier": 6}
+    assert pi["expected_launches"] == sum(
+        pi["items"][f] * levels[f] for f in levels) + levels[pi["winner"]]
+    assert pi["folded_grid_metrics"] == train["grid_metrics"]
+    for f in chip_smoke.TREE_FAMILIES:
+        assert 0.0 <= pi["cv_gap_to_folded"][f] <= \
+            chip_smoke.PER_INSTANCE_GAP_TOL
+    # the two paths bin differently, so their metrics are not the same
+    assert any(pi["cv_gap_to_folded"][f] > 0 for f in levels)
+    assert "per_instance" not in pi and "accum_bf16" not in pi
+    lines = chip_smoke.per_instance_lines(pi)
+    assert len(lines) == 1 + len(chip_smoke.TREE_FAMILIES)
+    assert f"derived {pi['expected_launches']}" in lines[0]
+
+
+def test_kernels_line_adds_the_per_instance_launches():
+    row = {k: 1.5 for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                            "max_abs_err", "call_ms", "plain_call_ms",
+                            "library_call_ms", "span_ms",
+                            "library_device_ms")}
+    row["bound_by"] = "bytes"
+    rows = [dict(row, form="identity", shape=[1], dtype="f"),
+            dict(row, form="prefix", shape=[2], act="a", dtype="f")]
+    hrows = [dict(row, dtype="f", **{k: 1 for k in "GndSmB"})]
+    rrows = [dict(row, layout="one card", shape="gbt_level",
+                  ndev=chip_smoke.DP_RANKS, dims=[1])]
+    pi = {"histogram_launches": 290,
+          "path_check": dict(row, max_abs_err=2.5, shape="deep"),
+          "per_instance": dict(row, shape="capture", Gbins=16,
+                               max_abs_err=0.5),
+          "accum_bf16": dict(row, shape="capture", max_abs_err=4.5)}
+    line = chip_smoke.kernels_line(
+        rows, {"kernel_launches": 7}, 0.5, hrows,
+        {"histogram_launches": 418}, 3, rrows, {"ring_launches": 24},
+        pi=pi)
+    hist = line["kernels"][1]
+    assert hist["launches"] == 418 + 290
+    assert hist["per_instance_launches"] == 290
+    assert hist["per_instance"]["Gbins"] == 16
+    assert hist["accum_bf16"]["max_abs_err"] == 4.5
+    # the f32-accumulation checks set the kernel's error, the per-item
+    # path's deepest level among them; bf16 sums carry their own
+    assert hist["max_abs_err"] == 2.5
+    assert line["kernels"][2]["launches"] == 24

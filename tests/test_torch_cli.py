@@ -42,7 +42,8 @@ def test_gen_writes_a_project_of_the_port(tmp_path, sparse):
                             for m in ours), (f, sorted(ours))
         assert "jax" not in {m.split(".")[0] for m in mods}
     params = open(os.path.join(out, "params.yaml")).read()
-    assert "compilationCacheLocation" not in params   # not ported
+    # the kernels' build cache, a directory of the project
+    assert f"compilationCacheLocation: {out}/kernel_cache" in params
 
 
 def test_run_hands_device_to_the_generated_app(tmp_path, monkeypatch):
@@ -57,6 +58,11 @@ def test_run_hands_device_to_the_generated_app(tmp_path, monkeypatch):
     assert main(["run", "--params", os.path.join(out, "params.yaml"),
                  "--run-type", "train", "--device", "cpu"]) == 0
     assert os.path.exists(os.path.join(out, "model", "workflow.json"))
+    # the run made the build cache gen named, and handed it back after
+    assert os.path.isdir(os.path.join(out, "kernel_cache"))
+    from transmogrifai_tpu_torch import _compile_cache
+    assert _compile_cache.chosen_build_dir() != os.path.join(
+        out, "kernel_cache")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["run", "--params", os.path.join(out, "params.yaml"),
               "--run-type", "train"])

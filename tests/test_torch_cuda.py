@@ -1463,3 +1463,162 @@ def test_autotune_hooks_fire_once_a_shape_on_the_card(card, tmp_path,
         assert len(slog) == 1 and slog[0]["config"] == {"block_rows": 8}
     finally:
         at.reset_autotuner()
+
+
+# ---------------------------------------------------------------------------
+# per-instance bins (TM_TREE_GRID_FOLD=0) and bf16 accumulation
+# (TM_HIST_ACCUM_BF16=1) on the card
+# ---------------------------------------------------------------------------
+
+#: G, n, d, S, m, B, T (instances a bins slot serves when Gbins = G / T)
+ITEM_SHAPES = [
+    (16, 20_000, 28, 5, 8, 32, 1),       # the capture shape, rows cut
+    (16, 9_001, 28, 3, 16, 32, 1),       # a GBT level of a sweep chunk
+    (512, 3_000, 28, 5, 16, 32, 32),     # a chunk's deepest RF level
+]
+
+
+def _item_inputs(card, shape, gbins, integer, seed=0):
+    G, n, d, S, m, B, _ = shape
+    rng = np.random.default_rng(seed + n + gbins)
+    bins = rng.integers(0, B, size=(gbins, n, d)).astype(np.int32)
+    stats = (rng.integers(-3, 4, size=(G, n, S)) if integer
+             else rng.normal(size=(G, n, S))).astype(np.float32)
+    pos = rng.integers(0, m, size=(G, n)).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(card) for a in (bins, stats, pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ITEM_SHAPES, ids=str)
+@pytest.mark.parametrize("slots", ["one", "per_tree_group", "per_instance"])
+def test_per_instance_bins_launch_is_bitwise_the_plain_version(
+        card, shape, slots, monkeypatch):
+    """Exact mode, integer stats: one launch over Gbins in {1, G / T, G}
+    bins slots equals the plain version bitwise; bf16 operands on float
+    stats within 1e-4 of each cell's sum of |terms|."""
+    G, T = shape[0], shape[6]
+    gbins = {"one": 1, "per_tree_group": G // T, "per_instance": G}[slots]
+    m, B = shape[4], shape[5]
+    monkeypatch.setenv("TM_KERNEL_EXACT", "1")
+    bins, stats, pos = _item_inputs(card, shape, gbins, integer=True)
+    before = tk.histogram_grid.launches
+    got = tk.histogram_grid(bins, stats, pos, m, B)
+    torch.cuda.synchronize()
+    assert tk.histogram_grid.launches == before + 1
+    assert torch.equal(got, tk.histogram_torch(bins, stats, pos, m, B))
+    monkeypatch.setenv("TM_KERNEL_EXACT", "0")
+    monkeypatch.setenv("TM_HIST_BF16", "1")
+    bins, stats, pos = _item_inputs(card, shape, gbins, integer=False)
+    got = tk.histogram_grid(bins, stats, pos, m, B)
+    ref = tk.histogram_torch(bins, stats, pos, m, B)
+    scale = tk.histogram_torch(bins, stats.abs(), pos, m, B)
+    assert ((got - ref).abs() <= 1e-4 * scale + 1e-6).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", HIST_SHAPES[:4])
+def test_shared_bins_launch_unchanged_by_bins_slots(card, shape):
+    """A shared-bins launch gives the same bits as (1, n, d) bins and as
+    the same matrix in every instance's own slot: the slot only moves
+    where an instance reads its bins, never its sums."""
+    bins, stats, pos = _hist_inputs(card, shape, integer=False, seed=5)
+    G, m, B = shape[0], shape[4], shape[5]
+    shared = tk.histogram_grid(bins, stats, pos, m, B)
+    assert torch.equal(tk.histogram_grid(bins[None], stats, pos, m, B),
+                       shared)
+    each = bins[None].expand(G, -1, -1).contiguous()
+    assert torch.equal(tk.histogram_grid(each, stats, pos, m, B), shared)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", HIST_SHAPES[:4])
+def test_bf16_accumulation_on_the_card(card, shape, monkeypatch):
+    """TM_HIST_ACCUM_BF16=1: the kernel and the plain version round at
+    the same points (each node's runs, ``node_runs``). On integer stats
+    in [0, 15] with most rows on one node, so that a node has several
+    runs whose partials pass 256 (exact in f32, not in bf16), the
+    kernel equals the plain version bitwise and differs from the f32
+    histogram. On real stats the two differ only where a run's f32
+    partial, summed in another order, rounds to another bf16 number:
+    within two bf16 ulps (2^-6) of the cell's sum of |terms|, which
+    bounds every running sum; both within the reference's bound of the
+    f32 histogram (rtol 2e-2, atol 2.0). Exact mode wins."""
+    G, n, d, S, m, B = shape
+    monkeypatch.setenv("TM_KERNEL_EXACT", "0")
+    monkeypatch.setenv("TM_HIST_ACCUM_BF16", "1")
+    rng = np.random.default_rng(n)
+    bins = torch.from_numpy(rng.integers(0, B, size=(n, d)).astype(
+        np.int32)).to(card)
+    pos = np.where(rng.random((G, n)) < 0.8, 0,
+                   rng.integers(0, m, size=(G, n))).astype(np.int32)
+    pos = torch.from_numpy(pos).to(card)
+    assert int(tk.node_runs(pos, m, tk.run_rows_of(n)).max()) >= 1
+    ints = torch.from_numpy(rng.integers(0, 16, size=(G, n, S)).astype(
+        np.float32)).to(card)
+    got = tk.histogram_grid(bins, ints, pos, m, B)
+    assert torch.equal(got, tk.histogram_torch(bins, ints, pos, m, B))
+    monkeypatch.setenv("TM_HIST_ACCUM_BF16", "0")
+    assert not torch.equal(got, tk.histogram_torch(bins, ints, pos, m, B))
+    pos = torch.from_numpy(rng.integers(0, m, size=(G, n)).astype(
+        np.int32)).to(card)
+    stats = torch.from_numpy(rng.normal(size=(G, n, S)).astype(
+        np.float32)).to(card)
+    f32 = tk.histogram_torch(bins, stats, pos, m, B)
+    scale = tk.histogram_torch(bins, stats.abs(), pos, m, B)
+    monkeypatch.setenv("TM_HIST_ACCUM_BF16", "1")
+    got = tk.histogram_grid(bins, stats, pos, m, B)
+    plain = tk.histogram_torch(bins, stats, pos, m, B)
+    assert ((got - plain).abs() <= 2.0 ** -6 * scale + 1e-6).all()
+    for h in (got, plain):
+        assert torch.equal(h, h.to(torch.bfloat16).float())
+        assert ((h - f32).abs() <= 2e-2 * f32.abs() + 2.0).all()
+    monkeypatch.setenv("TM_KERNEL_EXACT", "1")
+    istats = torch.from_numpy(rng.integers(-3, 4, size=(G, n, S)).astype(
+        np.float32)).to(card)
+    assert torch.equal(tk.histogram_grid(bins, istats, pos, m, B),
+                       tk.histogram_torch(bins, istats, pos, m, B))
+
+
+@pytest.mark.cuda
+def test_per_instance_selector_on_cuda_launches_per_chunk(card,
+                                                          monkeypatch):
+    """TM_TREE_GRID_FOLD=0 on the card: each family's sweep launches
+    the kernel once a level a chunk of 16 items (its padded items
+    included), the winner's refit once a level; DecisionTree's CV
+    metrics in exact mode those of the same run on the CPU."""
+    from transmogrifai_tpu_torch import models as TM
+    from transmogrifai_tpu_torch.dataset import Dataset
+    from transmogrifai_tpu_torch.features import FeatureBuilder
+    from transmogrifai_tpu_torch.features import types as ft
+    from transmogrifai_tpu_torch.models.tuning import SWEEP_CHUNK
+    monkeypatch.setenv("TM_TREE_GRID_FOLD", "0")
+    monkeypatch.setenv("TM_KERNEL_EXACT", "1")
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(3000, 6)).astype(np.float32)
+    y = ((X[:, 0] > 0) ^ (X[:, 1] > 0)).astype(np.float32)
+    ds = Dataset({"y": y.astype(np.float64), "x": X},
+                 {"y": ft.RealNN, "x": ft.OPVector})
+    lbl = FeatureBuilder.of(ft.RealNN, "y").from_column().as_response()
+    vec = FeatureBuilder.OPVector("x").from_column().as_predictor()
+    names = ["DecisionTreeClassifier", "GBTClassifier"]
+
+    def fit(device):
+        sel = TM.BinaryClassificationModelSelector.with_cross_validation(
+            candidates=names, device=device).set_input(lbl, vec)
+        return sel.fit(ds)
+    before = tk.histogram_grid.launches
+    model = fit(None)
+    launches = tk.histogram_grid.launches - before
+    want = 0
+    for res in model.summary["validationResults"]:
+        fam = TM.MODEL_FAMILIES[res["family"]]
+        items = 3 * len(res["grid"])
+        want += -(-items // SWEEP_CHUNK["cuda"]) * fam.levels_per_fit()
+    winner = TM.MODEL_FAMILIES[model.summary["bestModel"]["family"]]
+    assert launches == want + winner.levels_per_fit()
+    cpu = fit("cpu")
+    for a, b in zip(model.summary["validationResults"],
+                    cpu.summary["validationResults"]):
+        if a["family"] == "DecisionTreeClassifier":
+            np.testing.assert_allclose(a["gridMetrics"], b["gridMetrics"],
+                                       atol=1e-6)

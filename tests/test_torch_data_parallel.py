@@ -17,10 +17,6 @@ SKIP = {
     # fits its params with the JAX package's jnp arrays; the port's
     # sharded_score is held to JAX's in test_torch_parallel.py
     "test_sharded_score_matches_local",
-    # pins TM_TREE_GRID_FOLD=0, the per-instance tree path the port
-    # does not carry; the folded trees on the 2-D mesh are held to the
-    # 1-D mesh on this case's data in test_torch_mesh2d.py
-    "test_grid_by_data_mesh_trees_match",
     # a JAX sharding of an XLA product; no port code runs
     "test_row_sharded_histogram_exact",
 }

@@ -1,6 +1,9 @@
 """The JAX package's ``tests/test_grid_fold.py`` case for case on the port
-(the grid-folded tree validation (the cases that are not vmap, Pallas or
-mesh specific)).
+(the grid-folded tree validation against the per-instance path, on one
+device and on meshes; the cases that are not vmap or Pallas specific).
+Its default meshes are eight CPU ranks (the pool
+``parallel.mesh.visible_devices`` draws from), as the JAX module's are
+the eight forced host devices.
 
 ``tests/torch_mirror.py`` runs the JAX test's own text with its imports
 pointed at ``transmogrifai_tpu_torch``, every case on the CPU; the
@@ -8,6 +11,7 @@ module's marks and fixtures come with it. SKIP names each case left
 out, with its reason.
 """
 import pytest
+import torch
 
 from torch_mirror import (load_mirror, mirror_cases, mirror_fixtures,  # noqa
                           one_torch_thread, port_on_cpu, run_mirror_case)
@@ -18,11 +22,6 @@ pytestmark = getattr(MIRROR, "pytestmark", [])
 
 #: case id -> why the port does not run it
 SKIP = {
-    "test_folded_matches_generic_vmap_path":
-        "compares against TM_TREE_GRID_FOLD=0, the vmapped per-instance "
-        "tree path, which the port does not have (it raises)",
-    "test_forest_folded_close_to_generic":
-        "compares against TM_TREE_GRID_FOLD=0 (not in the port)",
     "test_folded_retry_chunks_match_full_batch":
         "reads the JAX PendingValidation's device_metrics; the port's "
         "retry halving is held by tests/test_torch_sweep.py and "
@@ -39,10 +38,18 @@ SKIP = {
     "test_bf16_policy_shared_by_xla_and_pallas":
         "calls histogram_pallas_grid (Pallas; the port's histogram is "
         "held to its twin by tests/test_torch_hist_kernel.py)",
-    "test_folded_2d_mesh_matches_folded_1d":
-        "builds get_mesh / get_mesh_2d (grid sharding over a device "
-        "mesh is not ported)",
 }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def eight_cpu_ranks():
+    from transmogrifai_tpu_torch.parallel import mesh
+    with pytest.MonkeyPatch.context() as mp:
+        for k in ("TM_MESH_DEVICES", "TM_MESH_AXIS", "TM_MESH_RDMA_RING"):
+            mp.delenv(k, raising=False)
+        mp.setattr(mesh, "visible_devices",
+                   lambda: [torch.device("cpu")] * 8)
+        yield
 
 
 @pytest.mark.parametrize("name,kwargs", [

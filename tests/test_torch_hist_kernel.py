@@ -171,14 +171,20 @@ def test_numerics_policy(monkeypatch):
 
 
 def test_bf16_accumulation_is_not_ported(monkeypatch):
+    """TM_HIST_ACCUM_BF16=1 runs (bf16 sums across row blocks): on 16
+    rows of stats in [-3, 3] every sum is exact in bf16, so it equals
+    the f32 histogram bitwise; exact mode wins and keeps f32. The
+    bounds on real stats are in test_torch_per_instance_trees.py."""
     monkeypatch.delenv("TM_KERNEL_EXACT", raising=False)
     monkeypatch.setenv("TM_HIST_ACCUM_BF16", "1")
     bins, stats, pos = _inputs(np.random.default_rng(1), 1, 16, 2, 3, 1, 4,
                                integer=True)
-    with pytest.raises(NotImplementedError, match="TM_HIST_ACCUM_BF16"):
-        _port(bins, stats, pos, 1, 4)
+    assert tk.hist_accum_bf16() is True
+    ref = _jax_xla(bins, stats, pos, 1, 4)
+    np.testing.assert_array_equal(_port(bins, stats, pos, 1, 4), ref)
     monkeypatch.setenv("TM_KERNEL_EXACT", "1")      # exact mode wins
-    _port(bins, stats, pos, 1, 4)
+    assert tk.hist_accum_bf16() is False
+    np.testing.assert_array_equal(_port(bins, stats, pos, 1, 4), ref)
 
 
 @pytest.mark.parametrize("knob", ["TM_PALLAS", "TM_HIST_DOUBLE_BUFFER",

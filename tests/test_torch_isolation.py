@@ -1,6 +1,6 @@
 """The PyTorch/CUDA port stands alone: ``transmogrifai_tpu_torch``,
-``chip_smoke.py``, ``gbt_parity_probe.py``, ``fused_pass_probe.py`` and
-``profiler_probe.py`` import neither JAX nor
+``chip_smoke.py``, ``gbt_parity_probe.py``, ``fused_pass_probe.py``,
+``profiler_probe.py`` and ``hist_bits_probe.py`` import neither JAX nor
 the JAX package, every entry point resolves its device to CUDA unless
 the caller asks for the CPU, and a missing card or a failed kernel
 build raises instead of falling back."""
@@ -21,7 +21,8 @@ _FORBIDDEN = ("jax", "jaxlib", "transmogrifai_tpu")
 def _port_sources():
     out = [os.path.join(_REPO, f)
            for f in ("chip_smoke.py", "gbt_parity_probe.py",
-                     "fused_pass_probe.py", "profiler_probe.py")]
+                     "fused_pass_probe.py", "profiler_probe.py",
+                     "hist_bits_probe.py")]
     for root, _dirs, files in os.walk(_PKG):
         out += [os.path.join(root, f) for f in sorted(files)
                 if f.endswith(".py")]
@@ -61,7 +62,7 @@ def test_importing_every_submodule_leaves_jax_out():
         "import importlib, pkgutil, sys\n"
         "import transmogrifai_tpu_torch as P\n"
         "import chip_smoke, gbt_parity_probe, fused_pass_probe\n"
-        "import profiler_probe\n"
+        "import profiler_probe, hist_bits_probe\n"
         "mods = [m.name for m in pkgutil.walk_packages("
         "P.__path__, P.__name__ + '.')]\n"
         "for m in mods:\n"

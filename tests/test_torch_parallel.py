@@ -121,19 +121,20 @@ def test_no_card_means_no_default_mesh(clean_mesh_env):
 
 
 def test_grid_data_axis_is_not_ported_in_the_selector(clean_mesh_env):
+    """Which runner validates a family: the tree families fold, the
+    linear ones sweep, whatever the mesh axis; TM_TREE_GRID_FOLD=0 (the
+    per-instance path, ported) sends the trees through the sweep too."""
     from transmogrifai_tpu_torch.models import MODEL_FAMILIES
-    from transmogrifai_tpu_torch.models.tuning import require_ported
-    for name in ("GBTClassifier", "LogisticRegression"):
-        require_ported(MODEL_FAMILIES[name])
+    from transmogrifai_tpu_torch.models.tuning import folds
+    want = {"GBTClassifier": True, "LogisticRegression": False}
+    for name, fold in want.items():
+        assert folds(MODEL_FAMILIES[name]) is fold
     clean_mesh_env.setenv("TM_MESH_AXIS", "grid,data")
-    # the 2-D sweep is ported: the axis routes every family
-    for name in ("GBTClassifier", "LogisticRegression"):
-        require_ported(MODEL_FAMILIES[name])
-    # the per-instance tree path stays the one refusal
+    for name, fold in want.items():
+        assert folds(MODEL_FAMILIES[name]) is fold
     clean_mesh_env.setenv("TM_TREE_GRID_FOLD", "0")
-    require_ported(MODEL_FAMILIES["LogisticRegression"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        require_ported(MODEL_FAMILIES["GBTClassifier"])
+    assert folds(MODEL_FAMILIES["LogisticRegression"]) is False
+    assert folds(MODEL_FAMILIES["GBTClassifier"]) is False
 
 
 @pytest.mark.parametrize("mode", ["edge", "zero"])

@@ -190,7 +190,7 @@ def test_unported_mesh_paths_raise(monkeypatch):
     it (the 2-D sweep is ported)."""
     from transmogrifai_tpu_torch import parallel
     from transmogrifai_tpu_torch.models import MODEL_FAMILIES
-    from transmogrifai_tpu_torch.models.tuning import require_ported
+    from transmogrifai_tpu_torch.models.tuning import folds
     X, y = _matrix(6, n=30, d=6)
     ds = Dataset({"label": y.astype(np.float64), "vec": X},
                  {"label": ft.RealNN, "vec": ft.OPVector})
@@ -212,7 +212,7 @@ def test_unported_mesh_paths_raise(monkeypatch):
     m2 = parallel.default_mesh()
     assert m2.axis_names == ("grid", "data")
     assert m2.shape == {"grid": 1, "data": 2}
-    require_ported(MODEL_FAMILIES["LogisticRegression"])
+    assert not folds(MODEL_FAMILIES["LogisticRegression"])
 
 
 # -- mirrors of test_feature_ops.py's checker cases -------------------------

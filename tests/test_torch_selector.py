@@ -237,7 +237,10 @@ def test_stacked_candidates_match_their_own_validation(monkeypatch):
 def test_unported_families_and_knobs_raise(monkeypatch):
     """The linear families are ported: LR and NaiveBayes candidates, and
     the default list, construct; LR and NaiveBayes fit beside a tree.
-    The unknown family and the per-instance tree path still raise."""
+    The unknown family still raises. The per-instance tree path
+    (TM_TREE_GRID_FOLD=0) is ported: a DecisionTree selector under it
+    gives the JAX selector's CV metrics bitwise in exact mode (integer
+    stats)."""
     ds, lbl, vec = _xor_ds("torch")
     sel = TM.BinaryClassificationModelSelector.with_cross_validation(
         candidates=["LogisticRegression", "NaiveBayes",
@@ -258,9 +261,16 @@ def test_unported_families_and_knobs_raise(monkeypatch):
         TM.BinaryClassificationModelSelector.with_cross_validation(
             candidates=["TabTransformerClassifier"])
     monkeypatch.setenv("TM_TREE_GRID_FOLD", "0")
-    with pytest.raises(NotImplementedError, match="TM_TREE_GRID_FOLD=0"):
-        TM.BinaryClassificationModelSelector.with_cross_validation(
-            candidates=["GBTClassifier"])
+    monkeypatch.setenv("TM_KERNEL_EXACT", "1")
+    cands = [["DecisionTreeClassifier", {"maxDepth": [2.0, 4.0]}]]
+
+    def results(pkg, M):
+        d, lb, vc = _xor_ds(pkg)
+        m = M.BinaryClassificationModelSelector.with_cross_validation(
+            candidates=cands, **({"device": "cpu"} if pkg == "torch"
+                                 else {})).set_input(lb, vc).fit(d)
+        return m.summary["validationResults"][0]["gridMetrics"]
+    assert results("torch", TM) == results("jax", JM)
     TM.BinaryClassificationModelSelector.with_cross_validation(
         candidates=["LogisticRegression"])
 

@@ -376,10 +376,14 @@ def test_unported_sweep_knobs_raise(lr_data, clean_knobs):
     clean_knobs.setenv("TM_TREE_GRID_FOLD", "0")
     # a linear family takes the sweep whatever the tree knob says
     _fused(cv, _entries()[2:], X, y, w)
-    with pytest.raises(NotImplementedError, match="TM_TREE_GRID_FOLD=0"):
-        cv.dispatch_many([("t", TM.MODEL_FAMILIES["GBTClassifier"],
-                           [TM.MODEL_FAMILIES["GBTClassifier"]
-                            .default_hyper])], X, y, w, 2, device="cpu")
+    # a tree family takes it under the knob (the per-instance path),
+    # sliced, as the JAX package's vmapped sweep
+    gbt = TM.MODEL_FAMILIES["GBTClassifier"]
+    p = cv.dispatch_many([("t", gbt, [gbt.default_hyper])], X, y, w, 2,
+                         device="cpu")["t"]
+    assert p.batch.label.startswith("sweep/GBTClassifier/")
+    assert p.batch.label.endswith("/sliced")
+    assert np.isfinite(cv.collect(p).grid_metrics).all()
     clean_knobs.delenv("TM_TREE_GRID_FOLD")
     clean_knobs.setenv("TM_MESH_AXIS", "grid,data")
     # the 2-D sweep is ported: the knob no longer refuses a dispatch on

@@ -6,9 +6,9 @@ transformed columns must be BITWISE equal, and so must the row path.
 The executor's fused device block (the Real/Binary impute stages of one
 layer) must equal the JAX package's ``_fused_transform`` bitwise in
 f32, and both must equal the host transform. ``transmogrify`` on the
-Titanic schema yields the same slots in the same order. A feature type
-whose encoder a later slice brings raises "not ported". The rest
-mirrors ``tests/test_vectorizers.py`` on the port's classes.
+Titanic schema yields the same slots in the same order, and every other
+feature type takes the JAX package's encoder chain. The rest mirrors
+``tests/test_vectorizers.py`` on the port's classes.
 """
 import numpy as np
 import pytest
@@ -238,7 +238,7 @@ def test_transmogrify_titanic_same_slots_in_same_order():
     ("Phone", "ops.parsers"), ("DateList", "ops.parsers"),
     ("TextArea", "ops.lda"), ("TextList", "ops.text_advanced"),
     ("RealMap", "ops.maps"), ("PickListMap", "ops.maps")])
-def test_later_slice_types_raise_not_ported(kind, module):
+def test_later_slice_types_take_the_jax_encoder_chain(kind, module):
     # the types a later slice brought now dispatch to the JAX package's
     # encoder chain, reaching ``module``: the same stage classes in the
     # same order as the JAX package's transmogrify
@@ -266,7 +266,7 @@ def test_later_slice_types_raise_not_ported(kind, module):
                for s in got)
 
 
-def test_other_unported_entry_points_raise():
+def test_other_entry_points_are_ported():
     # transmogrify_sparse is ported (ops/sparse.py): the hashed indices
     # and the dense vector
     hashed, dense = ops.transmogrify_sparse([feat("x", ft.PickList),

@@ -270,7 +270,8 @@ PACKAGE = "transmogrifai_tpu_torch"
 #: hygiene only). A root with a ``*`` is a glob; a missing root is
 #: skipped. The JAX package is never read.
 DEFAULT_ROOTS = (PACKAGE, "chip_smoke.py", "gbt_parity_probe.py",
-                 "fused_pass_probe.py", "profiler_probe.py", "bench_gpu.py",
+                 "fused_pass_probe.py", "profiler_probe.py",
+                 "hist_bits_probe.py", "bench_gpu.py",
                  "tests/test_torch_*.py", "tests/torch_*.py")
 
 

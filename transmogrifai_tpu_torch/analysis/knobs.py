@@ -90,15 +90,16 @@ DIRECT_READ_ALLOWLIST: Dict[Tuple[str, str], str] = {
         "dtype tri-state via kernels.env_dtype — the shared "
         "mixed-precision policy helper",
     (P + "models/kernels.py", "TM_HIST_ACCUM_BF16"):
-        "the not-ported bf16 accumulation: '1' raises (unless "
-        "TM_KERNEL_EXACT=1), anything else is f32",
+        "boolean bf16-accumulation toggle read in one helper: '1' sums "
+        "across row blocks in bf16 (unless TM_KERNEL_EXACT=1), anything "
+        "else is f32",
     (P + "models/tuning.py", "TM_SWEEP_EXACT"):
         "boolean bitwise-anchor toggle read in one helper",
     (P + "models/tuning.py", "TM_SWEEP_FOLD_SLICE"):
         "boolean default-on toggle read in one helper",
     (P + "models/tuning.py", "TM_TREE_GRID_FOLD"):
-        "boolean default-on fold selector read at runner build; '0' "
-        "raises for a tree family (a kept divergence)",
+        "boolean default-on fold selector read at dispatch; '0' sends a "
+        "tree family through the sweep (the per-instance path)",
     (P + "telemetry/recorder.py", "TM_FLIGHT_DIR"):
         "a path knob consumed verbatim, with a tempdir fallback",
     (P + "telemetry/spans.py", "TM_TRACE_SAMPLE"):

@@ -378,7 +378,7 @@ def _resolve_call(g: _Graph, fi: _FuncInfo,
         return []
     if ch[0] == "self" and len(ch) == 2 and fi.cls is not None:
         # the defining class's method plus every same-name override in
-        # the package (subclass dispatch: _TreeFamily._fit_grid resolves
+        # the package (subclass dispatch: _TreeFamily._fit_binned resolves
         # to the family overrides that actually run)
         keys = [k for k in g.methods.get(ch[1], ())
                 if k[1].endswith(f".{ch[1]}")]

@@ -76,8 +76,17 @@ _JAX_FORMATS = {1: "KernelCostModel", "serve-1": "ServingCostModel"}
 
 
 def shape_key(shape: Dict[str, int]) -> Tuple[int, ...]:
-    """Canonical hashable form of a shape dict (KeyError on missing)."""
-    return tuple(int(shape[k]) for k in SHAPE_KEYS)
+    """Canonical hashable form of a shape dict (KeyError on missing).
+    A launch over per-instance bins (``Gbins`` > 1 binned matrices) adds
+    ``Gbins`` to the key, so no decision for a shared-bins shape (the
+    six keys alone) is ever reused for it."""
+    key = tuple(int(shape[k]) for k in SHAPE_KEYS)
+    gbins = int(shape.get("Gbins", 1))
+    return key if gbins == 1 else key + (gbins,)
+
+
+def _gbins(shape: Dict[str, int]) -> int:
+    return int(shape.get("Gbins", 1))
 
 
 def _check_config_keys(config: Dict[str, Any], keys: Sequence[str],
@@ -108,9 +117,9 @@ def _plan(shape: Dict[str, int], config: Dict[str, Any]
     """``launch_plan`` of the shape under ``config`` — the launch rule
     itself, so the screen cannot drift from it — or None when the
     kernel would refuse it."""
-    G, n, d, B, S, m = shape_key(shape)
+    G, n, d, B, S, m = shape_key(shape)[:6]
     try:
-        return _hist.launch_plan(G, n, d, S, m, B, config)
+        return _hist.launch_plan(G, n, d, S, m, B, config, _gbins(shape))
     except ValueError:
         return None
 
@@ -120,7 +129,7 @@ def executed_config(shape: Dict[str, int],
     """``config`` as the kernel runs it at ``shape``: a sort chunk of at
     least n rows is one chunk of n rows, and a reduce cap above the
     blocks the pass needs is the blocks it needs."""
-    G, n, d, B, S, m = shape_key(shape)
+    G, n, d, B, S, m = shape_key(shape)[:6]
     cfg = dict(STATIC_DEFAULT_CONFIG, **config)
     config_key(cfg)
     need = max(1, -(-G * m * S * d * B // 256))
@@ -178,10 +187,10 @@ def featurize(shape: Dict[str, int], config: Dict[str, Any]) -> np.ndarray:
     * ``reduce_grid_k`` / ``reduce_passes``: its grid and each thread's
       grid-stride passes.
     """
-    G, n, d, B, S, m = shape_key(shape)
+    G, n, d, B, S, m = shape_key(shape)[:6]
     ex = executed_config(shape, config)
-    plan = _hist.launch_plan(G, n, d, S, m, B, ex)
-    cost = _hist.histogram_cost(G, n, d, S, m, B)
+    plan = _hist.launch_plan(G, n, d, S, m, B, ex, _gbins(shape))
+    cost = _hist.histogram_cost(G, n, d, S, m, B, _gbins(shape))
     cells = G * m * S * d * B
     grid = plan["reduce_grid"]
     return np.array([

@@ -153,6 +153,9 @@ _PARAMS_TEMPLATE = '''trainReaderPath: {csv_path}
 modelLocation: {out_dir}/model
 metricsLocation: {out_dir}/metrics
 scoreLocation: {out_dir}/scores
+# the CUDA kernels' build cache: every run after the first loads the
+# kernels built by an earlier one instead of compiling them again
+compilationCacheLocation: {out_dir}/kernel_cache
 '''
 
 

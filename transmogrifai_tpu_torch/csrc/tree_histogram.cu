@@ -1,5 +1,6 @@
 // Grid-folded tree histograms: node x feature x bin sums of per-row
-// statistics for G tree-growing instances over one shared binned matrix.
+// statistics for G tree-growing instances over one shared binned matrix,
+// or over one binned matrix per group of instances.
 //
 // Replaces the TPU kernels of transmogrifai_tpu/models/kernels.py
 // histogram_pallas_grid: _hist_db_kernel (pallas_call at :612, the
@@ -14,11 +15,17 @@
 //   out[g, node, s, j, b] = sum_i r(stats[g, i, s])
 //                           * [pos[g, i] == node] * [bins[i, j] == b]
 //
-// bins (n, d) int32, stats (G, n, S) f32, pos (G, n) int32, out
+// bins (Gbins, n, d) int32, stats (G, n, S) f32, pos (G, n) int32, out
 // (G, m, S, d, B) f32 — the (G, m*S, d*B) layout with column j*B + b
-// that grow_tree_grid reads, written straight out (no unscramble). r()
-// rounds a stat to bf16 when `bf16` is set and is the identity
-// otherwise; accumulation is f32. A row whose node lies outside [0, m),
+// that grow_tree_grid reads, written straight out (no unscramble).
+// Instance g reads bins slot g / (G / Gbins): Gbins = 1 is one shared
+// matrix (the grid-folded path); Gbins = G gives each instance its own
+// (the per-instance path, the vmapped histogram_pallas of the JAX
+// package); a forest's T trees of one item share its slot (Gbins =
+// G / T). r() rounds a stat to bf16 when `bf16` is set and is the
+// identity otherwise; accumulation is f32, or under `accum_bf16` (the
+// JAX package's TM_HIST_ACCUM_BF16) f32 within a run and bf16 across a
+// node's runs (see (5)). A row whose node lies outside [0, m),
 // or whose bin lies outside [0, B), adds nothing (the one-hot
 // formulation's all-zero row). A non-finite stat (NaN, or inf: 0 * inf
 // is NaN) turns every bin of its node, feature and stat into NaN, since
@@ -118,8 +125,8 @@ constexpr int kStatGroup = 8;     // stats of a block: one 8-column B tile
 //   seg   [G][m][2]    a node's first slot in perm and its row count
 //   items [G][m+1]     a node's first run; items[g][m] = runs of g
 //   perm  [G][n]       rows of g grouped by node, row order inside
-// then, from a 16-byte boundary, shared by every instance:
-//   packed [nbg][n][dpad]  per group of kBinGroup bins, each bin as a
+// then, from a 16-byte boundary, one plane per bins slot:
+//   packed [Gbins][nbg][n][dpad]  per group of kBinGroup bins, each bin as a
 //                      byte relative to the group (0..31), 255 for a
 //                      bin outside the group or outside [0, B) and for
 //                      the padding; rows padded to dpad, a multiple of
@@ -154,20 +161,24 @@ inline Workspace carve(int32_t* w, int G, int n, int m, int nch) {
 
 // (0) the bins packed into `packed` (see Workspace): a quarter of the
 // int32 row's bytes for the histogram pass to gather (one 32-byte
-// sector a row at d <= 32), already relative to the bin group.
+// sector a row at d <= 32), already relative to the bin group; each
+// bins slot in its own planes.
 __global__ void tree_hist_pack_bins(const int32_t* __restrict__ bins,
                                     uint8_t* __restrict__ packed, int n,
-                                    int d, int dpad, int B, int nbg) {
+                                    int d, int dpad, int B, int nbg,
+                                    int gbins) {
   const long long plane = (long long)n * dpad;
-  const long long count = plane * nbg;
+  const long long count = plane * nbg * gbins;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long x = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        x < count; x += stride) {
-    const int bg = (int)(x / plane);
-    const long long y = x - bg * plane;
+    const long long sb = x / plane;           // slot * nbg + bin group
+    const int slot = (int)(sb / nbg);
+    const int bg = (int)(sb - (long long)slot * nbg);
+    const long long y = x - sb * plane;
     const long long r = y / dpad;
     const int j = (int)(y - r * dpad);
-    const int v = j < d ? bins[r * d + j] : -1;
+    const int v = j < d ? bins[((long long)slot * n + r) * d + j] : -1;
     const int rel = v - bg * kBinGroup;
     packed[x] = (unsigned)v < (unsigned)B && (unsigned)rel < kBinGroup
                     ? (uint8_t)rel : (uint8_t)255;
@@ -429,7 +440,7 @@ tree_hist_mma(const uint8_t* __restrict__ packed,
               const int32_t* __restrict__ items,
               float* __restrict__ partial, int n, int d, int dpad, int S,
               int m, int B, int R, int nchunks, int nbg, int nsg,
-              int runs_cap) {
+              int runs_cap, int per_slot) {
   constexpr int kPieces = kExact ? 3 : 1;
   static_assert(kAhead + 1 <= kIdxSlots, "idx slots");
   __shared__ __align__(16) Smem sm;
@@ -469,7 +480,8 @@ tree_hist_mma(const uint8_t* __restrict__ packed,
   const int tq = lane & 3;                  // thread in group
   const int32_t* pr = perm + (long long)g * n + first;
   const float* sgs = stats + (long long)g * n * S + s0;
-  const uint8_t* pj = packed + (long long)bgi * n * dpad + j0;
+  const uint8_t* pj =
+      packed + ((long long)(g / per_slot) * nbg + bgi) * n * dpad + j0;
   const int nt = (rows + kTileRows - 1) / kTileRows;
   const int wf0 = warp * kFeatWarp;         // the warp's features, in
   const int nf = min(kFeatWarp, fc - wf0);  // one word of a raw row
@@ -656,7 +668,17 @@ tree_hist_mma(const uint8_t* __restrict__ packed,
   }
 }
 
-// (5) out[g, node, e] = sum over the node's runs, in run order.
+// bf16 round to nearest even of an f32 value, back in f32
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// (5) out[g, node, e] = sum over the node's runs, in run order. Under
+// kAccumBf16 each run's partial is rounded to bf16 and the running sum
+// kept in bf16 (each add rounded to bf16): the JAX package's bf16
+// cross-block partial sums and resident output block. The result is
+// written as f32 either way.
+template <bool kAccumBf16>
 __global__ void tree_hist_reduce(const float* __restrict__ partial,
                                  const int32_t* __restrict__ items,
                                  float* __restrict__ out, int G, int m,
@@ -674,7 +696,12 @@ __global__ void tree_hist_reduce(const float* __restrict__ partial,
     const int r1 = ig[node + 1];
     const float* p = partial + ((long long)g * runs_cap) * SDB + e;
     float acc = 0.0f;
-    for (int r = r0; r < r1; ++r) acc += p[(long long)r * SDB];
+    for (int r = r0; r < r1; ++r) {
+      if (kAccumBf16)
+        acc = round_bf16(acc + round_bf16(p[(long long)r * SDB]));
+      else
+        acc += p[(long long)r * SDB];
+    }
     out[x] = acc;
   }
 }
@@ -697,9 +724,11 @@ unsigned grid_for(long long count, long long cap = kGridCap) {
 // wrapper allocates the scratch: `work`, `work_words` int32 words (the
 // Workspace layout), and `partial`, `partial_floats` floats (G *
 // runs_cap * S*d*B, runs_cap >= ceil(n/R) + m: the most runs an
-// instance can need); too little of either is an invalid value. `bf16`:
-// bf16 operands (the stats rounded once); else f32 operands, each stat
-// split into three bf16 terms. The launch choices, none changing a bit
+// instance can need); too little of either is an invalid value. `bins`
+// holds `gbins` slots of (n, d); gbins must divide G. `bf16`: bf16
+// operands (the stats rounded once); else f32 operands, each stat split
+// into three bf16 terms. `accum_bf16`: bf16 sums across a node's runs
+// (see (5)). The launch choices, none changing a bit
 // of the result: `chunk_rows`, the rows a sort block ranks (the sort
 // is stable, so the chunks cannot reorder a node's rows), and
 // `reduce_blocks`, the cap on the last pass's grid (0 is 132 x 16).
@@ -710,12 +739,13 @@ extern "C" int tm_tree_histogram(const int32_t* bins, const float* stats,
                                  float* partial, long long partial_floats,
                                  int n, int d, int G, int S, int m, int B,
                                  int bf16, int R, int chunk_rows,
-                                 int runs_cap, int reduce_blocks,
-                                 void* stream) {
+                                 int runs_cap, int reduce_blocks, int gbins,
+                                 int accum_bf16, void* stream) {
   if (G <= 0 || d <= 0) return 0;
   const long long reduce_cap = reduce_blocks > 0 ? reduce_blocks : kGridCap;
   if (R <= 0 || chunk_rows <= 0 || S <= 0 || m <= 0 || B <= 0 || n < 0 ||
-      runs_cap < (n + R - 1) / R + m || (long long)m * 4 > 48 * 1024)
+      runs_cap < (n + R - 1) / R + m || (long long)m * 4 > 48 * 1024 ||
+      gbins <= 0 || G % gbins != 0)
     return (int)cudaErrorInvalidValue;
   const int nch = n > 0 ? (n + chunk_rows - 1) / chunk_rows : 1;
   const int nchunks = (d + kFeatBlock - 1) / kFeatBlock;
@@ -723,7 +753,7 @@ extern "C" int tm_tree_histogram(const int32_t* bins, const float* stats,
   const int nsg = (S + kStatGroup - 1) / kStatGroup;
   // the bins packed per bin group, rows padded to 16 bytes
   const int dpad = (d + 15) / 16 * 16;
-  const long long packed_bytes = (long long)nbg * n * dpad;
+  const long long packed_bytes = (long long)gbins * nbg * n * dpad;
   if (work_words < ws_words(G, n, m, nch, packed_bytes) ||
       partial_floats < (long long)G * runs_cap * S * d * B)
     return (int)cudaErrorInvalidValue;
@@ -744,18 +774,19 @@ extern "C" int tm_tree_histogram(const int32_t* bins, const float* stats,
   tree_hist_sort_scatter<<<(unsigned)(G * nch), 32, node_smem, st>>>(
       pos, w.base, w.perm, n, m, nch, chunk_rows);
   tree_hist_pack_bins<<<grid_for(packed_bytes), 256, 0, st>>>(
-      bins, w.packed, n, d, dpad, B, nbg);
+      bins, w.packed, n, d, dpad, B, nbg, gbins);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   auto kernel = bf16 ? tree_hist_mma<false> : tree_hist_mma<true>;
   kernel<<<(unsigned)blocks, warps * kWarp, 0, st>>>(
       w.packed, stats, w.perm, w.seg, w.items, partial, n, d, dpad, S, m, B,
-      R, nchunks, nbg, nsg, runs_cap);
+      R, nchunks, nbg, nsg, runs_cap, G / gbins);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long SDB = (long long)S * d * B;
-  tree_hist_reduce<<<grid_for((long long)G * m * SDB, reduce_cap), 256, 0,
-                     st>>>(
+  auto reduce = accum_bf16 ? tree_hist_reduce<true>
+                           : tree_hist_reduce<false>;
+  reduce<<<grid_for((long long)G * m * SDB, reduce_cap), 256, 0, st>>>(
       partial, w.items, out, G, m, SDB, runs_cap);
   return (int)cudaGetLastError();
 }

@@ -12,14 +12,46 @@ Sorts are stable (``stable=True``): ``jnp.argsort`` is stable and
 tree models (every row of a leaf scores alike). Sums run in f32 in
 another order than XLA's, so results agree with the JAX package to
 float tolerance, not bitwise.
+
+Each metric takes tensors or array-likes (numpy arrays, lists) for its
+two data arguments and ``weights``, as the JAX functions do: an
+array-like becomes a tensor on the device of the tensor arguments (the
+CPU when there is none), floats as float32.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 EPS = 1e-12
+
+
+def _as_tensor(x, device):
+    if x is None or isinstance(x, torch.Tensor):
+        return x
+    a = np.asarray(x)
+    if a.dtype.kind == "f":
+        a = a.astype(np.float32)
+    return torch.as_tensor(a, device=device)
+
+
+def _array_args(fn):
+    """Convert the two data arguments and ``weights`` of a metric from
+    array-likes (see the module docstring)."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kw):
+        data = list(args[:3]) + ([kw["weights"]] if "weights" in kw else [])
+        dev = next((t.device for t in data if isinstance(t, torch.Tensor)),
+                   None)
+        args = tuple(_as_tensor(a, dev) if i < 3 else a
+                     for i, a in enumerate(args))
+        if "weights" in kw:
+            kw["weights"] = _as_tensor(kw["weights"], dev)
+        return fn(*args, **kw)
+    return wrapper
 
 
 def _w(weights: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
@@ -38,6 +70,7 @@ def _one_hot(labels: torch.Tensor, k: int) -> torch.Tensor:
 # Binary classification
 # ---------------------------------------------------------------------------
 
+@_array_args
 def auroc(scores: torch.Tensor, labels: torch.Tensor,
           weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Weighted area under ROC with mid-rank tie correction."""
@@ -59,6 +92,7 @@ def auroc(scores: torch.Tensor, labels: torch.Tensor,
     return num / torch.clamp(p_tot * n_tot, min=EPS)
 
 
+@_array_args
 def aupr(scores: torch.Tensor, labels: torch.Tensor,
          weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Weighted average precision (step-wise, descending-score sweep)."""
@@ -73,6 +107,7 @@ def aupr(scores: torch.Tensor, labels: torch.Tensor,
     return torch.sum(posw * precision) / p_tot
 
 
+@_array_args
 def binary_confusion(scores: torch.Tensor, labels: torch.Tensor,
                      weights: Optional[torch.Tensor] = None,
                      threshold: float = 0.5) -> Tuple[torch.Tensor, ...]:
@@ -86,6 +121,7 @@ def binary_confusion(scores: torch.Tensor, labels: torch.Tensor,
     return tp, fp, fn, tn
 
 
+@_array_args
 def binary_metrics(scores: torch.Tensor, labels: torch.Tensor,
                    weights: Optional[torch.Tensor] = None,
                    threshold: float = 0.5) -> Dict[str, torch.Tensor]:
@@ -121,6 +157,7 @@ def _linspace01(num: int, device) -> torch.Tensor:
     return torch.cat([head, torch.ones(1)]).to(device)
 
 
+@_array_args
 def threshold_curves(scores: torch.Tensor, labels: torch.Tensor,
                      weights: Optional[torch.Tensor] = None,
                      num_thresholds: int = 100) -> Dict[str, torch.Tensor]:
@@ -143,6 +180,7 @@ def threshold_curves(scores: torch.Tensor, labels: torch.Tensor,
 # Multiclass
 # ---------------------------------------------------------------------------
 
+@_array_args
 def multiclass_confusion(probs: torch.Tensor, labels: torch.Tensor,
                          weights: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
@@ -156,6 +194,7 @@ def multiclass_confusion(probs: torch.Tensor, labels: torch.Tensor,
     return (true_oh[:, :, None] * pred_oh[:, None, :]).sum(0)
 
 
+@_array_args
 def multiclass_metrics(probs: torch.Tensor, labels: torch.Tensor,
                        weights: Optional[torch.Tensor] = None
                        ) -> Dict[str, torch.Tensor]:
@@ -187,6 +226,7 @@ def multiclass_metrics(probs: torch.Tensor, labels: torch.Tensor,
     }
 
 
+@_array_args
 def multiclass_topk_threshold_metrics(
         probs: torch.Tensor, labels: torch.Tensor,
         weights: Optional[torch.Tensor] = None,
@@ -223,6 +263,7 @@ def multiclass_topk_threshold_metrics(
 # Regression
 # ---------------------------------------------------------------------------
 
+@_array_args
 def regression_metrics(pred: torch.Tensor, target: torch.Tensor,
                        weights: Optional[torch.Tensor] = None
                        ) -> Dict[str, torch.Tensor]:

@@ -63,9 +63,7 @@ class ModelFamily:
     def fit_kernel(self, X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                    hyper: Dict[str, torch.Tensor], n_classes: int
                    ) -> Dict[str, torch.Tensor]:
-        raise NotImplementedError(
-            f"fitting model family {self.name!r} is not ported to "
-            f"transmogrifai_tpu_torch yet")
+        raise NotImplementedError
 
     def predict_kernel(self, params: Dict[str, torch.Tensor],
                        X: torch.Tensor, n_classes: int) -> torch.Tensor:

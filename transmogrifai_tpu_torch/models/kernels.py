@@ -18,14 +18,25 @@ The function, for G instances over one shared binned matrix::
 
 with r() rounding the masked stat to the hist dtype (the rounding point
 of the XLA formulation: mask in f32, then cast) and f32 accumulation.
+``bins`` may instead hold Gbins binned matrices (Gbins, n, d), Gbins
+dividing G: instance g then reads ``bins[g // (G // Gbins)]`` (the
+per-instance tree path, the JAX package's ``histogram_pallas`` under
+``vmap``; a forest's trees of one item share its slot).
 
 Numerics policy (the JAX package's knobs, same meaning):
 
 * ``TM_KERNEL_EXACT=1`` pins f32 operands (:func:`kernel_exact`);
 * ``TM_HIST_BF16=1/0`` forces bf16/f32 operands; unset means bf16 on
   CUDA and f32 on the CPU (:func:`env_dtype`, :func:`hist_dtype`);
-* ``TM_HIST_ACCUM_BF16=1`` (bf16 accumulation) is not ported and raises
-  (:func:`hist_accum_bf16`).
+* ``TM_HIST_ACCUM_BF16=1`` sums across blocks of rows in bf16
+  (:func:`hist_accum_bf16`): within a block f32, each block's partial
+  rounded to bf16, the running sum kept in bf16. A block is one of the
+  kernel's runs: a node's rows in row order, cut every
+  :func:`run_rows_of` rows (:func:`node_runs`). The kernel and the
+  plain version round at the same points, so they are bitwise equal
+  wherever each run's f32 partial is exact (integer stats). The JAX
+  package's blocks are fixed blocks of rows of every node: another
+  partition, so the two packages agree within the rounding only.
 
 The cross-rank reduction of row-sharded work (``allreduce_data``) is
 the second kernel here: ``csrc/ring_allreduce.cu`` behind
@@ -138,16 +149,13 @@ def hist_dtype(device) -> torch.dtype:
 
 
 def hist_accum_bf16() -> bool:
-    """bf16 ACCUMULATION (the JAX package's TM_HIST_ACCUM_BF16=1
-    deviation) is not ported: the knob raises instead of being ignored.
-    TM_KERNEL_EXACT=1 wins and keeps f32, as in the JAX package."""
-    if (not kernel_exact()
-            and os.environ.get("TM_HIST_ACCUM_BF16", "0") == "1"):
-        raise NotImplementedError(
-            "TM_HIST_ACCUM_BF16=1 (bf16 histogram accumulation) is not "
-            "ported to transmogrifai_tpu_torch; unset it (accumulation "
-            "is f32)")
-    return False
+    """bf16 ACCUMULATION across row blocks (the JAX package's
+    TM_HIST_ACCUM_BF16=1 deviation: its cross-block partial sums and
+    resident output block carry bf16). TM_KERNEL_EXACT=1 wins and keeps
+    f32; the default is f32."""
+    if kernel_exact():
+        return False
+    return os.environ.get("TM_HIST_ACCUM_BF16", "0") == "1"
 
 
 def _round_operand(t: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -156,14 +164,18 @@ def _round_operand(t: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
 
 def _check_args(bins, stats_g, pos_g, m: int, B: int):
     """Device, dtype and shape checks shared by the kernel wrapper and
-    the plain version; returns (G, n, S, d)."""
-    if bins.dim() != 2 or stats_g.dim() != 3 or pos_g.dim() != 2:
+    the plain version; returns (G, n, S, d, Gbins)."""
+    if bins.dim() not in (2, 3) or stats_g.dim() != 3 or pos_g.dim() != 2:
         raise ValueError(
-            f"want bins (n, d), stats (G, n, S), pos (G, n); got "
-            f"{tuple(bins.shape)}, {tuple(stats_g.shape)}, "
+            f"want bins (n, d) or (Gbins, n, d), stats (G, n, S), pos "
+            f"(G, n); got {tuple(bins.shape)}, {tuple(stats_g.shape)}, "
             f"{tuple(pos_g.shape)}")
-    n, d = (int(s) for s in bins.shape)
+    Gbins = int(bins.shape[0]) if bins.dim() == 3 else 1
+    n, d = (int(s) for s in bins.shape[-2:])
     G, n2, S = (int(s) for s in stats_g.shape)
+    if Gbins < 1 or G % Gbins:
+        raise ValueError(f"{Gbins} bins slots do not divide G={G} "
+                         f"instances")
     if n2 != n or tuple(pos_g.shape) != (G, n):
         raise ValueError(
             f"row counts disagree: bins {tuple(bins.shape)}, stats "
@@ -178,37 +190,91 @@ def _check_args(bins, stats_g, pos_g, m: int, B: int):
     if not (bins.device == stats_g.device == pos_g.device):
         raise ValueError(f"bins, stats, pos on different devices: "
                          f"{bins.device}, {stats_g.device}, {pos_g.device}")
-    return G, n, S, d
+    return G, n, S, d, Gbins
+
+
+def run_rows_of(n: int) -> int:
+    """Rows of one of the kernel's runs at n rows (:data:`RUN_ROWS`, or
+    more when n is so large that an instance would need over
+    :data:`MAX_RUNS` runs): the runs across which the bf16 accumulation
+    sums (:func:`node_runs`)."""
+    return max(RUN_ROWS, -(-n // MAX_RUNS))
+
+
+def node_runs(pos_g: torch.Tensor, m: int, run_rows: int) -> torch.Tensor:
+    """Each row's run within its node, as the kernel cuts them: the
+    rows of instance g on node k, in row order, are runs of
+    ``run_rows`` rows from the node's first row; row i's run is its
+    rank among its node's rows // run_rows. pos (G, n) int32 -> (G, n)
+    int64 (a row outside [0, m) gets a run but adds nothing)."""
+    G, n = pos_g.shape
+    key = torch.where((pos_g >= 0) & (pos_g < m), pos_g.to(torch.int64),
+                      torch.full((), m, device=pos_g.device))
+    order = torch.argsort(key, dim=1, stable=True)
+    counts = torch.zeros((G, m + 1), dtype=torch.int64, device=pos_g.device)
+    counts.scatter_add_(1, key, torch.ones_like(key))
+    start = torch.cumsum(counts, dim=1) - counts
+    ranks = (torch.arange(n, device=pos_g.device)[None, :]
+             - torch.gather(start, 1, torch.gather(key, 1, order)))
+    rank = torch.empty_like(ranks).scatter_(1, order, ranks)
+    return rank // run_rows
 
 
 def histogram_torch(bins: torch.Tensor, stats_g: torch.Tensor,
                     pos_g: torch.Tensor, m: int, B: int) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the vmapped
-    ``histogram_xla`` formulation. bins (n, d) int32, stats (G, n, S)
-    f32, pos (G, n) int32 -> (G, m*S, d*B) f32, column j*B + b. The
-    node mask is applied in f32 and the product then rounded to
-    :func:`hist_dtype` of the device; the product of a rounded operand
-    and a 0/1 one-hot is exact in f32, so the f32 matmul below is the
-    rounded-operand, f32-accumulate contraction (on CUDA only while
+    ``histogram_xla`` formulation. bins (n, d) or (Gbins, n, d) int32,
+    stats (G, n, S) f32, pos (G, n) int32 -> (G, m*S, d*B) f32, column
+    j*B + b; instance g reads bins slot g // (G // Gbins). The node mask
+    is applied in f32 and the product then rounded to :func:`hist_dtype`
+    of the device; the product of a rounded operand and a 0/1 one-hot is
+    exact in f32, so the f32 matmul below is the rounded-operand,
+    f32-accumulate contraction (on CUDA only while
     ``torch.backends.cuda.matmul.allow_tf32`` is off, its default).
-    Instances run in chunks of g so the masked-stats matrix stays near
-    256 MB."""
-    G, n, S, d = _check_args(bins, stats_g, pos_g, m, B)
-    hist_accum_bf16()
+    Each slot's instances run in chunks of g so the masked-stats matrix
+    stays near 256 MB, as a shared-bins call over those instances
+    alone would. Under :func:`hist_accum_bf16` each node sums its runs
+    (:func:`node_runs`) in order, as the kernel does: the j-th run of
+    every node is one contraction over the rows of run j, its f32
+    partial rounded to bf16 and added into the bf16 running sum (a node
+    without a j-th run adds 0, which leaves a bf16 sum as it is)."""
+    G, n, S, d, Gbins = _check_args(bins, stats_g, pos_g, m, B)
+    accum = hist_accum_bf16()
     dt = hist_dtype(bins.device)
     dev = bins.device
-    Z = (bins[:, :, None] == torch.arange(B, device=dev, dtype=torch.int32)
-         ).reshape(n, d * B).to(torch.float32)
+    per = G // Gbins
     out = torch.empty((G, m * S, d * B), dtype=torch.float32, device=dev)
     step = max(1, (64 << 20) // max(n * m * S, 1))
     nodes = torch.arange(m, device=dev, dtype=torch.int32)
-    for g0 in range(0, G, step):
-        g1 = min(G, g0 + step)
-        node_oh = (pos_g[g0:g1, :, None] == nodes).to(torch.float32)
-        A = (node_oh[:, :, :, None]
-             * stats_g[g0:g1, :, None, :]).reshape(g1 - g0, n, m * S)
-        out[g0:g1] = torch.matmul(_round_operand(A, dt).transpose(1, 2), Z)
+    bins_s = bins if bins.dim() == 3 else bins[None]
+    for s in range(Gbins):
+        Z = (bins_s[s][:, :, None]
+             == torch.arange(B, device=dev, dtype=torch.int32)
+             ).reshape(n, d * B).to(torch.float32)
+        for g0 in range(s * per, (s + 1) * per, step):
+            g1 = min((s + 1) * per, g0 + step)
+            node_oh = (pos_g[g0:g1, :, None] == nodes).to(torch.float32)
+            A = (node_oh[:, :, :, None]
+                 * stats_g[g0:g1, :, None, :]).reshape(g1 - g0, n, m * S)
+            At = _round_operand(A, dt).transpose(1, 2)
+            if not accum:
+                out[g0:g1] = torch.matmul(At, Z)
+                continue
+            run = node_runs(pos_g[g0:g1], m, run_rows_of(n))
+            acc = torch.zeros((g1 - g0, m * S, d * B), device=dev)
+            for j in range(int(run.max()) + 1 if n else 0):
+                on = (run == j).any(0).nonzero()   # rows of run j, any g
+                r0, r1 = int(on[0]), int(on[-1]) + 1
+                mask = (run[:, None, r0:r1] == j).to(torch.float32)
+                part = torch.matmul(At[:, :, r0:r1] * mask, Z[r0:r1])
+                acc = _round_bf16(acc + _round_bf16(part))
+            out[g0:g1] = acc
     return out
+
+
+def _round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to bf16 (to nearest even), as f32."""
+    return t.to(torch.bfloat16).to(torch.float32)
 
 
 def launch_config(config: Optional[Dict[str, int]] = None
@@ -231,7 +297,8 @@ def launch_config(config: Optional[Dict[str, int]] = None
 
 
 def launch_plan(G: int, n: int, d: int, S: int, m: int, B: int,
-                config: Optional[Dict[str, int]] = None) -> Dict[str, int]:
+                config: Optional[Dict[str, int]] = None,
+                Gbins: int = 1) -> Dict[str, int]:
     """How the kernel cuts one launch under the launch ``config``
     (:func:`launch_config`; None: the static rule): the sort's row chunks; the rows
     of a run and the most runs an instance can need (``ceil(n /
@@ -240,16 +307,16 @@ def launch_plan(G: int, n: int, d: int, S: int, m: int, B: int,
     FEATURES_PER_BLOCK features, group of BIN_GROUP bins, group of
     STAT_GROUP stats), each of ``warps`` warps with its static shared
     memory; the packed bins (a byte a bin and bin group, ``dpad`` bytes
-    a row); and the int32 workspace (the sort's words, then from a
-    16-byte boundary the packed bins) and f32 partials the wrapper
-    allocates. Raises when the sort cannot hold its node counters or
-    the grid its blocks."""
+    a row, for each of the ``Gbins`` bins slots); and the int32
+    workspace (the sort's words, then from a 16-byte boundary the
+    packed bins) and f32 partials the wrapper allocates. Raises when
+    the sort cannot hold its node counters or the grid its blocks."""
     cfg = launch_config(config)
     if m > MAX_NODES:
         raise ValueError(f"tree_histogram: m={m} nodes exceeds the "
                          f"{MAX_NODES} the sort's counters hold")
     sort_chunks = max(1, -(-n // cfg["sort_chunk_rows"]))
-    run_rows = max(RUN_ROWS, -(-n // MAX_RUNS))
+    run_rows = run_rows_of(n)
     runs_cap = -(-n // run_rows) + m
     n_chunks = max(1, -(-d // FEATURES_PER_BLOCK))
     bin_groups = -(-B // BIN_GROUP)
@@ -274,9 +341,9 @@ def launch_plan(G: int, n: int, d: int, S: int, m: int, B: int,
             "reduce_grid": max(1, min(-(-G * m * S * d * B // 256),
                                       cfg["reduce_blocks"])),
             "smem_bytes": smem, "dpad": dpad,
-            "packed_bytes": bin_groups * n * dpad,
+            "packed_bytes": Gbins * bin_groups * n * dpad,
             "workspace_words": (-(-sort_words // 4) * 4
-                                + -(-bin_groups * n * dpad // 4)),
+                                + -(-Gbins * bin_groups * n * dpad // 4)),
             "partial_floats": G * runs_cap * S * d * B}
 
 
@@ -293,7 +360,7 @@ def _library():
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong,
                                                ctypes.c_void_p,
                                                ctypes.c_longlong] \
-            + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 13 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.tm_tree_histogram_error_string.argtypes = [ctypes.c_int]
         lib.tm_tree_histogram_error_string.restype = ctypes.c_char_p
@@ -306,15 +373,16 @@ def histogram_grid(bins: torch.Tensor, stats_g: torch.Tensor,
                    config: Optional[Dict[str, int]] = None
                    ) -> torch.Tensor:
     """Node x feature x bin histograms of per-row stats for G instances
-    over SHARED bins, in ONE kernel launch.
+    over SHARED bins, or over per-instance bins, in ONE kernel launch.
 
-    bins (n, d) int32 in [0, B); stats (G, n, S) f32; pos (G, n) int32
-    node index in [0, m) (a row outside [0, m), or a bin outside
-    [0, B), adds nothing, as the one-hot formulation gives). Returns
-    (G, m*S, d*B) f32 — memory laid out as (G, m, S, d, B), the layout
-    ``trees.grow_tree_grid`` reads. The operand dtype is
-    :func:`hist_dtype` of the device (bf16 or f32); accumulation is
-    f32.
+    bins (n, d) int32 in [0, B), or (Gbins, n, d) with Gbins dividing G
+    (instance g reads slot g // (G // Gbins)); stats (G, n, S) f32; pos
+    (G, n) int32 node index in [0, m) (a row outside [0, m), or a bin
+    outside [0, B), adds nothing, as the one-hot formulation gives).
+    Returns (G, m*S, d*B) f32 — memory laid out as (G, m, S, d, B), the
+    layout ``trees.grow_tree_grid`` reads. The operand dtype is
+    :func:`hist_dtype` of the device (bf16 or f32); accumulation is f32,
+    or across runs bf16 under :func:`hist_accum_bf16`.
 
     On a CPU tensor this is :func:`histogram_torch`. On a CUDA tensor it
     launches ``csrc/tree_histogram.cu`` on the current stream (built at
@@ -325,8 +393,7 @@ def histogram_grid(bins: torch.Tensor, stats_g: torch.Tensor,
     ``kernel_launch_config`` decides, and without a decision the static
     rule: every choice gives the same bits. ``histogram_grid.launches``
     counts launches."""
-    G, n, S, d = _check_args(bins, stats_g, pos_g, m, B)
-    hist_accum_bf16()
+    G, n, S, d, Gbins = _check_args(bins, stats_g, pos_g, m, B)
     if config is not None:
         launch_config(config)   # the plain version has none; check it
     if bins.device.type == "cpu":
@@ -345,8 +412,11 @@ def histogram_grid(bins: torch.Tensor, stats_g: torch.Tensor,
         return out
     if config is None:
         from ..autotune.runtime import kernel_launch_config
-        config = kernel_launch_config(G=G, n=n, d=d, B=B, S=S, m=m)
-    plan = launch_plan(G, n, d, S, m, B, config)
+        shape = dict(G=G, n=n, d=d, B=B, S=S, m=m)
+        if Gbins > 1:
+            shape["Gbins"] = Gbins
+        config = kernel_launch_config(**shape)
+    plan = launch_plan(G, n, d, S, m, B, config, Gbins)
     lib = _library()
     work = torch.empty(plan["workspace_words"], dtype=torch.int32,
                        device=bins.device)
@@ -360,11 +430,11 @@ def histogram_grid(bins: torch.Tensor, stats_g: torch.Tensor,
             partial.data_ptr(), partial.numel(), n, d, G, S, m, B,
             int(dt == torch.bfloat16), plan["run_rows"],
             plan["sort_chunk_rows"], plan["runs_cap"],
-            plan["reduce_blocks"], stream)
+            plan["reduce_blocks"], Gbins, int(hist_accum_bf16()), stream)
     if err != 0:
         raise RuntimeError(
-            f"tree_histogram launch failed (G={G}, n={n}, d={d}, S={S}, "
-            f"m={m}, B={B}): "
+            f"tree_histogram launch failed (G={G}, Gbins={Gbins}, n={n}, "
+            f"d={d}, S={S}, m={m}, B={B}): "
             f"{lib.tm_tree_histogram_error_string(err).decode()}")
     with _LAUNCH_LOCK:
         histogram_grid.launches += 1
@@ -378,16 +448,16 @@ histogram_grid.launches = 0
 
 
 def histogram_cost(G: int, n: int, d: int, S: int, m: int,
-                   B: int) -> Dict[str, float]:
-    """What one call must do at least: every input read once and the
-    output written once (bytes), and one f32 add per (instance, row,
-    feature, stat) (operations). ``mma`` and ``mma_flop`` count what
+                   B: int, Gbins: int = 1) -> Dict[str, float]:
+    """What one call must do at least: every input read once (``Gbins``
+    binned matrices) and the output written once (bytes), and one f32
+    add per (instance, row, feature, stat) (operations). ``mma`` and ``mma_flop`` count what
     the kernel issues on the tensor cores in bf16 mode (three times
     that in exact mode): per instance, 16-row k-step of a node's rows
     and feature, ceil(B/16) x ceil(S/8) mma of m16n8k16, 4096 FLOP
     each. The k-steps are counted as if no node's rows left a partial
     k-step (each node's partial k-step adds at most one more)."""
-    nbytes = 4.0 * (n * d + G * n * S + G * n + G * m * S * d * B)
+    nbytes = 4.0 * (Gbins * n * d + G * n * S + G * n + G * m * S * d * B)
     mma = float(G) * -(-n // 16) * d * -(-B // 16) * -(-S // 8)
     return {"bytes": nbytes, "adds": float(G) * n * d * S, "mma": mma,
             "mma_flop": 4096.0 * mma}

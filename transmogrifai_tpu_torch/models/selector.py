@@ -48,7 +48,7 @@ from .base import (MODEL_FAMILIES, PredictionModel, params_to_numpy,
                    tree_map)
 from .tuning import (OpCrossValidation, OpTrainValidationSplit, OpValidator,
                      RANDOM_SEED, ValidationResult, make_splitter,
-                     require_ported, resolve_sweep_mode, sweep_exact)
+                     resolve_sweep_mode, sweep_exact)
 
 _DEFAULT_METRIC = {"binary": "auroc", "multiclass": "error",
                    "regression": "rmse"}
@@ -118,7 +118,6 @@ class ModelSelector(BinaryEstimator):
             if name not in MODEL_FAMILIES:
                 raise ValueError(f"unknown model family {name!r}; known: "
                                  f"{sorted(MODEL_FAMILIES)}")
-            require_ported(MODEL_FAMILIES[name])
         super().__init__(uid=uid, problem=problem, validation=validation,
                          splitter=splitter or {}, candidates=candidates,
                          seed=seed, **kw)

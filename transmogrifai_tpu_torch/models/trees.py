@@ -6,7 +6,12 @@ engine is the same, with shapes static and hyperparameters applied as
 masks against static caps:
 
 * features are quantile-binned once per fit (``bins[i, j] in [0, B)``)
-  over the base weights — one global sketch shared by every fold;
+  over the base weights — one global sketch shared by every fold (the
+  grid-folded path) — or, on the per-instance path
+  (``TM_TREE_GRID_FOLD=0``: :meth:`_TreeFamily.fit_batch`, the JAX
+  package's vmapped ``fit_single_tree`` / ``fit_forest`` /
+  ``fit_boosted``), once per item over the item's own training
+  weights;
 * a tree of depth cap D grows level by level; each level's node x
   feature x bin histograms for ALL instances of a (fold x hyper [x
   tree]) batch are ONE launch of the hand-written CUDA kernel
@@ -18,9 +23,12 @@ masks against static caps:
   D and prediction is D gathers.
 
 There is ONE grower, :func:`grow_tree_grid` (the JAX package's
-``grow_tree`` is its Gb=1 case, the equivalence its tests pin), and the
-single-fit entry points (``fit_single_tree``, ``fit_forest``,
-``fit_boosted``) are the grid fitters on a batch of one.
+``grow_tree`` is its Gb=1 case, the equivalence its tests pin), over
+shared bins or over one binned matrix per item (``bins`` (Gbins, n, d),
+``edges`` (Gbins, d, B-1); the per-instance path: still one histogram
+launch per level for the whole batch). The single-fit entry points
+(``fit_single_tree``, ``fit_forest``, ``fit_boosted``) are the grid
+fitters on a batch of one.
 
 Randomness. The JAX package draws from ``jax.random`` (per-node column
 subsets, Poisson bootstrap, row subsample, per-tree column mask); the
@@ -83,28 +91,54 @@ def quantile_bin_edges(X: torch.Tensor, n_bins: int,
     (linear interpolation, as ``jnp.nanquantile``). Inside
     ``spmd.run_ranks`` the rows of X (and w) are this rank's: every
     rank's are gathered in origin order first, so the edges are those of
-    the unsharded call."""
+    the unsharded call. The weighted sketch is
+    :func:`quantile_bin_edges_items` of one item."""
+    if w is not None:
+        return quantile_bin_edges_items(X, n_bins, w[None])[0]
     Xf = X.to(torch.float32)
     if spmd.current() is not None:
-        if w is None:
-            Xf, = spmd.gather_rows((Xf, 0))
-        else:
-            Xf, w = spmd.gather_rows((Xf, 0), (w.to(torch.float32), 0))
+        Xf, = spmd.gather_rows((Xf, 0))
+    edges = torch.nanquantile(Xf, _quantile_levels(n_bins, Xf.device),
+                              dim=0).T
+    return torch.nan_to_num(edges, nan=_INF, posinf=_INF, neginf=-_INF)
+
+
+def quantile_bin_edges_items(X: torch.Tensor, n_bins: int,
+                             w: torch.Tensor) -> torch.Tensor:
+    """Each item's weighted quantile edges -> (b, d, n_bins-1), item j's
+    those of (X_j, w[j]) whatever the batch: a full stable sort per
+    feature, NaNs last, then the first sorted value whose cumulative
+    weight reaches q*total (rows of zero weight do not influence the
+    edges; NaN values carry zero weight and never become edges). ``X``
+    is (b, n, d), or (n, d) shared by every item (each column sorted
+    once, each item's cumulative weights taken in that order); ``w`` is
+    (b, n). Inside ``spmd.run_ranks`` the rows are the rank's shard: X
+    and every item's weights are gathered in one exchange."""
+    Xf = X.to(torch.float32)
+    wf = w.to(torch.float32)
+    shared = Xf.dim() == 2
+    if spmd.current() is not None:
+        Xf, wf = spmd.gather_rows((Xf, 0 if shared else 1), (wf, 1))
     qs = _quantile_levels(n_bins, Xf.device)
-    if w is None:
-        edges = torch.nanquantile(Xf, qs, dim=0).T
-        return torch.nan_to_num(edges, nan=_INF, posinf=_INF, neginf=-_INF)
-    Xs, order = torch.sort(Xf, dim=0, stable=True)       # NaNs last
+    Xs, order = torch.sort(Xf, dim=-2, stable=True)      # NaNs last
+    n, d = Xs.shape[-2:]
+    if shared:
+        wsel = wf[:, order]                               # (b, n, d)
+    else:
+        wsel = torch.gather(wf[:, :, None].expand(-1, -1, d), 1, order)
     ws = torch.where(torch.isnan(Xs), torch.zeros((), device=Xf.device),
-                     w.to(torch.float32)[order])
+                     wsel)
     # scanned along the contiguous axis: CUDA's scan over a leading axis
     # runs one thread per column, 28 threads over 180k rows
-    cw = torch.cumsum(ws.T.contiguous(), dim=1)           # (d, n)
-    total = torch.clamp(cw[:, -1], min=1e-12)             # (d,)
-    targets = (qs[None, :] * total[:, None]).contiguous()  # (d, q)
+    cw = torch.cumsum(ws.transpose(1, 2).contiguous(), dim=2)  # (b, d, n)
+    total = torch.clamp(cw[..., -1], min=1e-12)               # (b, d)
+    targets = (qs[None, None, :] * total[..., None]).contiguous()
     idx = torch.searchsorted(cw, targets, side="left")
-    idx = torch.clamp(idx, 0, Xs.shape[0] - 1)
-    edges = torch.gather(Xs.T, 1, idx)                    # (d, q)
+    idx = torch.clamp(idx, 0, n - 1)
+    XsT = Xs.transpose(-1, -2)
+    if shared:
+        XsT = XsT.expand(wf.shape[0], d, n)
+    edges = torch.gather(XsT, 2, idx)                         # (b, d, q)
     return torch.nan_to_num(edges, nan=_INF, posinf=_INF, neginf=-_INF)
 
 
@@ -121,15 +155,25 @@ def _prep(X: torch.Tensor, n_bins: int, w: Optional[torch.Tensor] = None):
     return bin_data(Xf, edges).contiguous(), edges
 
 
+def _prep_items(X: torch.Tensor, n_bins: int, w: torch.Tensor):
+    """Per-item sketch and bins: X (b, n, d) or shared (n, d), w (b, n)
+    -> bins (b, n, d) int32, edges (b, d, n_bins-1)."""
+    Xf = X.to(torch.float32)
+    edges = quantile_bin_edges_items(Xf, n_bins, w)
+    bins = torch.stack([bin_data(Xf if Xf.dim() == 2 else Xf[j], edges[j])
+                        for j in range(edges.shape[0])])
+    return bins.contiguous(), edges
+
+
 # ---------------------------------------------------------------------------
-# Core: grow Gb trees at once over shared bins
+# Core: grow Gb trees at once over shared (or per-item) bins
 # ---------------------------------------------------------------------------
 
-def grow_tree_grid(bins,                         # (n, d) int32, SHARED
+def grow_tree_grid(bins,                         # (n, d) or (Gbins, n, d)
                    gw,                           # (Gb, n, C)
                    hw,                           # (Gb, n, C)
                    w,                            # (Gb, n)
-                   edges: torch.Tensor,          # (d, B-1), SHARED
+                   edges: torch.Tensor,          # (d, B-1) or (Gbins, ...)
                    feat_mask: torch.Tensor,      # (Gb, d)
                    lam: torch.Tensor,            # (Gb,)
                    gamma: torch.Tensor,          # (Gb,)
@@ -139,7 +183,10 @@ def grow_tree_grid(bins,                         # (n, d) int32, SHARED
                    subset_rate: Optional[torch.Tensor] = None,
                    *, max_depth: int, mesh=None,
                    data_ring: Optional[bool] = None):
-    """Grow one tree for each of Gb instances over SHARED bins.
+    """Grow one tree for each of Gb instances over SHARED bins, or over
+    per-item bins: ``bins`` (Gbins, n, d) and ``edges`` (Gbins, d, B-1)
+    with Gbins dividing Gb, instance g reading slot g // (Gb // Gbins)
+    (a forest's T trees of one item share the item's slot).
 
     Each level's histograms are ONE ``histogram_grid`` launch over all
     instances (inside ``spmd.run_ranks``: over this rank's rows, summed
@@ -197,9 +244,11 @@ def _grow_ranks(bins, gw, hw, w, edges, feat_mask, lam, gamma,
             return allreduce_data(parts, mesh, use_ring=data_ring)
         return list(spmd.row_sum(*parts))
     Gb, _, C = gw[0].shape
-    d = bins[0].shape[1]
-    B = edges.shape[1] + 1
+    d = bins[0].shape[-1]
+    B = edges.shape[-1] + 1
     S = 2 * C + 1
+    # instances a bins slot serves (per-item bins), or None (shared)
+    per = Gb // bins[0].shape[0] if bins[0].dim() == 3 else None
     ranks = []
     for r in range(ndev):
         with on(r):
@@ -212,11 +261,12 @@ def _grow_ranks(bins, gw, hw, w, edges, feat_mask, lam, gamma,
                 rep["subset_draws"] = [t.to(dev) for t in subset_draws]
                 rep["subset_rate"] = subset_rate.to(dev)
             ranks.append({
-                "dev": dev, "rep": rep, "bins": bins[r],
-                "bins_t": bins[r].T.contiguous(),     # (d, n) for routing
+                "dev": dev, "rep": rep, "bins": bins[r], "per": per,
+                # (d, n) or (Gbins, d, n) for routing
+                "bins_t": bins[r].transpose(-1, -2).contiguous(),
                 "stats": torch.cat([gw[r], hw[r], w[r][..., None]],
                                    dim=2).contiguous(),
-                "pos": torch.zeros((Gb, bins[r].shape[0]),
+                "pos": torch.zeros((Gb, bins[r].shape[-2]),
                                    dtype=torch.int32, device=dev),
                 "feats": [], "thrs": [], "gains": []})
     for level in range(max_depth):
@@ -293,7 +343,12 @@ def _split_level(rk: Dict[str, Any], hist: torch.Tensor, level: int,
           & (rep["depth_limit"][:, None] > level))
 
     feat_l = torch.where(do, bf, 0)
-    thr_l = torch.where(do, edges[bf, bb], inf)
+    per = rk["per"]
+    if per is None:
+        thr_l = torch.where(do, edges[bf, bb], inf)
+    else:                                          # each instance's slot
+        slot = torch.arange(Gb, device=rk["dev"])[:, None] // per
+        thr_l = torch.where(do, edges[slot, bf, bb], inf)
     thr_bin = torch.where(do, bb, B - 1)
     rk["feats"].append(feat_l)
     rk["thrs"].append(thr_l)
@@ -303,7 +358,12 @@ def _split_level(rk: Dict[str, Any], hist: torch.Tensor, level: int,
     p = pos.to(torch.int64)
     f_i = torch.gather(feat_l, 1, p)                          # (Gb, n)
     t_i = torch.gather(thr_bin, 1, p)
-    b_i = torch.gather(rk["bins_t"], 0, f_i)
+    if per is None:
+        b_i = torch.gather(rk["bins_t"], 0, f_i)
+    else:                  # (Gbins, d, n) gathered per slot's instances
+        bt = rk["bins_t"]
+        b_i = torch.gather(bt, 1, f_i.reshape(bt.shape[0], per, -1)
+                           ).reshape(Gb, -1)
     rk["pos"] = 2 * pos + (b_i > t_i).to(torch.int32)
 
 
@@ -344,19 +404,23 @@ def _feature_mask(u: torch.Tensor, rate: torch.Tensor) -> torch.Tensor:
     return torch.where(fm.sum(1, keepdim=True) < 0.5, torch.ones_like(fm), fm)
 
 
-def _hget(hyper_b: Dict[str, torch.Tensor], key: str, default: float,
+def _hget(hyper_b: Dict[str, Any], key: str, default: float,
           Gb: int, device) -> torch.Tensor:
-    v = hyper_b.get(key)
-    if v is None:
-        return torch.full((Gb,), default, dtype=torch.float32, device=device)
-    return v.to(device=device, dtype=torch.float32)
+    """A hyper as a (Gb,) f32 tensor: the batch's tensor, or a float
+    constant over the batch (a static hyper of the sweep, or the
+    default)."""
+    v = hyper_b.get(key, default)
+    if torch.is_tensor(v):
+        return v.to(device=device, dtype=torch.float32)
+    return torch.full((Gb,), float(v), dtype=torch.float32, device=device)
 
 
 def _targets(y: torch.Tensor, C: int, classification: bool) -> torch.Tensor:
+    """(..., n) labels -> (..., n, C) one-hot classes or the target."""
     if classification:
-        return (y.to(torch.int64)[:, None]
+        return (y.to(torch.int64)[..., None]
                 == torch.arange(C, device=y.device)).to(torch.float32)
-    return y.to(torch.float32)[:, None]
+    return y.to(torch.float32)[..., None]
 
 
 def _seed_groups(seed: torch.Tensor) -> Tuple[List[int], torch.Tensor]:
@@ -387,13 +451,24 @@ def fit_single_tree_grid(X, y, w_base, train_b, hyper_b, n_classes, *,
     channels) for the whole (fold x hyper) batch over shared
     global-sketch bins. Returns params with a leading Gb axis."""
     bins, edges = _prep(X, n_bins, w_base)
-    Gb = train_b.shape[0]
-    d = X.shape[1]
-    dev = X.device
+    return fit_single_tree_binned(
+        bins, edges, y, w_base[None, :] * train_b, hyper_b, n_classes,
+        max_depth=max_depth, classification=classification)
+
+
+def fit_single_tree_binned(bins, edges, y, w, hyper_b, n_classes, *,
+                           max_depth: int, classification: bool
+                           ) -> Dict[str, torch.Tensor]:
+    """:func:`fit_single_tree_grid` over binned rows: ``bins`` (n, d)
+    and ``edges`` (d, B-1) shared by the batch, or one of each an item
+    ((Gb, n, d), (Gb, d, B-1)); y (n,) or (Gb, n); w (Gb, n) each
+    instance's training weights."""
+    Gb = w.shape[0]
+    d = bins.shape[-1]
+    dev = bins.device
     C = n_classes if classification else 1
     tgt = _targets(y, C, classification)
-    w = w_base[None, :] * train_b                               # (Gb, n)
-    gw = tgt[None] * w[..., None]
+    gw = tgt * w[..., None]
     hw = w[..., None].expand(gw.shape)
     feat, thr, leaf, gains, _ = grow_tree_grid(
         bins, gw, hw, w, edges, torch.ones((Gb, d), device=dev),
@@ -441,13 +516,28 @@ def fit_forest_grid(X, y, w_base, train_b, hyper_b, n_classes, *,
     :func:`forest_draws` of the ``seed`` hyper. Returns params with a
     leading Gb axis."""
     bins, edges = _prep(X, n_bins, w_base)
-    n, d = X.shape
-    Gb = train_b.shape[0]
+    return fit_forest_binned(
+        bins, edges, y, w_base[None, :] * train_b, hyper_b, n_classes,
+        max_depth=max_depth, n_trees=n_trees, classification=classification,
+        boot=boot, subset_draws=subset_draws)
+
+
+def fit_forest_binned(bins, edges, y, w, hyper_b, n_classes, *,
+                      max_depth: int, n_trees: int, classification: bool,
+                      boot: Optional[torch.Tensor] = None,
+                      subset_draws: Optional[Sequence[torch.Tensor]] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """:func:`fit_forest_grid` over binned rows (the shapes of
+    :func:`fit_single_tree_binned`); with one binned matrix an item, the
+    item's T trees share it."""
+    n, d = bins.shape[-2:]
+    Gb = w.shape[0]
     T = n_trees
-    dev = X.device
+    dev = bins.device
     C = n_classes if classification else 1
     tgt = _targets(y, C, classification)
-    w = w_base[None, :] * train_b                               # (Gb, n)
+    if tgt.dim() == 3:                       # an item's labels, per tree
+        tgt = torch.repeat_interleave(tgt, T, dim=0)
     subset = _hget(hyper_b, "featureSubsetRate", 1.0, Gb, dev)
     if boot is None or subset_draws is None:
         seed = _hget(hyper_b, "seed", 0.0, Gb, dev).to(torch.int32)
@@ -455,7 +545,7 @@ def fit_forest_grid(X, y, w_base, train_b, hyper_b, n_classes, *,
         boot = spmd.own_rows(b0, 2) if boot is None else boot
         subset_draws = s0 if subset_draws is None else subset_draws
     wt = (w[:, None, :] * boot).reshape(Gb * T, n)
-    gw = tgt[None] * wt[..., None]
+    gw = tgt * wt[..., None]
     hw = wt[..., None].expand(gw.shape)
 
     def rep(a):                              # (Gb,) -> (Gb*T,)
@@ -520,13 +610,24 @@ def fit_boosted_grid(X, y, w_base, train_b, hyper_b, n_classes, *,
     objective: 'logistic' (binary), 'softmax' (multiclass), 'squared'.
     Returns params with a leading Gb axis."""
     bins, edges = _prep(X, n_bins, w_base)
-    n, d = X.shape
-    Gb = train_b.shape[0]
-    dev = X.device
+    return fit_boosted_binned(
+        bins, edges, y, w_base[None, :] * train_b, hyper_b, n_classes,
+        max_depth=max_depth, n_rounds=n_rounds, objective=objective,
+        draws=draws)
+
+
+def fit_boosted_binned(bins, edges, y, w, hyper_b, n_classes, *,
+                       max_depth: int, n_rounds: int, objective: str,
+                       draws: Optional[Dict[str, Any]] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """:func:`fit_boosted_grid` over binned rows (the shapes of
+    :func:`fit_single_tree_binned`)."""
+    n, d = bins.shape[-2:]
+    Gb = w.shape[0]
+    dev = bins.device
     C = n_classes if objective == "softmax" else 1
-    yf = y.to(torch.float32)
+    yf = y.to(torch.float32)                        # (n,) or (Gb, n)
     y_oh = _targets(y, max(C, 2), True)
-    w = w_base[None, :] * train_b                                # (Gb, n)
     lam = _hget(hyper_b, "regLambda", 1.0, Gb, dev)
     gamma = _hget(hyper_b, "minSplitGain", 0.0, Gb, dev)
     min_inst = _hget(hyper_b, "minChildWeight", 1.0, Gb, dev)
@@ -543,8 +644,10 @@ def fit_boosted_grid(X, y, w_base, train_b, hyper_b, n_classes, *,
 
     # per-instance sums (one (n,) reduction each): the same reduction
     # whatever the batch, so an instance's base does not depend on it
+    yb = yf.expand(Gb, n)
     sw, wy = spmd.row_sum(torch.stack([w[g].sum() for g in range(Gb)]),
-                          torch.stack([(w[g] * yf).sum() for g in range(Gb)]))
+                          torch.stack([(w[g] * yb[g]).sum()
+                                       for g in range(Gb)]))
     sw = torch.clamp(sw, min=1e-6)
     if objective == "logistic":
         p0 = torch.clamp(wy / sw, 1e-5, 1 - 1e-5)
@@ -558,12 +661,12 @@ def fit_boosted_grid(X, y, w_base, train_b, hyper_b, n_classes, *,
     def grad_hess(margin):                                       # (Gb, n, C)
         if objective == "logistic":
             p = torch.sigmoid(margin[..., 0])
-            return ((yf[None, :] - p)[..., None],
+            return ((yf - p)[..., None],
                     torch.clamp(p * (1 - p), min=1e-6)[..., None])
         if objective == "softmax":
             p = torch.softmax(margin, dim=2)
-            return y_oh[None, :, :C] - p, torch.clamp(p * (1 - p), min=1e-6)
-        return yf[None, :, None] - margin, torch.ones_like(margin)
+            return y_oh[..., :C] - p, torch.clamp(p * (1 - p), min=1e-6)
+        return yf[..., None] - margin, torch.ones_like(margin)
 
     gidx = torch.arange(Gb, device=dev)[:, None]
     feats, thrs, leaves, gains_all = [], [], [], []
@@ -704,9 +807,35 @@ class _TreeFamily(ModelFamily):
         grid's instances fold into each launch)."""
         return self.max_depth_cap * getattr(self, "n_rounds_cap", 1)
 
-    def _fit_grid(self, X, y, w_base, train_b, hyper_b, n_classes):
-        """Per-family grid-folded fit -> params with leading Gb axis."""
+    def _fit_binned(self, bins, edges, y, w, hyper_b, n_classes):
+        """Per-family fit over binned rows (the shapes of
+        :func:`fit_single_tree_binned`) -> params with leading Gb
+        axis."""
         raise NotImplementedError
+
+    def _fit_grid(self, X, y, w_base, train_b, hyper_b, n_classes):
+        """The grid-folded fit: one sketch of (X, w_base) shared by the
+        batch, instance g weighted w_base x train_b[g]."""
+        bins, edges = _prep(X, self.n_bins, w_base)
+        return self._fit_binned(bins, edges, y, w_base[None, :] * train_b,
+                                hyper_b, n_classes)
+
+    def fit_batch(self, X, y, w, hyper, n_classes):
+        """The per-instance path (``TM_TREE_GRID_FOLD=0``, the sweep's
+        items; the JAX package's vmapped fit_kernel): item j fits X[j]
+        (b, n, d; an expanded view is one shared matrix, sorted once for
+        every item's sketch), labels y[j] and weights w[j], binned on its
+        own weighted sketch; every level of the batch is one histogram
+        launch over per-item bins. ``hyper`` holds (b,) tensors and, for
+        hypers constant over the batch, floats. Returns params with a
+        leading b axis for ``predict_kernel``. Inside ``spmd.run_ranks``
+        rows past the rank's shard (the sweep's alignment padding, zero
+        weight) are dropped first."""
+        k = spmd.shard_rows(w.shape[1])
+        X, y, w = X[:, :k], y[:, :k], w[:, :k]
+        bins, edges = _prep_items(X[0] if X.stride(0) == 0 else X,
+                                  self.n_bins, w)
+        return self._fit_binned(bins, edges, y, w, hyper, n_classes)
 
     def fit_eval_grid(self, X, y, w_base, train_b, val_b, hyper_b,
                       n_classes, metric_fn) -> torch.Tensor:
@@ -743,10 +872,10 @@ class DecisionTreeClassifierFamily(_TreeFamily):
     def predict_kernel(self, params, X, n_classes):
         return _probs_from_mean(ensemble_raw(params, X), n_classes)
 
-    def _fit_grid(self, X, y, w_base, train_b, hyper_b, n_classes):
-        return fit_single_tree_grid(
-            X, y, w_base, train_b, hyper_b, n_classes,
-            max_depth=self.max_depth_cap, n_bins=self.n_bins,
+    def _fit_binned(self, bins, edges, y, w, hyper_b, n_classes):
+        return fit_single_tree_binned(
+            bins, edges, y, w, hyper_b, n_classes,
+            max_depth=self.max_depth_cap,
             classification=self.classification)
 
 
@@ -778,11 +907,11 @@ class RandomForestClassifierFamily(_TreeFamily):
     def predict_kernel(self, params, X, n_classes):
         return _probs_from_mean(ensemble_raw(params, X), n_classes)
 
-    def _fit_grid(self, X, y, w_base, train_b, hyper_b, n_classes):
-        return fit_forest_grid(
-            X, y, w_base, train_b, hyper_b, n_classes,
-            max_depth=self.max_depth_cap, n_bins=self.n_bins,
-            n_trees=self.n_trees_cap, classification=self.classification)
+    def _fit_binned(self, bins, edges, y, w, hyper_b, n_classes):
+        return fit_forest_binned(
+            bins, edges, y, w, hyper_b, n_classes,
+            max_depth=self.max_depth_cap, n_trees=self.n_trees_cap,
+            classification=self.classification)
 
 
 class RandomForestRegressorFamily(RandomForestClassifierFamily):
@@ -818,11 +947,10 @@ class _BoostedFamily(_TreeFamily):
             return torch.stack([1 - p1, p1], dim=-1)
         return torch.softmax(raw, dim=-1)
 
-    def _fit_grid(self, X, y, w_base, train_b, hyper_b, n_classes):
-        return fit_boosted_grid(
-            X, y, w_base, train_b, hyper_b, n_classes,
-            max_depth=self.max_depth_cap, n_bins=self.n_bins,
-            n_rounds=self.n_rounds_cap,
+    def _fit_binned(self, bins, edges, y, w, hyper_b, n_classes):
+        return fit_boosted_binned(
+            bins, edges, y, w, hyper_b, n_classes,
+            max_depth=self.max_depth_cap, n_rounds=self.n_rounds_cap,
             objective=self._objective(n_classes))
 
 

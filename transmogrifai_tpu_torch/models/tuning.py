@@ -13,8 +13,12 @@ contiguous shard of the items on its own stream, through
 
 * the FOLDED path — a family with ``fit_eval_grid`` (the tree families)
   fits its whole batch in one call whose tree levels are one histogram
-  launch each;
-* the SWEEP — any other family (the linear ones): the batch's items are
+  launch each, over one quantile sketch of (X, w) shared by the batch;
+* the SWEEP — any other family (the linear ones), and the tree families
+  under ``TM_TREE_GRID_FOLD=0`` (the JAX package's vmapped per-instance
+  path: each item bins on its own weighted sketch, and each level of a
+  chunk is still one histogram launch, over per-item bins): the batch's
+  items are
   fitted through the family's ``fit_batch`` with an explicit leading
   item axis, in chunks of ``SWEEP_CHUNK`` items (the last one padded
   with copies of its first item), each item on its fold's gathered rows
@@ -72,8 +76,7 @@ attribution. Row sums move with the sharding, so linear metrics match
 the one-device ones to a tolerance, and trees bitwise where the
 gradient stats are integer-valued.
 
-Not carried over: ``TM_TREE_GRID_FOLD=0`` (the vmapped per-instance
-tree path raises) and the program caches (nothing is traced, so
+Not carried over: the program caches (nothing is traced, so
 ``SWEEP_STATS`` records no compiles).
 """
 from __future__ import annotations
@@ -217,15 +220,13 @@ def _launcher(make_run: Callable, repl, labels: List[str], label: str,
     return launch
 
 
-def require_ported(family: ModelFamily) -> None:
-    """Raise for the validation path the port does not carry: the
-    per-instance tree path (``TM_TREE_GRID_FOLD=0`` for a family with a
-    folded fit)."""
-    if (hasattr(family, "fit_eval_grid")
-            and os.environ.get("TM_TREE_GRID_FOLD", "1") == "0"):
-        raise NotImplementedError(
-            "TM_TREE_GRID_FOLD=0 (the vmapped per-instance tree path) is "
-            "not ported: transmogrifai_tpu_torch has only the folded path")
+def folds(family: ModelFamily) -> bool:
+    """Whether ``family`` validates on the folded path: it has a folded
+    fit (``fit_eval_grid``, the tree families) and ``TM_TREE_GRID_FOLD``
+    is not ``0`` (which sends it through the sweep, one sketch per
+    item, as the JAX package's vmapped path)."""
+    return (hasattr(family, "fit_eval_grid")
+            and os.environ.get("TM_TREE_GRID_FOLD", "1") != "0")
 
 
 # ---------------------------------------------------------------------------
@@ -895,11 +896,10 @@ class OpValidator:
         over the grid ``mesh`` — the serial mode (TM_SWEEP_FUSION=0):
         the folded runner, or the masked traced sweep."""
         mesh, dev = _validation_mesh(mesh, device)
-        require_ported(family)
         train_m, val_m = self._masks(len(y))
         repl = self._device_data(X, y, base_w, dev)
         metric_fn, _ = _METRIC_FNS[self.metric]
-        if hasattr(family, "fit_eval_grid"):
+        if folds(family):
             batch = self._folded_batch(family, grid, train_m, val_m, repl,
                                        n_classes, metric_fn, mesh)
         else:
@@ -923,8 +923,6 @@ class OpValidator:
         resumed fit that re-dispatches only its unvalidated candidates
         reproduces the uninterrupted sweep, on a mesh of any size."""
         mesh, dev = _validation_mesh(mesh, device)
-        for _key, fam, _grid in entries:
-            require_ported(fam)
         train_m, val_m = self._masks(len(y))
         repl = self._device_data(X, y, base_w, dev)
         metric_fn, _ = _METRIC_FNS[self.metric]
@@ -944,7 +942,7 @@ class OpValidator:
             for i in idxs:
                 offsets.append(len(combined))
                 combined.extend(entries[i][2])
-            if hasattr(fam, "fit_eval_grid"):
+            if folds(fam):
                 batch = self._folded_batch(fam, combined, train_m, val_m,
                                            repl, n_classes, metric_fn, mesh)
             else:

@@ -87,6 +87,14 @@ def total_rows(n_local: int) -> int:
     return n_local if ctx is None else ctx[0].n_rows
 
 
+def shard_rows(n_local: int) -> int:
+    """The rows of the calling rank's shard inside :func:`run_ranks`
+    (rows past them, such as a sweep's alignment padding, carry no
+    weight); outside it, ``n_local``."""
+    ctx = current()
+    return n_local if ctx is None else ctx[0].shard
+
+
 def own_rows(t: torch.Tensor, dim: int) -> torch.Tensor:
     """The calling rank's rows of ``t``, whose ``dim`` spans every real
     row (a draw made over all rows): zero-padded to the shard layout and

@@ -73,6 +73,19 @@ class PortableModel:
         self.result_names: List[str] = list(manifest["resultNames"])
         sb = manifest.get("scoreBuckets")
         self.score_buckets = tuple(int(b) for b in sb) if sb else None
+        self._host = None
+
+    def score_columns(self, columns: Dict[str, Sequence]
+                      ) -> Dict[str, np.ndarray]:
+        """{boundary column: array} -> {result name: (n, k) f32 numpy
+        array} on the host, the JAX package's ``score_columns``: the
+        artifact's own numpy runtime (``portable_runtime``) over this
+        chain's manifest and arrays. Response boundary columns may be
+        omitted (zero placeholders)."""
+        if self._host is None:
+            from .portable_runtime import PortableModel as HostModel
+            self._host = HostModel(self.manifest, self.arrays)
+        return self._host.score_columns(columns)
 
     def to(self, device) -> "PortableModel":
         """The same chain with every parameter on ``device``."""

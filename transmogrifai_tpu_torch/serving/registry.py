@@ -175,6 +175,80 @@ class _FusedBackend:
         return runs
 
 
+class _PortableBackend:
+    """Scoring backend over any model with a numpy ``score_columns``
+    (the artifact's numpy runtime, or a duck of it), on the host: the
+    same engine (micro-batching, admission, hot-swap) serves it. Nothing
+    is compiled, so warm() is a no-op and a batch's 'bucket' is its
+    exact row count."""
+
+    kind = "portable"
+
+    def __init__(self, portable_model):
+        from ..profiling import ScoringStats
+        self.pm = portable_model
+        self.stats = ScoringStats()
+
+    @property
+    def buckets(self):
+        return self.pm.score_buckets
+
+    @property
+    def result_names(self):
+        return list(self.pm.result_names)
+
+    def prepare(self, data) -> Tuple[int, List[np.ndarray]]:
+        cols = (data.columns if hasattr(data, "columns")
+                and isinstance(getattr(data, "columns"), dict) else data)
+        if not isinstance(cols, dict):
+            raise TypeError(
+                "portable serving expects {column: array} request data")
+        n = first = None
+        for k, v in cols.items():
+            m = len(np.asarray(v))
+            if n is None:
+                n, first = m, k
+            elif m != n:
+                # fail the ragged request at its own submit: coalesced
+                # with others, it would score misaligned rows for all
+                raise ValueError(
+                    f"request column {k!r} has {m} rows but {first!r} "
+                    f"has {n}; all supplied columns must share one "
+                    f"length")
+        if n is None:
+            raise ValueError("request supplied no columns")
+        vals = []
+        for name in self.pm.boundary:
+            if name in cols:
+                # score_columns' rule (ints stay int64, the rest f32),
+                # so run() passes the arrays through without a copy
+                a = np.asarray(cols[name])
+                dt = np.int64 if a.dtype.kind in "iu" else np.float32
+                vals.append(a if a.dtype == dt else a.astype(dt))
+            elif name in self.pm.response_boundary:
+                vals.append(np.zeros((n,), np.float32))
+            else:
+                raise ValueError(f"boundary input {name!r} missing")
+        return n, vals
+
+    def run(self, n: int, vals: Sequence[np.ndarray]) -> Dict[str, np.ndarray]:
+        with self.stats.timed():
+            out = self.pm.score_columns(dict(zip(self.pm.boundary, vals)))
+            self.stats.note_batch(n, n)
+            return out
+
+    def launch(self, n: int, vals: Sequence[np.ndarray]):
+        """Numpy has no asynchronous dispatch: launch computes and
+        finalize is the identity."""
+        return self.run(n, vals)
+
+    def finalize(self, out) -> Dict[str, np.ndarray]:
+        return out
+
+    def warm(self, sample=None) -> int:
+        return 0
+
+
 class ModelVersion:
     """One registered version: a backend + in-flight accounting.
 
@@ -559,6 +633,8 @@ class ModelRegistry:
                         f"scorer lives on {model.device}, not {device}; "
                         f"register its PortableModel to move it")
                 backend = _FusedBackend(model)
+            elif hasattr(model, "score_columns"):
+                backend = _PortableBackend(model)
             else:
                 raise TypeError(f"cannot register {type(model).__name__}")
             v = ModelVersion(name, backend, source=source)

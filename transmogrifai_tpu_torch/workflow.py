@@ -233,7 +233,8 @@ class WorkflowModel:
         ds = self.transform(data)  # one pass shared by scores + metrics
         return self._select_scores(ds), self._evaluate_ds(ds, evaluator, **kw)
 
-    def compile_scoring(self, buckets=None, device=None) -> "FusedScorer":
+    def compile_scoring(self, buckets=None, device=None,
+                        donate: bool = False) -> "FusedScorer":
         """The host prefix plus the maximal suffix of fitted stages
         exposing `make_device_fn` (numeric vectorizers, VectorsCombiner,
         SanityChecker column filter, model predict) as ONE composed
@@ -244,7 +245,11 @@ class WorkflowModel:
         `buckets=True` (or an explicit ascending int tuple) turns on
         shape bucketing for serving traffic with varying batch sizes
         (see FusedScorer). `device` moves the fitted stages first (None:
-        the model's own device)."""
+        the model's own device). `donate` is the JAX package's keyword
+        (donate the padded inputs to the compiled program); the eager
+        scorer pads into fresh tensors that no caller holds, which it
+        frees as soon as the tail has read them, so it changes nothing
+        here and the scores are the same bits either way."""
         return FusedScorer(self, buckets=buckets, device=device)
 
     def export_portable(self, path: str, buckets=None) -> Dict[str, str]:
