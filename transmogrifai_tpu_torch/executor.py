@@ -319,13 +319,14 @@ def execute(ds: Dataset, layers: Sequence[Sequence[PipelineStage]],
         # export keeps train and serving spans on one timeline.
         skew = time.monotonic() - time.perf_counter()
     t_train = time.perf_counter()
-    if mode == "serial":
-        out = _execute_serial(ds, layers, stats, policy, checkpoint,
-                              result_names, trace, skew, device=device)
-    else:
-        out = _execute_parallel(ds, layers, workers, stats, policy,
-                                checkpoint, result_names, trace, skew,
-                                device=device)
+    with _spans.bound(trace):
+        if mode == "serial":
+            out = _execute_serial(ds, layers, stats, policy, checkpoint,
+                                  result_names, trace, skew, device=device)
+        else:
+            out = _execute_parallel(ds, layers, workers, stats, policy,
+                                    checkpoint, result_names, trace, skew,
+                                    device=device)
     if trace is not None:
         from .profiling import SWEEP_STATS, SweepStats
         sweep = SweepStats.delta(sweep_before, SWEEP_STATS.snapshot())
@@ -351,45 +352,47 @@ def _execute_serial(ds, layers, stats, policy=NO_RETRY, checkpoint=None,
     li = 0
     while li < len(layers):
         layer = layers[li]
-        wall0 = time.perf_counter()
-        busy = 0.0
-        critical = 0.0
-        restored, premodels, skip_uids = _layer_restore(checkpoint, li,
-                                                        layer, device)
-        layer_models: List[Transformer] = []
-        degraded: List[_Degraded] = []
-        for st in layer:
-            if _skipped(st, skip_uids):
-                continue
-            _check_inputs(st, ds)
-            t0 = time.perf_counter()
-            pre = _premodel(premodels, st)
-            model = pre if pre is not None else _fit_stage(
-                st, ds, li, policy, stats, checkpoint)
-            if isinstance(model, _Degraded):
-                degraded.append(model)
-                continue
-            t1 = time.perf_counter()
-            ds = model.transform(ds)
-            t2 = time.perf_counter()
-            busy += t2 - t0
-            critical = max(critical, t2 - t0)
-            if trace is not None:
-                _spans.TRACER.record(trace, f"stage:{model.uid}",
-                                     t0 + skew, t2 + skew,
-                                     cat="train", layer=li,
-                                     fit_s=t1 - t0, transform_s=t2 - t1)
-            fitted.append(model)
-            layer_models.append(model)
-            if stats is not None:
-                stats.note_stage(li, model, ds.n_rows, t1 - t0, t2 - t1,
-                                 "host")
-                stats.note_columns(materialized=1)
-            summary = getattr(model, "summary", None)
-            if summary:
-                summaries.append((model.output.name, summary))
-        _finish_layer(layers, li, restored, degraded, stats, checkpoint,
-                      result_names, layer_models, summaries)
+        with _spans.TRACER.region("workflow.layer", ring=False):
+            wall0 = time.perf_counter()
+            busy = 0.0
+            critical = 0.0
+            restored, premodels, skip_uids = _layer_restore(checkpoint, li,
+                                                            layer, device)
+            layer_models: List[Transformer] = []
+            degraded: List[_Degraded] = []
+            for st in layer:
+                if _skipped(st, skip_uids):
+                    continue
+                _check_inputs(st, ds)
+                with _spans.TRACER.region("workflow.stage", ring=False):
+                    t0 = time.perf_counter()
+                    pre = _premodel(premodels, st)
+                    model = pre if pre is not None else _fit_stage(
+                        st, ds, li, policy, stats, checkpoint)
+                    if isinstance(model, _Degraded):
+                        degraded.append(model)
+                        continue
+                    t1 = time.perf_counter()
+                    ds = model.transform(ds)
+                    t2 = time.perf_counter()
+                busy += t2 - t0
+                critical = max(critical, t2 - t0)
+                if trace is not None:
+                    _spans.TRACER.record(trace, f"stage:{model.uid}",
+                                         t0 + skew, t2 + skew,
+                                         cat="train", layer=li,
+                                         fit_s=t1 - t0, transform_s=t2 - t1)
+                fitted.append(model)
+                layer_models.append(model)
+                if stats is not None:
+                    stats.note_stage(li, model, ds.n_rows, t1 - t0, t2 - t1,
+                                     "host")
+                    stats.note_columns(materialized=1)
+                summary = getattr(model, "summary", None)
+                if summary:
+                    summaries.append((model.output.name, summary))
+            _finish_layer(layers, li, restored, degraded, stats, checkpoint,
+                          result_names, layer_models, summaries)
         if trace is not None:
             _spans.TRACER.record(trace, f"layer:{li}", wall0 + skew,
                                  time.perf_counter() + skew,
@@ -588,7 +591,10 @@ def _execute_parallel(ds, layers, workers, stats, policy=NO_RETRY,
             _submit_ready_locked()
 
     def _job(st, snapshot, lj, premodels):
-        with nan_checks():          # a debug_nans run checks its workers
+        # a debug_nans run checks its workers; the stage's fits join the
+        # train's trace from the worker thread
+        with nan_checks(), _spans.bound(trace), \
+                _spans.TRACER.region("workflow.stage", ring=False):
             return _job_body(st, snapshot, lj, premodels)
 
     def _job_body(st, snapshot, lj, premodels):
@@ -621,131 +627,134 @@ def _execute_parallel(ds, layers, workers, stats, policy=NO_RETRY,
         li = 0
         while li < len(layers):
             layer = layers[li]
-            wall0 = time.perf_counter()
-            restored, premodels, skip_uids = _layer_restore(checkpoint,
-                                                            li, layer,
-                                                            device)
-            # input checks run up front in stage order so a filter-dropped
-            # column raises the SAME first error the serial loop raises
-            # (all earlier layers have merged by now, so the canonical
-            # dataset is exactly what the serial loop would hold)
-            live_layer = [st for st in layer if not _skipped(st, skip_uids)]
-            ds = ds_holder[0]
-            for st in live_layer:
-                _check_inputs(st, ds)
-            snapshot = ds
-
-            with state_lock:
-                layer_futures = []
+            with _spans.TRACER.region("workflow.layer", ring=False):
+                wall0 = time.perf_counter()
+                restored, premodels, skip_uids = _layer_restore(checkpoint,
+                                                                li, layer,
+                                                                device)
+                # input checks run up front in stage order so a
+                # filter-dropped column raises the SAME first error the
+                # serial loop raises (all earlier layers have merged by
+                # now, so the canonical dataset is exactly what the serial
+                # loop would hold)
+                live_layer = [st for st in layer
+                              if not _skipped(st, skip_uids)]
+                ds = ds_holder[0]
                 for st in live_layer:
-                    if st.uid not in submitted:
-                        submitted.add(st.uid)
-                        futures[st.uid] = pool.submit(
-                            _job, st, snapshot, li, premodels)
-                    layer_futures.append(futures[st.uid])
-            # stage-order gather: the first in-order failure re-raises,
-            # matching the serial loop's error surface; siblings are
-            # cancelled rather than awaited
-            results, first_err = _gather_in_order(layer_futures)
-            if first_err is not None:
-                raise first_err
+                    _check_inputs(st, ds)
+                snapshot = ds
 
-            degraded = [r for r in results if isinstance(r, _Degraded)]
-            results = [r for r in results if not isinstance(r, _Degraded)]
+                with state_lock:
+                    layer_futures = []
+                    for st in live_layer:
+                        if st.uid not in submitted:
+                            submitted.add(st.uid)
+                            futures[st.uid] = pool.submit(
+                                _job, st, snapshot, li, premodels)
+                        layer_futures.append(futures[st.uid])
+                # stage-order gather: the first in-order failure re-raises,
+                # matching the serial loop's error surface; siblings are
+                # cancelled rather than awaited
+                results, first_err = _gather_in_order(layer_futures)
+                if first_err is not None:
+                    raise first_err
 
-            fuse_group = [model for model, kind, *_ in results
-                          if kind == "fused"]
-            fused_out: Dict[str, np.ndarray] = {}
-            fuse_s = 0.0
-            if fuse_group:
-                t0 = time.perf_counter()
-                fused_out = _fused_transform(fuse_group, snapshot,
-                                             device)
-                fuse_s = time.perf_counter() - t0
+                degraded = [r for r in results if isinstance(r, _Degraded)]
+                results = [r for r in results if not isinstance(r, _Degraded)]
 
-            # busy accumulates per-stage (fused stages carry their share
-            # of fuse_s as tr_s, so fuse_s is counted exactly once);
-            # critical is the layer's longest single-stage chain — the
-            # executor's per-layer Amdahl floor in stageTimings. Both
-            # clip to the layer's OWN wall window: a pipelined stage
-            # that ran during an earlier layer's window already
-            # overlapped — counting its full duration here would report
-            # a perfectly-overlapped layer as ~100% serial (and inflate
-            # pool occupancy past 1). note_stage keeps the stage's full
-            # fit/transform cost either way.
-            busy = 0.0
-            critical = 0.0
-            materialized = 0
-            layer_models: List[Transformer] = []
-            for model, kind, out, fit_s, tr_s, jt0, jt1 in results:
-                name = model.output.name
-                in_window = max(0.0, jt1 - max(jt0, wall0))
-                if kind == "fused":
-                    tr_s = fuse_s / len(fuse_group)
-                    out = (fused_out[name], model.output.wtype,
-                           model.manifest())
-                    # the fused transform itself ran at the merge,
-                    # always inside this window
-                    window_cost = min(fit_s, in_window) + tr_s
-                else:
-                    window_cost = min(fit_s + tr_s, in_window)
-                if out is not None:
-                    arr, otype, man = out
-                    ds = ds.with_column(name, arr, otype, manifest=man)
-                    materialized += 1
-                busy += window_cost
-                critical = max(critical, window_cost)
-                if trace is not None:
-                    _spans.TRACER.record(trace, f"stage:{model.uid}",
-                                         jt0 + skew, jt1 + skew,
-                                         cat="train", layer=li,
-                                         kind=kind, fit_s=fit_s,
-                                         transform_s=tr_s)
-                fitted.append(model)
-                layer_models.append(model)
-                if stats is not None:
-                    stats.note_stage(li, model, snapshot.n_rows, fit_s,
-                                     tr_s, kind)
-                summary = getattr(model, "summary", None)
-                if summary:
-                    summaries.append((name, summary))
+                fuse_group = [model for model, kind, *_ in results
+                              if kind == "fused"]
+                fused_out: Dict[str, np.ndarray] = {}
+                fuse_s = 0.0
+                if fuse_group:
+                    t0 = time.perf_counter()
+                    fused_out = _fused_transform(fuse_group, snapshot,
+                                                 device)
+                    fuse_s = time.perf_counter() - t0
 
-            # state_lock: _finish_layer's degradation prune mutates
-            # layers[li+1:] in place, and a still-running pipelined job
-            # finishing RIGHT NOW would _publish -> _submit_ready_locked
-            # and iterate/index that same list — the shrink mid-scan
-            # would raise IndexError instead of degrading gracefully
-            with state_lock:
-                plan_changed = _finish_layer(layers, li, restored,
-                                             degraded, stats, checkpoint,
-                                             result_names, layer_models,
-                                             summaries)
-            if plan_changed:
-                # degradation changed the remaining plan: lifetimes too
-                last_use = column_last_use(layers)
+                # busy accumulates per-stage (fused stages carry their share
+                # of fuse_s as tr_s, so fuse_s is counted exactly once);
+                # critical is the layer's longest single-stage chain — the
+                # executor's per-layer Amdahl floor in stageTimings. Both
+                # clip to the layer's OWN wall window: a pipelined stage
+                # that ran during an earlier layer's window already
+                # overlapped — counting its full duration here would report
+                # a perfectly-overlapped layer as ~100% serial (and inflate
+                # pool occupancy past 1). note_stage keeps the stage's full
+                # fit/transform cost either way.
+                busy = 0.0
+                critical = 0.0
+                materialized = 0
+                layer_models: List[Transformer] = []
+                for model, kind, out, fit_s, tr_s, jt0, jt1 in results:
+                    name = model.output.name
+                    in_window = max(0.0, jt1 - max(jt0, wall0))
+                    if kind == "fused":
+                        tr_s = fuse_s / len(fuse_group)
+                        out = (fused_out[name], model.output.wtype,
+                               model.manifest())
+                        # the fused transform itself ran at the merge,
+                        # always inside this window
+                        window_cost = min(fit_s, in_window) + tr_s
+                    else:
+                        window_cost = min(fit_s + tr_s, in_window)
+                    if out is not None:
+                        arr, otype, man = out
+                        ds = ds.with_column(name, arr, otype, manifest=man)
+                        materialized += 1
+                    busy += window_cost
+                    critical = max(critical, window_cost)
+                    if trace is not None:
+                        _spans.TRACER.record(trace, f"stage:{model.uid}",
+                                             jt0 + skew, jt1 + skew,
+                                             cat="train", layer=li,
+                                             kind=kind, fit_s=fit_s,
+                                             transform_s=tr_s)
+                    fitted.append(model)
+                    layer_models.append(model)
+                    if stats is not None:
+                        stats.note_stage(li, model, snapshot.n_rows, fit_s,
+                                         tr_s, kind)
+                    summary = getattr(model, "summary", None)
+                    if summary:
+                        summaries.append((name, summary))
 
-            # lifetime pruning: columns whose last consumer was this (or
-            # an earlier) layer are dead for the rest of the train
-            dead = [n for n in ds.column_names
-                    if last_use.get(n, -1) <= li]
-            if dead:
-                ds = ds.drop(dead)
-            with state_lock:
-                ds_holder[0] = ds
-                li_holder[0] = li + 1
-                for m in layer_models:
-                    overlay.pop(m.output.name, None)
-                # drop the merged layer's futures: each completed Future
-                # pins its result tuple (output column included), so
-                # keeping them would hold every produced column until
-                # train end — the lifetime pruning above exists to bound
-                # exactly that
-                for st in layer:
-                    futures.pop(st.uid, None)
-                # merged columns may complete a later stage's input set
-                # even when nothing was published this instant (fused /
-                # restored outputs only land at the merge)
-                _submit_ready_locked()
+                # state_lock: _finish_layer's degradation prune mutates
+                # layers[li+1:] in place, and a still-running pipelined job
+                # finishing RIGHT NOW would _publish -> _submit_ready_locked
+                # and iterate/index that same list — the shrink mid-scan
+                # would raise IndexError instead of degrading gracefully
+                with state_lock:
+                    plan_changed = _finish_layer(layers, li, restored,
+                                                 degraded, stats, checkpoint,
+                                                 result_names, layer_models,
+                                                 summaries)
+                if plan_changed:
+                    # degradation changed the remaining plan: lifetimes too
+                    last_use = column_last_use(layers)
+
+                # lifetime pruning: columns whose last consumer was this (or
+                # an earlier) layer are dead for the rest of the train
+                dead = [n for n in ds.column_names
+                        if last_use.get(n, -1) <= li]
+                if dead:
+                    ds = ds.drop(dead)
+                with state_lock:
+                    ds_holder[0] = ds
+                    li_holder[0] = li + 1
+                    for m in layer_models:
+                        overlay.pop(m.output.name, None)
+                    # drop the merged layer's futures: each completed Future
+                    # pins its result tuple (output column included), so
+                    # keeping them would hold every produced column until
+                    # train end — the lifetime pruning above exists to bound
+                    # exactly that
+                    for st in layer:
+                        futures.pop(st.uid, None)
+                    # merged columns may complete a later stage's input set
+                    # even when nothing was published this instant (fused /
+                    # restored outputs only land at the merge)
+                    _submit_ready_locked()
             if trace is not None:
                 _spans.TRACER.record(trace, f"layer:{li}", wall0 + skew,
                                      time.perf_counter() + skew,

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..telemetry.spans import TRACER
 
 
 # ---------------------------------------------------------------------------
@@ -147,8 +148,9 @@ def host_prefetch(chunks: Iterable[Any], buffer_size: int = 2,
             try:
                 # timed get: a cancel while blocked here must still be
                 # seen promptly (the producer may never put again)
-                item = q.get(timeout=0.1 if cancel_event is not None
-                             else None)
+                with TRACER.region("stream.wait"):
+                    item = q.get(timeout=0.1 if cancel_event is not None
+                                 else None)
             except queue.Empty:
                 continue
             if item is _END:
@@ -264,13 +266,25 @@ def prefetch_to_device(chunks: Iterable[Any], buffer_size: int = 2,
     side = torch.cuda.Stream(device=dev) if dev.type == "cuda" else None
 
     def put(c):
-        if side is None:
-            return tree_map(lambda a: _put_leaf(a, dev), c), None
-        with torch.cuda.stream(side):
-            out = tree_map(lambda a: _put_leaf(a, dev), c)
-            done = torch.cuda.Event()
-            done.record(side)
-        return out, done
+        with TRACER.region("stream.stage"):
+            if side is None:
+                return tree_map(lambda a: _put_leaf(a, dev), c), None
+            with torch.cuda.stream(side):
+                out = tree_map(lambda a: _put_leaf(a, dev), c)
+                done = torch.cuda.Event()
+                done.record(side)
+            return out, done
+
+    it = iter(chunks)
+    end = object()
+
+    def pull():
+        """The next host chunk, or ``end``: made here unless a producer
+        thread makes it (whose queue wait is ``stream.wait``)."""
+        if host_thread:
+            return next(it, end)
+        with TRACER.region("stream.produce"):
+            return next(it, end)
 
     def take(item):
         out, done = item
@@ -283,13 +297,10 @@ def prefetch_to_device(chunks: Iterable[Any], buffer_size: int = 2,
         return out
 
     q: deque = deque()
-    it = iter(chunks)
-    try:
-        while len(q) < buffer_size:
-            q.append(put(next(it)))
-    except StopIteration:
-        pass
-    for c in it:
+    c = end
+    while len(q) < buffer_size and (c := pull()) is not end:
+        q.append(put(c))
+    while c is not end and (c := pull()) is not end:
         out = q.popleft()
         q.append(put(c))  # enqueue next transfer before the consumer blocks
         yield take(out)

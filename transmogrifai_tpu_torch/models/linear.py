@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from ..parallel.spmd import row_sum
+from ..telemetry.spans import TRACER
 from .base import ModelFamily
 
 _JITTER = 1e-5
@@ -165,11 +166,13 @@ def _power_lipschitz(Xw: torch.Tensor, iters: int = 12) -> torch.Tensor:
     G, _, d = Xw.shape
     v = torch.full((G, d), float(np.float32(1.0) / np.sqrt(np.float32(d))),
                    dtype=Xw.dtype, device=Xw.device)
-    for _ in range(iters):
-        u = _mtv(Xw, _mv(Xw, v))
-        v = u / torch.clamp(torch.linalg.vector_norm(u, dim=1, keepdim=True),
-                            min=1e-12)
-    return torch.clamp((v * _mtv(Xw, _mv(Xw, v))).sum(1), min=1e-8)
+    with TRACER.region("linear.solve", solver="power", iters=iters):
+        for _ in range(iters):
+            with TRACER.region("linear.iter"):
+                u = _mtv(Xw, _mv(Xw, v))
+                v = u / torch.clamp(torch.linalg.vector_norm(
+                    u, dim=1, keepdim=True), min=1e-12)
+        return torch.clamp((v * _mtv(Xw, _mv(Xw, v))).sum(1), min=1e-8)
 
 
 def _soft_threshold(x: torch.Tensor, t) -> torch.Tensor:
@@ -197,12 +200,14 @@ def _fista(grad_smooth, x0: torch.Tensor, lr: torch.Tensor, l1: Hyper,
     lr_c = _col(lr, nd)
     x_prev, z = x0, x0
     t = np.float32(1.0)
-    for _ in range(iters):
-        x = prox(z - lr_c * grad_smooth(z))
-        t_new = np.float32(0.5) * (np.float32(1.0) + np.sqrt(
-            np.float32(1.0) + np.float32(4.0) * t * t))
-        z = x + float((t - np.float32(1.0)) / t_new) * (x - x_prev)
-        x_prev, t = x, t_new
+    with TRACER.region("linear.solve", solver="fista", iters=iters):
+        for _ in range(iters):
+            with TRACER.region("linear.iter"):
+                x = prox(z - lr_c * grad_smooth(z))
+                t_new = np.float32(0.5) * (np.float32(1.0) + np.sqrt(
+                    np.float32(1.0) + np.float32(4.0) * t * t))
+                z = x + float((t - np.float32(1.0)) / t_new) * (x - x_prev)
+                x_prev, t = x, t_new
     return x_prev
 
 
@@ -237,14 +242,16 @@ def _newton_logistic(Xb, y, w, l2: Hyper, iters: int) -> torch.Tensor:
     l2c = _col(l2, 2)
     ridge = (_col(l2, 3) * mask + _JITTER) * _eye(d, dev)
     beta = torch.zeros((G, d), dtype=Xb.dtype, device=dev)
-    for _ in range(iters):
-        p = torch.sigmoid(_mv(Xb, beta))
-        s = w * torch.clamp(p * (1.0 - p), min=1e-6) / sw[:, None]
-        gp, Hp = row_sum(_mtv_part(Xb, w * (p - y)),
-                         _gram_part(Xb, Xb * s[..., None]))
-        g = gp / sw[:, None] + l2c * mask * beta
-        H = Hp + ridge
-        beta = beta - _damp(_solve_pos(H, g))
+    with TRACER.region("linear.solve", solver="newton", iters=iters):
+        for _ in range(iters):
+            with TRACER.region("linear.iter"):
+                p = torch.sigmoid(_mv(Xb, beta))
+                s = w * torch.clamp(p * (1.0 - p), min=1e-6) / sw[:, None]
+                gp, Hp = row_sum(_mtv_part(Xb, w * (p - y)),
+                                 _gram_part(Xb, Xb * s[..., None]))
+                g = gp / sw[:, None] + l2c * mask * beta
+                H = Hp + ridge
+                beta = beta - _damp(_solve_pos(H, g))
     return beta
 
 
@@ -365,27 +372,34 @@ def fit_softmax(X, y, w, l2: Hyper, n_classes: int, iters=None
         ridge = (_col(l2, 3) * mask_f + _JITTER) * _eye(dk, dev)
         eye_k = _eye(k, dev)
         ws = (w / sw[:, None])[..., None, None]
-        for _ in range(20 if iters is None else iters):
-            p = torch.softmax(torch.bmm(Xb, theta), dim=-1)    # (G, n, k)
-            A = ws * (p[..., :, None] * eye_k
-                      - p[..., :, None] * p[..., None, :])
-            gp, Hp = row_sum(_gram_part(Xb, (p - y_oh) * w[..., None]),
-                             _softmax_hessian(Xb, A, _gram_part))
-            g = (gp / sw[:, None, None]
-                 + l2c * mask * theta).reshape(G, dk)
-            H = Hp + ridge
-            delta = _damp(_solve_pos(H, g))
-            theta = theta - delta.reshape(G, d, k)
+        n_it = 20 if iters is None else iters
+        with TRACER.region("linear.solve", solver="newton", iters=n_it):
+            for _ in range(n_it):
+                with TRACER.region("linear.iter"):
+                    p = torch.softmax(torch.bmm(Xb, theta), dim=-1)
+                    A = ws * (p[..., :, None] * eye_k
+                              - p[..., :, None] * p[..., None, :])
+                    gp, Hp = row_sum(
+                        _gram_part(Xb, (p - y_oh) * w[..., None]),
+                        _softmax_hessian(Xb, A, _gram_part))
+                    g = (gp / sw[:, None, None]
+                         + l2c * mask * theta).reshape(G, dk)
+                    H = Hp + ridge
+                    delta = _damp(_solve_pos(H, g))
+                    theta = theta - delta.reshape(G, d, k)
         return theta
 
     lam = _power_lipschitz(Xb * _sqrt_w(w, sw))
     lr = _col(1.0 / (0.5 * lam + l2 + 1e-6), 3)
     mom = torch.zeros_like(theta)
-    for _ in range(200 if iters is None else iters):
-        v = theta + 0.9 * mom
-        new = v - lr * grad(v)
-        mom = new - theta
-        theta = new
+    n_it = 200 if iters is None else iters
+    with TRACER.region("linear.solve", solver="nesterov", iters=n_it):
+        for _ in range(n_it):
+            with TRACER.region("linear.iter"):
+                v = theta + 0.9 * mom
+                new = v - lr * grad(v)
+                mom = new - theta
+                theta = new
     return theta
 
 
@@ -466,14 +480,15 @@ class LogisticRegressionFamily(_LinearFamily):
 def _ridge(Xb, y, w, l2: Hyper) -> torch.Tensor:
     d = Xb.shape[2]
     dev = Xb.device
-    mask = _penalty_mask(d, dev)
-    sw = _sum_w(w)
-    Ap, bp = row_sum(_gram_part(Xb, Xb * w[..., None]),
-                     _mtv_part(Xb, w * y))
-    A = (Ap / sw[:, None, None]
-         + (_col(l2, 3) * mask + _JITTER) * _eye(d, dev))
-    b = bp / sw[:, None]
-    return _solve_pos(A, b)
+    with TRACER.region("linear.solve", solver="ridge", iters=0):
+        mask = _penalty_mask(d, dev)
+        sw = _sum_w(w)
+        Ap, bp = row_sum(_gram_part(Xb, Xb * w[..., None]),
+                         _mtv_part(Xb, w * y))
+        A = (Ap / sw[:, None, None]
+             + (_col(l2, 3) * mask + _JITTER) * _eye(d, dev))
+        b = bp / sw[:, None]
+        return _solve_pos(A, b)
 
 
 def fit_ridge(X, y, w, l2: Hyper) -> torch.Tensor:
@@ -548,11 +563,13 @@ def fit_linear_svc(X, y, w, l2: Hyper, iters: int = 200) -> torch.Tensor:
 
     beta = torch.zeros((G, d), dtype=Xb.dtype, device=Xb.device)
     mom = torch.zeros_like(beta)
-    for _ in range(iters):
-        v = beta + 0.9 * mom
-        new = v - lr * grad(v)
-        mom = new - beta
-        beta = new
+    with TRACER.region("linear.solve", solver="svc", iters=iters):
+        for _ in range(iters):
+            with TRACER.region("linear.iter"):
+                v = beta + 0.9 * mom
+                new = v - lr * grad(v)
+                mom = new - beta
+                beta = new
     return beta
 
 
@@ -582,15 +599,16 @@ class LinearSVCFamily(_LinearFamily):
 def fit_gnb(X, y, w, smoothing: Hyper, n_classes: int
             ) -> Dict[str, torch.Tensor]:
     """X (G, n, d) -> per item mean and var (G, k, d), logprior (G, k)."""
-    y_oh = _one_hot(y, n_classes) * w[..., None]           # (G, n, k)
-    cp, mp, sp = row_sum(y_oh.sum(1), _gram_part(y_oh, X),
-                         _gram_part(y_oh, X * X))
-    cnt = torch.clamp(cp, min=1e-6)                         # (G, k)
-    mean = mp / cnt[..., None]
-    sq = sp / cnt[..., None]
-    var = torch.clamp(sq - mean ** 2, min=1e-6) + _col(smoothing, 3)
-    prior = cnt / cnt.sum(1, keepdim=True)
-    return {"mean": mean, "var": var, "logprior": torch.log(prior)}
+    with TRACER.region("linear.solve", solver="gnb", iters=0):
+        y_oh = _one_hot(y, n_classes) * w[..., None]       # (G, n, k)
+        cp, mp, sp = row_sum(y_oh.sum(1), _gram_part(y_oh, X),
+                             _gram_part(y_oh, X * X))
+        cnt = torch.clamp(cp, min=1e-6)                     # (G, k)
+        mean = mp / cnt[..., None]
+        sq = sp / cnt[..., None]
+        var = torch.clamp(sq - mean ** 2, min=1e-6) + _col(smoothing, 3)
+        prior = cnt / cnt.sum(1, keepdim=True)
+        return {"mean": mean, "var": var, "logprior": torch.log(prior)}
 
 
 def predict_gnb(params: Dict[str, torch.Tensor], X: torch.Tensor
@@ -636,23 +654,25 @@ def _irls(Xb, w, l2: Hyper, beta0, iters, score_and_weight):
     ridge = (_col(l2, 3) * mask + _JITTER) * _eye(d, dev)
     H_const = None
     beta = beta0
-    for _ in range(iters):
-        mu = torch.exp(torch.clamp(_mv(Xb, beta), -30.0, 30.0))
-        score, fisher = score_and_weight(mu)
-        gp = _mtv_part(Xb, w * score)
-        if fisher is None:
-            if H_const is None:
-                gp, H_const = row_sum(
-                    gp, _gram_part(Xb, Xb * (w / sw[:, None])[..., None]))
-            else:
-                gp, = row_sum(gp)
-            H = H_const + ridge
-        else:
-            s = w * fisher / sw[:, None]
-            gp, Hp = row_sum(gp, _gram_part(Xb, Xb * s[..., None]))
-            H = Hp + ridge
-        g = gp / sw[:, None] + l2c * mask * beta
-        beta = beta - _damp(_solve_pos(H, g))
+    with TRACER.region("linear.solve", solver="irls", iters=iters):
+        for _ in range(iters):
+            with TRACER.region("linear.iter"):
+                mu = torch.exp(torch.clamp(_mv(Xb, beta), -30.0, 30.0))
+                score, fisher = score_and_weight(mu)
+                gp = _mtv_part(Xb, w * score)
+                if fisher is None:
+                    if H_const is None:
+                        gp, H_const = row_sum(gp, _gram_part(
+                            Xb, Xb * (w / sw[:, None])[..., None]))
+                    else:
+                        gp, = row_sum(gp)
+                    H = H_const + ridge
+                else:
+                    s = w * fisher / sw[:, None]
+                    gp, Hp = row_sum(gp, _gram_part(Xb, Xb * s[..., None]))
+                    H = Hp + ridge
+                g = gp / sw[:, None] + l2c * mask * beta
+                beta = beta - _damp(_solve_pos(H, g))
     return beta
 
 

@@ -44,6 +44,7 @@ from ..profiling import check_finite
 from ..resilience.atomic import atomic_write_json
 from ..resilience.faults import fault_point
 from ..stages.base import BinaryEstimator
+from ..telemetry.spans import TRACER
 from .base import (MODEL_FAMILIES, PredictionModel, params_to_numpy,
                    tree_map)
 from .tuning import (OpCrossValidation, OpTrainValidationSplit, OpValidator,
@@ -204,27 +205,33 @@ class ModelSelector(BinaryEstimator):
         return dict(doc.get("families") or {}), path, token
 
     def fit_fn(self, ds: Dataset) -> Dict[str, Any]:
+        with TRACER.region("selector.fit", root="fit"):
+            return self._fit(ds)
+
+    def _fit(self, ds: Dataset) -> Dict[str, Any]:
         label_name, vec_name = self.input_names
         problem = self.params["problem"]
         dev = resolve_device(self.device)
         mesh = self._effective_mesh(dev)
-        X = ds.column(vec_name).astype(np.float32)
-        y = ds.column(label_name).astype(np.float32)
-        n = len(y)
-        if problem == "binary":
-            n_classes = 2
-        elif problem == "multiclass":
-            n_classes = int(y.max()) + 1
-        else:
-            n_classes = 1
+        with TRACER.region("selector.split"):
+            X = ds.column(vec_name).astype(np.float32)
+            y = ds.column(label_name).astype(np.float32)
+            n = len(y)
+            if problem == "binary":
+                n_classes = 2
+            elif problem == "multiclass":
+                n_classes = int(y.max()) + 1
+            else:
+                n_classes = 1
 
-        splitter = self._make_splitter()
-        train_idx, hold_idx = splitter.split(n)
-        X_tr, y_tr = X[train_idx], y[train_idx]
-        base_w, splitter_summary = splitter.prepare(y_tr)
+            splitter = self._make_splitter()
+            train_idx, hold_idx = splitter.split(n)
+            X_tr, y_tr = X[train_idx], y[train_idx]
+            base_w, splitter_summary = splitter.prepare(y_tr)
 
-        validator = self._make_validator()
-        progress, prog_path, prog_token = self._load_fit_progress(X_tr, y_tr)
+            validator = self._make_validator()
+            progress, prog_path, prog_token = self._load_fit_progress(X_tr,
+                                                                      y_tr)
         sweep_mode = resolve_sweep_mode()
         # every live candidate is dispatched before any is collected; a
         # candidate a checkpointed earlier attempt validated loads its
@@ -292,24 +299,27 @@ class ModelSelector(BinaryEstimator):
                                   for k, v in best.best_hyper.items()
                                   if k in keys))
         t0 = time.perf_counter()
-        Xt, yt, wt = OpValidator._device_data(X_tr, y_tr, base_w, dev)
-        hyper: Dict[str, Any] = {
-            k: torch.tensor(v, dtype=torch.float32, device=dev)
-            for k, v in best.best_hyper.items() if k not in dict(static)}
-        hyper.update(static)
-        with torch.inference_mode():
-            params = fam.fit_kernel(Xt, yt, wt, hyper, n_classes)
-            # tree params use +inf no-split thresholds
-            check_finite(params_to_numpy(params),
-                         f"refit {best.family} parameters", allow_inf=True)
-            train_eval = _full_metrics(
-                problem, fam.predict_kernel(params, Xt, n_classes), yt)
-            holdout_eval = {}
-            if len(hold_idx):
-                Xh = torch.as_tensor(X[hold_idx], device=dev)
-                yh = torch.as_tensor(y[hold_idx], device=dev)
-                holdout_eval = _full_metrics(
-                    problem, fam.predict_kernel(params, Xh, n_classes), yh)
+        with TRACER.region("selector.refit", family=best.family):
+            Xt, yt, wt = OpValidator._device_data(X_tr, y_tr, base_w, dev)
+            hyper: Dict[str, Any] = {
+                k: torch.tensor(v, dtype=torch.float32, device=dev)
+                for k, v in best.best_hyper.items() if k not in dict(static)}
+            hyper.update(static)
+            with torch.inference_mode():
+                params = fam.fit_kernel(Xt, yt, wt, hyper, n_classes)
+                # tree params use +inf no-split thresholds
+                check_finite(params_to_numpy(params),
+                             f"refit {best.family} parameters",
+                             allow_inf=True)
+                train_eval = _full_metrics(
+                    problem, fam.predict_kernel(params, Xt, n_classes), yt)
+                holdout_eval = {}
+                if len(hold_idx):
+                    Xh = torch.as_tensor(X[hold_idx], device=dev)
+                    yh = torch.as_tensor(y[hold_idx], device=dev)
+                    holdout_eval = _full_metrics(
+                        problem, fam.predict_kernel(params, Xh, n_classes),
+                        yh)
         refit_wall = time.perf_counter() - t0
         # leave inference mode: the fitted tensors serve later calls
         params = tree_map(torch.Tensor.clone, params)

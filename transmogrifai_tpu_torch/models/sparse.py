@@ -67,6 +67,7 @@ from .._device import resolve_device
 from ..dataset import Dataset
 from ..features import types as ft
 from ..stages.base import TernaryEstimator, TernaryTransformer
+from ..telemetry.spans import TRACER
 from .base import (_params_device, params_from_numpy, params_on,
                    params_to_numpy, prediction_column)
 from .linear import sigmoid_pair
@@ -322,11 +323,12 @@ def _adagrad_epoch_b(grad_fn, P, A, idx, X, y, w, lr, l2,
                         idx.device)
     with torch.no_grad():
         for sl in _batches(idx.shape[0], batch_size):
-            bidx, bw = idx[sl], w[:, sl]
-            flat = plan.flat(bidx, bw)
-            g = grad_fn(P, bidx, X[sl], y[sl], bw, plan, flat)
-            _adagrad_apply(P, A, g,
-                           lambda: _touched(plan, flat, bw), lr, l2)
+            with TRACER.region("sparse.step"):
+                bidx, bw = idx[sl], w[:, sl]
+                flat = plan.flat(bidx, bw)
+                g = grad_fn(P, bidx, X[sl], y[sl], bw, plan, flat)
+                _adagrad_apply(P, A, g,
+                               lambda: _touched(plan, flat, bw), lr, l2)
 
 
 def _ftrl_epoch_b(S, idx, X, y, w, alpha, beta, l1, l2,
@@ -336,8 +338,9 @@ def _ftrl_epoch_b(S, idx, X, y, w, alpha, beta, l1, l2,
                         idx.device)
     with torch.no_grad():
         for sl in _batches(idx.shape[0], batch_size):
-            _ftrl_step(S, idx[sl], X[sl], y[sl], w[:, sl], alpha, beta,
-                       l1, l2, plan)
+            with TRACER.region("sparse.step"):
+                _ftrl_step(S, idx[sl], X[sl], y[sl], w[:, sl], alpha, beta,
+                           l1, l2, plan)
 
 
 def _one(tree):
@@ -601,21 +604,22 @@ def _fit_sharded(init_params: Callable, grad_fn, idx, Xnum, y, w, mesh,
     with torch.no_grad():
         for _ in range(epochs):
             for t in range(steps):
-                parts = []
-                for r, rk in enumerate(ranks):
-                    with mesh.rank(r):
-                        sl = slice(t * sizes[r], (t + 1) * sizes[r])
-                        parts.append(_rank_parts(
-                            grad_fn, _one(rk["params"]), rk["idx"][sl],
-                            rk["X"][sl], rk["y"][sl], rk["w"][None, sl],
-                            rk["plan"], lazy_l2))
-                red = allreduce_data(parts, mesh, use_ring)
-                for r, rk in enumerate(ranks):
-                    with mesh.rank(r):
-                        P, A = _one(rk["params"]), _one(rk["acc"])
-                        g, touched = _unpack_step(red[r], P, lazy_l2)
-                        _adagrad_apply(P, A, g, lambda t=touched: t,
-                                       float(lr), float(l2))
+                with TRACER.region("sparse.step"):
+                    parts = []
+                    for r, rk in enumerate(ranks):
+                        with mesh.rank(r):
+                            sl = slice(t * sizes[r], (t + 1) * sizes[r])
+                            parts.append(_rank_parts(
+                                grad_fn, _one(rk["params"]), rk["idx"][sl],
+                                rk["X"][sl], rk["y"][sl],
+                                rk["w"][None, sl], rk["plan"], lazy_l2))
+                    red = allreduce_data(parts, mesh, use_ring)
+                    for r, rk in enumerate(ranks):
+                        with mesh.rank(r):
+                            P, A = _one(rk["params"]), _one(rk["acc"])
+                            g, touched = _unpack_step(red[r], P, lazy_l2)
+                            _adagrad_apply(P, A, g, lambda t=touched: t,
+                                           float(lr), float(l2))
     mesh.join(*(v for rk in ranks for v in rk["params"].values()))
     return _numpy(ranks[0]["params"])
 
@@ -1181,23 +1185,28 @@ class SparseModelSelector(_SparseInputs, TernaryEstimator):
         self.device = device
 
     def fit_fn(self, ds: Dataset) -> Dict[str, Any]:
-        from .selector import _full_metrics
+        with TRACER.region("selector.fit", root="fit"):
+            return self._fit(ds)
+
+    def _fit(self, ds: Dataset) -> Dict[str, Any]:
         from .tuning import make_splitter
 
         p = self.params
         dev = resolve_device(self.device)
-        y, idx, Xn = self._inputs(ds)
-        idx = idx.astype(np.int32)
-        if any(g.get("family") == "softmax" for g in p["grid"]):
-            raise ValueError(
-                "SparseModelSelector is the binary CTR front door; for "
-                "multiclass fit SparseSoftmaxRegression directly (hyper "
-                "sweeps via validate_sparse_grid with family='softmax')")
-        spec = dict(p.get("splitter") or {})
-        spec.setdefault("reserve_fraction", p["reserve_fraction"])
-        splitter = make_splitter(spec, p["seed"])
-        train_i, hold_i = splitter.split(len(y))
-        base_w, splitter_summary = splitter.prepare(y[train_i])
+        with TRACER.region("selector.split"):
+            y, idx, Xn = self._inputs(ds)
+            idx = idx.astype(np.int32)
+            if any(g.get("family") == "softmax" for g in p["grid"]):
+                raise ValueError(
+                    "SparseModelSelector is the binary CTR front door; for "
+                    "multiclass fit SparseSoftmaxRegression directly "
+                    "(hyper sweeps via validate_sparse_grid with "
+                    "family='softmax')")
+            spec = dict(p.get("splitter") or {})
+            spec.setdefault("reserve_fraction", p["reserve_fraction"])
+            splitter = make_splitter(spec, p["seed"])
+            train_i, hold_i = splitter.split(len(y))
+            base_w, splitter_summary = splitter.prepare(y[train_i])
 
         # ONE chunk iterator serves both the validation sweep and the
         # winner's refit: device residency is bounded by chunk_rows for
@@ -1220,28 +1229,70 @@ class SparseModelSelector(_SparseInputs, TernaryEstimator):
         ck = p.get("checkpoint_dir")
         ck = os.path.join(ck, f"refit_{best_family}") if ck else None
 
-        t0 = time.perf_counter()
-        if best_family == "fm":
-            hy = dict(_FM_DEFAULTS, **best)
-            params = fit_sparse_fm_streaming(
-                chunks, p["num_buckets"], Xn.shape[1], k=p["fm_dim"],
-                lr=hy["lr"], l2=hy["l2"], epochs=p["refit_epochs"],
-                batch_size=p["batch_size"], seed=p["seed"],
-                checkpoint_dir=ck, device=dev)
-        elif best_family == "ftrl":
-            hy = dict(_FTRL_DEFAULTS,
-                      **{k: v for k, v in best.items()})
-            params = fit_sparse_ftrl_streaming(
-                chunks, p["num_buckets"], Xn.shape[1],
-                alpha=hy["alpha"], beta=hy["beta"], l1=hy["l1"],
-                l2=hy["l2"], epochs=p["refit_epochs"],
-                batch_size=p["batch_size"], checkpoint_dir=ck, device=dev)
-        else:
-            params = fit_sparse_lr_streaming(
-                chunks, p["num_buckets"], Xn.shape[1], lr=best["lr"],
+        with TRACER.region("selector.refit", family=best_family):
+            t0 = time.perf_counter()
+            params = self._refit(chunks, best_family, best, Xn.shape[1], ck,
+                                 dev)
+            refit_s = time.perf_counter() - t0
+            train_eval, holdout_eval, field_contrib = self._evaluate(
+                params, idx, Xn, y, train_i, hold_i, dev)
+
+        summary = {
+            "problem": "binary",
+            "fieldContributions": field_contrib,
+            "validationType": {"type": "crossValidation",
+                               "folds": p["n_folds"], "metric": "logloss"},
+            "splitterSummary": splitter_summary.to_json(),
+            "validationResults": [
+                {"family": SPARSE_FAMILY_LABELS[g.get("family", "adagrad")],
+                 "hyper": {k: v for k, v in g.items() if k != "family"},
+                 "logloss": report["logloss"][i]}
+                for i, g in enumerate(report["grid"])],
+            "bestModel": {"family": SPARSE_FAMILY_LABELS[best_family],
+                          "hyper": dict(best),
+                          "validationMetric": {
+                              "logloss":
+                                  report["logloss"][report["best_index"]]}},
+            "trainEvaluation": train_eval,
+            "holdoutEvaluation": holdout_eval,
+            "dataCounts": {"train": int(len(train_i)),
+                           "holdout": int(len(hold_i)),
+                           "buckets": int(p["num_buckets"])},
+        }
+        return {"model_params": params, "summary": summary,
+                "wall_seconds": {"families": report["wall_seconds"],
+                                 "refit": refit_s}}
+
+    def _refit(self, chunks, best_family: str, best: Dict[str, Any],
+               d_num: int, ck: Optional[str], dev) -> Dict[str, np.ndarray]:
+        """The winner's streamed refit on every training chunk."""
+        p = self.params
+        with TRACER.region("sparse.refit", family=best_family):
+            if best_family == "fm":
+                hy = dict(_FM_DEFAULTS, **best)
+                return fit_sparse_fm_streaming(
+                    chunks, p["num_buckets"], d_num, k=p["fm_dim"],
+                    lr=hy["lr"], l2=hy["l2"], epochs=p["refit_epochs"],
+                    batch_size=p["batch_size"], seed=p["seed"],
+                    checkpoint_dir=ck, device=dev)
+            if best_family == "ftrl":
+                hy = dict(_FTRL_DEFAULTS, **best)
+                return fit_sparse_ftrl_streaming(
+                    chunks, p["num_buckets"], d_num,
+                    alpha=hy["alpha"], beta=hy["beta"], l1=hy["l1"],
+                    l2=hy["l2"], epochs=p["refit_epochs"],
+                    batch_size=p["batch_size"], checkpoint_dir=ck,
+                    device=dev)
+            return fit_sparse_lr_streaming(
+                chunks, p["num_buckets"], d_num, lr=best["lr"],
                 l2=best["l2"], epochs=p["refit_epochs"],
                 batch_size=p["batch_size"], checkpoint_dir=ck, device=dev)
-        refit_s = time.perf_counter() - t0
+
+    def _evaluate(self, params, idx, Xn, y, train_i, hold_i, dev):
+        """(train metrics, holdout metrics, per-field contributions) of
+        the refit model."""
+        from .selector import _full_metrics
+        p = self.params
 
         def metrics(rows):
             probs = predict_sparse_lr_chunked(
@@ -1269,32 +1320,7 @@ class SparseModelSelector(_SparseInputs, TernaryEstimator):
             en = np.linalg.norm(np.asarray(params["emb"]), axis=1)
             field_contrib = [c + float(np.mean(en[idx[sample, k]]))
                              for k, c in enumerate(field_contrib)]
-
-        summary = {
-            "problem": "binary",
-            "fieldContributions": field_contrib,
-            "validationType": {"type": "crossValidation",
-                               "folds": p["n_folds"], "metric": "logloss"},
-            "splitterSummary": splitter_summary.to_json(),
-            "validationResults": [
-                {"family": SPARSE_FAMILY_LABELS[g.get("family", "adagrad")],
-                 "hyper": {k: v for k, v in g.items() if k != "family"},
-                 "logloss": report["logloss"][i]}
-                for i, g in enumerate(report["grid"])],
-            "bestModel": {"family": SPARSE_FAMILY_LABELS[best_family],
-                          "hyper": dict(best),
-                          "validationMetric": {
-                              "logloss":
-                                  report["logloss"][report["best_index"]]}},
-            "trainEvaluation": train_eval,
-            "holdoutEvaluation": holdout_eval,
-            "dataCounts": {"train": int(len(train_i)),
-                           "holdout": int(len(hold_i)),
-                           "buckets": int(p["num_buckets"])},
-        }
-        return {"model_params": params, "summary": summary,
-                "wall_seconds": {"families": report["wall_seconds"],
-                                 "refit": refit_s}}
+        return train_eval, holdout_eval, field_contrib
 
 
 # ---------------------------------------------------------------------------
@@ -1510,14 +1536,15 @@ def _sweep_family_streaming(family: str, chunk_factory, hypers,
                 w_tr = w[None] * (fold[None] != fold_b[:, None])
                 advance(state_b, hyper_b, idx, X, y, w_tr, batch_size)
 
-        sums = []
-        for chunk in passes():
-            idx, X, y, w, fold = split(chunk)
-            ll = row_loss(weights(state_b, hyper_b), idx, X, y)  # (I, n)
-            w_val = w[None] * (fold[None] == fold_b[:, None])
-            sums.append(torch.stack([(w_val * ll).sum(dim=1),
-                                     w_val.sum(dim=1)]))
-    per_chunk = torch.stack(sums).cpu().numpy().astype(np.float64)
+        with TRACER.region("sparse.eval", family=family):
+            sums = []
+            for chunk in passes():
+                idx, X, y, w, fold = split(chunk)
+                ll = row_loss(weights(state_b, hyper_b), idx, X, y)
+                w_val = w[None] * (fold[None] == fold_b[:, None])
+                sums.append(torch.stack([(w_val * ll).sum(dim=1),
+                                         w_val.sum(dim=1)]))
+            per_chunk = torch.stack(sums).cpu().numpy().astype(np.float64)
     ll_sum = np.zeros(GF)
     w_sum = np.zeros(GF)
     for s, w in per_chunk:         # f32 chunk sums, accumulated in f64
@@ -1568,11 +1595,11 @@ def validate_sparse_grid_streaming(chunk_factory, grid, n_buckets: int,
         elif fam == "softmax":
             hypers = [dict(_SOFTMAX_DEFAULTS, **h) for h in hypers]
         t0 = time.perf_counter()
-        ll = _sweep_family_streaming(fam, chunk_factory, hypers, n_buckets,
-                                     d_num, n_folds, epochs, batch_size,
-                                     seed, buffer_size, cache_chunks,
-                                     fm_dim, n_classes, device=device,
-                                     fm_emb=fm_emb)
+        with TRACER.region("sparse.family", family=fam, items=len(idxs)):
+            ll = _sweep_family_streaming(
+                fam, chunk_factory, hypers, n_buckets, d_num, n_folds,
+                epochs, batch_size, seed, buffer_size, cache_chunks, fm_dim,
+                n_classes, device=device, fm_emb=fm_emb)
         walls[fam] = time.perf_counter() - t0
         for i, l in zip(idxs, ll):
             losses[i] = float(l)

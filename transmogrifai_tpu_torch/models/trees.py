@@ -61,6 +61,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..parallel import spmd
+from ..telemetry.spans import TRACER
 from .base import ModelFamily, ModelStage
 from .kernels import allreduce_data, histogram_grid, ring_reduce_enabled
 
@@ -150,19 +151,22 @@ def bin_data(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
 
 
 def _prep(X: torch.Tensor, n_bins: int, w: Optional[torch.Tensor] = None):
-    Xf = X.to(torch.float32)
-    edges = quantile_bin_edges(Xf, n_bins, w)
-    return bin_data(Xf, edges).contiguous(), edges
+    with TRACER.region("trees.bin"):
+        Xf = X.to(torch.float32)
+        edges = quantile_bin_edges(Xf, n_bins, w)
+        return bin_data(Xf, edges).contiguous(), edges
 
 
 def _prep_items(X: torch.Tensor, n_bins: int, w: torch.Tensor):
     """Per-item sketch and bins: X (b, n, d) or shared (n, d), w (b, n)
     -> bins (b, n, d) int32, edges (b, d, n_bins-1)."""
-    Xf = X.to(torch.float32)
-    edges = quantile_bin_edges_items(Xf, n_bins, w)
-    bins = torch.stack([bin_data(Xf if Xf.dim() == 2 else Xf[j], edges[j])
-                        for j in range(edges.shape[0])])
-    return bins.contiguous(), edges
+    with TRACER.region("trees.bin"):
+        Xf = X.to(torch.float32)
+        edges = quantile_bin_edges_items(Xf, n_bins, w)
+        bins = torch.stack([bin_data(Xf if Xf.dim() == 2 else Xf[j],
+                                     edges[j])
+                            for j in range(edges.shape[0])])
+        return bins.contiguous(), edges
 
 
 # ---------------------------------------------------------------------------
@@ -270,32 +274,34 @@ def _grow_ranks(bins, gw, hw, w, edges, feat_mask, lam, gamma,
                                    dtype=torch.int32, device=dev),
                 "feats": [], "thrs": [], "gains": []})
     for level in range(max_depth):
-        m = 1 << level
-        hists = []
-        for r, rk in enumerate(ranks):
-            with on(r):
-                hists.append(histogram_grid(rk["bins"], rk["stats"],
-                                            rk["pos"], m, B))
-        hists = reduce(hists)
-        for r, rk in enumerate(ranks):
-            with on(r):
-                _split_level(rk, hists[r].reshape(Gb, m, S, d, B), level,
-                             C, B)
+        with TRACER.region("trees.level"):
+            m = 1 << level
+            hists = []
+            for r, rk in enumerate(ranks):
+                with on(r):
+                    hists.append(histogram_grid(rk["bins"], rk["stats"],
+                                                rk["pos"], m, B))
+            hists = reduce(hists)
+            for r, rk in enumerate(ranks):
+                with on(r):
+                    _split_level(rk, hists[r].reshape(Gb, m, S, d, B),
+                                 level, C, B)
     L = 1 << max_depth
-    sums = []
-    for r, rk in enumerate(ranks):
-        with on(r):
-            sums.append(_leaf_sums(rk["pos"], gw[r], hw[r], L))
-    sums = reduce(sums)
-    out = []
-    for r, rk in enumerate(ranks):
-        with on(r):
-            lam_r = rk["rep"]["lam"]
-            leaf = sums[r][:, :, :C] / (sums[r][:, :, C:]
-                                        + lam_r[:, None, None] + 1e-12)
-            out.append((torch.cat(rk["feats"], dim=1),
-                        torch.cat(rk["thrs"], dim=1), leaf,
-                        torch.cat(rk["gains"], dim=1), rk["pos"]))
+    with TRACER.region("trees.leaf_sums"):
+        sums = []
+        for r, rk in enumerate(ranks):
+            with on(r):
+                sums.append(_leaf_sums(rk["pos"], gw[r], hw[r], L))
+        sums = reduce(sums)
+        out = []
+        for r, rk in enumerate(ranks):
+            with on(r):
+                lam_r = rk["rep"]["lam"]
+                leaf = sums[r][:, :, :C] / (sums[r][:, :, C:]
+                                            + lam_r[:, None, None] + 1e-12)
+                out.append((torch.cat(rk["feats"], dim=1),
+                            torch.cat(rk["thrs"], dim=1), leaf,
+                            torch.cat(rk["gains"], dim=1), rk["pos"]))
     return out
 
 
@@ -671,22 +677,23 @@ def fit_boosted_binned(bins, edges, y, w, hyper_b, n_classes, *,
     gidx = torch.arange(Gb, device=dev)[:, None]
     feats, thrs, leaves, gains_all = [], [], [], []
     for r in range(n_rounds):
-        row = (draws["row"][r] < subsample[:, None]).to(torch.float32)
-        fm = _feature_mask(draws["col"][r], colsample)
-        g, h = grad_hess(margin)
-        wr = w * row                                             # (Gb, n)
-        feat, thr, leaf, gains, pos = grow_tree_grid(
-            bins, g * wr[..., None], h * wr[..., None], wr, edges, fm,
-            lam, gamma, min_inst, depth_lim,
-            subset_draws=[nd[r] for nd in draws["node"]],
-            subset_rate=colsample_node, max_depth=max_depth)
-        active = (max_iter > r).to(torch.float32)                # (Gb,)
-        leaf = leaf * (lr * active)[:, None, None]
-        margin = margin + leaf[gidx, pos.to(torch.int64)]
-        feats.append(feat)
-        thrs.append(thr)
-        leaves.append(leaf)
-        gains_all.append(gains * active[:, None])
+        with TRACER.region("trees.round"):
+            row = (draws["row"][r] < subsample[:, None]).to(torch.float32)
+            fm = _feature_mask(draws["col"][r], colsample)
+            g, h = grad_hess(margin)
+            wr = w * row                                         # (Gb, n)
+            feat, thr, leaf, gains, pos = grow_tree_grid(
+                bins, g * wr[..., None], h * wr[..., None], wr, edges, fm,
+                lam, gamma, min_inst, depth_lim,
+                subset_draws=[nd[r] for nd in draws["node"]],
+                subset_rate=colsample_node, max_depth=max_depth)
+            active = (max_iter > r).to(torch.float32)            # (Gb,)
+            leaf = leaf * (lr * active)[:, None, None]
+            margin = margin + leaf[gidx, pos.to(torch.int64)]
+            feats.append(feat)
+            thrs.append(thr)
+            leaves.append(leaf)
+            gains_all.append(gains * active[:, None])
     feat = torch.stack(feats, 1)                                 # (Gb, R, I)
     gains = torch.stack(gains_all, 1)
     imp = _importance_raw(feat, gains, d).sum(1)                 # (Gb, d)

@@ -96,6 +96,7 @@ from ..evaluators import functional as F
 from ..parallel import spmd
 from ..profiling import SWEEP_STATS
 from ..resilience.faults import fault_point
+from ..telemetry.spans import TRACER
 from .base import ModelFamily, tree_map
 
 RANDOM_SEED = 42
@@ -614,23 +615,24 @@ class _SweepBatch:
         with self._lock:
             if self._metrics_np is not None:
                 return self._metrics_np
-            # one arrival per mesh shard when the host blocks on the
-            # batch, where a failed device's work surfaces; a raise
-            # fails the family's whole batch, a cached collect never
-            # arrives again
-            for i, dev in enumerate(self.devices):
-                fault_point("models.sweep.chip_dispatch",
-                            family=self.family, device=dev, shard=i)
-            t0 = time.perf_counter()
-            try:
-                if self._error is not None:
-                    raise self._error
-                metrics = _host(self._device_metrics)
-            except Exception as e:
-                if not _is_retryable_device_error(e):
-                    raise
-                metrics = self._retry(e)
-            self.seconds = self._launch_s + time.perf_counter() - t0
+            with TRACER.region("selector.collect", family=self.family):
+                # one arrival per mesh shard when the host blocks on the
+                # batch, where a failed device's work surfaces; a raise
+                # fails the family's whole batch, a cached collect never
+                # arrives again
+                for i, dev in enumerate(self.devices):
+                    fault_point("models.sweep.chip_dispatch",
+                                family=self.family, device=dev, shard=i)
+                t0 = time.perf_counter()
+                try:
+                    if self._error is not None:
+                        raise self._error
+                    metrics = _host(self._device_metrics)
+                except Exception as e:
+                    if not _is_retryable_device_error(e):
+                        raise
+                    metrics = self._retry(e)
+                self.seconds = self._launch_s + time.perf_counter() - t0
             SWEEP_STATS.note_execute(self.label, self.seconds,
                                      metrics.shape[0])
             self._metrics_np = metrics
@@ -739,40 +741,43 @@ def _sweep_runner(family: ModelFamily, metric_fn, n_classes: int, repl,
         b = _n_items(tr)
         mets = []
         for s in range(0, b, chunk):
-            real = min(chunk, b - s)
-            pick = np.arange(s, s + chunk)
-            pick[real:] = s
-            hyper: Dict[str, Any] = {k: _put(np.asarray(v)[pick], dev)
-                                     for k, v in hy.items()}
-            hyper.update(static_d)
-            if sliced:
-                Xc, yc, wc = gather(tr[0][pick], tr[1][pick])
-                Xv, yv, wv = gather(va[0][pick], va[1][pick])
-            else:
-                Xp, yp, wp = masked_data()
-                extra = Xp.shape[0] - tr.shape[1]
-                Xc = Xp.expand((chunk,) + Xp.shape)
-                yc = yv = yp.expand(chunk, -1)
-                wc = wp * _put(np.pad(tr[pick], ((0, 0), (0, extra))), dev)
-                wv = wp * _put(np.pad(va[pick], ((0, 0), (0, extra))), dev)
-                Xv = Xc
-            params = family.fit_batch(Xc, yc, wc, hyper, n_classes)
-            # each item scored on its own fresh copies: a view's offset
-            # in the chunk must not change how it is reduced
-            probs = [family.predict_kernel(tree_map(lambda v: v[j], params),
-                                           Xv[j].clone(), n_classes)
-                     for j in range(real)]
-            if spmd.current() is None:
-                mets.extend(metric_fn(probs[j], yv[j].clone(),
-                                      wv[j].clone()) for j in range(real))
-                continue
-            rows = tr.shape[1]          # this rank's rows, before align
-            P, Y, W = spmd.gather_rows(
-                (torch.stack([p[:rows] for p in probs]), 1),
-                (yv[0, :rows].contiguous(), 0),
-                (wv[:real, :rows].contiguous(), 1))
-            mets.extend(metric_fn(P[j], Y, W[j]) for j in range(real))
+            with TRACER.region("sweep.chunk", family=family.name):
+                mets.extend(run_chunk(tr, va, hy, s, min(chunk, b - s),
+                                      chunk))
         return torch.stack(mets)
+
+    def run_chunk(tr, va, hy, s, real, chunk):
+        pick = np.arange(s, s + chunk)
+        pick[real:] = s
+        hyper: Dict[str, Any] = {k: _put(np.asarray(v)[pick], dev)
+                                 for k, v in hy.items()}
+        hyper.update(static_d)
+        if sliced:
+            Xc, yc, wc = gather(tr[0][pick], tr[1][pick])
+            Xv, yv, wv = gather(va[0][pick], va[1][pick])
+        else:
+            Xp, yp, wp = masked_data()
+            extra = Xp.shape[0] - tr.shape[1]
+            Xc = Xp.expand((chunk,) + Xp.shape)
+            yc = yv = yp.expand(chunk, -1)
+            wc = wp * _put(np.pad(tr[pick], ((0, 0), (0, extra))), dev)
+            wv = wp * _put(np.pad(va[pick], ((0, 0), (0, extra))), dev)
+            Xv = Xc
+        params = family.fit_batch(Xc, yc, wc, hyper, n_classes)
+        # each item scored on its own fresh copies: a view's offset in
+        # the chunk must not change how it is reduced
+        probs = [family.predict_kernel(tree_map(lambda v: v[j], params),
+                                       Xv[j].clone(), n_classes)
+                 for j in range(real)]
+        if spmd.current() is None:
+            return [metric_fn(probs[j], yv[j].clone(), wv[j].clone())
+                    for j in range(real)]
+        rows = tr.shape[1]              # this rank's rows, before align
+        P, Y, W = spmd.gather_rows(
+            (torch.stack([p[:rows] for p in probs]), 1),
+            (yv[0, :rows].contiguous(), 0),
+            (wv[:real, :rows].contiguous(), 1))
+        return [metric_fn(P[j], Y, W[j]) for j in range(real)]
 
     return run
 
@@ -896,16 +901,24 @@ class OpValidator:
         over the grid ``mesh`` — the serial mode (TM_SWEEP_FUSION=0):
         the folded runner, or the masked traced sweep."""
         mesh, dev = _validation_mesh(mesh, device)
-        train_m, val_m = self._masks(len(y))
-        repl = self._device_data(X, y, base_w, dev)
+        train_m, val_m, repl = self._stage(X, y, base_w, dev)
         metric_fn, _ = _METRIC_FNS[self.metric]
-        if folds(family):
-            batch = self._folded_batch(family, grid, train_m, val_m, repl,
-                                       n_classes, metric_fn, mesh)
-        else:
-            batch = self._sweep_batch(family, grid, train_m, val_m, repl,
-                                      n_classes, metric_fn, "serial", mesh)
+        with TRACER.region("selector.dispatch", family=family.name,
+                           items=train_m.shape[0] * len(grid)):
+            if folds(family):
+                batch = self._folded_batch(family, grid, train_m, val_m,
+                                           repl, n_classes, metric_fn, mesh)
+            else:
+                batch = self._sweep_batch(family, grid, train_m, val_m, repl,
+                                          n_classes, metric_fn, "serial",
+                                          mesh)
         return PendingValidation(family.name, grid, batch)
+
+    def _stage(self, X, y, base_w, dev):
+        """The fold masks and the training rows on the card."""
+        with TRACER.region("selector.stage"):
+            train_m, val_m = self._masks(len(y))
+            return train_m, val_m, self._device_data(X, y, base_w, dev)
 
     def dispatch_many(self, entries: Sequence[Tuple[str, ModelFamily,
                                                     List[Dict[str, float]]]],
@@ -923,8 +936,7 @@ class OpValidator:
         resumed fit that re-dispatches only its unvalidated candidates
         reproduces the uninterrupted sweep, on a mesh of any size."""
         mesh, dev = _validation_mesh(mesh, device)
-        train_m, val_m = self._masks(len(y))
-        repl = self._device_data(X, y, base_w, dev)
+        train_m, val_m, repl = self._stage(X, y, base_w, dev)
         metric_fn, _ = _METRIC_FNS[self.metric]
 
         groups: "OrderedDict[Tuple, List[int]]" = OrderedDict()
@@ -942,13 +954,16 @@ class OpValidator:
             for i in idxs:
                 offsets.append(len(combined))
                 combined.extend(entries[i][2])
-            if folds(fam):
-                batch = self._folded_batch(fam, combined, train_m, val_m,
-                                           repl, n_classes, metric_fn, mesh)
-            else:
-                batch = self._sweep_batch(fam, combined, train_m, val_m,
-                                          repl, n_classes, metric_fn,
-                                          "fused", mesh)
+            with TRACER.region("selector.dispatch", family=fam.name,
+                               items=train_m.shape[0] * len(combined)):
+                if folds(fam):
+                    batch = self._folded_batch(fam, combined, train_m,
+                                               val_m, repl, n_classes,
+                                               metric_fn, mesh)
+                else:
+                    batch = self._sweep_batch(fam, combined, train_m,
+                                              val_m, repl, n_classes,
+                                              metric_fn, "fused", mesh)
             for i, off in zip(idxs, offsets):
                 key, _, grid = entries[i]
                 out[key] = PendingValidation(fam.name, grid, batch,

@@ -38,10 +38,24 @@ on the tap contract.
 All span timestamps are ``time.monotonic()`` seconds (the same clock
 the engine's ``enqueued_at`` already uses), so call sites can hand
 existing timestamps straight to :meth:`Tracer.record`.
+
+**The fit path's regions.** :meth:`Tracer.region` marks one layer of a
+fit (the names in :data:`REGIONS`, ``<layer>.<what>``). With neither
+recorder on it returns a shared null context after one attribute read
+and torch's own profiler-state check. While a ``torch.profiler`` is
+recording it enters ``record_function``, so the region lands among the
+trace's host events on the same clock as the kernels and copies it
+launched. With ``TRACER.enabled`` it also records a span in the ring
+under the current fit's trace: ``selector.fit`` (``root="fit"``) joins
+the trace bound around it (a ``Workflow.train``'s, :func:`bound`) or
+samples its own, and holds it in a ``ContextVar`` that the inner
+regions read. Regions are entered on the consuming thread only: a
+profiler trace keeps no thread ids its readers could sort by.
 """
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import itertools
 import json
 import os
@@ -50,8 +64,11 @@ import time
 from collections import deque
 from typing import Any, Dict, Iterator, List, Optional
 
-__all__ = ["Tracer", "TRACER", "configure", "get_trace", "set_trace",
-           "chrome_document", "jsonl_to_chrome"]
+from torch._C._autograd import _profiler_enabled
+from torch.autograd.profiler import record_function
+
+__all__ = ["Tracer", "TRACER", "REGIONS", "configure", "bound",
+           "get_trace", "set_trace", "chrome_document", "jsonl_to_chrome"]
 
 #: attribute name carrying a trace id on request Futures (duck-typed
 #: propagation: router future -> engine future -> shadow tap)
@@ -62,6 +79,63 @@ TRACE_ATTR = "tm_trace"
 #: fleet router always passes its own decision (an id or None), so one
 #: request is sampled exactly once however many layers it crosses
 UNSET = object()
+
+#: every region of the fit path (:meth:`Tracer.region`), once: name ->
+#: what it covers. A benchmark reader that times or names a layer reads
+#: these names off the profiler's host events.
+REGIONS: Dict[str, str] = {
+    "selector.fit": "a selector's whole fit (the binary and the sparse "
+                    "selector); mints or joins the ring's trace",
+    "selector.split": "column reads, the train/holdout split, balancing "
+                      "weights, the training-row copies, a progress load",
+    "selector.stage": "the fold masks and the training rows' copies to "
+                      "the card, once a dispatch",
+    "selector.dispatch": "building and launching one family batch "
+                         "(attrs family, items)",
+    "selector.collect": "one family batch's metrics to the host: the "
+                        "host waits on the card",
+    "selector.refit": "the winner's copies, refit, train and holdout "
+                      "metrics",
+    "sweep.chunk": "one chunk of the sweep's items: fit, score, metric",
+    "trees.bin": "quantile edges and binning",
+    "trees.round": "one boosting round",
+    "trees.level": "one tree level: the histogram launch and the split "
+                   "search",
+    "trees.leaf_sums": "the leaf sums and leaf values",
+    "linear.solve": "one solver call (attrs solver, iters; the closed "
+                    "forms ridge and gnb at 0 iterations)",
+    "linear.iter": "one Newton, IRLS, FISTA, Nesterov, SVC or power "
+                   "iteration",
+    "sparse.family": "one sparse family's streamed sweep",
+    "sparse.step": "one minibatch update",
+    "sparse.eval": "one validation pass and its read-back",
+    "sparse.refit": "the winner's streamed refit",
+    "stream.produce": "making a host chunk on the consuming thread",
+    "stream.stage": "pinning a chunk and queueing its copies",
+    "stream.wait": "the consumer waiting on the host-prefetch queue",
+    "workflow.layer": "one layer of a Workflow.train",
+    "workflow.stage": "one stage's fit and transform",
+}
+
+#: the trace the current fit's regions record under in the ring (None:
+#: unsampled, or no fit open)
+_CURRENT: "contextvars.ContextVar[Optional[str]]" = contextvars.ContextVar(
+    "tm_trace", default=None)
+
+
+@contextlib.contextmanager
+def bound(trace: Optional[str]) -> Iterator[None]:
+    """Bind ``trace`` as the current trace for the block (a
+    ``Workflow.train`` binds its own, so the fits inside join it); None
+    leaves the binding as it is."""
+    if trace is None:
+        yield
+        return
+    token = _CURRENT.set(trace)
+    try:
+        yield
+    finally:
+        _CURRENT.reset(token)
 
 
 def get_trace(future) -> Optional[str]:
@@ -95,6 +169,53 @@ class _OpenSpan:
             self.attrs.update(attrs)
         self._tracer.record(self.trace, self.name, self.t0,
                             time.monotonic(), cat=self.cat, **self.attrs)
+
+
+class _Region:
+    """An entered :meth:`Tracer.region`: a ``record_function`` while a
+    profiler records, a ring span while the tracer is enabled and a
+    trace is current (or, for a root region, sampled)."""
+
+    __slots__ = ("_tracer", "name", "attrs", "_root", "_ring", "_rf",
+                 "_trace", "_token", "_t0")
+
+    def __init__(self, tracer: "Tracer", name: str, root: Optional[str],
+                 ring: bool, attrs: Dict[str, Any]):
+        self._tracer = tracer
+        self.name = name
+        self.attrs = attrs
+        self._root = root
+        self._ring = ring
+        self._rf = None
+        self._trace = None
+        self._token = None
+
+    def __enter__(self) -> "_Region":
+        if _profiler_enabled():
+            self._rf = record_function(self.name)
+            self._rf.__enter__()
+        if self._ring and self._tracer.enabled:
+            trace = _CURRENT.get()
+            if trace is None and self._root is not None:
+                trace = self._tracer.sample_trace(self._root)
+                if trace is not None:
+                    self._token = _CURRENT.set(trace)
+            self._trace = trace
+            self._t0 = time.monotonic()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._trace is not None:
+            self._tracer.record(self._trace, self.name, self._t0,
+                                time.monotonic(), cat="fit", **self.attrs)
+        if self._token is not None:
+            _CURRENT.reset(self._token)
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+
+
+#: what :meth:`Tracer.region` returns with neither recorder on
+_NULL = contextlib.nullcontext()
 
 
 class Tracer:
@@ -239,6 +360,17 @@ class Tracer:
             yield box
         finally:
             self.record(trace, name, t0, time.monotonic(), cat=cat, **box)
+
+    def region(self, name: str, *, root: Optional[str] = None,
+               ring: bool = True, **attrs):
+        """A context manager around one layer of the fit path (``name``
+        from :data:`REGIONS`; module docstring). ``root`` (a trace kind)
+        marks the fit's outermost region, which samples a trace when none
+        is bound; ``ring=False`` leaves the ring to the caller (the
+        executor records its stage and layer spans itself)."""
+        if not self.enabled and not _profiler_enabled():
+            return _NULL
+        return _Region(self, name, root, ring, attrs)
 
     # -- reading / export --------------------------------------------------
     def spans(self, trace: Optional[str] = None) -> List[Dict[str, Any]]:
