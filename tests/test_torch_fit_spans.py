@@ -56,14 +56,14 @@ def _sparse(n=3000, K=3, d=2, buckets=1 << 10, seed=1):
                     "dense": ft.OPVector})
 
 
-def _sparse_selector(grid):
+def _sparse_selector(grid, chunk_rows=1000):
     from transmogrifai_tpu_torch.models.sparse import SparseModelSelector
     lbl = FeatureBuilder.of(ft.RealNN, "y").from_column().as_response()
     sf = FeatureBuilder.of(ft.SparseIndices, "sidx").from_column() \
         .as_predictor()
     dn = FeatureBuilder.of(ft.OPVector, "dense").from_column().as_predictor()
     return SparseModelSelector(num_buckets=1 << 10, grid=grid, batch_size=256,
-                               chunk_rows=1000, device="cpu").set_input(
+                               chunk_rows=chunk_rows, device="cpu").set_input(
                                    lbl, sf, dn)
 
 
@@ -151,6 +151,35 @@ def test_a_sparse_fit_counts_its_steps_and_streams_on_one_thread(
     assert _named(evs, "stream.stage") and _named(evs, "stream.wait")
     # the host-prefetch producer thread records nothing
     assert {e[3] for e in stream} == {fit[0][3]}
+
+
+def test_a_one_chunk_sparse_fit_builds_and_copies_its_chunk_once():
+    """Training rows that fit in one chunk: the stream is pulled once,
+    before the sweep (two ``stream.produce`` regions, the chunk and the
+    stream's end), and one ``stream.stage`` region copies it. The
+    refit's epochs pass the held tensors through ``io/stream``'s staging
+    without a copy (a stage region an epoch, inside the refit, holding
+    no operation)."""
+    grid = [{"family": "adagrad", "lr": 0.05, "l2": 0.0},
+            {"family": "ftrl", "alpha": 0.1, "l1": 0.0}]
+    ds = _sparse()
+    sel = _sparse_selector(grid, chunk_rows=len(ds.column("y")))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sel.fit(ds)
+    evs = [(e.name, e.time_range.start, e.time_range.end, e.thread)
+           for e in prof.events()]
+    produce = _named(evs, "stream.produce")
+    first_family = min(e[1] for e in _named(evs, "sparse.family"))
+    assert len(produce) == 2
+    assert all(e[2] <= first_family for e in produce)
+    refit = _named(evs, "sparse.refit")
+    stage = _named(evs, "stream.stage")
+    copies = [s for s in stage
+              if any(e[0].startswith("aten::") and e[3] == s[3]
+                     and _inside(e, [s]) for e in evs)]
+    assert len(copies) == 1 and not _inside(copies[0], refit)
+    assert len(stage) == 1 + sel.params["refit_epochs"]
+    assert all(_inside(s, refit) for s in stage if s not in copies)
 
 
 def test_with_both_recorders_off_no_fit_enters_record_function(

@@ -514,9 +514,19 @@ def test_selector_summary_and_winner_match_jax():
     keys and shape, every validation loss within 1e-5, the same winner
     and hyper, train and holdout metrics within 1e-5, the field
     contributions within rtol 1e-5 (from refit tables within 1e-5)."""
+    _selector_matches_jax(chunk_rows=800)
+
+
+def test_a_one_chunk_selector_matches_jax():
+    """As above, with the training rows in one chunk, which the port
+    prepares and copies once and holds for every pass of the fit."""
+    _selector_matches_jax(chunk_rows=1 << 20)
+
+
+def _selector_matches_jax(chunk_rows):
     idx, nums, y = _ctr_data(21, 2400)
     kw = dict(num_buckets=1 << 12, n_folds=2, epochs=2, refit_epochs=2,
-              batch_size=256, chunk_rows=800,
+              batch_size=256, chunk_rows=chunk_rows,
               grid=[{"family": "adagrad", "lr": 0.1, "l2": 0.0},
                     {"family": "adagrad", "lr": 0.02, "l2": 1e-6},
                     {"family": "ftrl", "alpha": 0.3, "l1": 0.0}])
@@ -633,6 +643,150 @@ def test_selector_refit_checkpoint_resumes(tmp_path):
     assert got.summary["holdoutEvaluation"]["AuROC"] == \
         want.summary["holdoutEvaluation"]["AuROC"]
     assert not os.path.exists(path)
+
+
+HELD_KW = dict(num_buckets=1 << 10, n_folds=2, epochs=1, refit_epochs=2,
+               batch_size=256, seed=7, fm_dim=4)
+
+
+def _streamed_selector(idx, nums, y, grid, chunk_rows):
+    """The selector's fit composed from the streamed sweep and the
+    winner's streamed fit on host chunks of its training rows, each pass
+    building its chunks anew: (the sweep's report, the refit's
+    parameters)."""
+    from transmogrifai_tpu_torch.models.tuning import make_splitter
+    kw = HELD_KW
+    splitter = make_splitter({"reserve_fraction": 0.1}, kw["seed"])
+    train_i, _ = splitter.split(len(y))
+    w, _ = splitter.prepare(y[train_i])
+    chunks = _chunks(idx[train_i], nums[train_i], y[train_i], w,
+                     [chunk_rows] * -(-len(train_i) // chunk_rows))
+    B, d = kw["num_buckets"], nums.shape[1]
+    report = TS.validate_sparse_grid_streaming(
+        chunks, grid, B, d, n_folds=kw["n_folds"], epochs=kw["epochs"],
+        batch_size=kw["batch_size"], seed=kw["seed"], fm_dim=kw["fm_dim"],
+        device=CPU)
+    best = dict(report["best_hyper"])
+    fam = best.pop("family")
+    common = dict(epochs=kw["refit_epochs"], batch_size=kw["batch_size"],
+                  device=CPU)
+    if fam == "fm":
+        hy = dict(TS._FM_DEFAULTS, **best)
+        params = TS.fit_sparse_fm_streaming(
+            chunks, B, d, k=kw["fm_dim"], lr=hy["lr"], l2=hy["l2"],
+            seed=kw["seed"], **common)
+    elif fam == "ftrl":
+        hy = dict(TS._FTRL_DEFAULTS, **best)
+        params = TS.fit_sparse_ftrl_streaming(
+            chunks, B, d, alpha=hy["alpha"], beta=hy["beta"], l1=hy["l1"],
+            l2=hy["l2"], **common)
+    else:
+        params = TS.fit_sparse_lr_streaming(
+            chunks, B, d, lr=best["lr"], l2=best["l2"], **common)
+    return report, params
+
+
+def _counted_selector_fit(idx, nums, y, grid, chunk_rows):
+    """(model, chunks built, passes fed from a held chunk) of one
+    selector fit."""
+    S = TS.SparseModelSelector
+    built, held = S.chunks_built, S.held_passes
+    model, _, _ = _selector_fit("transmogrifai_tpu_torch", idx, nums, y,
+                                grid=grid, chunk_rows=chunk_rows, **HELD_KW)
+    return model, S.chunks_built - built, S.held_passes - held
+
+
+def _same_fit(model, report, params):
+    s = model.summary
+    got = [r["logloss"] for r in s["validationResults"]]
+    assert got == report["logloss"]
+    assert int(np.nanargmin(got)) == report["best_index"]
+    best = dict(report["best_hyper"])
+    assert s["bestModel"]["family"] == TS.SPARSE_FAMILY_LABELS[
+        best.pop("family")]
+    assert s["bestModel"]["hyper"] == best
+    assert sorted(model.model_params) == sorted(params)
+    for k, v in params.items():
+        assert np.array_equal(model.model_params[k].numpy(), v), k
+
+
+@pytest.mark.parametrize("grid", [
+    [{"family": "adagrad", "lr": 0.1, "l2": 0.0},
+     {"family": "adagrad", "lr": 0.02, "l2": 1e-4}],
+    [{"family": "ftrl", "alpha": 0.3, "l1": 0.0},
+     {"family": "ftrl", "alpha": 0.1, "l1": 1e-3}],
+    [{"family": "fm", "lr": 0.05}, {"family": "fm", "lr": 0.1,
+                                    "l2": 1e-4}]],
+    ids=["adagrad", "ftrl", "fm"])
+def test_a_one_chunk_selector_holds_its_chunk_and_fits_bitwise(grid):
+    """Training rows that fit in one chunk are built once and every pass
+    reads the held chunk (a family's training epoch and evaluation pass,
+    the refit's two epochs); the losses, the winner and the refit's
+    parameters equal bitwise those of the sweep and the fit streamed on
+    host chunks built anew at every pass."""
+    idx, nums, y = _ctr_data(31, 1400, buckets=1 << 10)
+    model, built, held = _counted_selector_fit(idx, nums, y, grid,
+                                               chunk_rows=1 << 20)
+    assert (built, held) == (1, 4)
+    _same_fit(model, *_streamed_selector(idx, nums, y, grid, 1 << 20))
+
+
+def test_a_default_shaped_fit_builds_one_chunk_for_eight_passes():
+    """Three families at the default epochs (one, and a two-epoch
+    refit): one chunk built, eight passes fed from it, where a stream
+    built anew builds eight."""
+    grid = [{"family": "adagrad", "lr": 0.05, "l2": 0.0},
+            {"family": "ftrl", "alpha": 0.1, "l1": 0.0},
+            {"family": "fm", "lr": 0.05}]
+    idx, nums, y = _ctr_data(33, 1200, buckets=1 << 10)
+    model, built, held = _counted_selector_fit(idx, nums, y, grid,
+                                               chunk_rows=1 << 20)
+    assert (built, held) == (1, 8)
+    _same_fit(model, *_streamed_selector(idx, nums, y, grid, 1 << 20))
+
+
+def test_a_longer_stream_builds_every_pass_as_before():
+    """Training rows longer than one chunk stream as before: each pass
+    builds its three chunks (a training epoch and an evaluation pass
+    per family, two refit epochs), nothing is held, and the fit equals
+    the streamed composition bitwise."""
+    grid = [{"family": "adagrad", "lr": 0.1, "l2": 0.0},
+            {"family": "ftrl", "alpha": 0.3, "l1": 0.0}]
+    idx, nums, y = _ctr_data(35, 1400, buckets=1 << 10)
+    model, built, held = _counted_selector_fit(idx, nums, y, grid,
+                                               chunk_rows=500)
+    assert (built, held) == (3 * (2 * 2 + 2), 0)
+    _same_fit(model, *_streamed_selector(idx, nums, y, grid, 500))
+
+
+def test_the_held_chunk_is_left_as_it_was_built(monkeypatch):
+    """After a one-chunk fit the held chunk equals a fresh build of the
+    same rows bitwise: no pass wrote into it."""
+    from transmogrifai_tpu_torch.io.stream import _host_array
+    from transmogrifai_tpu_torch.models.tuning import make_splitter
+    kept = []
+    real = TS._device_chunks
+
+    def hold(*a, **k):
+        kept.append(real(*a, **k))
+        return kept[-1]
+    monkeypatch.setattr(TS, "_device_chunks", hold)
+    idx, nums, y = _ctr_data(37, 1300, buckets=1 << 10)
+    _counted_selector_fit(idx, nums, y, [
+        {"family": "fm", "lr": 0.05},
+        {"family": "adagrad", "lr": 0.05, "l2": 1e-4}], chunk_rows=1 << 20)
+    ((got,),) = kept
+    splitter = make_splitter({"reserve_fraction": 0.1}, HELD_KW["seed"])
+    train_i, _ = splitter.split(len(y))
+    w, _ = splitter.prepare(y[train_i])
+    (fresh,) = TS._prepared_chunks(
+        _chunks(idx[train_i], nums[train_i], y[train_i], w,
+                [len(train_i)]),
+        HELD_KW["n_folds"], HELD_KW["seed"], HELD_KW["batch_size"])
+    assert sorted(got) == sorted(fresh) == ["fold", "idx", "num", "w", "y"]
+    assert len(fresh["y"]) % HELD_KW["batch_size"] == 0
+    for k, v in fresh.items():
+        assert torch.equal(got[k], torch.from_numpy(_host_array(v))), k
 
 
 # ---------------------------------------------------------------------------

@@ -1142,9 +1142,16 @@ class SparseModelSelector(_SparseInputs, TernaryEstimator):
 
     The whole (family x fold x hyper) sweep is one instance-axis state
     per family, and both the sweep and the winner's multi-epoch refit
-    stream the SAME chunk iterator through the double-buffered
-    host->device prefetch (io/stream), so device residency is bounded by
-    one chunk plus the sweep's states. Families: Adagrad hashed-LR,
+    read the SAME chunk iterator, so device residency is bounded by
+    one chunk of ``chunk_rows`` rows plus the sweep's states. Training
+    rows longer than one chunk stream through the double-buffered
+    host->device prefetch (io/stream) at every pass. Training rows that
+    fit in one chunk (the default splitter's 1M rows at the default
+    ``chunk_rows``) are built and copied to the device once and held
+    for the fit: every family's passes and the refit's epochs read that
+    chunk. ``SparseModelSelector.chunks_built`` counts the training
+    chunks built on the host, ``SparseModelSelector.held_passes`` the
+    passes fed from a held chunk. Families: Adagrad hashed-LR,
     FTRL-Proximal and a second-order hashed FM (fm_dim embedding width);
     the summary has the JAX package's shape (validationResults /
     bestModel / trainEvaluation / holdoutEvaluation /
@@ -1154,6 +1161,10 @@ class SparseModelSelector(_SparseInputs, TernaryEstimator):
 
     operation_name = "sparseModelSelected"
     model_cls = SparseSelectedModel
+    #: training chunks built on the host, and passes (sweep epochs,
+    #: evaluation passes, refit epochs) fed from a held chunk
+    chunks_built = 0
+    held_passes = 0
 
     def __init__(self, num_buckets: int = 1 << 20,
                  grid: Optional[Iterable[Dict[str, float]]] = None,
@@ -1214,14 +1225,28 @@ class SparseModelSelector(_SparseInputs, TernaryEstimator):
         def chunks():
             for s in range(0, len(train_i), p["chunk_rows"]):
                 sl = train_i[s:s + p["chunk_rows"]]
+                SparseModelSelector.chunks_built += 1
                 yield {"idx": idx[sl], "num": Xn[sl], "y": y[sl],
                        "w": base_w[s:s + p["chunk_rows"]]}
+
+        # a one-chunk stream is the same bytes at every pass: prepare
+        # and copy it once, and every pass of the fit reads it
+        held = (_device_chunks(chunks, p["n_folds"], p["seed"],
+                               p["batch_size"], dev)
+                if len(train_i) <= p["chunk_rows"] else None)
+
+        def passes_of(device_chunks):
+            def passes():
+                SparseModelSelector.held_passes += 1
+                return iter(device_chunks)
+            return passes
 
         report = validate_sparse_grid_streaming(
             chunks, p["grid"], p["num_buckets"], Xn.shape[1],
             n_folds=p["n_folds"], epochs=p["epochs"],
             batch_size=p["batch_size"], seed=p["seed"],
-            fm_dim=p["fm_dim"], device=dev)
+            fm_dim=p["fm_dim"], device=dev,
+            prepared=None if held is None else passes_of(held))
         best = report["best_hyper"]
         best_family = best.pop("family", "adagrad")
         # the refit is the selector's long-running stream: mid-stream
@@ -1231,9 +1256,13 @@ class SparseModelSelector(_SparseInputs, TernaryEstimator):
 
         with TRACER.region("selector.refit", family=best_family):
             t0 = time.perf_counter()
-            params = self._refit(chunks, best_family, best, Xn.shape[1], ck,
-                                 dev)
+            params = self._refit(
+                chunks if held is None else passes_of(
+                    [{k: v for k, v in c.items() if k != "fold"}
+                     for c in held]),
+                best_family, best, Xn.shape[1], ck, dev)
             refit_s = time.perf_counter() - t0
+            held = None     # its memory is free for the evaluation
             train_eval, holdout_eval, field_contrib = self._evaluate(
                 params, idx, Xn, y, train_i, hold_i, dev)
 
@@ -1393,6 +1422,18 @@ def _prepared_chunks(chunk_factory, n_folds: int, seed: int,
     return _uniform_chunks(with_folds())
 
 
+def _device_chunks(chunk_factory, n_folds: int, seed: int,
+                   batch_size: int, device) -> list:
+    """The prepared chunks (:func:`_prepared_chunks`), copied to
+    ``device`` once through the prefetch and kept, for a caller that
+    reads them at every pass."""
+    from ..io.stream import prefetch_to_device
+
+    return list(prefetch_to_device(
+        _prepared_chunks(chunk_factory, n_folds, seed, batch_size),
+        device=device))
+
+
 def _binary_row_loss(W, idx, X, y, logit_fn):
     p1 = torch.clamp(torch.sigmoid(logit_fn(W, idx, X)), 1e-6, 1 - 1e-6)
     return -(y * torch.log(p1) + (1 - y) * torch.log(1 - p1))
@@ -1484,9 +1525,9 @@ def _sweep_family_streaming(family: str, chunk_factory, hypers,
                             n_buckets: int, d_num: int, n_folds: int,
                             epochs: int, batch_size: int, seed: int,
                             buffer_size: int = 2,
-                            cache_chunks: bool = False,
                             fm_dim: int = 8, n_classes: int = 0,
-                            device=None, fm_emb=None) -> np.ndarray:
+                            device=None, fm_emb=None,
+                            prepared=None) -> np.ndarray:
     """Mean validation logloss per hyper for ONE family, streamed.
 
     The (fold x hyper) grid is the leading instance axis of the
@@ -1494,7 +1535,9 @@ def _sweep_family_streaming(family: str, chunk_factory, hypers,
     instances with that instance's train weights (fold != its fold id),
     then one more streaming pass accumulates per-instance (sum logloss,
     sum weight) over the held-out rows. The per-chunk sums stay on the
-    device until the family ends (one host read a family)."""
+    device until the family ends (one host read a family). Every pass
+    reads ``prepared()`` where given (chunks the caller prepared on the
+    device), else ``chunk_factory``'s chunks, prepared and copied anew."""
     from ..io.stream import prefetch_to_device
 
     dev = resolve_device(device)
@@ -1502,7 +1545,7 @@ def _sweep_family_streaming(family: str, chunk_factory, hypers,
     GF = G * F
     keys, init_state, advance, weights, row_loss = _family_sweep_def(
         family, fm_dim, n_classes)
-    if family == "softmax":
+    if family == "softmax" and prepared is None:
         chunk_factory = _checked_class_chunks(chunk_factory, n_classes)
     state_b = _broadcast_state(
         init_state(n_buckets, d_num, seed, fm_emb, dev), GF)
@@ -1511,14 +1554,8 @@ def _sweep_family_streaming(family: str, chunk_factory, hypers,
                                    np.float32), F), dev) for k in keys)
     fold_b = _upload(np.repeat(np.arange(F, dtype=np.int32), G), dev)
 
-    if cache_chunks:
-        # in-memory front end: the data already fits on the device, so
-        # each prepared chunk is copied ONCE and reused by every epoch
-        # and the validation pass
-        cached = list(prefetch_to_device(
-            _prepared_chunks(chunk_factory, n_folds, seed, batch_size),
-            buffer_size, device=dev))
-        passes = lambda: iter(cached)
+    if prepared is not None:
+        passes = prepared
     else:
         passes = lambda: prefetch_to_device(
             _prepared_chunks(chunk_factory, n_folds, seed, batch_size),
@@ -1558,10 +1595,10 @@ def validate_sparse_grid_streaming(chunk_factory, grid, n_buckets: int,
                                    d_num: int, n_folds: int = 2,
                                    epochs: int = 1, batch_size: int = 8192,
                                    seed: int = 42, buffer_size: int = 2,
-                                   cache_chunks: bool = False,
                                    fm_dim: int = 8,
                                    n_classes: int = 0, device=None,
-                                   fm_emb=None) -> Dict[str, Any]:
+                                   fm_emb=None, prepared=None
+                                   ) -> Dict[str, Any]:
     """Chunk-streamed (fold x hyper x FAMILY) sweep on ``device`` (None:
     CUDA, raising without a card): device residency bounded by one chunk
     + the instance-axis optimizer states, never the dataset. Grid
@@ -1570,8 +1607,12 @@ def validate_sparse_grid_streaming(chunk_factory, grid, n_buckets: int,
     "y" and a grid of ONLY softmax entries); each family sweeps as its
     own homogeneous instance batch and losses merge on the host.
     ``fm_emb`` is an optional initial FM embedding (default: the
-    seeded draws). The report adds ``wall_seconds`` per family (host
-    clock, each family's losses read back before its clock stops)."""
+    seeded draws). ``prepared`` is an optional factory of passes over
+    chunks the caller already prepared on ``device`` (the ``fold``
+    column, padded to a batch_size multiple, class ids checked): every
+    family's passes read them, and ``chunk_factory`` is not read. The
+    report adds ``wall_seconds`` per family (host clock, each family's
+    losses read back before its clock stops)."""
     if n_folds < 2:
         raise ValueError("n_folds must be >= 2: with one fold the "
                          "train mask (fold != f) would be empty")
@@ -1598,8 +1639,8 @@ def validate_sparse_grid_streaming(chunk_factory, grid, n_buckets: int,
         with TRACER.region("sparse.family", family=fam, items=len(idxs)):
             ll = _sweep_family_streaming(
                 fam, chunk_factory, hypers, n_buckets, d_num, n_folds,
-                epochs, batch_size, seed, buffer_size, cache_chunks, fm_dim,
-                n_classes, device=device, fm_emb=fm_emb)
+                epochs, batch_size, seed, buffer_size, fm_dim, n_classes,
+                device=device, fm_emb=fm_emb, prepared=prepared)
         walls[fam] = time.perf_counter() - t0
         for i, l in zip(idxs, ll):
             losses[i] = float(l)
@@ -1618,9 +1659,9 @@ def validate_sparse_grid(idx: np.ndarray, Xnum: np.ndarray, y: np.ndarray,
                          n_classes: int = 0, device=None,
                          fm_emb=None) -> Dict[str, Any]:
     """In-memory front end of the streamed sweep: the arrays are cut into
-    max_device_rows chunks (default: one chunk) and fed through
-    validate_sparse_grid_streaming (one code path, one fold
-    assignment)."""
+    max_device_rows chunks and fed through validate_sparse_grid_streaming
+    (one code path, one fold assignment). By default they are one chunk,
+    prepared and copied to the device once for every pass."""
     n = len(y)
     if n_classes >= 2 and any(g.get("family") == "softmax" for g in grid):
         _check_class_ids(y, n_classes)
@@ -1632,9 +1673,11 @@ def validate_sparse_grid(idx: np.ndarray, Xnum: np.ndarray, y: np.ndarray,
             sl = slice(s, s + step)
             yield {"idx": idx[sl], "num": Xnum[sl], "y": y[sl], "w": w[sl]}
 
+    # no explicit device budget => the data fits; copy it once
+    held = (_device_chunks(chunks, n_folds, seed, batch_size, device)
+            if max_device_rows is None else None)
     return validate_sparse_grid_streaming(
         chunks, grid, n_buckets, Xnum.shape[1], n_folds=n_folds,
-        epochs=epochs, batch_size=batch_size, seed=seed,
-        # no explicit device budget => data fits; copy chunks once
-        cache_chunks=max_device_rows is None, fm_dim=fm_dim,
-        n_classes=n_classes, device=device, fm_emb=fm_emb)
+        epochs=epochs, batch_size=batch_size, seed=seed, fm_dim=fm_dim,
+        n_classes=n_classes, device=device, fm_emb=fm_emb,
+        prepared=None if held is None else lambda: iter(held))
