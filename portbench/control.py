@@ -6,14 +6,15 @@ own size, in one process:
         [--control-seeds <n> ...] [--out <file>]
 
 For each seed of ``--seeds``, one fit of the program through the same
-entry the window drives, judged by ``check.judge`` (the program's
-readings, whose largest is a limit's lower reading); for each seed of
-``--control-seeds``, the control judged the same way: the reference put
-in the program's place one precision below the configuration's
-(each entry's ``control``: ``check.control_fit``, ``check.control_sparse``),
-whose smallest is a limit's upper reading. Each
-reading is printed as a JSON line and, with ``--out``, written there.
-The benchmark's own runs never run the control.
+entry the window drives (``entries.resolve``), judged by the entry's
+``judge`` (the program's readings, whose largest is a limit's lower
+reading); for each seed of ``--control-seeds``, the control judged the
+same way: the reference put in the program's place one precision below
+the configuration's (each entry's ``control``: ``check.control_fit``,
+``check.control_sparse``), whose smallest is a limit's upper reading.
+Each reading is printed as a JSON line and, with ``--out``, written
+there. The benchmark's own runs never run the control. Like a run, it
+fails when JAX or the JAX package is loaded once the readings are taken.
 """
 import argparse
 import json
@@ -29,14 +30,12 @@ def readings(workload, seeds, control_seeds, device="cuda", rows=None,
     seeds; ``rows`` cuts the configuration's rows (tests)."""
     sys.path.insert(0, ROOT)
     from portbench import run
-    from portbench.entries import ENTRIES
     cell = run.load_cell(workload)
     mix = cell["mix"]
     out = []
     for side, seed in ([("program", s) for s in seeds]
                        + [("control", s) for s in control_seeds]):
-        ent = ENTRIES[mix["entry"]](cell["config"], mix, seed, device,
-                                    rows=rows)
+        ent = cell["entry"](cell["config"], mix, seed, device, rows=rows)
         fit = ent.fit()
         if side == "control":
             fit = ent.control(fit, device)
@@ -46,6 +45,7 @@ def readings(workload, seeds, control_seeds, device="cuda", rows=None,
         emit(json.dumps(rec))
         out.append(rec)
         del ent, fit
+    run.refuse_forbidden()
     return out
 
 

@@ -1,9 +1,69 @@
 """The entries a cell's window drives, one class a mix's ``entry``:
 each makes its rows from the seed, fits the program once a call, and
-judges a fit's outputs against the reference (``check.py``)."""
+judges a fit's outputs against the reference (``check.py``).
+
+:func:`resolve` finds the class a mix names: one of ``ENTRIES`` here, or
+else the ``ENTRY`` attribute of ``portbench/entry_<name>.py``, so that a
+new configuration brings its entry as a file of its own. ``run.load_cell``
+resolves it once, as ``cell["entry"]``, from which ``run.run_cell`` and
+``control.readings`` build it.
+
+What the harness asks of an entry class (``run.run_cell``,
+``run.window``, ``control.readings``):
+
+* ``__init__(config, mix, seed, device, rows=None)`` -- the rows from the
+  seed, made once, untimed (``rows`` cuts the configuration's count for a
+  rehearsal on the CPU);
+* ``SPAN`` -- the host span each fit opens (``record_function``); a
+  traced window runs from the first such span to the end of the last;
+* ``fit()`` -- one whole fit, ending in a device synchronisation, as a
+  dict (below);
+* ``record_shapes(shapes)`` -- a context manager around the traced window
+  that appends each histogram launch's shape to ``shapes``
+  (``hist_roofline``); an entry that launches none yields it untouched;
+* ``judge(fit, device)`` -- the fit's compared numbers by name, each held
+  against the plain reference; ``check.verdict`` holds them to the cell's
+  ``limits/<cell>.json``, which must name every one;
+* ``control(fit, device)`` -- the fit with the control's outputs in the
+  program's place, for ``judge`` to read (``control.py`` alone);
+* ``release()`` -- drops what the program holds before the judge runs.
+
+The keys of ``fit()``'s dict that the shared readers and ``run_cell``
+read, with the readers that need each:
+
+* ``wall_s`` -- the fit's host-clock seconds: ``rest_s``, ``fit_mfu``,
+  ``ctr_fit_mfu``;
+* ``families_s`` -- each family's sweep seconds: ``sweep_s``,
+  ``ctr_sweep_s``, ``rest_s``;
+* ``refit_s`` -- the winner's refit seconds: no reader yet;
+* ``hist_launches`` -- histogram launches in the fit: ``hist_launches``;
+* ``summary`` -- the fitted selector's summary, its
+  ``validationResults`` and ``bestModel``: ``fit_mfu``, ``ctr_fit_mfu``,
+  ``ctr_step_ms``, and ``control.readings`` (the winner's family);
+* ``params``, ``sweep`` -- the outputs the entry's own ``judge`` reads;
+  ``run_cell`` sets both to None in every fit it does not judge;
+* ``n_train`` -- the training rows: ``fit_mfu``, ``ctr_fit_mfu``,
+  ``ctr_step_ms``;
+* ``d`` -- the feature width: ``fit_mfu``, ``ctr_fit_mfu``;
+* ``folds`` -- the CV folds: ``fit_mfu``.
+
+The CTR readers also read ``stream``, ``K`` and ``buckets``
+(``SparseSelectorEntry``). The end-to-end time of a fit is not
+``wall_s`` but the window's seconds over its fits, reported under the
+mix's ``fit_metric`` (``fit_s``, ``ctr_fit_s``): of a mix, the harness
+reads ``entry`` and ``fit_metric``, and the rest is the entry's.
+
+A new entry may subclass ``SelectorEntry`` and override ``judge``,
+``control`` and ``sweep_fits``. It may use ``check.Rows``,
+``check.verdict`` and ``reference/*`` as they are; a reference of its
+own goes in ``portbench/reference/<name>.py``. Its cell brings
+``portbench/tests/rehearsal/<cell>.json`` (``test_portbench_rehearsal.py``).
+"""
 from __future__ import annotations
 
 import contextlib
+import importlib
+import re
 import time
 from typing import Any, Dict, List, Mapping, Optional
 
@@ -211,3 +271,33 @@ class SparseSelectorEntry:
 
 
 ENTRIES["sparse_selector"] = SparseSelectorEntry
+
+
+#: an entry's name, and so the suffix of its module ``entry_<name>``
+ENTRY_NAME = re.compile(r"[a-z][a-z0-9_]{0,31}")
+
+
+def resolve(name: str) -> type:
+    """The entry class a mix names: ``ENTRIES[name]``, or else the
+    ``ENTRY`` attribute of the module ``portbench/entry_<name>.py``.
+    Raises SystemExit, naming the file it looked for, for a name outside
+    ``ENTRY_NAME``, a module that does not exist or one without
+    ``ENTRY``."""
+    path = f"portbench/entry_{name}.py"
+    if not isinstance(name, str) or not ENTRY_NAME.fullmatch(name):
+        raise SystemExit(f"entry name {name!r} does not match "
+                         f"^{ENTRY_NAME.pattern}$: no {path} is looked for")
+    if name in ENTRIES:
+        return ENTRIES[name]
+    module = "portbench.entry_" + name
+    try:
+        mod = importlib.import_module(module)
+    except ModuleNotFoundError as e:
+        if e.name != module:
+            raise
+        raise SystemExit(f"unknown entry {name!r}: not one of "
+                         f"{sorted(ENTRIES)}, and no {path}") from None
+    cls = getattr(mod, "ENTRY", None)
+    if not isinstance(cls, type):
+        raise SystemExit(f"entry {name!r}: {path} defines no ENTRY class")
+    return cls

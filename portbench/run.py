@@ -7,8 +7,10 @@
 The cell (``BENCHMARK.json``'s ``workloads``) names a configuration
 (``portbench/configs/<name>.json``: the rows' shape and generator) and a
 mix (``portbench/mixes/<name>.json``: the entry it drives and its
-parameters); its limits are ``portbench/limits/<cell>.json`` and each
-per-layer metric is read by ``portbench/metrics/<name>.py``.
+parameters; ``entries.resolve`` finds the entry by name, in
+``entries.py`` or ``portbench/entry_<name>.py``); its limits are
+``portbench/limits/<cell>.json`` and each per-layer metric is read by
+``portbench/metrics/<name>.py``.
 
 Set-up (counted as ``setup_s``, from process start): the rows from
 ``--seed``, the entry's one untimed warm-up fit at the cell's shapes,
@@ -78,8 +80,10 @@ def _load(kind: str, name: str) -> dict:
 
 
 def load_cell(name: str) -> dict:
-    """The cell's entry, configuration, mix, limits and metrics, by the
-    names ``BENCHMARK.json`` gives."""
+    """The cell's entry class, configuration, mix, limits and metrics, by
+    the names ``BENCHMARK.json`` gives. A mix whose entry cannot be found
+    fails here, before any rows are made."""
+    from portbench.entries import resolve
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         bench = json.load(f)
     cells = {w["name"]: w for w in bench["workloads"]}
@@ -93,15 +97,23 @@ def load_cell(name: str) -> dict:
     moved = {m["name"] for m in e2e}
     layer = [m for m in bench["per_layer"]
              if m["moves"] in moved and mine(m)]
-    return {"workload": w, "config": _load("configs", w["config"]),
-            "mix": _load("mixes", w["traffic"]),
-            "limits": _load("limits", name), "end_to_end": e2e,
-            "per_layer": layer}
+    mix = _load("mixes", w["traffic"])
+    return {"workload": w, "entry": resolve(mix.get("entry")),
+            "config": _load("configs", w["config"]),
+            "mix": mix, "limits": _load("limits", name),
+            "end_to_end": e2e, "per_layer": layer}
 
 
 def forbidden_modules() -> list:
     return sorted({m.split(".")[0] for m in sys.modules}
                   & set(FORBIDDEN))
+
+
+def refuse_forbidden() -> None:
+    """Raises Forbidden if JAX or the JAX package is loaded."""
+    found = forbidden_modules()
+    if found:
+        raise Forbidden(found)
 
 
 def window(entry, seconds: float, trace: bool, cuda: bool = True):
@@ -143,12 +155,10 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
     import numpy as np
     import torch
     from portbench import check
-    from portbench.entries import ENTRIES
     cuda = torch.device(device).type == "cuda"
     mix = cell["mix"]
     cached = cached_kernels()
-    entry = ENTRIES[mix["entry"]](cell["config"], mix, seed, device,
-                                    rows=rows)
+    entry = cell["entry"](cell["config"], mix, seed, device, rows=rows)
     log("rows made")
     if warmup:
         entry.fit()                               # the warm-up fit
@@ -158,9 +168,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
     fits, window_s, trace_, shapes = window(entry, seconds, trace, cuda)
     peak = int(torch.cuda.max_memory_allocated()) if cuda else 0
     log(f"window closed after {len(fits)} fits")
-    found = forbidden_modules()
-    if found:
-        raise Forbidden(found)
+    refuse_forbidden()
 
     pick = int(np.random.default_rng(seed).integers(len(fits)))
     judged = fits[pick]
@@ -203,6 +211,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
     result["cold_build"] = cold
     result["checks"] = {k: {"value": r["value"], "limit": r["limit"]}
                         for k, r in table.items()}
+    refuse_forbidden()      # the judge and the readers loaded nothing
     return result, table
 
 

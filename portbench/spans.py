@@ -3,13 +3,18 @@ enters (``telemetry/spans.py``'s ``REGIONS``) land among the trace's
 host events under their names, on the clock of the device events.
 
 ``PROGRAM_SPANS`` is a frozen copy of those names as the readers know
-them: a span the program adds later is not one of them (it is read like
-any torch or CUDA runtime event, that is, passed over) until a benchmark
-change adds it here.
+them. The idle split (``idle_by_span``, ``idle_under``) is over the
+names it is given, ``PROGRAM_SPANS`` by default: any other host event
+is read like a torch or CUDA runtime event, that is, passed over. A
+region the program adds later is named by the reader that reads it: the
+reader freezes its names in its own file and passes
+``names=PROGRAM_SPANS | MINE``, so the idle under its region is split
+off from the region around it, and every other reader's split stays as
+it was.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import AbstractSet, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -44,14 +49,15 @@ def seconds(tr, names) -> Optional[float]:
     return float(sum((iv[:, 1] - iv[:, 0]).sum() for iv in ivs))
 
 
-def _segments(tr) -> List[Tuple[float, float, Optional[str]]]:
-    """The window cut where a program span opens or closes: (start, end,
-    innermost open program span or None). Spans of one thread nest, so
-    the innermost is the last opened of those still open."""
+def _segments(tr, names: AbstractSet[str] = PROGRAM_SPANS
+              ) -> List[Tuple[float, float, Optional[str]]]:
+    """The window cut where a span of ``names`` opens or closes: (start,
+    end, innermost open span of ``names`` or None). Spans of one thread
+    nest, so the innermost is the last opened of those still open."""
     lo, hi = tr.window
     evs = []
     for i, n in enumerate(tr.host_names):
-        if n in PROGRAM_SPANS:
+        if n in names:
             s, e = tr.host[i]
             # at one instant: closes first, then opens, outer before inner
             evs.append((s, 1, -e, i))
@@ -75,17 +81,18 @@ def _segments(tr) -> List[Tuple[float, float, Optional[str]]]:
     return out
 
 
-def idle_by_span(tr) -> Dict[Optional[str], float]:
-    """The device's idle seconds in the window by the innermost program
-    span open at each instant of idling (None: no program span open, the
-    host in the harness's own code). Unlike ``Trace.idle_gaps``, which
-    names a whole gap by what was open when it began, a gap that spans
-    several program layers is split between them."""
+def idle_by_span(tr, names: AbstractSet[str] = PROGRAM_SPANS
+                 ) -> Dict[Optional[str], float]:
+    """The device's idle seconds in the window by the innermost span of
+    ``names`` open at each instant of idling (None: none open, the host
+    in the harness's own code). Unlike ``Trace.idle_gaps``, which names a
+    whole gap by what was open when it began, a gap that spans several
+    program layers is split between them."""
     lo, hi = tr.window
     busy = tr.busy_intervals()
     edges = np.concatenate([[lo], busy.reshape(-1), [hi]]).reshape(-1, 2)
     gaps = edges[edges[:, 1] > edges[:, 0]].tolist()
-    segs = _segments(tr)
+    segs = _segments(tr, names)
     by: Dict[Optional[str], float] = {}
     j = 0
     for g0, g1 in gaps:
@@ -101,10 +108,11 @@ def idle_by_span(tr) -> Dict[Optional[str], float]:
     return by
 
 
-def idle_under(tr, match: Callable[[str], bool]) -> Optional[float]:
-    """Idle seconds whose innermost open program span ``match`` accepts;
-    None where no span that it accepts is in the trace."""
-    if not any(match(n) for n in set(tr.host_names) & PROGRAM_SPANS):
+def idle_under(tr, match: Callable[[str], bool],
+               names: AbstractSet[str] = PROGRAM_SPANS) -> Optional[float]:
+    """Idle seconds whose innermost open span of ``names`` ``match``
+    accepts; None where no such span that it accepts is in the trace."""
+    if not any(match(n) for n in set(tr.host_names) & names):
         return None
-    return float(sum(v for n, v in idle_by_span(tr).items()
+    return float(sum(v for n, v in idle_by_span(tr, names).items()
                      if n is not None and match(n)))

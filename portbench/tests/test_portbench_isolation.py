@@ -11,8 +11,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "transmogrifai_tpu"}
 PROGRAM = "transmogrifai_tpu_torch"
 
 
-def _modules():
-    for root, _, files in os.walk(BENCH):
+def _modules(top=BENCH):
+    for root, _, files in os.walk(top):
         if "_cache" in root.split(os.sep):
             continue
         for f in files:
@@ -38,25 +38,62 @@ def test_top_level_names_are_compared_whole():
     assert PROGRAM.split(".")[0] != "transmogrifai_tpu"
 
 
+def jax_imports(path):
+    """The forbidden top-level names a file imports."""
+    return {n for n, lvl in imports(path) if lvl == 0 and n in FORBIDDEN}
+
+
+def reference_faults(path):
+    """What a file of reference/ imports that it may not: the program,
+    anything outside reference/ (relative imports stay at level 1), or a
+    module beyond the standard few."""
+    out = []
+    for name, level in imports(path):
+        if name == PROGRAM:
+            out.append(f"{path} imports the program")
+        if level > 1:
+            out.append(f"{path} imports outside reference/")
+        if level == 0 and name not in {"math", "typing", "numpy", "torch",
+                                       "__future__"}:
+            out.append(f"{path} imports {name}")
+    return out
+
+
+def _references(top=BENCH):
+    return sorted(p for p in _modules(top)
+                  if os.sep + "reference" + os.sep in p)
+
+
 @pytest.mark.parametrize("path", sorted(_modules()),
                          ids=lambda p: os.path.relpath(p, BENCH))
 def test_no_module_imports_jax_or_the_jax_package(path):
-    bad = {n for n, lvl in imports(path) if lvl == 0 and n in FORBIDDEN}
+    bad = jax_imports(path)
     assert not bad, f"{path} imports {bad}"
 
 
-@pytest.mark.parametrize("path", sorted(
-    p for p in _modules()
-    if os.sep + "reference" + os.sep in p),
-    ids=lambda p: os.path.relpath(p, BENCH))
+@pytest.mark.parametrize("path", _references(),
+                         ids=lambda p: os.path.relpath(p, BENCH))
 def test_the_reference_imports_nothing_of_the_program(path):
-    for name, level in imports(path):
-        assert name != PROGRAM, f"{path} imports the program"
-        # relative imports stay inside reference/ (level 1)
-        assert level <= 1, f"{path} imports outside reference/"
-        if level == 0:
-            assert name in {"math", "typing", "numpy", "torch",
-                            "__future__"}, f"{path} imports {name}"
+    assert not reference_faults(path)
+
+
+def test_a_new_entry_or_reference_file_is_checked(tmp_path):
+    """The walk takes in every ``.py`` file, so a configuration's new
+    ``entry_<name>.py`` and ``reference/<name>.py`` are checked as soon
+    as they exist."""
+    (tmp_path / "reference").mkdir()
+    entry = tmp_path / "entry_planted.py"
+    entry.write_text("import jax.numpy as jnp  # noqa: F401\n")
+    ref = tmp_path / "reference" / "planted.py"
+    ref.write_text("from transmogrifai_tpu_torch.models import ft\n")
+    clean = tmp_path / "entry_clean.py"
+    clean.write_text("import torch  # noqa: F401\n")
+    assert sorted(_modules(str(tmp_path))) == sorted(
+        map(str, (entry, ref, clean)))
+    assert jax_imports(str(entry)) == {"jax"}
+    assert not jax_imports(str(clean))
+    assert _references(str(tmp_path)) == [str(ref)]
+    assert f"{ref} imports the program" in reference_faults(str(ref))
 
 
 def test_the_run_refuses_a_process_that_loaded_jax(monkeypatch):

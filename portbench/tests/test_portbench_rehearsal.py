@@ -2,16 +2,56 @@
 blocks: the run after the look for a chip (set-up, window, readers, the
 judged fit), its result shaped as on the card and judged correct; the
 control judged not correct; and, with the timed path broken underneath,
-``correct`` false for each fault a cell can have."""
+``correct`` false for each fault a cell can have.
+
+Every cell of ``BENCHMARK.json`` brings ``rehearsal/<cell>.json``: its
+rows on the CPU and the faults its timed path can have, each named
+``<module>.<function>`` under ``portbench.tests`` (a new cell's own in a
+test file of its own)."""
+import importlib
+import json
+import os
+
 import pytest
 import torch
 
 from portbench import run
 from portbench.control import readings
 
-ROWS = {"higgs.trees": 20000, "higgs.linear": 20000, "higgs.default": 20000,
-        "criteo.sweep": 20000}
-CELLS = sorted(ROWS)
+HERE = os.path.dirname(os.path.abspath(__file__))
+with open(os.path.join(run.ROOT, "BENCHMARK.json")) as f:
+    CELLS = sorted(w["name"] for w in json.load(f)["workloads"])
+
+
+def rehearsal(cell):
+    """The cell's ``rehearsal/<cell>.json``."""
+    with open(os.path.join(HERE, "rehearsal", cell + ".json")) as f:
+        return json.load(f)
+
+
+def fault(name):
+    """A fault by its name, ``<module>.<function>`` under
+    ``portbench.tests``."""
+    mod, fn = name.rsplit(".", 1)
+    return getattr(importlib.import_module("portbench.tests." + mod), fn)
+
+
+def _faults(cell):
+    """The cell's fault names, none where it brings no rehearsal (which
+    ``test_each_cell_brings_its_rehearsal`` fails)."""
+    try:
+        return rehearsal(cell)["faults"]
+    except (OSError, KeyError):
+        return []
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_each_cell_brings_its_rehearsal(cell):
+    r = rehearsal(cell)
+    assert r["rows"] > 0
+    assert r["faults"], "every cell can have an altered answer at least"
+    for name in r["faults"]:
+        assert callable(fault(name)), name
 
 
 def cell_fit_metric(cell):
@@ -20,7 +60,8 @@ def cell_fit_metric(cell):
 
 def _run(cell, trace=False, seed=2 ** 31 + 7):
     return run.run_cell(run.load_cell(cell), seed, 0.0, trace,
-                        device="cpu", rows=ROWS[cell], warmup=False)
+                        device="cpu", rows=rehearsal(cell)["rows"],
+                        warmup=False)
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -46,8 +87,8 @@ def test_a_traced_rehearsal_reads_the_host_side_metrics(cell):
 @pytest.mark.parametrize("cell", CELLS)
 def test_the_control_is_judged_not_correct(cell):
     from portbench import check
-    recs = readings(cell, [], [11], device="cpu", rows=ROWS[cell],
-                    emit=lambda s: None)
+    recs = readings(cell, [], [11], device="cpu",
+                    rows=rehearsal(cell)["rows"], emit=lambda s: None)
     table = check.verdict(recs[0]["numbers"], run.load_cell(cell)["limits"])
     assert not check.all_ok(table), table
 
@@ -180,25 +221,11 @@ def _altered_sparse_scores(monkeypatch):
     monkeypatch.setattr(sparse, "sparse_binary_probs", altered)
 
 
-FAULTS = {
-    "criteo.sweep": [_half_sparse_batch, _unchanged_sparse_state,
-                     _altered_sparse_scores],
-    "higgs.trees": [_half_histogram, _half_sweep_instances,
-                    _unchanged_routing, _wrong_fold_mask, _wrong_winner,
-                    _altered_scores],
-    "higgs.linear": [_half_linear, _unchanged_newton, _wrong_fold_mask,
-                     _wrong_winner, _altered_scores],
-    "higgs.default": [_half_histogram, _half_sweep_instances, _half_linear,
-                      _unchanged_newton, _wrong_fold_mask, _wrong_winner,
-                      _altered_scores],
-}
-
-
-@pytest.mark.parametrize("cell,fault", [(c, f) for c in CELLS
-                                        for f in FAULTS[c]],
-                         ids=lambda x: getattr(x, "__name__", x))
-def test_a_broken_timed_path_is_judged_not_correct(cell, fault, monkeypatch):
-    fault(monkeypatch)
+@pytest.mark.parametrize("cell,name", [
+    pytest.param(c, f, id=f"{c}-{f.rsplit('.', 1)[1]}")
+    for c in CELLS for f in _faults(c)])
+def test_a_broken_timed_path_is_judged_not_correct(cell, name, monkeypatch):
+    fault(name)(monkeypatch)
     result, table = _run(cell, seed=2 ** 31 + 8)
     assert not result["correct"], table
 

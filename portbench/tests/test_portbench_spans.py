@@ -98,3 +98,34 @@ def test_the_frozen_names_are_the_programs():
         assert names <= S.PROGRAM_SPANS, mod.__name__
     for prefix in (tree_host_idle_s.PREFIX, linear_host_idle_s.PREFIX):
         assert any(n.startswith(prefix) for n in S.PROGRAM_SPANS)
+
+
+def _region_trace(region=True):
+    """A region outside PROGRAM_SPANS (``ft.epoch``) inside
+    ``selector.dispatch``: idle [2, 3) under the region, [1, 2) and
+    [3, 4) around it."""
+    dev = [("k", 0.0, 1.0), ("k", 4.0, 5.0)]
+    host = [("portbench.fit", 0.0, 5.0), ("selector.fit", 0.0, 5.0),
+            ("selector.dispatch", 1.0, 4.0), ("aten::mm", 2.2, 2.4)]
+    if region:
+        host.append(("ft.epoch", 2.0, 3.0))
+    return Trace(dev, host, (0.0, 5.0))
+
+
+def test_a_region_outside_the_frozen_names_is_passed_over_by_default():
+    tr = _region_trace()
+    assert "ft.epoch" not in S.PROGRAM_SPANS
+    assert S.idle_by_span(tr) == S.idle_by_span(_region_trace(False)) \
+        == {"selector.dispatch": 3.0}
+    assert S.idle_under(tr, lambda n: n.startswith("ft.")) is None
+
+
+def test_a_reader_names_its_own_region_for_the_idle_split():
+    tr = _region_trace()
+    mine = S.PROGRAM_SPANS | {"ft.epoch"}
+    by = S.idle_by_span(tr, names=mine)
+    assert by == {"selector.dispatch": 2.0, "ft.epoch": 1.0}
+    assert S.idle_under(tr, lambda n: n.startswith("ft."),
+                        names=mine) == pytest.approx(1.0)
+    # every other reader's split stays as it was
+    assert S.idle_under(tr, lambda n: n.startswith("selector.")) == 3.0
