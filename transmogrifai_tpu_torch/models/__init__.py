@@ -3,6 +3,7 @@ from .base import (MODEL_FAMILIES, ModelFamily, ModelStage, PredictionModel,
 from . import linear  # registers the linear families
 from . import trees  # registers the tree families
 from . import ft_transformer  # registers the FT-Transformer families
+from . import ft_published  # registers the published FT-Transformer
 from .ft_transformer import (OpFTTransformerClassifier,
                              OpFTTransformerRegressor)
 from .stages import (OpLogisticRegression, OpLinearSVC, OpNaiveBayes,
@@ -35,7 +36,8 @@ from .sparse import (SparseLogisticRegression, SparseLogisticModel,
 __all__ = [
     "MODEL_FAMILIES", "ModelFamily", "ModelStage", "PredictionModel",
     "params_from_numpy", "params_to_numpy", "linear", "trees",
-    "ft_transformer", "OpFTTransformerClassifier", "OpFTTransformerRegressor",
+    "ft_transformer", "ft_published", "OpFTTransformerClassifier",
+    "OpFTTransformerRegressor",
     "OpLogisticRegression", "OpLinearSVC", "OpNaiveBayes",
     "OpLinearRegression", "OpGeneralizedLinearRegression",
     "OpDecisionTreeClassifier", "OpDecisionTreeRegressor",

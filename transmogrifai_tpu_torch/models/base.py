@@ -24,6 +24,7 @@ carry as a list) with arrays or tensors at its leaves.
 from __future__ import annotations
 
 import itertools
+from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -91,6 +92,20 @@ class ModelFamily:
         keys = sorted(grid[0])
         return {k: np.asarray([g[k] for g in grid], dtype=np.float32)
                 for k in keys}
+
+
+@dataclass(frozen=True)
+class RowPlan:
+    """What a minibatch fit knows on the host of its G items' rows (a
+    family with ``takes_row_plan``): item j's rows are the first
+    ``rows[j]`` of its X, the training rows of validation fold
+    ``folds[j]`` (-1: the winner's refit on the whole training split),
+    shuffled by a rule of ``seed``; the last ``padded`` items are copies
+    of a real one that fill a sweep chunk."""
+    seed: int
+    folds: Tuple[int, ...]
+    rows: Tuple[int, ...]
+    padded: int = 0
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:

@@ -45,8 +45,8 @@ from ..resilience.atomic import atomic_write_json
 from ..resilience.faults import fault_point
 from ..stages.base import BinaryEstimator
 from ..telemetry.spans import TRACER
-from .base import (MODEL_FAMILIES, PredictionModel, params_to_numpy,
-                   tree_map)
+from .base import (MODEL_FAMILIES, PredictionModel, RowPlan,
+                   params_to_numpy, tree_map)
 from .tuning import (OpCrossValidation, OpTrainValidationSplit, OpValidator,
                      RANDOM_SEED, ValidationResult, make_splitter,
                      resolve_sweep_mode, sweep_exact)
@@ -305,8 +305,13 @@ class ModelSelector(BinaryEstimator):
                 k: torch.tensor(v, dtype=torch.float32, device=dev)
                 for k, v in best.best_hyper.items() if k not in dict(static)}
             hyper.update(static)
+            # a minibatch family steps through the whole split by its
+            # rule of the selector's seed, as the refit (fold -1)
+            kw = ({"plan": RowPlan(self.params["seed"], (-1,),
+                                   (len(y_tr),))}
+                  if getattr(fam, "takes_row_plan", False) else {})
             with torch.inference_mode():
-                params = fam.fit_kernel(Xt, yt, wt, hyper, n_classes)
+                params = fam.fit_kernel(Xt, yt, wt, hyper, n_classes, **kw)
                 # tree params use +inf no-split thresholds
                 check_finite(params_to_numpy(params),
                              f"refit {best.family} parameters",

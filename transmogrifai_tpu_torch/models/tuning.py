@@ -28,7 +28,12 @@ contiguous shard of the items on its own stream, through
   where they are constant across the group (``split_static_hyper``),
   and each item scored by ``predict_kernel``. Nothing in it reads the
   device on the host, so the card runs it while the host dispatches
-  the next family.
+  the next family. A minibatch family may declare its own chunk for a
+  batch (``sweep_chunk``, the published FT-Transformer's): its items
+  then go fold-sliced in every mode, in chunks of that size, each
+  chunk's fit given its items' ``base.RowPlan`` (the validator's seed,
+  each item's fold, its rows' count); such a family does not shard its
+  rows, so a 2-D mesh refuses it. Every other family runs as described.
 
 Every batch is launched at dispatch and its metrics come to the host at
 collect.
@@ -97,7 +102,7 @@ from ..parallel import spmd
 from ..profiling import SWEEP_STATS
 from ..resilience.faults import fault_point
 from ..telemetry.spans import TRACER
-from .base import ModelFamily, tree_map
+from .base import ModelFamily, RowPlan, tree_map
 
 RANDOM_SEED = 42
 
@@ -107,6 +112,10 @@ SWEEP_MODES = ("fused", "serial")
 #: items one sweep chunk holds, by device type (see the module
 #: docstring): one on the CPU, a fixed count on the card
 SWEEP_CHUNK = {"cpu": 1, "cuda": 16}
+
+#: the key of a sweep batch's per-item fold ids, beside its traced hypers
+#: where the family takes a ``RowPlan`` (sharded with the items)
+FOLD_KEY = "__fold__"
 
 #: a sweep item's rows are padded (zero weight) to a multiple of this,
 #: so every item's rows start at the same alignment in a chunk; over
@@ -705,14 +714,27 @@ class ValidationResult:
             best_index=int(doc["bestIndex"]))
 
 
+def _family_chunk(family: ModelFamily, hyper_b: Dict[str, np.ndarray],
+                  X: torch.Tensor) -> Optional[int]:
+    """A minibatch family's own chunk for a sweep batch over rows X
+    (``sweep_chunk``: its items on their folds' gathered rows, each chunk
+    with a ``RowPlan``), or None: the validator's ``SWEEP_CHUNK``."""
+    own = getattr(family, "sweep_chunk", None)
+    return None if own is None else own(hyper_b, X)
+
+
 def _sweep_runner(family: ModelFamily, metric_fn, n_classes: int, repl,
-                  static: Tuple, sliced: bool) -> Callable:
+                  static: Tuple, sliced: bool,
+                  plan_seed: Optional[int] = None) -> Callable:
     """The sweep's runner: ``run(tr, va, hy, chunk)`` fits and scores
     the items in chunks of ``chunk`` (the last padded with copies of its
     first item) and returns their (b,) metrics on the device. ``tr`` /
     ``va`` are 0/1 masks (b, n), or with ``sliced`` fold_slice_batch's
     (idx, ok) pairs; ``hy`` the traced hypers (b,); ``static`` the
-    constant ones, passed to the family as Python floats. Inside
+    constant ones, passed to the family as Python floats. With
+    ``plan_seed`` (sliced only) each chunk's fit is also given its items'
+    ``base.RowPlan`` of that seed: their folds (``hy[FOLD_KEY]``, which
+    is no hyper), their rows the folds' counts. Inside
     ``spmd.run_ranks`` (a 2-D mesh; masks only) the rows are this rank's:
     the fit sums its row contractions over the ranks, and each chunk's
     scores, labels and validation weights are gathered in origin order
@@ -750,7 +772,7 @@ def _sweep_runner(family: ModelFamily, metric_fn, n_classes: int, repl,
         pick = np.arange(s, s + chunk)
         pick[real:] = s
         hyper: Dict[str, Any] = {k: _put(np.asarray(v)[pick], dev)
-                                 for k, v in hy.items()}
+                                 for k, v in hy.items() if k != FOLD_KEY}
         hyper.update(static_d)
         if sliced:
             Xc, yc, wc = gather(tr[0][pick], tr[1][pick])
@@ -763,7 +785,13 @@ def _sweep_runner(family: ModelFamily, metric_fn, n_classes: int, repl,
             wc = wp * _put(np.pad(tr[pick], ((0, 0), (0, extra))), dev)
             wv = wp * _put(np.pad(va[pick], ((0, 0), (0, extra))), dev)
             Xv = Xc
-        params = family.fit_batch(Xc, yc, wc, hyper, n_classes)
+        kw = {}
+        if plan_seed is not None:
+            kw["plan"] = RowPlan(
+                plan_seed, tuple(int(f) for f in hy[FOLD_KEY][pick]),
+                tuple(int(r) for r in tr[1][pick].sum(axis=1)),
+                chunk - real)
+        params = family.fit_batch(Xc, yc, wc, hyper, n_classes, **kw)
         # each item scored on its own fresh copies: a view's offset in
         # the chunk must not change how it is reduced
         probs = [family.predict_kernel(tree_map(lambda v: v[j], params),
@@ -856,8 +884,10 @@ class OpValidator:
         n_folds = train_m.shape[0]
         G = len(combined)
         is_2d = _is_2d(mesh)
-        sliced = mode == "fused" and fold_sliced() and not is_2d
         hyper_b = stack_hyper_batch(combined, n_folds)
+        own = _family_chunk(family, hyper_b, repl[0])
+        sliced = (own is not None
+                  or (mode == "fused" and fold_sliced() and not is_2d))
         if sliced:
             train_b, val_b = fold_slice_batch(train_m, val_m, G)
         else:
@@ -869,11 +899,16 @@ class OpValidator:
                  f"/{self.metric}/k{n_classes}"
                  + (f"/static{dict(static)}" if static else "")
                  + ("/sliced" if sliced else "") + ("/2d" if is_2d else ""))
-        chunk = SWEEP_CHUNK.get(repl[0].device.type, 1)
+        chunk = own or SWEEP_CHUNK.get(repl[0].device.type, 1)
+        plan_seed = None
+        if own is not None:
+            plan_seed = self.seed
+            traced = dict(traced, **{FOLD_KEY: np.repeat(np.arange(n_folds),
+                                                         G)})
         labels = _labels(mesh, repl)
         launch = _launcher(
             lambda rp: _sweep_runner(family, metric_fn, n_classes, rp,
-                                     static, sliced),
+                                     static, sliced, plan_seed),
             repl, labels, label, mesh)
 
         def run(c=chunk):

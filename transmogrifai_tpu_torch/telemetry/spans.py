@@ -113,6 +113,9 @@ REGIONS: Dict[str, str] = {
     "stream.produce": "making a host chunk on the consuming thread",
     "stream.stage": "pinning a chunk and queueing its copies",
     "stream.wait": "the consumer waiting on the host-prefetch queue",
+    "ft.step": "one optimiser step of a published FT-Transformer "
+               "chunk: its batch, forward, backward and AdamW",
+    "ft.score": "one block of a published FT-Transformer's scoring",
     "workflow.layer": "one layer of a Workflow.train",
     "workflow.stage": "one stage's fit and transform",
 }
